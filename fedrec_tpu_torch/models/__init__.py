@@ -1,0 +1,12 @@
+from fedrec_tpu_torch.models.attention import AdditiveAttention, MultiHeadAttention
+from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
+from fedrec_tpu_torch.models.recommender import NewsRecommender, score_candidates
+
+__all__ = [
+    "AdditiveAttention",
+    "MultiHeadAttention",
+    "NewsRecommender",
+    "TextHead",
+    "UserEncoder",
+    "score_candidates",
+]

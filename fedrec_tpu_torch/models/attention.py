@@ -1,0 +1,137 @@
+"""Attention modules, the port of ``fedrec_tpu/models/attention.py``.
+
+* ``AdditiveAttention``: learned-query pooling ``fc1 -> tanh -> fc2 ->
+  normalize -> weighted sum``; with ``use_pallas`` (and ``stable_softmax``)
+  it runs kernel A (``ops.additive_pool``), which omits the
+  softmax-invariant fc2 bias.
+* ``MultiHeadAttention``: Q/K/V projections and scaled dot-product
+  attention with no output projection, dense route only (the flash-attention
+  kernel behind ``use_pallas`` is not ported yet and raises).
+
+Submodule names follow the Flax parameter tree (``att_fc1``, ``w_q``, ...),
+so ``params.from_flax`` maps a JAX checkpoint onto them by path. Parameters
+are kept in float32; ``dtype`` is the compute dtype, as in Flax's ``Dense``
+(inputs, kernel and bias are cast to it before the product).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fedrec_tpu_torch.ops import additive_pool
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Flax ``Dense(dtype=...)`` semantics: cast input, weight and bias to
+    the compute dtype, then ``x W^T + b``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _masked_normalize(
+    logits: torch.Tensor, mask: torch.Tensor | None, dim: int, stable: bool
+) -> torch.Tensor:
+    """Reference-style exp-normalization, optionally max-stabilized:
+    ``exp(logits) * mask / (sum + 1e-8)``; the mask multiplies AFTER the
+    exp, so a fully-masked row normalizes to ~0, not to a uniform row."""
+    if stable:
+        logits = logits - logits.amax(dim=dim, keepdim=True)
+    weights = torch.exp(logits)
+    if mask is not None:
+        weights = weights * mask
+    return weights / (weights.sum(dim=dim, keepdim=True) + 1e-8)
+
+
+class AdditiveAttention(nn.Module):
+    """Learned-query additive pooling over a sequence: (..., L, D) -> (..., D)."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        hidden: int = 200,
+        stable_softmax: bool = True,
+        dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        self.att_fc1 = nn.Linear(in_dim, hidden)
+        self.att_fc2 = nn.Linear(hidden, 1)
+        self.stable_softmax = stable_softmax
+        self.dtype = dtype
+        self.use_pallas = use_pallas
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.use_pallas and self.stable_softmax:
+            if mask is not None:
+                mask = mask.to(torch.float32).contiguous()
+            return additive_pool(
+                x.contiguous(),
+                self.att_fc1.weight.t().contiguous(),
+                self.att_fc1.bias,
+                self.att_fc2.weight[0].contiguous(),
+                mask,
+            )
+        e = torch.tanh(dense(self.att_fc1, x, self.dtype))
+        logits = dense(self.att_fc2, e, self.dtype)[..., 0]  # (..., L)
+        if mask is not None:
+            mask = mask.to(logits.dtype)
+        alpha = _masked_normalize(logits, mask, dim=-1, stable=self.stable_softmax)
+        dt = torch.promote_types(alpha.dtype, x.dtype)
+        return torch.einsum("...l,...ld->...d", alpha.to(dt), x.to(dt))
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head scaled-dot-product attention WITHOUT output projection
+    (reference ``attention.py:81``), dense route."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        num_heads: int = 20,
+        head_dim: int = 20,
+        stable_softmax: bool = True,
+        dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        d = num_heads * head_dim
+        self.w_q = nn.Linear(in_dim, d)
+        self.w_k = nn.Linear(in_dim, d)
+        self.w_v = nn.Linear(in_dim, d)
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.stable_softmax = stable_softmax
+        self.dtype = dtype
+        self.use_pallas = use_pallas
+
+    def forward(
+        self,
+        q: torch.Tensor,
+        k: torch.Tensor,
+        v: torch.Tensor,
+        mask: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        if self.use_pallas and self.stable_softmax:
+            raise NotImplementedError(
+                "MultiHeadAttention(use_pallas=True) runs the flash-attention "
+                "kernel, which is not ported yet; use fuse_hot_path or "
+                "use_pallas=False"
+            )
+        *batch, L, _ = q.shape
+        d = self.num_heads * self.head_dim
+
+        def split_heads(x):
+            return x.reshape(*batch, -1, self.num_heads, self.head_dim)
+
+        q_s = split_heads(dense(self.w_q, q, self.dtype))  # (..., L, H, Dk)
+        k_s = split_heads(dense(self.w_k, k, self.dtype))
+        v_s = split_heads(dense(self.w_v, v, self.dtype))
+        scale = torch.sqrt(torch.tensor(self.head_dim, dtype=q_s.dtype, device=q_s.device))
+        scores = torch.einsum("...qhd,...khd->...hqk", q_s, k_s) / scale
+        if mask is not None:
+            # (..., Lk) key mask broadcast over heads and query positions
+            mask = mask[..., None, None, :].to(scores.dtype)
+        attn = _masked_normalize(scores, mask, dim=-1, stable=self.stable_softmax)
+        context = torch.einsum("...hqk,...khd->...qhd", attn, v_s)
+        return context.reshape(*batch, L, d)

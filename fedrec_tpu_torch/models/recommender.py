@@ -1,0 +1,86 @@
+"""Two-tower news recommender, the port of ``fedrec_tpu/models/recommender.py``
+(scoring only; the loss and training step come with the training slice)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fedrec_tpu_torch.config import ModelConfig
+from fedrec_tpu_torch.device import torch_dtype
+from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
+
+
+def score_candidates(cand_vecs: torch.Tensor, user_vec: torch.Tensor) -> torch.Tensor:
+    """Dot-product scoring: (..., C, D) x (..., D) -> (..., C)."""
+    return torch.einsum("...cd,...d->...c", cand_vecs, user_vec)
+
+
+class NewsRecommender(nn.Module):
+    """User encoder + text head; ``encode_news`` and ``encode_user`` are
+    exposed separately, as in the JAX module."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        dtype = torch_dtype(cfg.dtype)
+        if cfg.text_head_arch != "additive":
+            raise NotImplementedError(
+                f"model.text_head_arch={cfg.text_head_arch!r} is not ported yet; "
+                "the port has 'additive'"
+            )
+        if cfg.user_tower != "mha":
+            raise NotImplementedError(
+                f"model.user_tower={cfg.user_tower!r} is not ported yet; the port has 'mha'"
+            )
+        if cfg.fuse_hot_path and not cfg.stable_softmax:
+            raise ValueError(
+                "model.fuse_hot_path requires stable_softmax=True (the fused "
+                "kernel computes the max-subtracted form)"
+            )
+        self.text_head = TextHead(
+            news_dim=cfg.news_dim,
+            bert_hidden=cfg.bert_hidden,
+            stable_softmax=cfg.stable_softmax,
+            dtype=dtype,
+            use_pallas=cfg.use_pallas,
+        )
+        self.user_encoder = UserEncoder(
+            news_dim=cfg.news_dim,
+            num_heads=cfg.num_heads,
+            head_dim=cfg.head_dim,
+            query_dim=cfg.query_dim,
+            dropout_rate=cfg.dropout_rate,
+            stable_softmax=cfg.stable_softmax,
+            dtype=dtype,
+            use_pallas=cfg.use_pallas,
+            fuse=cfg.fuse_hot_path,
+        )
+
+    def encode_news(
+        self, token_states: torch.Tensor, mask: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        return self.text_head(token_states, mask)
+
+    def encode_user(
+        self,
+        his_vecs: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        train: bool = False,
+    ) -> torch.Tensor:
+        return self.user_encoder(his_vecs, mask, train)
+
+    def forward(
+        self,
+        cand_vecs: torch.Tensor,
+        his_vecs: torch.Tensor,
+        his_mask: torch.Tensor | None = None,
+        train: bool = False,
+    ) -> torch.Tensor:
+        """(..., C, D) candidates + (..., H, D) history -> (..., C) scores."""
+        if self.cfg.fuse_hot_path:
+            # one kernel runs attention + pool + scoring
+            _, scores = self.user_encoder(his_vecs, his_mask, train, cand_vecs=cand_vecs)
+            return scores
+        user_vec = self.user_encoder(his_vecs, his_mask, train)
+        return score_candidates(cand_vecs, user_vec)

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+The kernels have no CPU mode, so every test here needs a CUDA device and
+skips without one (decided in the ``cuda`` fixture, never at import). On a
+GPU machine, where JAX may be absent (``tests/conftest.py`` imports it):
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
+
+Shapes are small and deliberately ragged (L=7, H=7, D=32..48), so the
+kernels' padding of token/history rows to their register tiles and of
+hidden units to whole warps is exercised; ``chip_smoke.py`` covers the
+full-width shapes. Tolerances: f32 atol 1e-5 + rtol 1e-5 (the same
+products summed in another order, reductions <= 768 long over O(1)
+values; candidate scores reach O(10)); bf16 in the JAX band atol 0.15 /
+rtol 0.05, since a different summation order can flip one bf16 rounding.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fedrec_tpu_torch.ops import (
+    UserTowerWeights,
+    additive_pool,
+    additive_pool_plain,
+    fused_history_score,
+    fused_history_score_plain,
+    launch_counts,
+    reset_launch_counts,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, atol=0.15, rtol=0.05)
+
+
+def _t(a, dev, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 7, 48, 24), (3, 50, 768, 384), (2, 33, 64, 40)])
+@pytest.mark.parametrize("kind", ["none", "partial", "fully_masked_row"])
+def test_additive_pool_kernel_matches_plain(cuda, rng, dtype, shape, kind):
+    n, L, D, hd = shape
+    x = _t(rng.standard_normal((n, L, D)), cuda, dtype)
+    w1 = _t(rng.standard_normal((D, hd)) / np.sqrt(D), cuda)
+    b1 = _t(rng.standard_normal(hd) * 0.05, cuda)
+    w2 = _t(rng.standard_normal(hd) / np.sqrt(hd), cuda)
+    mask = None
+    if kind != "none":
+        m = (rng.random((n, L)) > 0.3).astype(np.float32)
+        m[:, 0] = 1.0
+        if kind == "fully_masked_row":
+            m[1] = 0.0
+        mask = _t(m, cuda)
+    reset_launch_counts()
+    got = additive_pool(x, w1, b1, w2, mask)
+    torch.cuda.synchronize()
+    assert launch_counts()["additive_pool"] == 1
+    assert got.dtype == dtype and got.shape == (n, D)
+    _close(got, additive_pool_plain(x, w1, b1, w2, mask), dtype)
+    if kind == "fully_masked_row":
+        assert bool((got[1] == 0).all())
+
+
+def _tower(rng, d, q, dev, dtype):
+    """Weights scaled by 1/sqrt(fan-in), so activations stay O(1) at any width."""
+    def r(*s, scale=None):
+        scale = 1.0 / np.sqrt(s[0]) if scale is None else scale
+        return _t(rng.standard_normal(s) * scale, dev, dtype)
+
+    return UserTowerWeights(
+        r(d, d), r(d, scale=0.05), r(d, d), r(d, scale=0.05), r(d, d), r(d, scale=0.05),
+        r(d, q), r(q, scale=0.05), r(q),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 7, 32, 4, 16), (3, 50, 400, 20, 200), (2, 13, 40, 5, 24)])
+@pytest.mark.parametrize("c", [0, 5])
+def test_fused_history_score_kernel_matches_plain(cuda, rng, dtype, shape, c):
+    b, h, d, nh, q = shape
+    x = _t(rng.standard_normal((b, h, d)), cuda, dtype)
+    cand = _t(rng.standard_normal((b, c, d)), cuda, dtype) if c else None
+    m = (rng.random((b, h)) > 0.25).astype(np.float32)
+    m[:, 0] = 1.0
+    m[1] = 0.0  # a fully-masked history pools to ~0
+    mask = _t(m, cuda)
+    w = _tower(rng, d, q, cuda, dtype)
+    reset_launch_counts()
+    sk, uk = fused_history_score(x, cand, mask, w, nh)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_history_score"] == 1
+    sp, up = fused_history_score_plain(x, cand, mask, w, nh)
+    _close(uk, up, dtype)
+    if c:
+        _close(sk, sp, dtype)
+    else:
+        assert sk is None
+    assert float(uk[1].float().abs().max()) < 1e-5
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda, rng):
+    x = torch.randn((2, 7, 48), device=cuda)
+    w1, b1, w2 = torch.randn((48, 24), device=cuda), torch.zeros(24, device=cuda), torch.randn(24, device=cuda)
+    with pytest.raises(TypeError):
+        additive_pool(x.half(), w1, b1, w2)
+    with pytest.raises(ValueError):
+        additive_pool(x, w1.cpu(), b1, w2)
+    with pytest.raises(ValueError):
+        additive_pool(torch.randn((2, 7, 50), device=cuda), torch.randn((50, 24), device=cuda), b1, w2)
+    w = _tower(rng, 32, 16, cuda, torch.float32)
+    with pytest.raises(ValueError):
+        fused_history_score(torch.randn((2, 7, 32), device=cuda), None, None, w, 3)
+    with pytest.raises(ValueError):
+        fused_history_score(torch.randn((2, 7, 32), device=cuda), None,
+                            torch.ones((2, 6), device=cuda), w, 4)

@@ -1,0 +1,126 @@
+"""The port stands alone: ``fedrec_tpu_torch`` and ``chip_smoke.py`` import
+nothing of JAX, Flax or the JAX package; entry points run on the GPU
+unless the caller asks for the CPU; CPU tensors never count a launch."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import fedrec_tpu_torch
+from fedrec_tpu_torch.config import ExperimentConfig, ModelConfig
+from fedrec_tpu_torch.device import NoGPUError
+from fedrec_tpu_torch.models import NewsRecommender
+from fedrec_tpu_torch.ops import (
+    UserTowerWeights,
+    additive_pool,
+    fused_history_score,
+    launch_counts,
+    reset_launch_counts,
+)
+from fedrec_tpu_torch.params import init_params
+from fedrec_tpu_torch.serve import build_recommend_fn
+from fedrec_tpu_torch.serving import EmbeddingStore, ServingService
+from fedrec_tpu_torch.train.step import encode_all_news
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = Path(fedrec_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "fedrec_tpu")
+
+
+def _modules():
+    return sorted(
+        ".".join(("fedrec_tpu_torch", *p.relative_to(PKG).with_suffix("").parts)).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+    )
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", ["package", "chip_smoke.py"])
+def test_no_jax_import_anywhere_in_the_source(path):
+    files = sorted(PKG.rglob("*.py")) if path == "package" else [ROOT / path]
+    found = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            found += [f"{f.name}: {n}" for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not found
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_model():
+    cfg = ModelConfig(news_dim=8, num_heads=2, head_dim=4, query_dim=4, bert_hidden=8,
+                      fuse_hot_path=True, use_pallas=True)
+    return init_params(NewsRecommender(cfg), seed=1).eval()
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu):
+    model = _tiny_model()
+    toks = torch.randn((3, 5, 8))
+    store = EmbeddingStore()
+    store.publish(torch.randn((6, 8)), model.user_encoder)
+    calls = [
+        lambda **kw: encode_all_news(model, toks, **kw),
+        lambda **kw: build_recommend_fn(**kw),
+        lambda **kw: ServingService(store, history_len=4, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(NoGPUError):
+            call()
+        with pytest.raises(NoGPUError):
+            call(device="cuda")
+        call(device="cpu")
+
+
+def test_cli_serve_refuses_without_a_gpu(no_gpu):
+    from fedrec_tpu_torch.cli import serve
+
+    args = serve.build_parser().parse_args(["--synthetic", "16"])
+    with pytest.raises(NoGPUError):
+        serve.synthetic_service(args, ExperimentConfig())
+
+
+def test_cpu_tensors_count_no_launch(rng):
+    reset_launch_counts()
+    x = torch.from_numpy(rng.standard_normal((2, 5, 8)).astype(np.float32))
+    additive_pool(x, torch.randn(8, 4), torch.zeros(4), torch.randn(4))
+    w = UserTowerWeights(*(torch.randn(s) for s in [(8, 8), (8,)] * 3 + [(8, 4), (4,), (4,)]))
+    fused_history_score(x, x[:, :2], None, w, 2)
+    model = _tiny_model()
+    table = encode_all_news(model, torch.randn((5, 5, 8)), device="cpu")
+    build_recommend_fn(device="cpu")(model.user_encoder, table, torch.tensor([[1, 2, 0]]))
+    assert launch_counts() == {"additive_pool": 0, "fused_history_score": 0}
+
+
+def test_overrides_set_the_slice_and_reject_unknown_keys():
+    cfg = ExperimentConfig().apply_overrides(["model.fuse_hot_path=true", "model.use_pallas=1"])
+    assert cfg.model.fuse_hot_path and cfg.model.use_pallas
+    assert (cfg.model.news_dim, cfg.model.num_heads, cfg.data.max_his_len) == (400, 20, 50)
+    with pytest.raises(KeyError):
+        ExperimentConfig().apply_overrides(["model.nope=1"])
+    with pytest.raises(ValueError):
+        ExperimentConfig().apply_overrides(["model.fuse_hot_path=maybe"])
