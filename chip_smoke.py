@@ -2,11 +2,18 @@
 """On-card smoke run of the PyTorch/CUDA port (``fedrec_tpu_torch``).
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
-each against its plain PyTorch version on the card, then drives the serving
-main path at full width through the entry points a user calls: corpus
-encode of a 65,536-news catalog of seeded frozen-trunk token states
-(50 x 768, kernel A), publish, ``ServingService.warmup`` and a JSON-lines
-TCP server answering a few hundred requests (kernel B on every batch).
+each against its plain PyTorch version on the card (forward and gradients),
+then drives two paths at full width through the entry points a user calls:
+
+* ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
+  frozen-trunk token states (50 x 768, kernel A), publish,
+  ``ServingService.warmup`` and a JSON-lines TCP server answering a few
+  hundred requests (kernel B on every batch);
+* ``train_path`` (training): one federated ``param_avg`` round of the
+  joint-mode train step over the same token states — 4 clients x 8 local
+  steps at B=64, then the round-end mean (kernels B, C, D and E on every
+  step) — then the kernel route against the pure-PyTorch dense route over
+  5 steps, and the same 3 steps twice for bitwise-equal parameters.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 final result line. The last line is
@@ -16,6 +23,7 @@ Needs one CUDA device; imports nothing of JAX or of ``fedrec_tpu``.
 Usage:
   python3 chip_smoke.py                           # every phase
   python3 chip_smoke.py --phases build,kernels    # kernels only
+  python3 chip_smoke.py --phases build,kernels,train_path
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "main_path")
+PHASES = ("device", "build", "kernels", "main_path", "train_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense bf16
@@ -49,15 +57,49 @@ F32_ATOL = 1e-4
 # bf16: both round at the same points, but a different summation order can
 # flip one bf16 rounding (2**-8 relative) and carry it on: the JAX band.
 BF16_ATOL, BF16_RTOL = 0.15, 0.05
+# Gradients, per output, relative to that output's largest magnitude. f32:
+# the kernels sum the weight gradients over up to 176,000 rows (U x T) in
+# another order than autograd's products, so the error grows with the sum's
+# length (about sqrt(rows) x 2**-24 of the summed magnitudes) while a wrong
+# term moves a result by its own size: 1e-4 of the largest value separates
+# the two. bf16: the plain version's autograd rounds every gradient through
+# bf16 at each rounding point where the kernels, like the JAX ones, keep f32,
+# so they agree to a few bf16 ulps (2**-8 each): 5%.
+GRAD_REL = {"float32": 1e-4, "bfloat16": 0.05}
+# the trajectory bars of the JAX package's fused-vs-dense pin
+# (tests/test_fused_hot_path.py): losses per step, then parameters; the two
+# leaves with a true gradient of zero compare at a noise bound
+TRAJ_LOSS_RTOL, TRAJ_LOSS_ATOL = 1e-5, 1e-6
+TRAJ_RTOL, TRAJ_ATOL, TRAJ_NOISE = 2e-4, 1e-4, 1e-3
+TRAJ_STEPS = 5
+ZERO_GRAD_LEAVES = ("user_encoder.self_attn.w_k.bias", "user_encoder.pool.att_fc2.bias",
+                    "text_head.pool.att_fc2.bias")
 
 KERNEL_META = {
     "additive_pool": {
         "source": "fedrec_tpu_torch/ops/csrc/additive_pool.cu",
         "replaces": "fedrec_tpu/ops/attention_kernels.py:537",
+        "path": "main_path",
     },
     "fused_history_score": {
         "source": "fedrec_tpu_torch/ops/csrc/fused_history_score.cu",
         "replaces": "fedrec_tpu/ops/fused_hot_path.py:457",
+        "path": "main_path",
+    },
+    "fused_gather_encode": {
+        "source": "fedrec_tpu_torch/ops/csrc/fused_gather_encode.cu",
+        "replaces": "fedrec_tpu/ops/fused_hot_path.py:132",
+        "path": "train_path",
+    },
+    "fused_gather_encode_bwd": {
+        "source": "fedrec_tpu_torch/ops/csrc/fused_gather_encode.cu",
+        "replaces": "fedrec_tpu/ops/fused_hot_path.py:169",
+        "path": "train_path",
+    },
+    "fused_history_score_bwd": {
+        "source": "fedrec_tpu_torch/ops/csrc/fused_history_score_bwd.cu",
+        "replaces": "fedrec_tpu/ops/fused_hot_path.py:476",
+        "path": "train_path",
     },
 }
 
@@ -107,6 +149,47 @@ def hist_cost(n: int, H: int, D: int, Q: int, nh: int, C: int, itemsize: int):
     weights = (3 * D * D + 3 * D + D * Q + 2 * Q) * itemsize
     nbytes = n * (H * D + C * D + D + C) * itemsize + n * H * 4 + weights
     return n * per_row, nbytes
+
+
+def gather_cost(U: int, T: int, Dh: int, Ah: int, D: int, itemsize: int):
+    """FLOPs and bytes of fused_gather_encode (kernel C) on U ids."""
+    per_id = (2 * T * Dh * Ah + 2 * T * Ah   # pool hidden and logits
+              + 2 * T * Dh + 2 * Dh * D)     # weighted sum and projection
+    weights = (Dh * Ah + 2 * Ah + Dh * D + D) * itemsize
+    return U * per_id, U * (T * Dh + D) * itemsize + U * 8 + weights
+
+
+def gather_bwd_cost(U: int, T: int, Dh: int, Ah: int, D: int, itemsize: int):
+    """FLOPs and bytes of fused_gather_encode_bwd (kernel D): the per-id
+    recompute and walk back, then the weight sums over U x T rows."""
+    per_id = (2 * T * Dh * Ah + 2 * T * Ah + 2 * T * Dh   # recompute
+              + 2 * Dh * D + 2 * T * Dh + 4 * T * Ah)     # dpooled, dalpha, dpre, dw2
+    sums = 2 * U * T * Dh * Ah + U * T * Ah + U * Ah + 2 * U * Dh * D + U * D
+    weights = (Dh * Ah + 2 * Ah + Dh * D) * itemsize
+    grads = (Dh * Ah + 2 * Ah + Dh * D + D) * itemsize
+    return U * per_id + sums, U * T * Dh * itemsize + U * 8 + U * D * 4 + weights + grads
+
+
+def hist_bwd_cost(n: int, H: int, D: int, Q: int, nh: int, C: int, itemsize: int):
+    """FLOPs and bytes of fused_history_score_bwd (kernel E): kernel B's
+    forward recomputed, the walk back per row, then the weight sums."""
+    dh = D // nh
+    fwd, _ = hist_cost(n, H, D, Q, nh, C, itemsize)
+    per_row = (4 * C * D + 2 * H * D + 4 * H * Q + 2 * H * Q * D + 2 * H * D  # scorer, pool
+               + nh * 5 * 2 * H * H * dh                                       # attention
+               + 3 * 2 * H * D * D)                                            # dx
+    sums = 3 * (2 * n * H * D * D + n * H * D) + 2 * n * H * D * Q + n * H * Q + n * Q
+    weights = (3 * D * D + 3 * D + D * Q + 2 * Q) * itemsize
+    io = n * (2 * H * D + 2 * C * D) * itemsize + n * (C + D) * 4 + n * H * 4
+    return fwd + n * per_row + sums, io + 2 * weights
+
+
+def within_grad(got, want, dtype) -> tuple[bool, float, str]:
+    """An output's error against GRAD_REL of its largest magnitude."""
+    err = max_err(got, want)
+    scale = float(want.detach().float().abs().max()) if want.numel() else 0.0
+    rel = GRAD_REL[str(dtype).split(".")[-1]]
+    return err <= rel * scale + 1e-6, err, f"{rel} x max|plain| = {rel * scale:.3g}"
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -311,8 +394,125 @@ def phase_kernels(state: dict, args) -> dict:
         b_times[128], shape=[128, H, D, 0], dtype="float32", library_ms=None,
         by_bucket=b_times,
     )
+    _check_backward_kernels(state, args, gen, record)
     check(not failures, f"kernel checks failed: {failures}")
     return {"checks": checks, "timing": state["timing"]}
+
+
+def _check_backward_kernels(state: dict, args, gen, record) -> None:
+    """Kernel A's backward, kernels C and D (gather + encode) and kernel E
+    (user tower backward) against their plain versions at the train path's
+    shapes, f32 and bf16; then C, D and E timed in f32."""
+    import torch
+    from fedrec_tpu_torch.ops import (
+        TextHeadWeights,
+        UserTowerWeights,
+        additive_pool,
+        additive_pool_plain,
+        fused_gather_encode,
+        fused_gather_encode_bwd,
+        fused_gather_encode_bwd_plain,
+        fused_gather_encode_plain,
+        fused_history_score_bwd,
+        fused_history_score_bwd_plain,
+    )
+
+    peaks = state["peaks"]
+    # ---- kernel A's backward (autograd of the plain pool around the launch)
+    n, L, Dh, Ah = 256, 50, 768, 384
+    w1, b1, w2 = _pool_weights(gen, Dh, Ah)
+    x32 = torch.randn((n, L, Dh), generator=gen, device=DEV)
+    mask = _mask(gen, n, L, "partial")
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.randn((n, Dh), generator=gen, device=DEV).to(dt)
+
+        def grads(fn):
+            leaves = [t.clone().requires_grad_() for t in (x32.to(dt), w1, b1, w2)]
+            return torch.autograd.grad(fn(*leaves, mask), leaves, g)
+
+        for name, a, b in zip(("dx", "dw1", "db1", "dw2"), grads(additive_pool), grads(additive_pool_plain)):
+            ok, err, tol = within_grad(a, b, dt)
+            record("additive_pool_bwd:" + name, [n, L, Dh], dt, "partial", ok, err, tol)
+    del x32
+
+    # ---- kernels C and D: the U = B x 55 unique slots of a train step's
+    # dedup (3,520 at B=64), sorted and padded with id 0 as the dedup does,
+    # over a table of up to 16,384 rows
+    N, D = min(args.num_news, 16384), 400
+    U = min(args.batch_size * (1 + 4 + L), N)
+    table32 = torch.randn((N, L, Dh), generator=gen, device=DEV)
+    real = U - U // 64
+    ids = torch.sort(torch.randperm(N - 1, generator=gen, device=DEV)[:real] + 1).values
+    ids = torch.cat([ids, torch.zeros(U - real, dtype=torch.int64, device=DEV)])
+    head32 = TextHeadWeights(
+        *_pool_weights(gen, Dh, Ah),
+        torch.randn((Dh, D), generator=gen, device=DEV) / math.sqrt(Dh),
+        torch.randn((D,), generator=gen, device=DEV) * 0.02,
+    )
+    g32 = torch.randn((U, D), generator=gen, device=DEV)
+    g32[real:] = 0.0  # padded slots get no cotangent
+    for dt in (torch.float32, torch.bfloat16):
+        table, head = table32.to(dt), head32.to(dt)
+        got = fused_gather_encode(table, ids, head)
+        want = fused_gather_encode_plain(table, ids, head)
+        torch.cuda.synchronize()
+        ok, err, tol = within(got, want, dt)
+        record("fused_gather_encode", [U, L, Dh, D], dt, "none", ok, err, tol)
+        got = fused_gather_encode_bwd(table, ids, head, g32)
+        want = fused_gather_encode_bwd_plain(table, ids, head, g32)
+        torch.cuda.synchronize()
+        for name, a, b in zip(TextHeadWeights._fields, got, want):
+            ok, err, tol = within_grad(a, b, dt)
+            record("fused_gather_encode_bwd:d" + name, [U, L, Dh, D], dt, "none", ok, err, tol)
+        del table, head
+    c_ms = time_ms(lambda: fused_gather_encode(table32, ids, head32), reps=10)
+    c_plain = time_ms(lambda: fused_gather_encode_plain(table32, ids, head32), reps=5)
+    c_bound, c_by = bound(*gather_cost(U, L, Dh, Ah, D, 4), peaks["f32"], peaks)
+    d_ms = time_ms(lambda: fused_gather_encode_bwd(table32, ids, head32, g32), reps=5)
+    d_plain = time_ms(lambda: fused_gather_encode_bwd_plain(table32, ids, head32, g32), reps=3)
+    d_bound, d_by = bound(*gather_bwd_cost(U, L, Dh, Ah, D, 4), peaks["f32"], peaks)
+    for name, ms, plain_ms, bms, by in (
+        ("fused_gather_encode", c_ms, c_plain, c_bound, c_by),
+        ("fused_gather_encode_bwd", d_ms, d_plain, d_bound, d_by),
+    ):
+        state["timing"][name] = {"shape": [U, L, Dh, D], "dtype": "float32", "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                 "library_ms": None}
+    del table32, g32
+
+    # ---- kernel E at the train path's shape: 64 rows, C = 5, no mask (the
+    # step passes none); a partial mask too
+    n, H, D, Q, nh, C = args.batch_size, 50, 400, 200, 20, 5
+    w32 = _tower_weights(gen, D, Q)
+    x32 = torch.randn((n, H, D), generator=gen, device=DEV)
+    c32 = torch.randn((n, C, D), generator=gen, device=DEV)
+    gs = torch.randn((n, C), generator=gen, device=DEV)
+    gu = torch.randn((n, D), generator=gen, device=DEV)
+    for kind in ("none", "partial"):
+        mask = _mask(gen, n, H, kind)
+        for dt in (torch.float32, torch.bfloat16):
+            x, cand, w = x32.to(dt), c32.to(dt), w32.to(dt)
+            got = fused_history_score_bwd(x, cand, mask, w, gs, gu, nh)
+            want = fused_history_score_bwd_plain(x, cand, mask, w, gs, gu, nh)
+            torch.cuda.synchronize()
+            outs = [("dx", got[0], want[0]), ("dcand", got[1], want[1])]
+            outs += list(zip(("d" + f for f in UserTowerWeights._fields), got[2], want[2]))
+            for name, a, b in outs:
+                ok, err, tol = within_grad(a, b, dt)
+                if name == "dbk":
+                    # true gradient zero: both sides are float noise, on the
+                    # scale of the sibling query-bias gradient
+                    rel = GRAD_REL[str(dt).split(".")[-1]]
+                    scale = float(want[2].bq.float().abs().max())
+                    ok, tol = err <= rel * scale + 1e-6, f"noise: {rel} x max|plain dbq| = {rel * scale:.3g}"
+                record("fused_history_score_bwd:" + name, [n, H, D, C], dt, kind, ok, err, tol)
+    e_ms = time_ms(lambda: fused_history_score_bwd(x32, c32, None, w32, gs, gu, nh), reps=10)
+    e_plain = time_ms(lambda: fused_history_score_bwd_plain(x32, c32, None, w32, gs, gu, nh), reps=5)
+    e_bound, e_by = bound(*hist_bwd_cost(n, H, D, Q, nh, C, 4), peaks["f32"], peaks)
+    state["timing"]["fused_history_score_bwd"] = {
+        "shape": [n, H, D, C], "dtype": "float32", "ms": e_ms, "plain_ms": e_plain,
+        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
+    }
 
 
 async def _drive_server(service, args, num_news: int, rng) -> dict:
@@ -371,18 +571,18 @@ def _plain_recommend(model, table, hist, top_k: int):
     return torch.topk(scores, top_k + 1, dim=1)
 
 
-def _scorer_breakdown(scorer, user_tower, hist, reps: int) -> dict:
+def _device_breakdown(call, reps: int, top: int = 8) -> dict:
     """Device time by kernel and the device's busy share over ``reps``
-    scorer calls (torch.profiler; each call ends in a host read-back)."""
+    calls of ``call`` (torch.profiler; each call ends in a host read-back)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    scorer(user_tower, hist)[0].cpu()
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            scorer(user_tower, hist)[0].cpu()
+            call()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for ev in prof.key_averages():
@@ -396,7 +596,7 @@ def _scorer_breakdown(scorer, user_tower, hist, reps: int) -> dict:
         "device_ms_per_call": busy_us / 1e3,
         "device_busy_share": busy_us * reps / wall_us if wall_us else None,
         "top": [{"kernel": k[:90], "us_per_call": us, "launches_per_call": c}
-                for k, us, c in rows[:8]],
+                for k, us, c in rows[:top]],
     }
 
 
@@ -456,8 +656,9 @@ def phase_main_path(state: dict, args) -> dict:
                 or any(a < b for a, b in zip(sc, sc[1:])) or r.get("generation") != 0):
             bad.append({"id": rid, "resp": r})
     check(not bad, f"{len(bad)} bad responses, first: {bad[:2]}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
+    for name, meta in KERNEL_META.items():
+        if meta["path"] == "main_path":
+            check(launches[name] > 0, f"kernel {name} never launched on the main path")
 
     # ---- the kernel path against the plain versions on the same inputs
     # kernel A: the first chunk of the table again through the plain pool
@@ -496,8 +697,9 @@ def phase_main_path(state: dict, args) -> dict:
     check(mismatch == 0 and mismatch_served == 0,
           f"top-k ids differ from plain where scores are apart: {mismatch} (scorer), "
           f"{mismatch_served} (served)")
-    state["main_errs"] = {"additive_pool": err_a, "fused_history_score": err_b}
-    state["launches"] = launches
+    state.setdefault("path_errs", {}).update({"additive_pool": err_a, "fused_history_score": err_b})
+    state.setdefault("launches", {})["main_path"] = launches
+    state["tokens"] = tokens  # the train path trains over the same table
 
     # ---- per-bucket scorer time (host clock to results on the host)
     scorer = service._fn_for(store.current())
@@ -512,9 +714,9 @@ def phase_main_path(state: dict, args) -> dict:
         bucket_ms[b] = float(np.median(times))
     sizes = service.batcher.batch_sizes
     breakdown = {
-        b: _scorer_breakdown(
-            scorer, model.user_encoder,
-            torch.from_numpy(rng.integers(1, N, size=(b, cfg.data.max_his_len)).astype(np.int32)),
+        b: _device_breakdown(
+            lambda hb=torch.from_numpy(rng.integers(1, N, size=(b, cfg.data.max_his_len))
+                                       .astype(np.int32)): scorer(model.user_encoder, hb)[0].cpu(),
             reps=args.scorer_reps,
         )
         for b in (sizes[0], sizes[-1])
@@ -546,14 +748,249 @@ def phase_main_path(state: dict, args) -> dict:
     }
 
 
+def _train_cfg(args, *overrides: str):
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.fuse_hot_path=true", "model.use_pallas=true", "model.text_encoder_mode=head",
+        f"data.batch_size={args.batch_size}", f"fed.num_clients={args.clients}", *overrides,
+    ])
+
+
+def _param_diffs(model_a, model_b) -> tuple[list[str], float, float]:
+    """Leaves outside the trajectory bars, the largest difference of the
+    others and of the two zero-gradient leaves."""
+    import torch
+
+    bad, worst, worst_noise = [], 0.0, 0.0
+    pb = {k: v.detach() for k, v in model_b.named_parameters()}
+    for name, a in model_a.named_parameters():
+        a = a.detach()
+        b = pb[name]
+        diff = float((a - b).abs().max())
+        if name in ZERO_GRAD_LEAVES:
+            worst_noise = max(worst_noise, diff)
+            if diff >= TRAJ_NOISE:
+                bad.append(name)
+            continue
+        worst = max(worst, diff)
+        if not torch.allclose(a, b, rtol=TRAJ_RTOL, atol=TRAJ_ATOL):
+            bad.append(name)
+    return bad, worst, worst_noise
+
+
+def phase_train_path(state: dict, args) -> dict:
+    import torch
+    from fedrec_tpu_torch.data import TrainBatcher, index_samples, make_synthetic_mind
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.ops import (
+        fused_gather_encode,
+        fused_gather_encode_bwd,
+        fused_gather_encode_bwd_plain,
+        fused_gather_encode_plain,
+        fused_history_score,
+        fused_history_score_bwd,
+        fused_history_score_bwd_plain,
+        fused_history_score_plain,
+        launch_counts,
+        reset_launch_counts,
+        text_head_weights,
+    )
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import (
+        build_fed_train_step,
+        build_param_sync,
+        init_client_state,
+        replicate_state,
+    )
+    from fedrec_tpu_torch.train.step import unique_padded
+
+    cfg = _train_cfg(args)
+    mc, dc = cfg.model, cfg.data
+    N, K, S, B = args.num_news, args.clients, args.local_steps, dc.batch_size
+    T, C, H = dc.max_title_len, 1 + dc.npratio, dc.max_his_len
+    dev = torch.device(DEV)
+    tokens = state.get("tokens")
+    if tokens is None:  # the seeded frozen-trunk table main_path also serves
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        tokens = torch.empty((N, T, mc.bert_hidden), device=dev)
+        for s0 in range(0, N, args.chunk):
+            tokens[s0:s0 + args.chunk].normal_(generator=gen)
+    data = make_synthetic_mind(num_news=N, num_train=K * B * S, num_valid=0, title_len=T,
+                               seed=args.seed)
+    batcher = TrainBatcher(index_samples(data.train_samples, data.nid2index, H), B,
+                           dc.npratio, seed=args.seed)
+    batches = [{"candidates": b.candidates, "history": b.history, "labels": b.labels}
+               for b in batcher.epoch_batches_sharded(K, 0)][:S]
+    check(len(batches) == S, f"{len(batches)} batches for {S} local steps")
+    model = init_params(NewsRecommender(mc), seed=args.seed).to(dev)
+    states = replicate_state(init_client_state(model, cfg, args.seed), K, args.seed)
+    step = build_fed_train_step(model, cfg, get_strategy("param_avg"), device=dev)
+    sync = build_param_sync(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---------------- the train path, with every launch count from 0
+    reset_launch_counts()
+    step_ms, losses, overflow = [], [], 0
+    t_round = time.perf_counter()
+    for b in batches:
+        t0 = time.perf_counter()
+        states, met = step(states, b, tokens)
+        losses.append(met["loss"].tolist())  # a host read: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        overflow += met["unique_overflow"]
+    states = sync(states, np.ones(K, np.float32))
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t_round) * 1e3
+    launches = launch_counts()
+    # ---------------- end of the train path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(all(math.isfinite(v) for row in losses for v in row), f"non-finite loss: {losses}")
+    check(overflow == 0, f"unique_overflow {overflow}")
+    for name, meta in KERNEL_META.items():
+        if meta["path"] == "train_path" or name == "fused_history_score":
+            check(launches[name] > 0, f"kernel {name} never launched on the train path")
+    ref = list(states[0].model.parameters())
+    for st in states[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(ref, st.model.parameters())),
+              "clients differ after the round-end mean")
+    check(all(bool(torch.isfinite(p).all()) for p in ref), "non-finite parameters after the round")
+
+    # ---- the kernels against their plain versions on this path's inputs:
+    # client 0's first batch, the synced weights
+    m = states[0].model
+    cand = torch.as_tensor(batches[0]["candidates"][0], device=dev)
+    hist = torch.as_tensor(batches[0]["history"][0], device=dev)
+    ids = torch.cat([cand.reshape(-1), hist.reshape(-1)])
+    uniq, inv = unique_padded(ids.long(), min(ids.numel(), N))
+    real = int(torch.unique(ids).numel())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    with torch.no_grad():
+        head = text_head_weights(m.text_head, torch.float32)
+        tower = m.user_encoder.fused_weights(torch.float32)
+        vecs = fused_gather_encode(tokens, uniq, head)
+        err_c = max_err(vecs, fused_gather_encode_plain(tokens, uniq, head))
+        cand_v = vecs[inv[: B * C]].reshape(B, C, -1)
+        his_v = vecs[inv[B * C:]].reshape(B, H, -1)
+        sk, uk = fused_history_score(his_v, cand_v, None, tower, mc.num_heads)
+        sp, up = fused_history_score_plain(his_v, cand_v, None, tower, mc.num_heads)
+        err_b = max(max_err(sk, sp), max_err(uk, up))
+    g = torch.randn((uniq.numel(), mc.news_dim), generator=gen, device=dev)
+    g[real:] = 0.0
+    got_d = fused_gather_encode_bwd(tokens, uniq, head, g)
+    want_d = fused_gather_encode_bwd_plain(tokens, uniq, head, g)
+    gs = torch.randn((B, C), generator=gen, device=dev)
+    gu = torch.randn((B, mc.news_dim), generator=gen, device=dev)
+    got_e = fused_history_score_bwd(his_v, cand_v, None, tower, gs, gu, mc.num_heads)
+    want_e = fused_history_score_bwd_plain(his_v, cand_v, None, tower, gs, gu, mc.num_heads)
+    torch.cuda.synchronize()
+    errs = {"fused_history_score": err_b, "fused_gather_encode": err_c}
+    oks = {"fused_history_score": err_b <= F32_ATOL, "fused_gather_encode": err_c <= F32_ATOL}
+    for name, pairs in (
+        ("fused_gather_encode_bwd", list(zip(got_d, want_d))),
+        ("fused_history_score_bwd", [(got_e[0], want_e[0]), (got_e[1], want_e[1]),
+                                     *[(a, b) for f, a, b in zip(tower._fields, got_e[2], want_e[2])
+                                       if f != "bk"]]),
+    ):
+        res = [within_grad(a, b, torch.float32) for a, b in pairs]
+        errs[name] = max(r[1] for r in res)
+        oks[name] = all(r[0] for r in res)
+    check(all(oks.values()), f"train-path kernels vs plain: {errs}")
+    state.setdefault("path_errs", {}).update(
+        {k: v for k, v in errs.items() if KERNEL_META[k]["path"] == "train_path"})
+    state.setdefault("launches", {})["train_path"] = launches
+
+    # ---- device ms per launch at this path's shapes (CUDA events)
+    per_launch = {
+        "fused_history_score": time_ms(
+            lambda: fused_history_score(his_v, cand_v, None, tower, mc.num_heads), reps=20),
+        "fused_gather_encode": time_ms(lambda: fused_gather_encode(tokens, uniq, head), reps=10),
+        "fused_gather_encode_bwd": time_ms(
+            lambda: fused_gather_encode_bwd(tokens, uniq, head, g), reps=5),
+        "fused_history_score_bwd": time_ms(
+            lambda: fused_history_score_bwd(his_v, cand_v, None, tower, gs, gu, mc.num_heads), reps=10),
+    }
+    one = {k: v[:1] for k, v in batches[0].items()}
+    step1 = build_fed_train_step(model, cfg, get_strategy("local"), device=dev)
+    breakdown = _device_breakdown(lambda: step1(states[:1], one, tokens)[1]["loss"].tolist(),
+                                  reps=3, top=12)
+
+    # ---- kernel route against the pure-PyTorch dense route: one client,
+    # the same init and batches, dropout 0
+    cfg_k = _train_cfg(args, "model.dropout_rate=0.0", "fed.num_clients=1")
+    cfg_d = _train_cfg(args, "model.dropout_rate=0.0", "fed.num_clients=1",
+                       "model.fuse_hot_path=false", "model.use_pallas=false")
+    mk = init_params(NewsRecommender(cfg_k.model), seed=args.seed + 2).to(dev)
+    md = NewsRecommender(cfg_d.model).to(dev)
+    md.load_state_dict(mk.state_dict())
+    st_k, st_d = [init_client_state(mk, cfg_k)], [init_client_state(md, cfg_d)]
+    step_k = build_fed_train_step(mk, cfg_k, get_strategy("local"), device=dev)
+    step_d = build_fed_train_step(md, cfg_d, get_strategy("local"), device=dev)
+    traj = []
+    for i in range(TRAJ_STEPS):
+        b1 = {k: v[:1] for k, v in batches[i % S].items()}
+        lk = step_k(st_k, b1, tokens)[1]["loss"]
+        ld = step_d(st_d, b1, tokens)[1]["loss"]
+        traj.append((float(lk[0]), float(ld[0])))
+        check(bool(torch.allclose(lk, ld, rtol=TRAJ_LOSS_RTOL, atol=TRAJ_LOSS_ATOL)),
+              f"step {i}: kernel-route loss {float(lk[0])!r} vs dense {float(ld[0])!r}")
+    bad, worst, worst_noise = _param_diffs(mk, md)
+    check(not bad, f"kernel route vs dense after {TRAJ_STEPS} steps: {bad} outside the bars")
+
+    # ---- the same 3 steps twice give the same bits
+    def three_steps():
+        mm = init_params(NewsRecommender(cfg.model), seed=args.seed + 3).to(dev)
+        st = [init_client_state(mm, cfg, args.seed)]
+        stp = build_fed_train_step(mm, cfg, get_strategy("local"), device=dev)
+        for i in range(3):
+            stp(st, {k: v[:1] for k, v in batches[i % S].items()}, tokens)
+        return [p.detach().clone() for p in mm.parameters()]
+
+    first, second = three_steps(), three_steps()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(bitwise, "the same 3 steps twice gave different parameters")
+
+    return {
+        "config": {"num_news": N, "clients": K, "local_steps": S, "batch_size": B,
+                   "title_len": T, "history": H, "candidates": C, "unique_slots": int(uniq.numel()),
+                   "bert_hidden": mc.bert_hidden, "news_dim": mc.news_dim,
+                   "num_heads": mc.num_heads, "query_dim": mc.query_dim, "dtype": mc.dtype,
+                   "dropout_rate": mc.dropout_rate, "optimizer": cfg.optim.optimizer,
+                   "user_lr": cfg.optim.user_lr, "news_lr": cfg.optim.news_lr,
+                   "strategy": "param_avg", "fuse_hot_path": mc.fuse_hot_path,
+                   "use_pallas": mc.use_pallas},
+        "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms)),
+        "round_ms": round_ms,
+        "losses": losses,
+        "unique_overflow": overflow,
+        "distinct_ids_first_batch": real,
+        "launches": launches,
+        "device_ms_per_launch": per_launch,
+        "step_device_breakdown": breakdown,
+        "max_abs_err_vs_plain": errs,
+        "trajectory_losses_kernel_vs_dense": traj,
+        "trajectory_max_param_diff": worst,
+        "trajectory_max_zero_grad_leaf_diff": worst_noise,
+        "bitwise_repeatable": bitwise,
+        "peak_mem_gb": peak_gb,
+    }
+
+
 def kernels_line(state: dict) -> dict:
+    """One entry per kernel: launches and error from the path that runs it
+    (A, B: main_path; C, D, E: train_path), times from the kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": state["launches"][name],
-            "max_abs_err": state["main_errs"][name], "ms": t["ms"],
+            "replaces": meta["replaces"], "path": meta["path"],
+            "launches": state["launches"][meta["path"]][name],
+            "max_abs_err": state["path_errs"][name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "dtype": t["dtype"],
@@ -574,14 +1011,18 @@ def main(argv=None) -> int:
     p.add_argument("--waves", default="1,1,1,1,8,8,8,32,32,128,128,200",
                    help="requests sent together, wave after wave")
     p.add_argument("--scorer-reps", type=int, default=20)
+    p.add_argument("--clients", type=int, default=4, help="train_path: federated clients")
+    p.add_argument("--local-steps", type=int, default=8, help="train_path: steps per client in the round")
+    p.add_argument("--batch-size", type=int, default=64, help="train_path: per-client batch")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     phases = [ph for ph in args.phases.split(",") if ph]
     unknown = set(phases) - set(PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
-    if "main_path" in phases and "kernels" not in phases:
-        p.error("main_path needs the kernels phase (it reports the kernels' times)")
+    for path in ("main_path", "train_path"):
+        if path in phases and "kernels" not in phases:
+            p.error(f"{path} needs the kernels phase (it reports the kernels' times)")
 
     import torch
 
@@ -600,6 +1041,7 @@ def main(argv=None) -> int:
         "build": lambda: phase_build(state),
         "kernels": lambda: phase_kernels(state, args),
         "main_path": lambda: phase_main_path(state, args),
+        "train_path": lambda: phase_train_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
         t0 = time.perf_counter()
@@ -610,7 +1052,7 @@ def main(argv=None) -> int:
             emit({"phase": ph, "ok": False, "error": f"{type(e).__name__}: {e}"[:4000]})
             return 1
         emit({"phase": ph, "ok": True, "seconds": time.perf_counter() - t0, **result})
-    if "main_path" in phases:
+    if "main_path" in phases and "train_path" in phases:
         emit(kernels_line(state))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,15 @@ ported slices read, with the same names and defaults.
 
 A copy, not an import: the port never imports the JAX package. ``--set
 section.key=value`` overrides work as they do there
-(``ExperimentConfig.apply_overrides``).
+(``ExperimentConfig.apply_overrides``), nested paths included
+(``obs.health.sentry=0``).
+
+Some fields exist only so that a lever the port does not run yet can be
+named and refused at build time (``train.step.build_fed_train_step``):
+``data.gather_chunk``, ``fed.seq_shards``, ``privacy.enabled``,
+``shard.table``, ``chaos.enabled`` and ``obs.health.sentry``. The JAX
+package turns the sentry on by default; the port defaults it off, since
+it has no sentry to run.
 """
 
 from __future__ import annotations
@@ -15,10 +23,19 @@ from typing import Any
 
 @dataclass
 class DataConfig:
-    """Dataset knobs the serving slice reads."""
+    """Dataset and batching knobs."""
 
+    npratio: int = 4                   # negatives per impression
     max_his_len: int = 50              # click-history cap (pad id 0 = <unk>)
     max_title_len: int = 50            # tokens per news title
+    batch_size: int = 64
+    # static bound on the unique news encoded per joint-mode step; 0 = the
+    # exact worst case B*(C+H). Exact while a batch's distinct ids stay
+    # <= cap; the step reports `unique_overflow` otherwise
+    unique_news_cap: int = 0
+    # per-B cap policy "64:2560,256:4096"; empty = the global cap
+    unique_news_cap_buckets: str = ""
+    gather_chunk: int = 0              # not ported: any value > 0 raises
 
 
 @dataclass
@@ -33,37 +50,98 @@ class ModelConfig:
     user_tower: str = "mha"            # only "mha" is ported
     text_head_arch: str = "additive"   # only "additive" is ported
     bert_hidden: int = 768             # frozen-trunk hidden size
+    # "table" (decoupled) | "head" (joint, frozen-trunk token states) |
+    # "finetune"; the port trains "head" only
+    text_encoder_mode: str = "table"
+    # the reference's CrossEntropyLoss over sigmoid(scores)
+    sigmoid_before_ce: bool = True
     # max-subtracted exp-normalization; False is the reference's raw exp
     stable_softmax: bool = True
     dtype: str = "float32"             # "float32" | "bfloat16"
     # route the text head's additive pool through kernel A (additive_pool)
     use_pallas: bool = False
-    # route the user tower through kernel B (fused_history_score)
+    # route the user tower through kernels B/E (fused_history_score) and the
+    # joint step's gather + text head through kernels C/D (fused_gather_encode)
     fuse_hot_path: bool = False
+
+
+@dataclass
+class OptimConfig:
+    """Two optimizer chains, one per tower (``train.state.make_optimizers``)."""
+
+    user_lr: float = 5e-5
+    news_lr: float = 5e-5
+    optimizer: str = "adam"            # "adam" | "sgd"
+    grad_clip_norm: float = 0.0        # 0 = off
+    lr_schedule: str = "constant"      # "constant" | "cosine"
+    decay_steps: int = 0               # cosine horizon; 0 = constant
+    lr_min_frac: float = 0.1           # cosine floor, as a fraction of lr
+
+
+@dataclass
+class FedConfig:
+    strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg"
+    num_clients: int = 8
+    seq_shards: int = 1                # not ported: > 1 raises
+
+
+@dataclass
+class PrivacyConfig:
+    enabled: bool = False              # not ported: True raises
+
+
+@dataclass
+class ShardConfig:
+    table: bool = False                # not ported: True raises
+
+
+@dataclass
+class ChaosConfig:
+    enabled: bool = False              # not ported: True raises
+
+
+@dataclass
+class HealthConfig:
+    sentry: bool = False               # not ported: True raises
+
+
+@dataclass
+class ObsConfig:
+    health: HealthConfig = field(default_factory=HealthConfig)
 
 
 @dataclass
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    fed: FedConfig = field(default_factory=FedConfig)
+    privacy: PrivacyConfig = field(default_factory=PrivacyConfig)
+    shard: ShardConfig = field(default_factory=ShardConfig)
+    chaos: ChaosConfig = field(default_factory=ChaosConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def apply_overrides(self, overrides: list[str]) -> "ExperimentConfig":
-        """Apply ``section.key=value`` strings (e.g. ``model.news_dim=32``);
-        unknown sections and keys raise ``KeyError``."""
+        """Apply ``section.key=value`` strings (e.g. ``model.news_dim=32``,
+        ``obs.health.sentry=0``); unknown sections and keys raise ``KeyError``."""
         for item in overrides:
             if "=" not in item:
                 raise ValueError(f"override must be section.key=value, got {item!r}")
             path, raw = item.split("=", 1)
             parts = path.split(".")
-            if len(parts) != 2:
+            if len(parts) < 2:
                 raise ValueError(f"override path must be section.key, got {path!r}")
-            section = getattr(self, parts[0], None)
-            if section is None or not dataclasses.is_dataclass(section):
-                raise KeyError(f"unknown config section: {path!r}")
-            if not hasattr(section, parts[1]):
+            section: Any = self
+            for part in parts[:-1]:
+                section = getattr(section, part, None)
+                if section is None or not dataclasses.is_dataclass(section):
+                    raise KeyError(f"unknown config section: {path!r}")
+            if not hasattr(section, parts[-1]):
                 raise KeyError(f"unknown config key: {path!r}")
-            current = getattr(section, parts[1])
-            setattr(section, parts[1], _coerce(raw, type(current)))
+            current = getattr(section, parts[-1])
+            if dataclasses.is_dataclass(current):
+                raise KeyError(f"config path {path!r} names a section, not a key")
+            setattr(section, parts[-1], _coerce(raw, type(current)))
         return self
 
 

@@ -1,6 +1,6 @@
 from fedrec_tpu_torch.models.attention import AdditiveAttention, MultiHeadAttention
 from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
-from fedrec_tpu_torch.models.recommender import NewsRecommender, score_candidates
+from fedrec_tpu_torch.models.recommender import NewsRecommender, score_candidates, score_loss
 
 __all__ = [
     "AdditiveAttention",
@@ -9,4 +9,5 @@ __all__ = [
     "TextHead",
     "UserEncoder",
     "score_candidates",
+    "score_loss",
 ]

@@ -1,9 +1,10 @@
-"""Two-tower news recommender, the port of ``fedrec_tpu/models/recommender.py``
-(scoring only; the loss and training step come with the training slice)."""
+"""Two-tower news recommender and its loss, the port of
+``fedrec_tpu/models/recommender.py``."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fedrec_tpu_torch.config import ModelConfig
@@ -14,6 +15,26 @@ from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
 def score_candidates(cand_vecs: torch.Tensor, user_vec: torch.Tensor) -> torch.Tensor:
     """Dot-product scoring: (..., C, D) x (..., D) -> (..., C)."""
     return torch.einsum("...cd,...d->...c", cand_vecs, user_vec)
+
+
+def score_loss(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    sigmoid_before_ce: bool = True,
+    reduce: bool = True,
+) -> torch.Tensor:
+    """Cross-entropy over impressions (labels are always slot 0).
+
+    ``sigmoid_before_ce=True`` reproduces the reference's
+    ``CrossEntropyLoss()(sigmoid(scores), labels)``. The scores are cast to
+    f32 before the sigmoid, as in the JAX package (a bf16 sigmoid would
+    re-quantize). ``reduce=False`` returns the per-impression vector.
+    """
+    logits = scores.float()
+    if sigmoid_before_ce:
+        logits = torch.sigmoid(logits)
+    per_row = F.cross_entropy(logits, labels.long(), reduction="none")
+    return per_row.mean() if reduce else per_row
 
 
 class NewsRecommender(nn.Module):
@@ -76,11 +97,15 @@ class NewsRecommender(nn.Module):
         his_vecs: torch.Tensor,
         his_mask: torch.Tensor | None = None,
         train: bool = False,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        """(..., C, D) candidates + (..., H, D) history -> (..., C) scores."""
+        """(..., C, D) candidates + (..., H, D) history -> (..., C) scores;
+        ``generator`` feeds the user tower's dropout."""
         if self.cfg.fuse_hot_path:
             # one kernel runs attention + pool + scoring
-            _, scores = self.user_encoder(his_vecs, his_mask, train, cand_vecs=cand_vecs)
+            _, scores = self.user_encoder(
+                his_vecs, his_mask, train, cand_vecs=cand_vecs, generator=generator
+            )
             return scores
-        user_vec = self.user_encoder(his_vecs, his_mask, train)
+        user_vec = self.user_encoder(his_vecs, his_mask, train, generator=generator)
         return score_candidates(cand_vecs, user_vec)

@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_bound: set[str] = set()  # libraries whose C functions are typed
 # seconds each source's nvcc took in this process (0.0 = loaded from cache)
 build_seconds: dict[str, float] = {}
 
@@ -130,6 +131,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, signatures: dict) -> ctypes.CDLL:
+    """``load(name)`` with its C functions typed for ctypes:
+    ``signatures`` maps a function name to ``(argtypes, restype)``. Pointers
+    must be ``c_void_p``, or ctypes passes them as 32-bit ints."""
+    lib = load(name)
+    if name not in _bound:
+        for fn, (argtypes, restype) in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = argtypes, restype
+        _bound.add(name)
+    return lib
 
 
 def library_path(name: str) -> str:

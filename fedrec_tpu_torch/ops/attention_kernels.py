@@ -10,7 +10,11 @@ semantics).
 
 On a CUDA tensor ``additive_pool`` launches the kernel or raises; on a CPU
 tensor it runs ``additive_pool_plain``, which repeats the JAX kernel's math
-step by step (f32 throughout, output in x's dtype).
+step by step (f32 throughout, output in x's dtype). When autograd needs a
+gradient, the launch runs inside a ``torch.autograd.Function`` whose backward
+is autograd of ``additive_pool_plain`` on the saved inputs: a recompute, as
+the JAX backward is a dense ``jax.vjp`` (``attention_kernels.py:_pool_bwd``),
+not a kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ from fedrec_tpu_torch.ops import _build
 
 _NEG_INF = -1e9
 _LIB = "additive_pool"
-_lib = None
 
 
 def additive_pool_plain(
@@ -53,17 +56,10 @@ def additive_pool_plain(
 
 def _kernel():
     """The built library, its two C functions typed for ctypes."""
-    global _lib
-    if _lib is None:
-        lib = _build.load(_LIB)
-        lib.additive_pool_launch.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        lib.additive_pool_launch.restype = ctypes.c_int
-        lib.additive_pool_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.additive_pool_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+    return _build.bind(_LIB, {
+        "additive_pool_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int),
+        "additive_pool_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+    })
 
 
 def _launch(x, w1, b1, w2, mask) -> torch.Tensor:
@@ -108,6 +104,26 @@ def _launch(x, w1, b1, w2, mask) -> torch.Tensor:
     return out
 
 
+class _Pool(torch.autograd.Function):
+    """Kernel A forward; backward = autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, mask):
+        ctx.save_for_backward(x, w1, b1, w2, mask)
+        return _launch(x, w1, b1, w2, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip((x, w1, b1, w2), ctx.needs_input_grad)]
+            out = additive_pool_plain(*leaves, mask)
+            wanted = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(got) if t.requires_grad else None for t in leaves), None)
+
+
 def additive_pool(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -120,10 +136,13 @@ def additive_pool(
     ``w1`` (D, hidden), ``b1`` (hidden,), ``w2`` (hidden,): the two Dense
     layers of ``AdditiveAttention`` in the (in, out) layout, float32.
     ``mask`` optional (..., L), 1 = keep. CUDA tensors launch kernel A (and
-    count one launch in ``additive_pool.launches``); CPU tensors take
+    count one launch in ``additive_pool.launches``), inside an autograd
+    function when a gradient is needed; CPU tensors take
     ``additive_pool_plain``.
     """
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2)):
+            return _Pool.apply(x, w1, b1, w2, mask)
         return _launch(x, w1, b1, w2, mask)
     if x.device.type == "cpu":
         return additive_pool_plain(x, w1, b1, w2, mask)

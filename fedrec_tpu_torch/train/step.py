@@ -1,12 +1,281 @@
-"""Corpus encode, the port of ``fedrec_tpu/train/step.py:encode_all_news``.
-The training step itself comes with the training slice."""
+"""The joint-mode federated train step, the round-end parameter sync and the
+corpus encode: the port of ``fedrec_tpu/train/step.py``.
+
+The joint ("head") step trains both towers end to end over the frozen
+trunk's cached token states, a (N, T, bert_hidden) table on the device:
+
+  1. the batch's candidate and history ids are deduplicated once (a sorted
+     unique, padded with id 0 to a static size, as ``jnp.unique(size=...,
+     fill_value=0)``), so a news id that recurs is encoded once;
+  2. the unique ids' token-state rows go through the text head — with
+     ``model.fuse_hot_path``, kernels C (forward) and D (backward) gather
+     each row straight from the table; otherwise the rows are gathered and
+     run through ``TextHead`` (kernel A under ``use_pallas``);
+  3. the user tower and scorer run on the gathered vectors (kernels B and E
+     with ``fuse_hot_path``), then sigmoid-then-CE in f32;
+  4. each tower steps its own optimizer chain (``train.state``), after the
+     strategy's gradient sync.
+
+K clients run in a Python loop on one device. ``build_param_sync`` is the
+round-end weighted mean. The levers the port does not run yet raise
+``NotImplementedError`` at build time and name the lever, as the JAX
+package fails fast on unsupported combinations.
+"""
 
 from __future__ import annotations
 
+from typing import Any, Callable
+
+import numpy as np
 import torch
 
+from fedrec_tpu_torch.config import ExperimentConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
-from fedrec_tpu_torch.models import NewsRecommender
+from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg
+from fedrec_tpu_torch.models import NewsRecommender, score_loss
+from fedrec_tpu_torch.ops import fused_gather_encode
+from fedrec_tpu_torch.train.state import ClientState, make_optimizers
+
+
+def parse_cap_buckets(spec: str) -> list[tuple[int, int]]:
+    """Parse ``data.unique_news_cap_buckets`` ("64:2560,256:4096") into a
+    B-ascending list of (max_batch, cap) pairs; malformed entries raise."""
+    buckets = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        try:
+            b_s, cap_s = item.split(":")
+            b, cap = int(b_s), int(cap_s)
+        except ValueError:
+            raise ValueError(
+                f"data.unique_news_cap_buckets entry {item!r} is not "
+                "'<max_batch>:<cap>' (e.g. '64:2560,256:4096')"
+            ) from None
+        if b <= 0 or cap <= 0:
+            raise ValueError(
+                f"data.unique_news_cap_buckets entry {item!r}: both the "
+                "batch bound and the cap must be positive"
+            )
+        buckets.append((b, cap))
+    bounds = [b for b, _ in buckets]
+    if len(set(bounds)) != len(bounds):
+        raise ValueError(
+            f"data.unique_news_cap_buckets has duplicate batch bounds ({spec!r}); "
+            "each bound may appear once"
+        )
+    return sorted(buckets)
+
+
+def resolve_unique_cap(cfg: ExperimentConfig, batch_size: int) -> int:
+    """The unique-news cap for one per-client batch size: the cap of the
+    smallest bucket whose bound covers ``batch_size`` (uncapped, 0, past
+    every bucket), or the global ``data.unique_news_cap`` without buckets."""
+    buckets = parse_cap_buckets(cfg.data.unique_news_cap_buckets)
+    if buckets:
+        for b, cap in buckets:
+            if batch_size <= b:
+                return cap
+        return 0
+    return cfg.data.unique_news_cap
+
+
+def unique_padded(ids: torch.Tensor, size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.unique(ids, size=size, fill_value=0, return_inverse=True)``:
+    the sorted distinct ids cut or padded with 0 to ``size``, and each id's
+    slot. Past the size, JAX's clamped gather reads the last slot; so does
+    the inverse here."""
+    uniq, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    if uniq.shape[0] >= size:
+        return uniq[:size], inv.clamp(max=size - 1)
+    pad = torch.zeros(size - uniq.shape[0], dtype=uniq.dtype, device=uniq.device)
+    return torch.cat([uniq, pad]), inv
+
+
+def unique_overflow(candidates: torch.Tensor, history: torch.Tensor, cap: int, n_news: int) -> int:
+    """1 when the batch's distinct news ids exceed ``min(cap, ids, n_news)``:
+    a capped dedup then dropped ids and the step's result is invalid."""
+    ids = torch.cat([candidates.reshape(-1), history.reshape(-1)])
+    distinct = int(torch.unique(ids).numel())
+    bound = min(cap, ids.numel(), n_news) if cap else min(ids.numel(), n_news)
+    return int(distinct > bound)
+
+
+class _TakeRows(torch.autograd.Function):
+    """``vecs[inv]``, whose backward sums each unique row's cotangents with
+    a one-hot product in a fixed order. Indexing's own backward accumulates
+    with atomics on the GPU and with threads on the CPU, so a step would not
+    repeat to the bit; the one-hot terms are exact (1 x g, + 0)."""
+
+    @staticmethod
+    def forward(ctx, vecs, inv):
+        ctx.save_for_backward(inv)
+        ctx.rows = vecs.shape[0]
+        return vecs[inv]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        onehot = torch.zeros((ctx.rows, inv.numel()), dtype=g.dtype, device=g.device)
+        onehot[inv, torch.arange(inv.numel(), device=g.device)] = 1
+        return onehot @ g, None
+
+
+def _encode_gathered(model: NewsRecommender, token_states: torch.Tensor,
+                     uniq: torch.Tensor, fused: bool) -> torch.Tensor:
+    """The text head over the unique ids' rows of the frozen table (no
+    gradient ever reaches the table): kernels C/D when ``fused``, else the
+    gathered rows through ``TextHead``."""
+    if fused:
+        return fused_gather_encode(token_states, uniq, model.text_head,
+                                   torch_dtype(model.cfg.dtype))
+    return model.encode_news(token_states.detach()[uniq])
+
+
+def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
+                     candidates: torch.Tensor, history: torch.Tensor,
+                     cap: int = 0, fused: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode the batch's unique news once; gather into the (B, C, D)
+    candidate and (B, H, D) history slots. ``cap`` bounds the unique slots
+    (exact while the distinct ids fit; see ``unique_overflow``)."""
+    b, c = candidates.shape
+    h = history.shape[1]
+    ids = torch.cat([candidates.reshape(-1), history.reshape(-1)])
+    size = min(ids.shape[0], token_states.shape[0])
+    if cap:
+        size = min(size, cap)
+    uniq, inv = unique_padded(ids, size)
+    vecs = _encode_gathered(model, token_states, uniq, fused)
+    flat = _TakeRows.apply(vecs, inv)
+    return flat[: b * c].reshape(b, c, -1), flat[b * c:].reshape(b, h, -1)
+
+
+def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
+    """Fail at build time, naming the lever, for what the port cannot run."""
+    if mode != "joint":
+        raise NotImplementedError(
+            f"train mode {mode!r} (model.text_encoder_mode="
+            f"{cfg.model.text_encoder_mode!r}) is not ported; the port trains "
+            "model.text_encoder_mode='head' (joint)"
+        )
+    levers = [
+        ("privacy.enabled", cfg.privacy.enabled),
+        ("fed.seq_shards>1", cfg.fed.seq_shards > 1),
+        ("shard.table", cfg.shard.table),
+        ("chaos.enabled", cfg.chaos.enabled),
+        ("obs.health.sentry", cfg.obs.health.sentry),
+        ("data.gather_chunk>0", cfg.data.gather_chunk > 0),
+        (f"model.text_head_arch={cfg.model.text_head_arch!r}",
+         cfg.model.text_head_arch != "additive"),
+    ]
+    for name, on in levers:
+        if on:
+            raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")
+
+
+def _as_device(a: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device)
+
+
+def build_fed_train_step(
+    model: NewsRecommender,
+    cfg: ExperimentConfig,
+    strategy: FedStrategy,
+    mode: str | None = None,
+    device: str | torch.device | None = None,
+) -> Callable:
+    """The per-batch federated train step.
+
+    Returns ``step(states, batch, token_states) -> (states, metrics)``:
+    ``states`` is the list of K ``ClientState``s (updated in place and
+    returned), ``batch`` a dict of ``(K, B, ...)`` ``candidates`` /
+    ``history`` / ``labels`` arrays (numpy or tensors), ``token_states`` the
+    (N, T, bert_hidden) frozen-trunk table on ``device``. ``metrics`` holds
+    each client's ``loss`` (K,), their ``mean_loss`` and ``unique_overflow``
+    (how many clients' batches held more distinct ids than the cap).
+
+    ``model`` is the clients' architecture (``model.cfg``); the step runs
+    each client's own copy. ``device`` defaults to ``cuda`` and raises
+    without a GPU unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    if mode is None:
+        mode = {"table": "decoupled", "head": "joint", "finetune": "finetune"}.get(
+            cfg.model.text_encoder_mode, "joint"
+        )
+    _refuse_unported(cfg, mode)
+    opt_user, opt_news = make_optimizers(cfg)
+    fused = model.cfg.fuse_hot_path and model.cfg.text_head_arch == "additive"
+    sigmoid_ce = cfg.model.sigmoid_before_ce
+
+    def step(states: list[ClientState], batch: dict, token_states: torch.Tensor):
+        cands = _as_device(batch["candidates"], dev)
+        hists = _as_device(batch["history"], dev)
+        labels = _as_device(batch["labels"], dev)
+        if cands.shape[0] != len(states):
+            raise ValueError(f"batch holds {cands.shape[0]} clients, states {len(states)}")
+        cap = resolve_unique_cap(cfg, labels.shape[1])
+        n_news = token_states.shape[0]
+        losses, user_g, news_g, overflow = [], [], [], 0
+        for st, cand, hist, lab in zip(states, cands, hists, labels):
+            m = st.model
+            params = st.user_params() + st.news_params()
+            cand_vecs, his_vecs = _batch_news_vecs(m, token_states, cand, hist, cap, fused)
+            scores = m(cand_vecs, his_vecs, None, train=True, generator=st.generator)
+            loss = score_loss(scores, lab, sigmoid_ce)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            nu = len(st.user_params())
+            losses.append(loss.detach())
+            user_g.append(grads[:nu])
+            news_g.append(grads[nu:])
+            overflow += unique_overflow(cand, hist, cap, n_news) if cap else 0
+        user_g = strategy.sync_grads(user_g)
+        news_g = strategy.sync_grads(news_g)
+        for st, ug, ng in zip(states, user_g, news_g):
+            for tx, which, grads in ((opt_user, "opt_user", ug), (opt_news, "opt_news", ng)):
+                params = st.user_params() if which == "opt_user" else st.news_params()
+                updates, new_opt = tx.update(grads, getattr(st, which), params)
+                setattr(st, which, new_opt)
+                with torch.no_grad():
+                    for p, u in zip(params, updates):
+                        p.add_(u)
+            st.step += 1
+        loss_vec = torch.stack(losses)
+        return states, {
+            "loss": loss_vec,
+            "mean_loss": loss_vec.mean(),
+            "unique_overflow": overflow,
+        }
+
+    return step
+
+
+def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None) -> Callable:
+    """Round-end parameter aggregation through the strategy.
+
+    ``sync(states, weights) -> states``, ``weights`` one round weight per
+    client (equal weights = FedAvg, zeros = clients that did not report).
+    ``ParamAvg`` writes the weighted mean of both towers into every client;
+    ``Local``/``GradAvg`` leave parameters alone. Optimizer states stay
+    local, as in the reference.
+    """
+    strategy = strategy or ParamAvg()
+
+    def sync(states: list[ClientState], weights) -> list[ClientState]:
+        if not strategy.sync_params_every_round:
+            return states
+        for part in ("user_params", "news_params"):
+            params = [getattr(st, part)() for st in states]
+            new = strategy.sync_params(params, weights)
+            with torch.no_grad():
+                for old, fresh in zip(params, new):
+                    for p, q in zip(old, fresh):
+                        if p is not q:
+                            p.copy_(q)
+        return states
+
+    return sync
 
 
 @torch.no_grad()

@@ -12,6 +12,11 @@ full-width shapes. Tolerances: f32 atol 1e-5 + rtol 1e-5 (the same
 products summed in another order, reductions <= 768 long over O(1)
 values; candidate scores reach O(10)); bf16 in the JAX band atol 0.15 /
 rtol 0.05, since a different summation order can flip one bf16 rounding.
+Gradients (kernels D, E and kernel A's backward) compare against autograd
+of the plain versions, per output relative to its largest value: f32
+within 1e-4 of it (weight gradients sum up to a few thousand rows here, in
+another order), bf16 within 5% (the plain version's autograd rounds each
+gradient through bf16 where the kernels keep f32, as the JAX ones do).
 """
 
 import numpy as np
@@ -19,10 +24,17 @@ import pytest
 import torch
 
 from fedrec_tpu_torch.ops import (
+    TextHeadWeights,
     UserTowerWeights,
     additive_pool,
     additive_pool_plain,
+    fused_gather_encode,
+    fused_gather_encode_bwd,
+    fused_gather_encode_bwd_plain,
+    fused_gather_encode_plain,
     fused_history_score,
+    fused_history_score_bwd,
+    fused_history_score_bwd_plain,
     fused_history_score_plain,
     launch_counts,
     reset_launch_counts,
@@ -135,3 +147,117 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda, rng):
     with pytest.raises(ValueError):
         fused_history_score(torch.randn((2, 7, 32), device=cuda), None,
                             torch.ones((2, 6), device=cuda), w, 4)
+
+
+def _close_grad(got, want, dtype, what=""):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    rel = 1e-4 if dtype == torch.float32 else 0.05
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    assert err <= rel * scale + 1e-6, f"{what}: max err {err} against {rel} x {scale}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_additive_pool_backward_matches_plain_autograd(cuda, rng, dtype):
+    n, L, D, hd = 5, 33, 64, 40
+    x = _t(rng.standard_normal((n, L, D)), cuda, dtype)
+    w = [_t(rng.standard_normal(s) / np.sqrt(s[0]), cuda) for s in [(D, hd), (hd,), (hd,)]]
+    m = (rng.random((n, L)) > 0.3).astype(np.float32)
+    m[:, 0] = 1.0
+    mask = _t(m, cuda)
+    g = _t(rng.standard_normal((n, D)), cuda, dtype)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, *w)]
+        return torch.autograd.grad(fn(*leaves, mask), leaves, g)
+
+    reset_launch_counts()
+    got = grads(additive_pool)
+    assert launch_counts()["additive_pool"] == 1
+    for name, a, b in zip(("x", "w1", "b1", "w2"), got, grads(additive_pool_plain)):
+        _close_grad(a, b, dtype, name)
+
+
+def _head(rng, dh, ah, d, dev, dtype):
+    def r(*s, scale=None):
+        scale = 1.0 / np.sqrt(s[0]) if scale is None else scale
+        return _t(rng.standard_normal(s) * scale, dev, dtype)
+
+    return TextHeadWeights(r(dh, ah), r(ah, scale=0.05), r(ah), r(dh, d), r(d, scale=0.05))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(9, 7, 48, 24, 20, 6), (40, 50, 768, 384, 400, 17), (12, 33, 64, 40, 24, 11)])
+def test_fused_gather_encode_kernels_match_plain(cuda, rng, dtype, shape):
+    n, t, dh, ah, d, u = shape
+    table = _t(rng.standard_normal((n, t, dh)), cuda, dtype)
+    ids = torch.from_numpy(rng.integers(0, n, u)).to(cuda)
+    ids[-2:] = 0  # padded slots, as the static-size unique pads with id 0
+    w = _head(rng, dh, ah, d, cuda, dtype)
+    reset_launch_counts()
+    out = fused_gather_encode(table, ids, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_gather_encode"] == 1 and out.dtype == dtype
+    _close(out, fused_gather_encode_plain(table, ids, w), dtype)
+    g = _t(rng.standard_normal((u, d)), cuda)
+    g[-1] = 0.0  # a padded slot gets no cotangent
+    got = fused_gather_encode_bwd(table, ids, w, g)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_gather_encode_bwd"] == 1
+    for name, a, b in zip(TextHeadWeights._fields, got, fused_gather_encode_bwd_plain(table, ids, w, g)):
+        assert a.dtype == dtype
+        _close_grad(a, b, dtype, name)
+    # through autograd: kernel C forward, kernel D backward, nothing for the table
+    # (autograd hands the backward a cotangent in the output's dtype)
+    leaves = [t_.clone().requires_grad_() for t_ in w]
+    auto = torch.autograd.grad(fused_gather_encode(table, ids, TextHeadWeights(*leaves)), leaves, g.to(dtype))
+    for a, b in zip(auto, fused_gather_encode_bwd(table, ids, w, g.to(dtype))):
+        assert torch.equal(a, b)
+    assert launch_counts()["fused_gather_encode_bwd"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 7, 32, 4, 16), (3, 50, 400, 20, 200), (2, 13, 40, 5, 24)])
+@pytest.mark.parametrize("c", [0, 5])
+def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
+    b, h, d, nh, q = shape
+    x = _t(rng.standard_normal((b, h, d)), cuda, dtype)
+    cand = _t(rng.standard_normal((b, c, d)), cuda, dtype) if c else None
+    m = (rng.random((b, h)) > 0.25).astype(np.float32)
+    m[:, 0] = 1.0
+    m[1] = 0.0  # a fully-masked history row
+    mask = _t(m, cuda)
+    w = _tower(rng, d, q, cuda, dtype)
+    gs = _t(rng.standard_normal((b, c)), cuda) if c else None
+    gu = _t(rng.standard_normal((b, d)), cuda)
+    reset_launch_counts()
+    dx, dcand, dw = fused_history_score_bwd(x, cand, mask, w, gs, gu, nh)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_history_score_bwd"] == 1
+    px, pc, pw = fused_history_score_bwd_plain(x, cand, mask, w, gs, gu, nh)
+    _close_grad(dx, px, dtype, "dx")
+    if c:
+        _close_grad(dcand, pc, dtype, "dcand")
+    else:
+        assert dcand is None
+    for name, a, b_ in zip(UserTowerWeights._fields, dw, pw):
+        if name == "bk":  # its true gradient is zero: both sides are float noise
+            assert float(a.float().abs().max()) <= 1e-3 * max(1.0, float(b_.float().abs().max()))
+            continue
+        _close_grad(a, b_, dtype, name)
+
+
+def test_backward_kernels_are_deterministic(cuda, rng):
+    table = _t(rng.standard_normal((30, 50, 768)), cuda)
+    ids = torch.from_numpy(rng.integers(0, 30, 64)).to(cuda)
+    w = _head(rng, 768, 384, 400, cuda, torch.float32)
+    g = _t(rng.standard_normal((64, 400)), cuda)
+    a = fused_gather_encode_bwd(table, ids, w, g)
+    b = fused_gather_encode_bwd(table, ids, w, g)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    x = _t(rng.standard_normal((8, 50, 400)), cuda)
+    tw = _tower(rng, 400, 200, cuda, torch.float32)
+    gu = _t(rng.standard_normal((8, 400)), cuda)
+    a = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
+    b = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
+    assert torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in zip(a[2], b[2]))
