@@ -13,7 +13,13 @@ then drives two paths at full width through the entry points a user calls:
   joint-mode train step over the same token states — 4 clients x 8 local
   steps at B=64, then the round-end mean (kernels B, C, D and E on every
   step) — then the kernel route against the pure-PyTorch dense route over
-  5 steps, and the same 3 steps twice for bitwise-equal parameters.
+  5 steps, and the same 3 steps twice for bitwise-equal parameters;
+* ``long_path`` (the long-history user tower, ``use_pallas`` without
+  ``fuse_hot_path``, 2048-click histories): the server answering waves of
+  1,024-2,048-click requests (kernels A, F1 and A2), against the dense
+  route; then one ``param_avg`` round of 2 clients x 4 steps at B=16
+  (kernels A, F1, F2, F3 and A2), the kernel route against the dense route
+  over 3 steps, and the same 3 steps twice for bitwise-equal parameters.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 final result line. The last line is
@@ -24,6 +30,7 @@ Usage:
   python3 chip_smoke.py                           # every phase
   python3 chip_smoke.py --phases build,kernels    # kernels only
   python3 chip_smoke.py --phases build,kernels,train_path
+  python3 chip_smoke.py --phases build,kernels,long_path
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ import traceback
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "main_path", "train_path")
+PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path")
+PATHS = ("main_path", "train_path", "long_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense bf16
@@ -100,6 +108,26 @@ KERNEL_META = {
         "source": "fedrec_tpu_torch/ops/csrc/fused_history_score_bwd.cu",
         "replaces": "fedrec_tpu/ops/fused_hot_path.py:476",
         "path": "train_path",
+    },
+    "additive_pool_long": {
+        "source": "fedrec_tpu_torch/ops/csrc/additive_pool.cu",
+        "replaces": "fedrec_tpu/ops/attention_kernels.py:537",
+        "path": "long_path",
+    },
+    "flash_forward": {
+        "source": "fedrec_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "fedrec_tpu/ops/attention_kernels.py:63",
+        "path": "long_path",
+    },
+    "flash_backward_dq": {
+        "source": "fedrec_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "fedrec_tpu/ops/attention_kernels.py:177",
+        "path": "long_path",
+    },
+    "flash_backward_dkv": {
+        "source": "fedrec_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "fedrec_tpu/ops/attention_kernels.py:215",
+        "path": "long_path",
     },
 }
 
@@ -182,6 +210,21 @@ def hist_bwd_cost(n: int, H: int, D: int, Q: int, nh: int, C: int, itemsize: int
     weights = (3 * D * D + 3 * D + D * Q + 2 * Q) * itemsize
     io = n * (2 * H * D + 2 * C * D) * itemsize + n * (C + D) * 4 + n * H * 4
     return fwd + n * per_row + sums, io + 2 * weights
+
+
+def flash_cost(bh: int, lq: int, lk: int, dk: int, dv: int, which: str, itemsize: int):
+    """FLOPs (the products: 2 per multiply-add) and bytes of kernel F1
+    ("fwd"), F2 ("dq") or F3 ("dkv") on (bh, L, d) operands."""
+    pairs = bh * lq * lk
+    per_pair = {"fwd": 2 * (dk + dv), "dq": 2 * (2 * dk + dv), "dkv": 2 * (2 * dk + 2 * dv)}[which]
+    rows_q, rows_k = bh * lq, bh * lk
+    if which == "fwd":   # q, k, v, bias in; out, lse out
+        nbytes = (rows_q * dk + rows_k * (dk + dv) + rows_q * dv) * itemsize + (rows_k + rows_q) * 4
+    elif which == "dq":  # q, k, v, g, bias, lse, delta in; dq out
+        nbytes = (2 * rows_q * dk + rows_k * (dk + dv) + rows_q * dv) * itemsize + (rows_k + 2 * rows_q) * 4
+    else:                # q, k, v, g, bias, lse, delta in; dk, dv, dbias out
+        nbytes = (rows_q * (dk + dv) + 2 * rows_k * (dk + dv)) * itemsize + (2 * rows_k + 2 * rows_q) * 4
+    return pairs * per_pair, nbytes
 
 
 def within_grad(got, want, dtype) -> tuple[bool, float, str]:
@@ -395,6 +438,7 @@ def phase_kernels(state: dict, args) -> dict:
         by_bucket=b_times,
     )
     _check_backward_kernels(state, args, gen, record)
+    _check_long_kernels(state, args, gen, record)
     check(not failures, f"kernel checks failed: {failures}")
     return {"checks": checks, "timing": state["timing"]}
 
@@ -515,7 +559,138 @@ def _check_backward_kernels(state: dict, args, gen, record) -> None:
     }
 
 
-async def _drive_server(service, args, num_news: int, rng) -> dict:
+def _flash_operands(gen, bh: int, L: int, d: int, kind: str):
+    """q, k, v (bh, L, d) f32, the (bh, L) key bias of a mask of ``kind``
+    and a cotangent that is 0 on rows with no valid key (the wrapper
+    multiplies such rows by 0)."""
+    import torch
+
+    q, k, v, g = (torch.randn((bh, L, d), generator=gen, device=DEV) for _ in range(4))
+    if kind == "none":
+        bias = torch.zeros((bh, L), device=DEV)
+    else:
+        keep = torch.rand((bh, L), generator=gen, device=DEV) > 0.3
+        keep[:, 0] = True
+        if kind == "fully_masked_row":
+            keep[1] = False
+        bias = torch.where(keep, 0.0, -1e9)
+        g[~keep.any(1)] = 0.0
+    return q, k, v, bias.contiguous(), g
+
+
+def _check_long_kernels(state: dict, args, gen, record) -> None:
+    """Kernels F1, F2, F3 at the long path's attention shape (B=16 x 20
+    heads, L=2048, width 20) and A2 at its pool shape (16, 2048, 400),
+    f32 and bf16, three masks, against their plain versions; then each
+    timed in f32 beside its plain version and, for the flash kernels,
+    ``F.scaled_dot_product_attention`` with the same additive mask (a
+    yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from fedrec_tpu_torch.ops import (
+        additive_pool,
+        additive_pool_long,
+        additive_pool_plain,
+        flash_backward_dkv,
+        flash_backward_dkv_plain,
+        flash_backward_dq,
+        flash_backward_dq_plain,
+        flash_forward,
+        flash_forward_plain,
+    )
+
+    peaks = state["peaks"]
+    bh, L, d, nh = args.flash_bh, args.long_history, 20, 20
+    for kind in ("none", "partial", "fully_masked_row"):
+        q32, k32, v32, bias, g32 = _flash_operands(gen, bh, L, d, kind)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+            out, lse = flash_forward(q, k, v, bias)
+            want_out, want_lse = flash_forward_plain(q, k, v, bias)
+            torch.cuda.synchronize()
+            ok, err, tol = within(out, want_out, dt)
+            record("flash_forward", [bh, L, d], dt, kind, ok, err, tol)
+            # the log-sum-exp, f32 in both dtypes; a row with no valid key
+            # holds about -1e9, where one f32 ulp is 64: relative 1e-5
+            rel = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).max())
+            record("flash_forward:lse", [bh, L, d], dt, kind, rel <= 1e-5, max_err(lse, want_lse),
+                   f"relative 1e-5 (max {rel:.3g})")
+            delta = (g.float() * want_out.float()).sum(-1)
+            dq = flash_backward_dq(q, k, v, bias, g, want_lse, delta)
+            ok, err, tol = within_grad(dq, flash_backward_dq_plain(q, k, v, bias, g, want_lse, delta), dt)
+            record("flash_backward_dq", [bh, L, d], dt, kind, ok, err, tol)
+            got = flash_backward_dkv(q, k, v, bias, g, want_lse, delta)
+            want = flash_backward_dkv_plain(q, k, v, bias, g, want_lse, delta)
+            torch.cuda.synchronize()
+            for name, a, b, adt in zip(("dk", "dv", "dbias"), got, want, (dt, dt, torch.float32)):
+                ok, err, tol = within_grad(a, b, adt)
+                record("flash_backward_dkv:" + name, [bh, L, d], dt, kind, ok, err, tol)
+            del out, lse, want_out, want_lse, dq, got, want
+        del q32, k32, v32, g32
+
+    # timing, f32, no mask (the path passes none)
+    q, k, v, bias, g = _flash_operands(gen, bh, L, d, "none")
+    out, lse = flash_forward(q, k, v, bias)
+    delta = (g * out).sum(-1)
+    f_ms = time_ms(lambda: flash_forward(q, k, v, bias), reps=5)
+    f_plain = time_ms(lambda: flash_forward_plain(q, k, v, bias), reps=2, warmup=1)
+    dq_ms = time_ms(lambda: flash_backward_dq(q, k, v, bias, g, lse, delta), reps=5)
+    dq_plain = time_ms(lambda: flash_backward_dq_plain(q, k, v, bias, g, lse, delta), reps=2, warmup=1)
+    dkv_ms = time_ms(lambda: flash_backward_dkv(q, k, v, bias, g, lse, delta), reps=5)
+    dkv_plain = time_ms(lambda: flash_backward_dkv_plain(q, k, v, bias, g, lse, delta), reps=2, warmup=1)
+    # the yardstick: one SDPA call, forward and backward, same additive mask
+    b = bh // nh
+    qs, ks, vs = (t.reshape(b, nh, L, d).detach().requires_grad_() for t in (q, k, v))
+    am = bias.reshape(b, nh, 1, L)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am), reps=5)
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+    g_lib = g.reshape(b, nh, L, d)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qs, ks, vs), g_lib, retain_graph=True), reps=5)
+    lib_err = max_err(o_lib.reshape(bh, L, d), out)
+    del o_lib, qs, ks, vs
+    timing = state["timing"]
+    for name, which, ms, plain_ms, lib in (
+        ("flash_forward", "fwd", f_ms, f_plain, lib_fwd),
+        ("flash_backward_dq", "dq", dq_ms, dq_plain, lib_bwd),
+        ("flash_backward_dkv", "dkv", dkv_ms, dkv_plain, lib_bwd),
+    ):
+        flops, nbytes = flash_cost(bh, L, L, d, d, which, 4)
+        bms, by = bound(flops, nbytes, peaks["f32"], peaks)
+        timing[name] = {"shape": [bh, L, d], "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by, "gflop": flops / 1e9,
+                        "library_ms": lib, "library": "F.scaled_dot_product_attention "
+                        + ("forward" if which == "fwd" else "backward (dq, dk, dv together)")}
+    timing["flash_forward"]["library_max_abs_err"] = lib_err
+    del q, k, v, bias, g, out, lse, delta
+
+    # ---- kernel A2 at the long path's pool shape (hidden 200)
+    n, D, hd = args.long_batch_size, 400, 200
+    w1, b1, w2 = _pool_weights(gen, D, hd)
+    x32 = torch.randn((n, L, D), generator=gen, device=DEV)
+    for kind in ("none", "partial", "fully_masked_row"):
+        mask = _mask(gen, n, L, kind)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            got = additive_pool(x, w1, b1, w2, mask)
+            want = additive_pool_plain(x, w1, b1, w2, mask)
+            torch.cuda.synchronize()
+            ok, err, tol = within(got, want, dt)
+            if kind == "fully_masked_row":
+                ok = ok and bool((got[1] == 0).all())
+            record("additive_pool_long", [n, L, D], dt, kind, ok, err, tol)
+    a2_ms = time_ms(lambda: additive_pool_long(x32, w1, b1, w2), reps=10)
+    a2_plain = time_ms(lambda: additive_pool_plain(x32, w1, b1, w2), reps=5)
+    a2_bound, a2_by = bound(*pool_cost(n, L, D, hd, 4), peaks["f32"], peaks)
+    timing["additive_pool_long"] = {"shape": [n, L, D], "dtype": "float32", "ms": a2_ms,
+                                    "plain_ms": a2_plain, "bound_ms": a2_bound, "bound_by": a2_by,
+                                    "library_ms": None}
+    del x32
+
+
+async def _drive_server(service, waves, num_news: int, rng, his_len: int = 50,
+                        clicks: tuple[int, int] = (1, 50)) -> dict:
+    """Send ``waves`` of requests (each with ``clicks`` real clicks, 0-padded
+    to ``his_len``) over TCP; collect responses, round trips, metrics."""
     from fedrec_tpu_torch.serving import start_server
 
     server = await start_server(service, "127.0.0.1", 0)
@@ -524,11 +699,11 @@ async def _drive_server(service, args, num_news: int, rng) -> dict:
     sent, responses, rtt_ms = {}, {}, []
     rid = 0
     try:
-        for wave in args.waves:
+        for wave in waves:
             t0 = {}
             for _ in range(wave):
-                k = int(rng.integers(1, 51))
-                hist = rng.integers(1, num_news, size=k).tolist() + [0] * (50 - k)
+                k = int(rng.integers(clicks[0], clicks[1] + 1))
+                hist = rng.integers(1, num_news, size=k).tolist() + [0] * (his_len - k)
                 sent[rid] = hist
                 t0[rid] = time.perf_counter()
                 writer.write((json.dumps({"id": rid, "history": hist}) + "\n").encode())
@@ -600,6 +775,48 @@ def _device_breakdown(call, reps: int, top: int = 8) -> dict:
     }
 
 
+def _tokens(state: dict, args, title_len: int, bert_hidden: int):
+    """The seeded frozen-trunk token states (num_news, title_len,
+    bert_hidden) f32, made on the card chunk by chunk once and shared by
+    every path (10.1 GB at full size)."""
+    import torch
+
+    if "tokens" not in state:
+        gen = torch.Generator(device=DEV).manual_seed(args.seed)
+        tokens = torch.empty((args.num_news, title_len, bert_hidden), device=DEV)
+        for s in range(0, args.num_news, args.chunk):
+            tokens[s:s + args.chunk].normal_(generator=gen)
+        torch.cuda.synchronize()
+        state["tokens"] = tokens
+    return state["tokens"]
+
+
+def _check_responses(sent: dict, responses: dict, top_k: int, least: int) -> None:
+    """Every request answered: top_k ids, no pad id, no clicked id, scores
+    descending, generation 0."""
+    check(len(responses) == len(sent) >= least, f"{len(responses)} responses to {len(sent)} requests")
+    bad = []
+    for rid, hist in sent.items():
+        r = responses.get(rid, {})
+        ids, sc = r.get("ids", []), r.get("scores", [])
+        if ("error" in r or len(ids) != top_k or 0 in ids or set(hist) & set(ids)
+                or any(a < b for a, b in zip(sc, sc[1:])) or r.get("generation") != 0):
+            bad.append({"id": rid, "resp": r})
+    check(not bad, f"{len(bad)} bad responses, first: {bad[:2]}")
+
+
+def _topk_disagreements(ids, ref_scores, ref_ids, top_k: int) -> int:
+    """Top-k ids that differ from the reference's where the reference's
+    scores are more than F32_ATOL from both neighbours (a closer pair may
+    swap under another summation order). ``ref_*`` hold k + 1 columns."""
+    import torch
+
+    gaps = (ref_scores[:, :-1] - ref_scores[:, 1:]).abs()                  # (B, k)
+    left = torch.cat([torch.full_like(gaps[:, :1], float("inf")), gaps[:, :-1]], 1)
+    decided = (gaps > F32_ATOL) & (left > F32_ATOL)
+    return int((decided & (ids.long() != ref_ids[:, :top_k].long())).sum())
+
+
 def phase_main_path(state: dict, args) -> dict:
     import torch
     from fedrec_tpu_torch.config import ExperimentConfig
@@ -618,12 +835,7 @@ def phase_main_path(state: dict, args) -> dict:
     N, L, top_k = args.num_news, cfg.data.max_title_len, 10
     dev = torch.device(DEV)
     model = init_params(NewsRecommender(mc), seed=args.seed).to(dev).eval()
-    # seeded frozen-trunk token states, made on the card chunk by chunk
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    tokens = torch.empty((N, L, mc.bert_hidden), device=dev)
-    for s in range(0, N, args.chunk):
-        tokens[s:s + args.chunk].normal_(generator=gen)
-    torch.cuda.synchronize()
+    tokens = _tokens(state, args, L, mc.bert_hidden)
 
     # ---------------- the main path, with every launch count from 0
     reset_launch_counts()
@@ -638,7 +850,7 @@ def phase_main_path(state: dict, args) -> dict:
     service.warmup()
     warmup_ms = (time.perf_counter() - t0) * 1e3
     rng = np.random.default_rng(args.seed)
-    run = asyncio.run(_drive_server(service, args, N, rng))
+    run = asyncio.run(_drive_server(service, args.waves, N, rng))
     torch.cuda.synchronize()
     launches = launch_counts()
     # ---------------- end of the main path
@@ -646,16 +858,7 @@ def phase_main_path(state: dict, args) -> dict:
     check(table.shape == (N, mc.news_dim) and bool(torch.isfinite(table).all()),
           f"news table {tuple(table.shape)} not finite/(N, {mc.news_dim})")
     sent, responses = run["sent"], run["responses"]
-    check(len(responses) == len(sent) >= 256, f"{len(responses)} responses to {len(sent)} requests")
-    bad = []
-    for rid, hist in sent.items():
-        r = responses.get(rid, {})
-        ids, sc = r.get("ids", []), r.get("scores", [])
-        clicked = set(hist)
-        if ("error" in r or len(ids) != top_k or 0 in ids or clicked & set(ids)
-                or any(a < b for a, b in zip(sc, sc[1:])) or r.get("generation") != 0):
-            bad.append({"id": rid, "resp": r})
-    check(not bad, f"{len(bad)} bad responses, first: {bad[:2]}")
+    _check_responses(sent, responses, top_k, least=256)
     for name, meta in KERNEL_META.items():
         if meta["path"] == "main_path":
             check(launches[name] > 0, f"kernel {name} never launched on the main path")
@@ -688,18 +891,14 @@ def phase_main_path(state: dict, args) -> dict:
     err_scores = max_err(sc_k, sc_p[:, :top_k])
     check(err_b <= F32_ATOL, f"user vectors vs plain: max err {err_b} > {F32_ATOL}")
     check(err_scores <= F32_ATOL, f"top-k scores vs plain: max err {err_scores} > {F32_ATOL}")
-    gaps = (sc_p[:, :-1] - sc_p[:, 1:]).abs()                      # (B, k)
-    left = torch.cat([torch.full_like(gaps[:, :1], float("inf")), gaps[:, :-1]], 1)
-    decided = (gaps > F32_ATOL) & (left > F32_ATOL)
     served = torch.tensor([responses[i]["ids"] for i in last], device=dev)
-    mismatch = int((decided & (ids_k.long() != ids_p[:, :top_k])).sum())
-    mismatch_served = int((decided & (served != ids_p[:, :top_k])).sum())
+    mismatch = _topk_disagreements(ids_k, sc_p, ids_p, top_k)
+    mismatch_served = _topk_disagreements(served, sc_p, ids_p, top_k)
     check(mismatch == 0 and mismatch_served == 0,
           f"top-k ids differ from plain where scores are apart: {mismatch} (scorer), "
           f"{mismatch_served} (served)")
     state.setdefault("path_errs", {}).update({"additive_pool": err_a, "fused_history_score": err_b})
     state.setdefault("launches", {})["main_path"] = launches
-    state["tokens"] = tokens  # the train path trains over the same table
 
     # ---- per-bucket scorer time (host clock to results on the host)
     scorer = service._fn_for(store.current())
@@ -811,12 +1010,7 @@ def phase_train_path(state: dict, args) -> dict:
     N, K, S, B = args.num_news, args.clients, args.local_steps, dc.batch_size
     T, C, H = dc.max_title_len, 1 + dc.npratio, dc.max_his_len
     dev = torch.device(DEV)
-    tokens = state.get("tokens")
-    if tokens is None:  # the seeded frozen-trunk table main_path also serves
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        tokens = torch.empty((N, T, mc.bert_hidden), device=dev)
-        for s0 in range(0, N, args.chunk):
-            tokens[s0:s0 + args.chunk].normal_(generator=gen)
+    tokens = _tokens(state, args, T, mc.bert_hidden)
     data = make_synthetic_mind(num_news=N, num_train=K * B * S, num_valid=0, title_len=T,
                                seed=args.seed)
     batcher = TrainBatcher(index_samples(data.train_samples, data.nid2index, H), B,
@@ -980,9 +1174,339 @@ def phase_train_path(state: dict, args) -> dict:
     }
 
 
+DENSE_ROUTE = ("model.attn_impl=dense", "model.use_pallas=false")
+
+
+def _long_cfg(args, *overrides: str):
+    """The long-history configuration: ExperimentConfig's widths with the
+    unfused kernel route (use_pallas, no fuse_hot_path) at 2048 clicks."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.use_pallas=true", "model.fuse_hot_path=false",
+        f"data.max_his_len={args.long_history}", *overrides,
+    ])
+
+
+def _flat_heads(x, num_heads: int):
+    """(B, L, heads * d) -> (B * heads, L, d), as flash_attention flattens."""
+    b, L, hd = x.shape
+    d = hd // num_heads
+    return x.reshape(b, L, num_heads, d).transpose(1, 2).reshape(b * num_heads, L, d).contiguous()
+
+
+def _attention_operands(encoder, his):
+    """The user tower's flash operands for (B, H, D) history vectors: its
+    q/k/v projections, head-flattened, and the no-mask key bias."""
+    import torch
+    from fedrec_tpu_torch.models.attention import dense
+
+    a = encoder.self_attn
+    q, k, v = (_flat_heads(dense(w, his, torch.float32), a.num_heads) for w in (a.w_q, a.w_k, a.w_v))
+    return q, k, v, torch.zeros(q.shape[:2], device=q.device)
+
+
+def _pool_operands(encoder):
+    p = encoder.pool
+    return p.att_fc1.weight.t().contiguous(), p.att_fc1.bias, p.att_fc2.weight[0].contiguous()
+
+
+def phase_long_path(state: dict, args) -> dict:
+    """Serving, then training, of the long-history user tower."""
+    import torch
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.ops import (
+        additive_pool,
+        additive_pool_plain,
+        flash_forward,
+        flash_forward_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.serve import build_recommend_fn
+    from fedrec_tpu_torch.serving import EmbeddingStore, ServingService
+    from fedrec_tpu_torch.train.step import encode_all_news
+
+    cfg = _long_cfg(args)
+    mc = cfg.model
+    N, T, H, top_k = args.num_news, cfg.data.max_title_len, cfg.data.max_his_len, 10
+    dev = torch.device(DEV)
+    tokens = _tokens(state, args, T, mc.bert_hidden)
+    model = init_params(NewsRecommender(mc), seed=args.seed).to(dev).eval()
+
+    # ---------------- serving, with every launch count from 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    table = encode_all_news(model, tokens, chunk=args.chunk, device=dev)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    store = EmbeddingStore()
+    store.publish(table, model.user_encoder, source="synthetic")
+    service = ServingService(store, history_len=H, top_k=top_k, device=dev)
+    t0 = time.perf_counter()
+    service.warmup()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(args.seed + 7)
+    run = asyncio.run(_drive_server(service, args.long_waves, N, rng, H, (H // 2, H)))
+    torch.cuda.synchronize()
+    serve_launches = launch_counts()
+    # ---------------- end of serving
+
+    check(table.shape == (N, mc.news_dim) and bool(torch.isfinite(table).all()),
+          f"news table {tuple(table.shape)} not finite/(N, {mc.news_dim})")
+    sent, responses = run["sent"], run["responses"]
+    _check_responses(sent, responses, top_k, least=sum(args.long_waves))
+    for name in ("additive_pool", "additive_pool_long", "flash_forward"):
+        check(serve_launches[name] > 0, f"kernel {name} never launched serving the long path")
+
+    # ---- the kernel route against the dense route (no kernel at all, the
+    # same weights) on the last wave, 8 rows at a time (dense scores are
+    # (8, 20, H, H) f32, 2.7 GB at H=2048)
+    dense_model = NewsRecommender(_long_cfg(args, *DENSE_ROUTE).model).to(dev).eval()
+    dense_model.load_state_dict(model.state_dict())
+    last = sorted(sent)[-args.long_waves[-1]:]
+    hist = torch.tensor([sent[i] for i in last], device=dev)
+    ids_k, sc_k = build_recommend_fn(top_k=top_k, device=dev)(model.user_encoder, table, hist)
+    dense_fn = build_recommend_fn(top_k=top_k + 1, device=dev)
+    parts = [dense_fn(dense_model.user_encoder, table, hist[i:i + 8]) for i in range(0, len(last), 8)]
+    ids_d = torch.cat([p[0] for p in parts])
+    sc_d = torch.cat([p[1] for p in parts])
+    del parts, dense_model
+    err_scores = max_err(sc_k, sc_d[:, :top_k])
+    served = torch.tensor([responses[i]["ids"] for i in last], device=dev)
+    mismatch = _topk_disagreements(ids_k, sc_d, ids_d, top_k)
+    mismatch_served = _topk_disagreements(served, sc_d, ids_d, top_k)
+    check(err_scores <= F32_ATOL, f"top-k scores vs the dense route: max err {err_scores} > {F32_ATOL}")
+    check(mismatch == 0 and mismatch_served == 0,
+          f"top-k ids differ from the dense route where scores are apart: {mismatch} (scorer), "
+          f"{mismatch_served} (served)")
+    # ---- F1 and A2 against their plain versions on served inputs
+    with torch.no_grad():
+        his = table[hist[:8]]
+        q, k, v, bias = _attention_operands(model.user_encoder, his)
+        err_f1 = max_err(flash_forward(q, k, v, bias)[0], flash_forward_plain(q, k, v, bias)[0])
+        ctx = model.user_encoder.self_attn(his, his, his)
+        w = _pool_operands(model.user_encoder)
+        err_a2 = max_err(additive_pool(ctx, *w), additive_pool_plain(ctx, *w))
+        del q, k, v, ctx
+    check(err_f1 <= F32_ATOL and err_a2 <= F32_ATOL,
+          f"long path kernels vs plain: F1 {err_f1}, A2 {err_a2} (atol {F32_ATOL})")
+
+    # ---- per-bucket scorer time at H clicks (host clock to results on the host)
+    scorer = service._fn_for(store.current())
+    bucket_ms = {}
+    for b in service.batcher.batch_sizes:
+        hb = torch.from_numpy(rng.integers(1, N, size=(b, H)).astype(np.int32))
+        times = []
+        for _ in range(args.long_scorer_reps):
+            t0 = time.perf_counter()
+            scorer(model.user_encoder, hb)[0].cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        bucket_ms[b] = float(np.median(times))
+    big = service.batcher.batch_sizes[-1]
+    hb = torch.from_numpy(rng.integers(1, N, size=(big, H)).astype(np.int32))
+    serve_breakdown = _device_breakdown(lambda: scorer(model.user_encoder, hb)[0].cpu(), reps=2)
+    lat = np.asarray([r["latency_ms"] for r in responses.values()], np.float64)
+    serving = {
+        "corpus_encode_ms": encode_ms,
+        "warmup_ms": warmup_ms,
+        "requests": len(sent),
+        "clicks_per_request": [H // 2, H],
+        "batches_by_size": run["metrics"].get("batches_by_size"),
+        "scorer_ms_by_bucket": bucket_ms,
+        "scorer_device_breakdown": {big: serve_breakdown},
+        "server_latency_ms": {"p50": float(np.percentile(lat, 50)),
+                              "p99": float(np.percentile(lat, 99))},
+        "launches": serve_launches,
+        "max_abs_err": {"topk_scores_vs_dense": err_scores, "flash_forward_vs_plain": err_f1,
+                        "additive_pool_long_vs_plain": err_a2},
+    }
+    del store, service, table, model, hist
+    torch.cuda.empty_cache()
+
+    training, train_launches, train_errs = _long_train(state, args, tokens)
+    launches = {k: serve_launches[k] + train_launches[k] for k in serve_launches}
+    state.setdefault("path_errs", {}).update(
+        {"flash_forward": err_f1, "additive_pool_long": err_a2, **train_errs})
+    state.setdefault("launches", {})["long_path"] = launches
+    return {
+        "config": {"num_news": N, "history": H, "title_len": T, "bert_hidden": mc.bert_hidden,
+                   "news_dim": mc.news_dim, "num_heads": mc.num_heads, "head_dim": mc.head_dim,
+                   "query_dim": mc.query_dim, "dtype": mc.dtype, "use_pallas": mc.use_pallas,
+                   "fuse_hot_path": mc.fuse_hot_path, "attn_impl": mc.attn_impl,
+                   "resolved_attn": "pallas", "top_k": top_k},
+        "serving": serving,
+        "training": training,
+        "launches": launches,
+    }
+
+
+def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
+    """One param_avg round of the long-history joint step, the kernel route
+    against the dense route, and a bitwise repeat. Returns the phase's
+    training section, its launch counts and the F2/F3 errors."""
+    import torch
+    from fedrec_tpu_torch.data import TrainBatcher, index_samples, make_synthetic_mind
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.ops import (
+        flash_backward_dkv,
+        flash_backward_dkv_plain,
+        flash_backward_dq,
+        flash_backward_dq_plain,
+        flash_forward_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import (
+        build_fed_train_step,
+        build_param_sync,
+        init_client_state,
+        replicate_state,
+    )
+
+    K, S, B = args.long_clients, args.long_local_steps, args.long_batch_size
+    base = ("model.text_encoder_mode=head", f"data.batch_size={B}")
+    cfg = _long_cfg(args, *base, f"fed.num_clients={K}")
+    mc, dc = cfg.model, cfg.data
+    N, T, H = args.num_news, dc.max_title_len, dc.max_his_len
+    dev = torch.device(DEV)
+    data = make_synthetic_mind(num_news=N, num_train=K * B * S, num_valid=0, title_len=T,
+                               his_len_range=(H // 2, H), seed=args.seed)
+    batcher = TrainBatcher(index_samples(data.train_samples, data.nid2index, H), B,
+                           dc.npratio, seed=args.seed)
+    batches = [{"candidates": b.candidates, "history": b.history, "labels": b.labels}
+               for b in batcher.epoch_batches_sharded(K, 0)][:S]
+    check(len(batches) == S, f"{len(batches)} batches for {S} local steps")
+    model = init_params(NewsRecommender(mc), seed=args.seed).to(dev)
+    states = replicate_state(init_client_state(model, cfg, args.seed), K, args.seed)
+    step = build_fed_train_step(model, cfg, get_strategy("param_avg"), device=dev)
+    sync = build_param_sync(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---------------- training, with every launch count from 0
+    reset_launch_counts()
+    step_ms, losses, overflow = [], [], 0
+    t_round = time.perf_counter()
+    for b in batches:
+        t0 = time.perf_counter()
+        states, met = step(states, b, tokens)
+        losses.append(met["loss"].tolist())  # a host read: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        overflow += met["unique_overflow"]
+    states = sync(states, np.ones(K, np.float32))
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t_round) * 1e3
+    launches = launch_counts()
+    # ---------------- end of training
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(all(math.isfinite(v) for row in losses for v in row), f"non-finite loss: {losses}")
+    check(overflow == 0, f"unique_overflow {overflow}")
+    for name in ("additive_pool", "additive_pool_long", "flash_forward", "flash_backward_dq",
+                 "flash_backward_dkv"):
+        check(launches[name] > 0, f"kernel {name} never launched training the long path")
+    ref = list(states[0].model.parameters())
+    for st in states[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(ref, st.model.parameters())),
+              "clients differ after the round-end mean")
+    check(all(bool(torch.isfinite(p).all()) for p in ref), "non-finite parameters after the round")
+
+    # ---- F2 and F3 against their plain versions on this path's inputs:
+    # two histories of client 0's first batch through the synced weights
+    m = states[0].model
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    with torch.no_grad():
+        hist = torch.as_tensor(batches[0]["history"][0][:2], device=dev).long()
+        his = m.encode_news(tokens[hist])                       # (2, H, D)
+        q, k, v, bias = _attention_operands(m.user_encoder, his)
+        out, lse = flash_forward_plain(q, k, v, bias)
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    delta = (g * out).sum(-1)
+    res = [within_grad(flash_backward_dq(q, k, v, bias, g, lse, delta),
+                       flash_backward_dq_plain(q, k, v, bias, g, lse, delta), torch.float32)]
+    got = flash_backward_dkv(q, k, v, bias, g, lse, delta)
+    want = flash_backward_dkv_plain(q, k, v, bias, g, lse, delta)
+    res_kv = [within_grad(a, b, torch.float32) for a, b in zip(got, want)]
+    errs = {"flash_backward_dq": res[0][1], "flash_backward_dkv": max(r[1] for r in res_kv)}
+    check(res[0][0] and all(r[0] for r in res_kv), f"long train path kernels vs plain: {errs}")
+    del his, q, k, v, out, lse, g, delta, got, want
+
+    one = {k: v[:1] for k, v in batches[0].items()}
+    step1 = build_fed_train_step(model, cfg, get_strategy("local"), device=dev)
+    breakdown = _device_breakdown(lambda: step1(states[:1], one, tokens)[1]["loss"].tolist(),
+                                  reps=2, top=12)
+    del states, step, step1
+    torch.cuda.empty_cache()
+
+    # ---- kernel route against the dense route: one client, the same init
+    # and batches, dropout 0
+    one_client = (*base, "fed.num_clients=1", "model.dropout_rate=0.0")
+    cfg_k = _long_cfg(args, *one_client)
+    cfg_d = _long_cfg(args, *one_client, *DENSE_ROUTE)
+    mk = init_params(NewsRecommender(cfg_k.model), seed=args.seed + 2).to(dev)
+    md = NewsRecommender(cfg_d.model).to(dev)
+    md.load_state_dict(mk.state_dict())
+    st_k, st_d = [init_client_state(mk, cfg_k)], [init_client_state(md, cfg_d)]
+    step_k = build_fed_train_step(mk, cfg_k, get_strategy("local"), device=dev)
+    step_d = build_fed_train_step(md, cfg_d, get_strategy("local"), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    traj = []
+    for i in range(args.long_traj_steps):
+        b1 = {k: v[:1] for k, v in batches[i % S].items()}
+        lk = step_k(st_k, b1, tokens)[1]["loss"]
+        ld = step_d(st_d, b1, tokens)[1]["loss"]
+        traj.append((float(lk[0]), float(ld[0])))
+        check(bool(torch.allclose(lk, ld, rtol=TRAJ_LOSS_RTOL, atol=TRAJ_LOSS_ATOL)),
+              f"step {i}: kernel-route loss {float(lk[0])!r} vs dense {float(ld[0])!r}")
+    dense_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad, worst, worst_noise = _param_diffs(mk, md)
+    check(not bad, f"kernel route vs dense after {args.long_traj_steps} steps: {bad} outside the bars")
+    del mk, md, st_k, st_d, step_k, step_d
+    torch.cuda.empty_cache()
+
+    # ---- the same 3 steps twice give the same bits
+    def three_steps():
+        mm = init_params(NewsRecommender(cfg.model), seed=args.seed + 3).to(dev)
+        st = [init_client_state(mm, cfg, args.seed)]
+        stp = build_fed_train_step(mm, cfg, get_strategy("local"), device=dev)
+        for i in range(3):
+            stp(st, {k: v[:1] for k, v in batches[i % S].items()}, tokens)
+        return [p.detach().clone() for p in mm.parameters()]
+
+    first, second = three_steps(), three_steps()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(bitwise, "the same 3 steps twice gave different parameters")
+
+    return {
+        "config": {"clients": K, "local_steps": S, "batch_size": B, "history": H,
+                   "clicks_per_history": [H // 2, H], "candidates": 1 + dc.npratio,
+                   "strategy": "param_avg", "text_encoder_mode": mc.text_encoder_mode,
+                   "dropout_rate": mc.dropout_rate, "optimizer": cfg.optim.optimizer},
+        "step_ms": step_ms,
+        "median_step_ms": float(np.median(step_ms)),
+        "round_ms": round_ms,
+        "losses": losses,
+        "unique_overflow": overflow,
+        "launches": launches,
+        "step_device_breakdown": breakdown,
+        "max_abs_err_vs_plain": errs,
+        "trajectory_losses_kernel_vs_dense": traj,
+        "trajectory_max_param_diff": worst,
+        "trajectory_max_zero_grad_leaf_diff": worst_noise,
+        "bitwise_repeatable": bitwise,
+        "peak_mem_gb": peak_gb,
+        "dense_route_peak_mem_gb": dense_peak_gb,
+    }, launches, errs
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
-    (A, B: main_path; C, D, E: train_path), times from the kernels phase."""
+    (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path),
+    times from the kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -994,6 +1518,7 @@ def kernels_line(state: dict) -> dict:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "dtype": t["dtype"],
+            **({"library": t["library"]} if "library" in t else {}),
         })
     return {"kernels": out}
 
@@ -1014,13 +1539,25 @@ def main(argv=None) -> int:
     p.add_argument("--clients", type=int, default=4, help="train_path: federated clients")
     p.add_argument("--local-steps", type=int, default=8, help="train_path: steps per client in the round")
     p.add_argument("--batch-size", type=int, default=64, help="train_path: per-client batch")
+    p.add_argument("--long-history", type=int, default=2048,
+                   help="long_path: history length (requests carry half to all of it)")
+    p.add_argument("--long-waves", default="1,8,32,128", help="long_path: request waves")
+    p.add_argument("--long-scorer-reps", type=int, default=5)
+    p.add_argument("--long-clients", type=int, default=2, help="long_path: federated clients")
+    p.add_argument("--long-local-steps", type=int, default=4)
+    p.add_argument("--long-batch-size", type=int, default=16)
+    p.add_argument("--long-traj-steps", type=int, default=3,
+                   help="long_path: steps of the kernel route against the dense route")
+    p.add_argument("--flash-bh", type=int, default=320,
+                   help="kernels: batch x heads of the flash kernels' checks (16 x 20)")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
+    args.long_waves = [int(w) for w in args.long_waves.split(",")]
     phases = [ph for ph in args.phases.split(",") if ph]
     unknown = set(phases) - set(PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
-    for path in ("main_path", "train_path"):
+    for path in PATHS:
         if path in phases and "kernels" not in phases:
             p.error(f"{path} needs the kernels phase (it reports the kernels' times)")
 
@@ -1042,6 +1579,7 @@ def main(argv=None) -> int:
         "kernels": lambda: phase_kernels(state, args),
         "main_path": lambda: phase_main_path(state, args),
         "train_path": lambda: phase_train_path(state, args),
+        "long_path": lambda: phase_long_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
         t0 = time.perf_counter()
@@ -1052,7 +1590,7 @@ def main(argv=None) -> int:
             emit({"phase": ph, "ok": False, "error": f"{type(e).__name__}: {e}"[:4000]})
             return 1
         emit({"phase": ph, "ok": True, "seconds": time.perf_counter() - t0, **result})
-    if "main_path" in phases and "train_path" in phases:
+    if all(path in phases for path in PATHS):
         emit(kernels_line(state))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

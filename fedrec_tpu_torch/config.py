@@ -63,6 +63,14 @@ class ModelConfig:
     # route the user tower through kernels B/E (fused_history_score) and the
     # joint step's gather + text head through kernels C/D (fused_gather_encode)
     fuse_hot_path: bool = False
+    # the unfused user tower's self-attention:
+    #   "auto"    - flash attention (kernels F1-F3) under use_pallas with
+    #               stable_softmax; else dense up to attn_chunk_threshold
+    #               history items, then the blockwise chunked loop (O(L)
+    #               memory); see MultiHeadAttention.resolve_impl
+    #   "dense" | "chunked" | "pallas" - force one route
+    attn_impl: str = "auto"
+    attn_chunk_threshold: int = 1024
 
 
 @dataclass

@@ -5,8 +5,9 @@
   it runs kernel A (``ops.additive_pool``), which omits the
   softmax-invariant fc2 bias.
 * ``MultiHeadAttention``: Q/K/V projections and scaled dot-product
-  attention with no output projection, dense route only (the flash-attention
-  kernel behind ``use_pallas`` is not ported yet and raises).
+  attention with no output projection, through one of three routes
+  (``attn_impl``): dense scores, the blockwise ``chunked_attention`` loop,
+  or ``flash_attention`` (kernel F1, with F2 and F3 as its backward).
 
 Submodule names follow the Flax parameter tree (``att_fc1``, ``w_q``, ...),
 so ``params.from_flax`` maps a JAX checkpoint onto them by path. Parameters
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedrec_tpu_torch.ops import additive_pool
+from fedrec_tpu_torch.ops import additive_pool, chunked_attention, flash_attention
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -83,7 +84,8 @@ class AdditiveAttention(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Multi-head scaled-dot-product attention WITHOUT output projection
-    (reference ``attention.py:81``), dense route."""
+    (reference ``attention.py:81``). ``attn_impl`` picks the route; see
+    ``ModelConfig.attn_impl``."""
 
     def __init__(
         self,
@@ -93,6 +95,8 @@ class MultiHeadAttention(nn.Module):
         stable_softmax: bool = True,
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
+        attn_impl: str = "auto",
+        chunk_threshold: int = 1024,
     ):
         super().__init__()
         d = num_heads * head_dim
@@ -104,6 +108,26 @@ class MultiHeadAttention(nn.Module):
         self.stable_softmax = stable_softmax
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.attn_impl = attn_impl
+        self.chunk_threshold = chunk_threshold
+
+    def resolve_impl(self, length: int) -> str:
+        """The route for a query length: ``attn_impl`` unless "auto". The
+        JAX module's "auto" first asks ``ops.autotune.measured_attn_impl``
+        for benchmark evidence; that finds no TPU backend off a TPU and
+        returns None, so the port (which never runs on one) applies the
+        static defaults that follow it."""
+        impl = self.attn_impl
+        if impl == "auto":
+            if self.use_pallas and self.stable_softmax:
+                impl = "pallas"
+            elif length > self.chunk_threshold and self.stable_softmax:
+                impl = "chunked"
+            else:
+                impl = "dense"
+        if impl not in ("dense", "chunked", "pallas"):
+            raise ValueError(f"attn_impl must be auto|dense|chunked|pallas, got {impl!r}")
+        return impl
 
     def forward(
         self,
@@ -112,14 +136,9 @@ class MultiHeadAttention(nn.Module):
         v: torch.Tensor,
         mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        if self.use_pallas and self.stable_softmax:
-            raise NotImplementedError(
-                "MultiHeadAttention(use_pallas=True) runs the flash-attention "
-                "kernel, which is not ported yet; use fuse_hot_path or "
-                "use_pallas=False"
-            )
         *batch, L, _ = q.shape
         d = self.num_heads * self.head_dim
+        impl = self.resolve_impl(L)
 
         def split_heads(x):
             return x.reshape(*batch, -1, self.num_heads, self.head_dim)
@@ -127,6 +146,12 @@ class MultiHeadAttention(nn.Module):
         q_s = split_heads(dense(self.w_q, q, self.dtype))  # (..., L, H, Dk)
         k_s = split_heads(dense(self.w_k, k, self.dtype))
         v_s = split_heads(dense(self.w_v, v, self.dtype))
+        if impl == "pallas":
+            # blocked online softmax, kernels F1-F3: no (..., H, L, L) scores
+            return flash_attention(q_s, k_s, v_s, mask).reshape(*batch, L, d)
+        if impl == "chunked":
+            # blockwise loop, O(L) memory
+            return chunked_attention(q_s, k_s, v_s, mask).reshape(*batch, L, d)
         scale = torch.sqrt(torch.tensor(self.head_dim, dtype=q_s.dtype, device=q_s.device))
         scores = torch.einsum("...qhd,...khd->...hqk", q_s, k_s) / scale
         if mask is not None:

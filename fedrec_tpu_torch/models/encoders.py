@@ -4,7 +4,9 @@
 news vector: additive pooling (kernel A under ``use_pallas``) and a Dense
 to ``news_dim``. ``UserEncoder`` maps (..., H, news_dim) clicked-news
 vectors to a user vector: dropout, then either the dense chain
-(``MultiHeadAttention`` + ``AdditiveAttention``) or, with ``fuse``
+(``MultiHeadAttention`` on the route ``attn_impl`` picks, then
+``AdditiveAttention``: kernels F1-F3 and A2 for a long history under
+``use_pallas``) or, with ``fuse``
 (``model.fuse_hot_path``), kernel B (``ops.fused_history_score``, with
 kernel E as its backward), which also scores candidates when they are
 passed. Both routes hold the same parameters under the same names, so one
@@ -78,10 +80,13 @@ class UserEncoder(nn.Module):
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
         fuse: bool = False,
+        attn_impl: str = "auto",
+        chunk_threshold: int = 1024,
     ):
         super().__init__()
         self.self_attn = MultiHeadAttention(
-            news_dim, num_heads, head_dim, stable_softmax, dtype, use_pallas
+            news_dim, num_heads, head_dim, stable_softmax, dtype, use_pallas,
+            attn_impl, chunk_threshold,
         )
         self.pool = AdditiveAttention(
             num_heads * head_dim, query_dim, stable_softmax, dtype, use_pallas

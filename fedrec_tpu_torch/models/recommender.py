@@ -76,6 +76,8 @@ class NewsRecommender(nn.Module):
             dtype=dtype,
             use_pallas=cfg.use_pallas,
             fuse=cfg.fuse_hot_path,
+            attn_impl=cfg.attn_impl,
+            chunk_threshold=cfg.attn_chunk_threshold,
         )
 
     def encode_news(

@@ -3,20 +3,41 @@
 | Kernel | Wrapper | Source | Replaces (Pallas) |
 | --- | --- | --- | --- |
 | A | ``additive_pool`` | ``csrc/additive_pool.cu`` | ``fedrec_tpu/ops/attention_kernels.py:_pool_kernel`` |
+| A2 | ``additive_pool_long`` | ``csrc/additive_pool.cu`` | ``fedrec_tpu/ops/attention_kernels.py:_pool_kernel`` (rows too long for A) |
 | B | ``fused_history_score`` | ``csrc/fused_history_score.cu`` | ``fedrec_tpu/ops/fused_hot_path.py:_hist_score_fwd_kernel`` |
 | C | ``fused_gather_encode`` | ``csrc/fused_gather_encode.cu`` | ``fedrec_tpu/ops/fused_hot_path.py:_gather_encode_fwd_kernel`` |
 | D | ``fused_gather_encode_bwd`` | ``csrc/fused_gather_encode.cu`` | ``fedrec_tpu/ops/fused_hot_path.py:_gather_encode_bwd_kernel`` |
 | E | ``fused_history_score_bwd`` | ``csrc/fused_history_score_bwd.cu`` | ``fedrec_tpu/ops/fused_hot_path.py:_hist_score_bwd_kernel`` |
+| F1 | ``flash_forward`` | ``csrc/flash_attention.cu`` | ``fedrec_tpu/ops/attention_kernels.py:_flash_kernel`` |
+| F2 | ``flash_backward_dq`` | ``csrc/flash_attention.cu`` | ``fedrec_tpu/ops/attention_kernels.py:_flash_bwd_dq_kernel`` |
+| F3 | ``flash_backward_dkv`` | ``csrc/flash_attention.cu`` | ``fedrec_tpu/ops/attention_kernels.py:_flash_bwd_dkv_kernel`` |
 
 A wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in its ``launches`` attribute; CPU tensors take the plain version and
-count nothing. D and E are the backward of C and B: the forward wrappers run
-inside an autograd function that calls them when a gradient is needed. Kernel
-A's backward is autograd of its plain version, as the JAX one is a dense
-recompute. The sources build at first use (``_build``).
+count nothing. ``additive_pool`` launches A, or A2 where a row does not fit
+A's shared memory, and counts under the kernel it launched. D, E, F2 and F3
+are backward kernels: the forward wrappers (``fused_gather_encode``,
+``fused_history_score``, ``flash_attention``) run inside an autograd function
+that calls them when a gradient is needed. Kernel A's (and A2's) backward is
+autograd of its plain version, as the JAX one is a dense recompute.
+``chunked_attention`` is a blockwise PyTorch loop, not a kernel (the JAX one
+is a ``lax.scan``). The sources build at first use (``_build``).
 """
 
-from fedrec_tpu_torch.ops.attention_kernels import additive_pool, additive_pool_plain
+from fedrec_tpu_torch.ops.attention_kernels import (
+    additive_pool,
+    additive_pool_long,
+    additive_pool_plain,
+    flash_attention,
+    flash_backward_dkv,
+    flash_backward_dkv_plain,
+    flash_backward_dq,
+    flash_backward_dq_plain,
+    flash_backward_plain,
+    flash_forward,
+    flash_forward_plain,
+)
+from fedrec_tpu_torch.ops.chunked_attention import chunked_attention
 from fedrec_tpu_torch.ops.fused_hot_path import (
     TextHeadWeights,
     UserTowerWeights,
@@ -38,6 +59,10 @@ KERNELS = {
     "fused_gather_encode": fused_gather_encode,
     "fused_gather_encode_bwd": fused_gather_encode_bwd,
     "fused_history_score_bwd": fused_history_score_bwd,
+    "additive_pool_long": additive_pool_long,
+    "flash_forward": flash_forward,
+    "flash_backward_dq": flash_backward_dq,
+    "flash_backward_dkv": flash_backward_dkv,
 }
 
 
@@ -55,7 +80,17 @@ __all__ = [
     "TextHeadWeights",
     "UserTowerWeights",
     "additive_pool",
+    "additive_pool_long",
     "additive_pool_plain",
+    "chunked_attention",
+    "flash_attention",
+    "flash_backward_dkv",
+    "flash_backward_dkv_plain",
+    "flash_backward_dq",
+    "flash_backward_dq_plain",
+    "flash_backward_plain",
+    "flash_forward",
+    "flash_forward_plain",
     "fused_gather_encode",
     "fused_gather_encode_bwd",
     "fused_gather_encode_bwd_plain",

@@ -1,20 +1,30 @@
-"""Additive pooling: kernel A (``csrc/additive_pool.cu``) and its plain version.
+"""Attention kernels and their plain versions: the port of
+``fedrec_tpu/ops/attention_kernels.py``.
 
-``additive_pool`` computes ``softmax(tanh(x W1 + b1) w2 + bias) . x`` over
-the sequence axis, the learned-query pooling of ``AdditiveAttention``
-(``fedrec_tpu/ops/attention_kernels.py:additive_pool``). The fc2 bias is
-not an argument: it shifts every logit equally and cancels in the softmax.
-A masked slot gets the bias -1e9, a true softmax follows, and a row with no
-valid slot pools to exactly 0 (the module path's multiply-after-exp
-semantics).
+Additive pooling. ``additive_pool`` computes ``softmax(tanh(x W1 + b1) w2 +
+bias) . x`` over the sequence axis, the learned-query pooling of
+``AdditiveAttention``. The fc2 bias is not an argument: it shifts every
+logit equally and cancels in the softmax. A masked slot gets the bias -1e9,
+a true softmax follows, and a row with no valid slot pools to exactly 0 (the
+module path's multiply-after-exp semantics). On a CUDA tensor it launches
+kernel A (``csrc/additive_pool.cu``), which stages a whole row in shared
+memory, or, for rows too long for that, kernel A2, which streams the row:
+the wrapper picks from the shape before the launch. When autograd needs a
+gradient, the launch runs inside a ``torch.autograd.Function`` whose
+backward is autograd of ``additive_pool_plain`` on the saved inputs: a
+recompute, as the JAX backward is a dense ``jax.vjp``, not a kernel.
 
-On a CUDA tensor ``additive_pool`` launches the kernel or raises; on a CPU
-tensor it runs ``additive_pool_plain``, which repeats the JAX kernel's math
-step by step (f32 throughout, output in x's dtype). When autograd needs a
-gradient, the launch runs inside a ``torch.autograd.Function`` whose backward
-is autograd of ``additive_pool_plain`` on the saved inputs: a recompute, as
-the JAX backward is a dense ``jax.vjp`` (``attention_kernels.py:_pool_bwd``),
-not a kernel.
+Flash attention. ``flash_attention`` is multi-head attention in the JAX
+``(..., L, H, d)`` layout with an optional key mask, computed blockwise
+with an online softmax so the ``(L, L)`` scores never exist. On CUDA
+tensors its forward is kernel F1 and its backward kernels F2 (dq) and F3
+(dk, dv, dbias) (``csrc/flash_attention.cu``), with ``delta = rowsum(g *
+out)`` taken in f32 between them, as the JAX backward does.
+``flash_forward_plain`` and ``flash_backward_plain`` repeat the kernels'
+math and rounding points with dense PyTorch ops.
+
+On a CPU tensor every wrapper runs its plain version and counts nothing; on
+a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -55,15 +65,29 @@ def additive_pool_plain(
 
 
 def _kernel():
-    """The built library, its two C functions typed for ctypes."""
+    """The built library, its C functions typed for ctypes."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(_LIB, {
-        "additive_pool_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p], ctypes.c_int),
+        "additive_pool_launch": ([p] * 6 + [i] * 5 + [p], i),
+        "additive_pool_long_launch": ([p] * 8 + [i] * 5 + [p], i),
         "additive_pool_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+        "additive_pool_long_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
     })
 
 
 def _launch(x, w1, b1, w2, mask) -> torch.Tensor:
-    """Kernel A on CUDA tensors: checks, allocates, launches, or raises."""
+    """Kernel A, or A2 for rows A cannot stage, on CUDA tensors."""
+    return _launch_pool(x, w1, b1, w2, mask, long=None)
+
+
+def _launch_long(x, w1, b1, w2, mask) -> torch.Tensor:
+    """Kernel A2 on CUDA tensors, whatever the length."""
+    return _launch_pool(x, w1, b1, w2, mask, long=True)
+
+
+def _launch_pool(x, w1, b1, w2, mask, long: bool | None) -> torch.Tensor:
+    """Checks, allocates, launches A or A2 (``long``; None picks from the
+    shape), or raises."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"additive_pool: x must be float32 or bfloat16, got {x.dtype}")
     *batch, L, D = x.shape
@@ -87,30 +111,37 @@ def _launch(x, w1, b1, w2, mask) -> torch.Tensor:
         if mask.numel() != n * L:
             raise ValueError(f"additive_pool: mask {tuple(mask.shape)} does not match x {tuple(x.shape)}")
     lib = _kernel()
-    need = lib.additive_pool_smem_bytes(L, D, Hd)
     limit = _build.smem_limit(x.device)
+    if long is None:  # kernel A stages the whole row; A2 streams it
+        long = lib.additive_pool_smem_bytes(L, D, Hd) > limit
+    need = (lib.additive_pool_long_smem_bytes if long else lib.additive_pool_smem_bytes)(L, D, Hd)
     if need > limit:
         raise ValueError(f"additive_pool: a row needs {need} B of shared memory, the card allows {limit}")
     out = torch.empty((*batch, D), dtype=x.dtype, device=x.device)
+    args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr()]
+    if long:  # A2's scratch: the rows' logits and each row's arrival count
+        logits = torch.empty((n, L), dtype=torch.float32, device=x.device)
+        arrived = torch.zeros((n,), dtype=torch.int32, device=x.device)
+        launch, counter = lib.additive_pool_long_launch, additive_pool_long
+        args += [logits.data_ptr(), arrived.data_ptr()]
+    else:
+        launch, counter = lib.additive_pool_launch, additive_pool
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.additive_pool_launch(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            n, L, D, Hd, 0 if x.dtype == torch.float32 else 1, stream,
-        )
+        err = launch(*args, n, L, D, Hd, 0 if x.dtype == torch.float32 else 1, stream)
     _build.check(err, _LIB)
-    additive_pool.launches += 1
+    counter.launches += 1
     return out
 
 
 class _Pool(torch.autograd.Function):
-    """Kernel A forward; backward = autograd of the plain version."""
+    """Kernel A or A2 forward; backward = autograd of the plain version."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, mask):
+    def forward(ctx, x, w1, b1, w2, mask, long=False):
         ctx.save_for_backward(x, w1, b1, w2, mask)
-        return _launch(x, w1, b1, w2, mask)
+        return (_launch_long if long else _launch)(x, w1, b1, w2, mask)
 
     @staticmethod
     def backward(ctx, g):
@@ -121,7 +152,7 @@ class _Pool(torch.autograd.Function):
             out = additive_pool_plain(*leaves, mask)
             wanted = [t for t in leaves if t.requires_grad]
             got = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(got) if t.requires_grad else None for t in leaves), None)
+        return (*(next(got) if t.requires_grad else None for t in leaves), None, None)
 
 
 def additive_pool(
@@ -135,18 +166,297 @@ def additive_pool(
 
     ``w1`` (D, hidden), ``b1`` (hidden,), ``w2`` (hidden,): the two Dense
     layers of ``AdditiveAttention`` in the (in, out) layout, float32.
-    ``mask`` optional (..., L), 1 = keep. CUDA tensors launch kernel A (and
-    count one launch in ``additive_pool.launches``), inside an autograd
-    function when a gradient is needed; CPU tensors take
+    ``mask`` optional (..., L), 1 = keep. CUDA tensors launch kernel A (one
+    count in ``additive_pool.launches``) or, for rows longer than A can
+    stage, kernel A2 (counted in ``additive_pool_long.launches``), inside an
+    autograd function when a gradient is needed; CPU tensors take
     ``additive_pool_plain``.
     """
+    return _pool(x, w1, b1, w2, mask, False)
+
+
+def additive_pool_long(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``additive_pool`` through kernel A2 at any length (CUDA tensors);
+    ``additive_pool`` takes it by itself where kernel A does not fit."""
+    return _pool(x, w1, b1, w2, mask, True)
+
+
+def _pool(x, w1, b1, w2, mask, long: bool):
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2)):
-            return _Pool.apply(x, w1, b1, w2, mask)
-        return _launch(x, w1, b1, w2, mask)
+            return _Pool.apply(x, w1, b1, w2, mask, long)
+        return (_launch_long if long else _launch)(x, w1, b1, w2, mask)
     if x.device.type == "cpu":
         return additive_pool_plain(x, w1, b1, w2, mask)
     raise ValueError(f"additive_pool: unsupported device {x.device}")
 
 
 additive_pool.launches = 0
+additive_pool_long.launches = 0
+
+
+# ============================================================ flash attention
+_FLASH = "flash_attention"
+_MAX_WIDTH = 128  # the widest head the kernels' register rows take
+
+
+def _scale(dk: int) -> float:
+    return 1.0 / (dk ** 0.5)
+
+
+def flash_forward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(BH, Lq, dk) x (BH, Lk, dk) x (BH, Lk, dv) + key bias (BH, Lk) ->
+    ((BH, Lq, dv) out in q's dtype, (BH, Lq) f32 log-sum-exp), kernel F1's
+    math with dense ops: f32 scores, the running max floored at -1e9 and the
+    sum at 1e-30 (JAX's starting values), p rounded to v's dtype before
+    P.V."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * _scale(q.shape[-1])
+    s = s + bias.float()[:, None, :]
+    m = s.amax(-1, keepdim=True).clamp(min=_NEG_INF)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp(min=1e-30)
+    acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _flash_bwd_plain(q, k, v, bias, g, lse, delta, dq: bool = True, dkv: bool = True):
+    """Kernels F2 (dq) and F3 (dk, dv, dbias) with dense ops, from the
+    forward's lse and ``delta = rowsum(g * out)``: ds rounds to the operand
+    dtype before dq and dk, p before dv; dbias sums the f32 ds."""
+    scale = _scale(q.shape[-1])
+    p = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    p = p.add_(bias.float()[:, None, :]).sub_(lse[..., None]).exp_()
+    ds = torch.einsum("bqd,bkd->bqk", g.float(), v.float())
+    ds = ds.sub_(delta[..., None]).mul_(p)
+    out_dq = out_dk = out_dv = out_db = None
+    if dkv:
+        out_dv = torch.einsum("bqk,bqd->bkd", p.to(g.dtype).float(), g.float()).to(v.dtype)
+    del p
+    if dq:
+        out_dq = (torch.einsum("bqk,bkd->bqd", ds.to(k.dtype).float(), k.float()) * scale).to(q.dtype)
+    if dkv:
+        out_dk = (torch.einsum("bqk,bqd->bkd", ds.to(q.dtype).float(), q.float()) * scale).to(k.dtype)
+        out_db = ds.sum(1)
+    return out_dq, out_dk, out_dv, out_db
+
+
+def flash_backward_dq_plain(q, k, v, bias, g, lse, delta) -> torch.Tensor:
+    """Kernel F2's dq with dense ops."""
+    return _flash_bwd_plain(q, k, v, bias, g, lse, delta, dkv=False)[0]
+
+
+def flash_backward_dkv_plain(q, k, v, bias, g, lse, delta):
+    """Kernel F3's (dk, dv, dbias) with dense ops."""
+    return _flash_bwd_plain(q, k, v, bias, g, lse, delta, dq=False)[1:]
+
+
+def flash_backward_plain(q, k, v, bias, out, lse, g):
+    """The flash backward with dense ops: ``(dq, dk, dv, dbias)`` for the
+    cotangent ``g`` of ``out``; the reference for kernels F2 and F3."""
+    delta = (g.float() * out.float()).sum(-1)
+    return _flash_bwd_plain(q, k, v, bias, g, lse, delta)
+
+
+def _flash_lib() -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tail = [i] * 5 + [f, i, p]  # bh, lq, lk, dk, dv, scale, dtype, stream
+    return _build.bind(_FLASH, {
+        "flash_fwd_launch": ([p] * 6 + tail, i),
+        "flash_bwd_dq_launch": ([p] * 8 + tail, i),
+        "flash_bwd_dkv_launch": ([p] * 10 + tail, i),
+        "flash_smem_bytes": ([i] * 3, ctypes.c_size_t),
+    })
+
+
+def _check_flash(name: str, which: int, q, k, v, bias, *rows) -> tuple[int, ...]:
+    """Validate the operands of kernel ``which`` (0 F1, 1 F2, 2 F3); ``rows``
+    are (name, tensor, shape, dtype) of the backward's extra inputs."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q, k, v must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name}: q, k, v must be (BH, L, d)")
+    bh, lq, dk = q.shape
+    lk, dv = k.shape[1], v.shape[2]
+    if not (1 <= dk <= _MAX_WIDTH and 1 <= dv <= _MAX_WIDTH):
+        raise ValueError(f"{name}: head widths dk={dk}, dv={dv} must be in [1, {_MAX_WIDTH}]")
+    want = [("q", q, (bh, lq, dk), q.dtype), ("k", k, (bh, lk, dk), q.dtype),
+            ("v", v, (bh, lk, dv), q.dtype), ("bias", bias, (bh, lk), torch.float32), *rows]
+    for field, t, shape, dt in want:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {field} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {field} must be contiguous {dt} on {q.device}")
+    need = _flash_lib().flash_smem_bytes(which, dk, dv)
+    limit = _build.smem_limit(q.device)
+    if need > limit:
+        raise ValueError(f"{name}: a block needs {need} B of shared memory, the card allows {limit}")
+    return bh, lq, lk, dk, dv
+
+
+def _flash_call(name: str, device: torch.device, fn, *args) -> None:
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, name)
+
+
+def _dims(bh, lq, lk, dk, dv, dtype):
+    return (bh, lq, lk, dk, dv, ctypes.c_float(_scale(dk)), 0 if dtype == torch.float32 else 1)
+
+
+def _launch_flash_fwd(q, k, v, bias):
+    """Kernel F1 on CUDA tensors -> (out, lse), or raise."""
+    dims = _check_flash("flash_forward", 0, q, k, v, bias)
+    bh, lq, _, _, dv = dims
+    out = torch.empty((bh, lq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+    _flash_call("flash_forward", q.device, _flash_lib().flash_fwd_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *_dims(*dims, q.dtype))
+    flash_forward.launches += 1
+    return out, lse
+
+
+def _bwd_rows(q, v, g, lse, delta):
+    bh, lq, dv = q.shape[0], q.shape[1], v.shape[2]
+    return (("g", g, (bh, lq, dv), q.dtype), ("lse", lse, (bh, lq), torch.float32),
+            ("delta", delta, (bh, lq), torch.float32))
+
+
+def _launch_flash_dq(q, k, v, bias, g, lse, delta):
+    """Kernel F2 on CUDA tensors -> dq, or raise."""
+    dims = _check_flash("flash_backward_dq", 1, q, k, v, bias, *_bwd_rows(q, v, g, lse, delta))
+    dq = torch.empty_like(q)
+    _flash_call("flash_backward_dq", q.device, _flash_lib().flash_bwd_dq_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(*dims, q.dtype))
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def _launch_flash_dkv(q, k, v, bias, g, lse, delta):
+    """Kernel F3 on CUDA tensors -> (dk, dv, dbias), or raise."""
+    dims = _check_flash("flash_backward_dkv", 2, q, k, v, bias, *_bwd_rows(q, v, g, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    _flash_call("flash_backward_dkv", q.device, _flash_lib().flash_bwd_dkv_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                dbias.data_ptr(), *_dims(*dims, q.dtype))
+    flash_backward_dkv.launches += 1
+    return dk, dv, dbias
+
+
+def _on_device(name: str, t: torch.Tensor) -> bool:
+    """True for CUDA (launch), False for CPU (plain version); else raise."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type == "cuda"
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def flash_forward(q, k, v, bias) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of ``flash_forward_plain``: kernel F1 on CUDA tensors
+    (one count in ``flash_forward.launches``), the plain version on CPU."""
+    if _on_device("flash_forward", q):
+        return _launch_flash_fwd(q, k, v, bias)
+    return flash_forward_plain(q, k, v, bias)
+
+
+def flash_backward_dq(q, k, v, bias, g, lse, delta) -> torch.Tensor:
+    """dq from the forward's ``lse`` and ``delta = rowsum(g * out)`` (f32):
+    kernel F2 on CUDA tensors, the plain version on CPU."""
+    if _on_device("flash_backward_dq", q):
+        return _launch_flash_dq(q, k, v, bias, g, lse, delta)
+    return flash_backward_dq_plain(q, k, v, bias, g, lse, delta)
+
+
+def flash_backward_dkv(q, k, v, bias, g, lse, delta):
+    """``(dk, dv, dbias)`` as ``flash_backward_dq`` takes dq: kernel F3 on
+    CUDA tensors, the plain version on CPU."""
+    if _on_device("flash_backward_dkv", q):
+        return _launch_flash_dkv(q, k, v, bias, g, lse, delta)
+    return flash_backward_dkv_plain(q, k, v, bias, g, lse, delta)
+
+
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+class _Flash(torch.autograd.Function):
+    """Kernel F1 forward; kernels F2 and F3 backward, with delta taken in f32
+    between the two launches, as ``_flash_bwd`` does in JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        out, lse = _launch_flash_fwd(q, k, v, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(-1)
+        need_q, need_k, need_v, need_b = ctx.needs_input_grad
+        dq = _launch_flash_dq(q, k, v, bias, g, lse, delta) if need_q else None
+        dk = dv = dbias = None
+        if need_k or need_v or need_b:
+            dk, dv, dbias = _launch_flash_dkv(q, k, v, bias, g, lse, delta)
+        return dq, dk if need_k else None, dv if need_v else None, dbias if need_b else None
+
+
+def _flash(q, k, v, bias) -> torch.Tensor:
+    if _on_device("flash_attention", q):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+            return _Flash.apply(q, k, v, bias)
+        return _launch_flash_fwd(q, k, v, bias)[0]
+    return flash_forward_plain(q, k, v, bias)[0]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Multi-head attention, (..., L, H, d) layout like the Flax module.
+
+    ``q``: (..., Lq, H, dk); ``k``/``v``: (..., Lk, H, d); ``mask``:
+    optional (..., Lk) key mask (1 = attend). Returns (..., Lq, H, dv) in
+    q's dtype. A masked key gets the bias -1e9 and a row with no valid key
+    returns 0, as the module's exp * mask / (sum + eps) does. ``block_q`` and
+    ``block_k`` are the JAX kernel's TPU blocking, accepted and ignored.
+    CUDA tensors run kernel F1 (F2 and F3 for the gradient); CPU tensors
+    run ``flash_forward_plain`` under autograd.
+    """
+    del block_q, block_k
+    *batch, lq, h, dk = q.shape
+    lk, dv = k.shape[-3], v.shape[-1]
+    bsz = 1
+    for b in batch:
+        bsz *= b
+
+    def flat(x, L, d):  # (..., L, H, d) -> (B*H, L, d)
+        return x.reshape(bsz, L, h, d).transpose(1, 2).reshape(bsz * h, L, d).contiguous()
+
+    qf, kf, vf = flat(q, lq, dk), flat(k, lk, dk), flat(v, lk, dv)
+    if mask is None:
+        bias = torch.zeros((bsz * h, lk), dtype=torch.float32, device=q.device)
+    else:
+        m = mask.reshape(bsz, lk).to(torch.float32)
+        bias = torch.where(m > 0, 0.0, _NEG_INF).to(torch.float32).repeat_interleave(h, 0)
+    out = _flash(qf, kf, vf, bias)
+    if mask is not None:
+        has_valid = (mask.reshape(bsz, lk).sum(-1) > 0).to(out.dtype)
+        out = out * has_valid.repeat_interleave(h)[:, None, None]
+    return out.reshape(bsz, h, lq, dv).transpose(1, 2).reshape(*batch, lq, h, dv)

@@ -102,11 +102,22 @@ def unique_overflow(candidates: torch.Tensor, history: torch.Tensor, cap: int, n
     return int(distinct > bound)
 
 
+def take_rows_backward(g: torch.Tensor, inv: torch.Tensor, rows: int) -> torch.Tensor:
+    """The cotangent of ``vecs[inv]`` for ``vecs`` of ``rows`` rows: each
+    row's cotangents summed in a fixed order, deterministic on the CPU and
+    the GPU. ``inv`` is sorted once (stable), so each row's cotangents lie
+    together in their original order, and ``torch.segment_reduce`` sums
+    each segment left to right (one thread per row and feature, no atomics).
+    Memory and work are linear in ``len(inv)``; a row no id maps to gets 0."""
+    order = torch.argsort(inv, stable=True)
+    lengths = torch.bincount(inv, minlength=rows)
+    return torch.segment_reduce(g[order], "sum", lengths=lengths, unsafe=True)
+
+
 class _TakeRows(torch.autograd.Function):
-    """``vecs[inv]``, whose backward sums each unique row's cotangents with
-    a one-hot product in a fixed order. Indexing's own backward accumulates
-    with atomics on the GPU and with threads on the CPU, so a step would not
-    repeat to the bit; the one-hot terms are exact (1 x g, + 0)."""
+    """``vecs[inv]`` with a deterministic backward (``take_rows_backward``).
+    Indexing's own backward accumulates with atomics on the GPU and with
+    threads on the CPU, so a step would not repeat to the bit."""
 
     @staticmethod
     def forward(ctx, vecs, inv):
@@ -117,9 +128,7 @@ class _TakeRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (inv,) = ctx.saved_tensors
-        onehot = torch.zeros((ctx.rows, inv.numel()), dtype=g.dtype, device=g.device)
-        onehot[inv, torch.arange(inv.numel(), device=g.device)] = 1
-        return onehot @ g, None
+        return take_rows_backward(g, inv, ctx.rows), None
 
 
 def _encode_gathered(model: NewsRecommender, token_states: torch.Tensor,

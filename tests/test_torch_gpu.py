@@ -17,6 +17,8 @@ of the plain versions, per output relative to its largest value: f32
 within 1e-4 of it (weight gradients sum up to a few thousand rows here, in
 another order), bf16 within 5% (the plain version's autograd rounds each
 gradient through bf16 where the kernels keep f32, as the JAX ones do).
+The flash backward kernels (F2, F3) compare against ``flash_backward_plain``,
+which rounds at the kernels' points, on the same relative bars.
 """
 
 import numpy as np
@@ -27,7 +29,14 @@ from fedrec_tpu_torch.ops import (
     TextHeadWeights,
     UserTowerWeights,
     additive_pool,
+    additive_pool_long,
     additive_pool_plain,
+    flash_attention,
+    flash_backward_dkv,
+    flash_backward_dq,
+    flash_backward_plain,
+    flash_forward,
+    flash_forward_plain,
     fused_gather_encode,
     fused_gather_encode_bwd,
     fused_gather_encode_bwd_plain,
@@ -149,12 +158,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda, rng):
                             torch.ones((2, 6), device=cuda), w, 4)
 
 
-def _close_grad(got, want, dtype, what=""):
+def _close_grad(got, want, dtype, what="", floor=1e-6):
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
     scale = float(np.abs(want).max()) if want.size else 0.0
     rel = 1e-4 if dtype == torch.float32 else 0.05
     err = float(np.abs(got - want).max()) if want.size else 0.0
-    assert err <= rel * scale + 1e-6, f"{what}: max err {err} against {rel} x {scale}"
+    assert err <= rel * scale + floor, f"{what}: max err {err} against {rel} x {scale} + {floor}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -261,3 +270,147 @@ def test_backward_kernels_are_deterministic(cuda, rng):
     a = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
     b = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
     assert torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in zip(a[2], b[2]))
+
+
+# ------------------------------------------------- long-history kernels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 2048, 400, 200), (3, 126, 400, 200)])
+@pytest.mark.parametrize("kind", ["none", "partial", "fully_masked_row"])
+def test_additive_pool_long_rows_take_kernel_a2(cuda, rng, dtype, shape, kind):
+    """Rows too long for kernel A's shared memory (126 tokens of 400 and
+    up) pool through kernel A2, picked before the launch."""
+    n, L, D, hd = shape
+    x = _t(rng.standard_normal((n, L, D)), cuda, dtype)
+    w1 = _t(rng.standard_normal((D, hd)) / np.sqrt(D), cuda)
+    b1 = _t(rng.standard_normal(hd) * 0.05, cuda)
+    w2 = _t(rng.standard_normal(hd) / np.sqrt(hd), cuda)
+    mask = None
+    if kind != "none":
+        m = (rng.random((n, L)) > 0.3).astype(np.float32)
+        m[:, 0] = 1.0
+        if kind == "fully_masked_row":
+            m[1] = 0.0
+        mask = _t(m, cuda)
+    reset_launch_counts()
+    got = additive_pool(x, w1, b1, w2, mask)
+    torch.cuda.synchronize()
+    assert launch_counts()["additive_pool_long"] == 1 and launch_counts()["additive_pool"] == 0
+    assert got.dtype == dtype and got.shape == (n, D)
+    _close(got, additive_pool_plain(x, w1, b1, w2, mask), dtype)
+    if kind == "fully_masked_row":
+        assert bool((got[1] == 0).all())
+
+
+def test_additive_pool_a2_equals_a_where_both_fit(cuda, rng):
+    x = _t(rng.standard_normal((4, 50, 768)), cuda)
+    w1 = _t(rng.standard_normal((768, 384)) / np.sqrt(768), cuda)
+    b1, w2 = _t(rng.standard_normal(384) * 0.05, cuda), _t(rng.standard_normal(384) / 20, cuda)
+    assert torch.equal(additive_pool(x, w1, b1, w2), additive_pool_long(x, w1, b1, w2))
+
+
+def _flash_inputs(rng, dev, dtype, bh, L, d, kind):
+    q, k, v = (_t(rng.standard_normal((bh, L, d)), dev, dtype) for _ in range(3))
+    keep = np.ones((bh, L), bool) if kind == "none" else rng.random((bh, L)) > 0.3
+    keep[:, 0] = True
+    if kind == "fully_masked_row" and bh > 1:
+        keep[1] = False
+    bias = _t(np.where(keep, 0.0, -1e9), dev)
+    g = _t(rng.standard_normal((bh, L, d)), dev, dtype)
+    g[~torch.from_numpy(keep.any(1)).to(dev)] = 0  # the wrapper zeroes such rows
+    return q, k, v, bias, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 37, 130, 2048])
+@pytest.mark.parametrize("d", [8, 20, 64])
+@pytest.mark.parametrize("kind", ["none", "partial", "fully_masked_row"])
+def test_flash_kernels_match_plain(cuda, rng, dtype, L, d, kind):
+    bh = 3 if L < 2048 else 2
+    q, k, v, bias, g = _flash_inputs(rng, cuda, dtype, bh, L, d, kind)
+    reset_launch_counts()
+    out, lse = flash_forward(q, k, v, bias)
+    want_out, want_lse = flash_forward_plain(q, k, v, bias)
+    delta = (g.float() * want_out.float()).sum(-1)
+    dq = flash_backward_dq(q, k, v, bias, g, want_lse, delta)
+    dk, dv, dbias = flash_backward_dkv(q, k, v, bias, g, want_lse, delta)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_forward"] == counts["flash_backward_dq"] == counts["flash_backward_dkv"] == 1
+    assert out.dtype == dtype and lse.dtype == torch.float32 and dbias.dtype == torch.float32
+    _close(out, want_out, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-6)
+    want = flash_backward_plain(q, k, v, bias, want_out, want_lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _close_grad(a, b, dtype, name)
+    # dbias sums p * (dp - delta): where it is ~0 (one key: dp == delta)
+    # both sides hold the cancellation's noise, a few f32 ulps of |delta|
+    _close_grad(dbias, want[3], torch.float32, "dbias",
+                floor=1e-6 * (1.0 + float(delta.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_module_layout_and_gradients(cuda, rng, dtype):
+    """``flash_attention`` in the (B, L, H, d) layout with a key mask:
+    kernel F1 forward, F2 and F3 backward, against the CPU plain route."""
+    B, L, h, d = 2, 77, 4, 20
+    x = [rng.standard_normal((B, L, h, d)) for _ in range(3)]
+    m = (rng.random((B, L)) > 0.3).astype(np.float32)
+    m[:, 0] = 1.0
+    g = rng.standard_normal((B, L, h, d))
+    reset_launch_counts()
+    leaves = [_t(a, cuda, dtype).requires_grad_() for a in x]
+    out = flash_attention(*leaves, _t(m, cuda))
+    grads = torch.autograd.grad(out, leaves, _t(g, cuda, dtype))
+    counts = launch_counts()
+    assert counts["flash_forward"] == counts["flash_backward_dq"] == counts["flash_backward_dkv"] == 1
+    cpu = [_t(a, "cpu", dtype).requires_grad_() for a in x]
+    ref = flash_attention(*cpu, _t(m, "cpu"))
+    ref_grads = torch.autograd.grad(ref, cpu, _t(g, "cpu", dtype))
+    _close(out.detach(), ref.detach(), dtype)
+    for name, a, b in zip("qkv", grads, ref_grads):
+        _close_grad(a, b, dtype, "d" + name)
+
+
+def test_flash_backward_kernels_are_deterministic(cuda, rng):
+    q, k, v, bias, g = _flash_inputs(rng, cuda, torch.float32, 40, 2048, 20, "partial")
+    out, lse = flash_forward(q, k, v, bias)
+    delta = (g * out).sum(-1)
+    a = (flash_backward_dq(q, k, v, bias, g, lse, delta), *flash_backward_dkv(q, k, v, bias, g, lse, delta))
+    b = (flash_backward_dq(q, k, v, bias, g, lse, delta), *flash_backward_dkv(q, k, v, bias, g, lse, delta))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(flash_forward(q, k, v, bias)[0], out)
+
+
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda, rng):
+    bias = torch.zeros((2, 9), device=cuda)
+    x = torch.randn((2, 9, 20), device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        wide = torch.randn((2, 9, 129), device=cuda)
+        flash_forward(wide, wide, wide, bias)
+    with pytest.raises(TypeError):
+        flash_forward(x.half(), x.half(), x.half(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_forward(x, x.transpose(0, 1).contiguous().transpose(0, 1), x, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_forward(x, x.bfloat16(), x, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_forward(x, x, x, bias.double())
+    out, lse = flash_forward(x, x, x, bias)
+    with pytest.raises(ValueError, match="delta"):
+        flash_backward_dq(x, x, x, bias, x, lse, lse[:, :4])
+
+
+def test_take_rows_backward_is_deterministic_on_the_card(cuda, rng):
+    from fedrec_tpu_torch.train.step import take_rows_backward, unique_padded
+
+    ids = torch.from_numpy(np.concatenate([rng.integers(1, 5000, 30000), np.zeros(8000, np.int64)]))
+    _, inv = unique_padded(ids.to(cuda), 4000)  # more distinct ids than slots: clamped
+    g = _t(rng.standard_normal((inv.numel(), 400)), cuda)
+    got = take_rows_backward(g, inv, 4096)
+    assert torch.equal(got, take_rows_backward(g, inv, 4096))
+    want = torch.zeros((4096, 400), dtype=torch.float64, device=cuda).index_add_(0, inv, g.double())
+    # an f32 sum of n unit-scale terms drifts by about sqrt(n) ulps; a wrong
+    # or missing term moves a row by O(1)
+    lengths = torch.bincount(inv, minlength=4096).double()[:, None]
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-5 * (1 + lengths)).all()), float(err.max())

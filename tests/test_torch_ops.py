@@ -193,7 +193,7 @@ def test_fused_user_vector_matches_jax_and_counts_no_launch_on_cpu(rng):
     got = fused_user_vector(torch.from_numpy(x), None, _weights(ap, pp), nh)
     assert got.shape == (2, b, d)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
-    assert set(launch_counts().values()) == {0} and len(launch_counts()) == 5
+    assert set(launch_counts().values()) == {0} and len(launch_counts()) == 9
 
 
 def test_additive_pool_grads_match_jax(rng):

@@ -1,6 +1,7 @@
-"""The port stands alone: ``fedrec_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX, Flax or the JAX package; entry points run on the GPU
-unless the caller asks for the CPU; CPU tensors never count a launch."""
+"""The port stands alone: ``fedrec_tpu_torch``, ``chip_smoke.py`` and
+``kernel_ab.py`` import nothing of JAX, Flax or the JAX package; entry
+points run on the GPU unless the caller asks for the CPU; CPU tensors never
+count a launch."""
 
 import ast
 import subprocess
@@ -52,7 +53,7 @@ def test_importing_every_module_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("path", ["package", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["package", "chip_smoke.py", "kernel_ab.py"])
 def test_no_jax_import_anywhere_in_the_source(path):
     files = sorted(PKG.rglob("*.py")) if path == "package" else [ROOT / path]
     found = []
@@ -113,7 +114,7 @@ def test_cpu_tensors_count_no_launch(rng):
     model = _tiny_model()
     table = encode_all_news(model, torch.randn((5, 5, 8)), device="cpu")
     build_recommend_fn(device="cpu")(model.user_encoder, table, torch.tensor([[1, 2, 0]]))
-    assert set(launch_counts().values()) == {0} and len(launch_counts()) == 5
+    assert set(launch_counts().values()) == {0} and len(launch_counts()) == 9
 
 
 def test_overrides_set_the_slice_and_reject_unknown_keys():

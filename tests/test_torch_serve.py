@@ -107,6 +107,27 @@ def test_build_recommend_fn_matches_jax(models, catalog, case):
             assert 0 not in row
 
 
+def test_build_recommend_fn_unfused_use_pallas_matches_jax(models, catalog):
+    """The long-history route: the unfused user tower under use_pallas
+    (flash attention, then the pool kernel) scoring 40-click histories."""
+    _, tree, _ = models
+    _, table, _ = catalog
+    kw = dict(_KW, fuse_hot_path=False)
+    jm = JaxNewsRecommender(JaxModelConfig(**kw))
+    tm = NewsRecommender(ModelConfig(**kw)).eval()
+    from_flax(tm, tree)
+    rng = np.random.default_rng(8)
+    hist = rng.integers(1, table.shape[0], (4, 40)).astype(np.int32)
+    hist[1, 25:] = 0
+    want_ids, want_scores = jax_build_recommend_fn(jm, top_k=7)(
+        tree["user_encoder"], jnp.asarray(table), jnp.asarray(hist)
+    )
+    ids, scores = build_recommend_fn(top_k=7, device="cpu")(
+        tm.user_encoder, torch.from_numpy(table), torch.from_numpy(hist)
+    )
+    _assert_topk_agree(ids.numpy(), scores.numpy(), np.asarray(want_ids), np.asarray(want_scores))
+
+
 def test_tiny_catalog_fills_the_tail_with_minus_one(models, catalog):
     jm, tree, tm = models
     _, table, _ = catalog

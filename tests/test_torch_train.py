@@ -51,7 +51,8 @@ from fedrec_tpu_torch.train import (
     resolve_unique_cap,
     unique_overflow,
 )
-from fedrec_tpu_torch.train.step import unique_padded
+from fedrec_tpu_torch.train import step as step_module
+from fedrec_tpu_torch.train.step import take_rows_backward, unique_padded
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_train import _batch_dict, make_setup, small_cfg  # noqa: E402
@@ -154,6 +155,31 @@ def test_kernel_autograd_functions_route_gradients(monkeypatch, rng):
     want = torch.autograd.grad(out.square().sum(), leaves)
     for g, h in zip(got, want):
         np.testing.assert_allclose(g.numpy(), h.numpy(), atol=1e-6)
+
+
+def test_take_rows_backward_is_a_deterministic_segment_sum():
+    """The slot gather's backward (``_TakeRows``) sums each slot's cotangents
+    in a fixed order, in memory linear in the ids (it used to build a
+    (slots x ids) one-hot): equal to index_add_ within 1e-6, bitwise
+    repeatable. The ids hold duplicates, overflow ids clamped onto the last
+    slot, and padding slots no id maps to."""
+    rng = np.random.default_rng(4)
+    ids = np.concatenate([rng.integers(1, 40, 300), np.zeros(60, np.int64),
+                          rng.integers(40, 90, 25)])      # 0 = history padding
+    uniq, inv = unique_padded(torch.from_numpy(ids), 45)  # cap 45 < distinct: clamped
+    assert int(inv.max()) == 44 and int((inv == 44).sum()) > 1
+    rows = 50                                             # 5 padding slots past the cap
+    g = torch.from_numpy(rng.standard_normal((inv.numel(), 16)).astype(np.float32))
+    got = take_rows_backward(g, inv, rows)
+    want = torch.zeros((rows, 16)).index_add_(0, inv, g)
+    assert got.shape == (rows, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+    assert torch.equal(got, take_rows_backward(g, inv, rows))
+    assert float(got[45:].abs().max()) == 0.0
+    # through autograd, as the train step gathers the candidate/history slots
+    vecs = torch.from_numpy(rng.standard_normal((rows, 16)).astype(np.float32)).requires_grad_()
+    (grad,) = torch.autograd.grad(step_module._TakeRows.apply(vecs, inv), vecs, g)
+    assert torch.equal(grad, got)
 
 
 # -------------------------------------------------------- loss and dedup
@@ -265,14 +291,24 @@ def test_synthetic_data_and_batches_equal_jax():
                 np.testing.assert_array_equal(getattr(b, f), getattr(a, f))
 
 
-# ---------------------------------------------- K=8 trajectories vs JAX
-def _port_cfg() -> ExperimentConfig:
+# ------------------------------------------ federated trajectories vs JAX
+# "grad_avg" / "param_avg": the fused route, K=8 clients, history 10;
+# "long_history": the unfused use_pallas route (flash attention and the
+# pool kernel in the user tower), param_avg, K=2 clients, history 40
+_TRAJ = {
+    "grad_avg": ("grad_avg", dict(fuse_hot_path=True), 8, 10),
+    "param_avg": ("param_avg", dict(fuse_hot_path=True), 8, 10),
+    "long_history": ("param_avg", dict(fuse_hot_path=False, use_pallas=True), 2, 40),
+}
+
+
+def _port_cfg(route: dict, clients: int, his_len: int) -> ExperimentConfig:
     return ExperimentConfig().apply_overrides([
         "model.news_dim=32", "model.num_heads=4", "model.head_dim=8", "model.query_dim=16",
-        "model.bert_hidden=48", "data.max_his_len=10", "data.max_title_len=12",
-        "data.batch_size=8", "fed.num_clients=8", "model.text_encoder_mode=head",
-        "model.fuse_hot_path=true", "model.dropout_rate=0.0",
-        "optim.user_lr=3e-3", "optim.news_lr=3e-3",
+        "model.bert_hidden=48", f"data.max_his_len={his_len}", "data.max_title_len=12",
+        "data.batch_size=8", f"fed.num_clients={clients}", "model.text_encoder_mode=head",
+        "model.dropout_rate=0.0", "optim.user_lr=3e-3", "optim.news_lr=3e-3",
+        *(f"model.{k}={v}" for k, v in route.items()),
     ])
 
 
@@ -305,21 +341,23 @@ def _assert_tree_close(got, want, path=""):
             np.testing.assert_allclose(got[key], sub, rtol=2e-4, atol=1e-4, err_msg=where)
 
 
-@pytest.mark.parametrize("strategy", ["grad_avg", "param_avg"])
-def test_fed_train_step_trajectory_matches_jax(strategy):
-    jcfg = small_cfg(optim__user_lr=3e-3, optim__news_lr=3e-3, model__fuse_hot_path=True,
-                     model__text_encoder_mode="head", model__dropout_rate=0.0)
+@pytest.mark.parametrize("case", list(_TRAJ))
+def test_fed_train_step_trajectory_matches_jax(case):
+    strategy, route, k, his_len = _TRAJ[case]
+    jcfg = small_cfg(optim__user_lr=3e-3, optim__news_lr=3e-3, model__text_encoder_mode="head",
+                     model__dropout_rate=0.0, fed__num_clients=k, data__max_his_len=his_len,
+                     **{f"model__{key}": v for key, v in route.items()})
     _, jbatcher, toks, jmodel, jstate, mesh = make_setup(jcfg, seed=0)
     jstep = jax_build_fed_train_step(jmodel, jcfg, jax_get_strategy(strategy), mesh, mode="joint")
 
-    cfg = _port_cfg()
+    cfg = _port_cfg(route, k, his_len)
     model = NewsRecommender(cfg.model)
     from_flax(model, _client_tree(jstate, 0))
-    states = replicate_state(init_client_state(model, cfg, seed=0), 8)
+    states = replicate_state(init_client_state(model, cfg, seed=0), k)
     step = build_fed_train_step(model, cfg, get_strategy(strategy), device="cpu")
     table = torch.from_numpy(np.array(toks))
 
-    for i, b in enumerate(jbatcher.epoch_batches_sharded(8, 0)):
+    for i, b in enumerate(jbatcher.epoch_batches_sharded(k, 0)):
         if i == 3:
             break
         jstate, jm = jstep(jstate, shard_batch(mesh, _batch_dict(b)), toks)
@@ -328,7 +366,7 @@ def test_fed_train_step_trajectory_matches_jax(strategy):
                                    rtol=1e-5, atol=1e-6, err_msg=f"step {i}")
         assert m["unique_overflow"] == 0
     if strategy == "param_avg":
-        jstate = jax_build_param_sync(jcfg, mesh)(jstate, jnp.ones((8,), jnp.float32))
-        states = build_param_sync(cfg)(states, np.ones(8))
-    for c in (0, 5):
+        jstate = jax_build_param_sync(jcfg, mesh)(jstate, jnp.ones((k,), jnp.float32))
+        states = build_param_sync(cfg)(states, np.ones(k))
+    for c in sorted({0, min(5, k - 1)}):
         _assert_tree_close(_to_flax(states[c].model), _client_tree(jstate, c))
