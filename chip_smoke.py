@@ -50,12 +50,13 @@ PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path")
 PATHS = ("main_path", "train_path", "long_path")
 DEV = "cuda"
 
-# Published peaks (data sheets): FP32 outside the tensor cores, dense bf16
-# tensor-core rate, HBM bandwidth. Bounds use the row of the card in use.
+# Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
+# and bf16 tensor-core rates, HBM bandwidth. Bounds use the row of the card
+# in use.
 _PEAKS = {
-    "H100 PCIe": {"f32": 51.2e12, "bf16": 756e12, "bytes": 2.0e12},
-    "H100": {"f32": 67e12, "bf16": 989e12, "bytes": 3.35e12},   # SXM
-    "H200": {"f32": 67e12, "bf16": 989e12, "bytes": 4.8e12},
+    "H100 PCIe": {"f32": 51.2e12, "tf32": 378e12, "bf16": 756e12, "bytes": 2.0e12},
+    "H100": {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12},   # SXM
+    "H200": {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "bytes": 4.8e12},
 }
 
 # f32 tolerance: kernel and plain version sum the same f32 products in
@@ -152,69 +153,90 @@ def peaks_for(name: str) -> dict:
     return dict(_PEAKS["H100"], table_row="H100 (card not in table)")
 
 
-def bound(flops: float, nbytes: float, peak_ops: float, peaks: dict) -> tuple[float, str]:
-    t_ops = flops / peak_ops * 1e3
+def bound(cost: tuple[float, float, float], dtype: str, peaks: dict) -> tuple[float, str]:
+    """The least time (ms) the card needs for a kernel's work: the larger of
+    its operations and its bytes. ``cost`` is (matrix-product FLOPs, other
+    FLOPs, bytes). Products run at the tensor cores' rate that keeps the
+    operand precision (f32: three TF32 passes, so TF32 peak / 3; bf16: the
+    bf16 peak), the rest at the CUDA-core f32 peak."""
+    mm, rest, nbytes = cost
+    mm_rate = peaks["tf32"] / 3 if dtype == "float32" else peaks["bf16"]
+    t_ops = (mm / mm_rate + rest / peaks["f32"]) * 1e3
     t_bytes = nbytes / peaks["bytes"] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def pool_cost(n: int, L: int, D: int, hd: int, itemsize: int) -> tuple[float, float]:
-    """FLOPs and bytes of additive_pool on (n, L, D) with hidden hd."""
-    flops = n * L * (2 * D * hd + 2 * hd + 2 * D) + n * L * hd  # products + bias
+def cuda_core_bound(cost: tuple[float, float, float], peaks: dict) -> float:
+    """The bound with every FLOP on CUDA cores at the f32 peak (the bound the
+    kernel table used before the tensor-core rates), ms."""
+    mm, rest, nbytes = cost
+    return max((mm + rest) / peaks["f32"], nbytes / peaks["bytes"]) * 1e3
+
+
+def pool_cost(n: int, L: int, D: int, hd: int, itemsize: int):
+    """(product FLOPs, other FLOPs, bytes) of additive_pool on (n, L, D)
+    with hidden hd: the x W1 product; logits, bias and weighted sum."""
+    mm = n * L * 2 * D * hd
+    rest = n * L * (2 * hd + 2 * D) + n * L * hd
     nbytes = n * L * D * itemsize + (D * hd + 2 * hd) * 4 + n * D * itemsize
-    return flops, nbytes
+    return mm, rest, nbytes
 
 
 def hist_cost(n: int, H: int, D: int, Q: int, nh: int, C: int, itemsize: int):
-    """FLOPs and bytes of fused_history_score on n rows of (H, D)."""
+    """(product FLOPs, other FLOPs, bytes) of fused_history_score on n rows
+    of (H, D)."""
     dh = D // nh
-    per_row = (
-        3 * 2 * H * D * D          # q, k, v projections
-        + nh * 2 * 2 * H * H * dh  # scores and a . v per head
-        + 2 * H * D * Q + 2 * H * Q  # pool hidden and logits
-        + 2 * H * D + 2 * C * D    # user vector and candidate scores
-    )
+    mm = n * (3 * 2 * H * D * D          # q, k, v projections
+              + nh * 2 * 2 * H * H * dh  # scores and a . v per head
+              + 2 * H * D * Q)           # pool hidden
+    rest = n * (2 * H * Q + 2 * H * D + 2 * C * D)  # logits, user vector, scores
     weights = (3 * D * D + 3 * D + D * Q + 2 * Q) * itemsize
     nbytes = n * (H * D + C * D + D + C) * itemsize + n * H * 4 + weights
-    return n * per_row, nbytes
+    return mm, rest, nbytes
 
 
 def gather_cost(U: int, T: int, Dh: int, Ah: int, D: int, itemsize: int):
-    """FLOPs and bytes of fused_gather_encode (kernel C) on U ids."""
-    per_id = (2 * T * Dh * Ah + 2 * T * Ah   # pool hidden and logits
-              + 2 * T * Dh + 2 * Dh * D)     # weighted sum and projection
+    """(product FLOPs, other FLOPs, bytes) of fused_gather_encode (kernel C)
+    on U ids: the x W1 rows and the fc projection; logits and pool."""
+    mm = U * (2 * T * Dh * Ah + 2 * Dh * D)
+    rest = U * (2 * T * Ah + 2 * T * Dh)
     weights = (Dh * Ah + 2 * Ah + Dh * D + D) * itemsize
-    return U * per_id, U * (T * Dh + D) * itemsize + U * 8 + weights
+    return mm, rest, U * (T * Dh + D) * itemsize + U * 8 + weights
 
 
 def gather_bwd_cost(U: int, T: int, Dh: int, Ah: int, D: int, itemsize: int):
-    """FLOPs and bytes of fused_gather_encode_bwd (kernel D): the per-id
-    recompute and walk back, then the weight sums over U x T rows."""
-    per_id = (2 * T * Dh * Ah + 2 * T * Ah + 2 * T * Dh   # recompute
-              + 2 * Dh * D + 2 * T * Dh + 4 * T * Ah)     # dpooled, dalpha, dpre, dw2
-    sums = 2 * U * T * Dh * Ah + U * T * Ah + U * Ah + 2 * U * Dh * D + U * D
+    """(product FLOPs, other FLOPs, bytes) of fused_gather_encode_bwd (kernel
+    D): the recompute of x W1, dpooled = g fcW^T, dW1 and dfcW are products;
+    the walk back per id and the column sums are the rest."""
+    mm = U * (2 * T * Dh * Ah + 2 * Dh * D) + 2 * U * T * Dh * Ah + 2 * U * Dh * D
+    rest = (U * (2 * T * Ah + 2 * T * Dh + 2 * T * Dh + 4 * T * Ah)
+            + U * T * Ah + U * Ah + U * D)
     weights = (Dh * Ah + 2 * Ah + Dh * D) * itemsize
     grads = (Dh * Ah + 2 * Ah + Dh * D + D) * itemsize
-    return U * per_id + sums, U * T * Dh * itemsize + U * 8 + U * D * 4 + weights + grads
+    return mm, rest, U * T * Dh * itemsize + U * 8 + U * D * 4 + weights + grads
 
 
 def hist_bwd_cost(n: int, H: int, D: int, Q: int, nh: int, C: int, itemsize: int):
-    """FLOPs and bytes of fused_history_score_bwd (kernel E): kernel B's
-    forward recomputed, the walk back per row, then the weight sums."""
+    """(product FLOPs, other FLOPs, bytes) of fused_history_score_bwd
+    (kernel E): kernel B's forward recomputed, the walk back per row, then
+    the weight sums."""
     dh = D // nh
-    fwd, _ = hist_cost(n, H, D, Q, nh, C, itemsize)
-    per_row = (4 * C * D + 2 * H * D + 4 * H * Q + 2 * H * Q * D + 2 * H * D  # scorer, pool
-               + nh * 5 * 2 * H * H * dh                                       # attention
-               + 3 * 2 * H * D * D)                                            # dx
-    sums = 3 * (2 * n * H * D * D + n * H * D) + 2 * n * H * D * Q + n * H * Q + n * Q
+    fwd_mm, fwd_rest, _ = hist_cost(n, H, D, Q, nh, C, itemsize)
+    mm = fwd_mm + n * (2 * H * Q * D                 # pool hidden, back
+                       + nh * 5 * 2 * H * H * dh     # attention
+                       + 3 * 2 * H * D * D)          # dx
+    mm += 3 * 2 * n * H * D * D + 2 * n * H * D * Q  # weight sums
+    rest = fwd_rest + n * (4 * C * D + 2 * H * D + 4 * H * Q + 2 * H * D)
+    rest += 3 * n * H * D + n * H * Q + n * Q
     weights = (3 * D * D + 3 * D + D * Q + 2 * Q) * itemsize
     io = n * (2 * H * D + 2 * C * D) * itemsize + n * (C + D) * 4 + n * H * 4
-    return fwd + n * per_row + sums, io + 2 * weights
+    return mm, rest, io + 2 * weights
 
 
 def flash_cost(bh: int, lq: int, lk: int, dk: int, dv: int, which: str, itemsize: int):
-    """FLOPs (the products: 2 per multiply-add) and bytes of kernel F1
-    ("fwd"), F2 ("dq") or F3 ("dkv") on (bh, L, d) operands."""
+    """(product FLOPs, other FLOPs, bytes) of kernel F1 ("fwd"), F2 ("dq")
+    or F3 ("dkv") on (bh, L, d) operands: the products (2 per multiply-add)
+    only."""
     pairs = bh * lq * lk
     per_pair = {"fwd": 2 * (dk + dv), "dq": 2 * (2 * dk + dv), "dkv": 2 * (2 * dk + 2 * dv)}[which]
     rows_q, rows_k = bh * lq, bh * lk
@@ -224,7 +246,7 @@ def flash_cost(bh: int, lq: int, lk: int, dk: int, dv: int, which: str, itemsize
         nbytes = (2 * rows_q * dk + rows_k * (dk + dv) + rows_q * dv) * itemsize + (rows_k + 2 * rows_q) * 4
     else:                # q, k, v, g, bias, lse, delta in; dk, dv, dbias out
         nbytes = (rows_q * (dk + dv) + 2 * rows_k * (dk + dv)) * itemsize + (2 * rows_k + 2 * rows_q) * 4
-    return pairs * per_pair, nbytes
+    return pairs * per_pair, 0, nbytes
 
 
 def within_grad(got, want, dtype) -> tuple[bool, float, str]:
@@ -394,15 +416,14 @@ def phase_kernels(state: dict, args) -> dict:
     a_plain = time_ms(lambda: additive_pool_plain(xt, w1, b1, w2), reps=5)
     a_bf = xt.to(torch.bfloat16)
     a_ms_bf16 = time_ms(lambda: additive_pool(a_bf, w1, b1, w2), reps=10)
-    flops, nbytes = pool_cost(n_t, L, D, hd, 4)
-    a_bound, a_by = bound(flops, nbytes, peaks["f32"], peaks)
-    flops_bf, nbytes_bf = pool_cost(n_t, L, D, hd, 2)
-    a_bound_bf16, _ = bound(flops_bf, nbytes_bf, peaks["bf16"], peaks)
+    a_cost = pool_cost(n_t, L, D, hd, 4)
+    a_bound, a_by = bound(a_cost, "float32", peaks)
+    a_bound_bf16, _ = bound(pool_cost(n_t, L, D, hd, 2), "bfloat16", peaks)
     del xt, a_bf
     state["timing"] = {"additive_pool": {
         "shape": [n_t, L, D], "dtype": "float32", "ms": a_ms, "plain_ms": a_plain,
-        "bound_ms": a_bound, "bound_by": a_by, "library_ms": None,
-        "bf16_ms": a_ms_bf16, "bf16_bound_ms": a_bound_bf16,
+        "bound_ms": a_bound, "bound_by": a_by, "cuda_core_bound_ms": cuda_core_bound(a_cost, peaks),
+        "library_ms": None, "bf16_ms": a_ms_bf16, "bf16_bound_ms": a_bound_bf16,
     }}
 
     # ---- kernel B at every serving bucket, H=50, D=400, 20 heads, Q=200
@@ -430,9 +451,10 @@ def phase_kernels(state: dict, args) -> dict:
         x = torch.randn((b, H, D), generator=gen, device=DEV)
         k_ms = time_ms(lambda: fused_history_score(x, None, None, w32, nh), reps=50)
         p_ms = time_ms(lambda: fused_history_score_plain(x, None, None, w32, nh), reps=20)
-        flops, nbytes = hist_cost(b, H, D, Q, nh, 0, 4)
-        bms, by = bound(flops, nbytes, peaks["f32"], peaks)
-        b_times[b] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by}
+        cost = hist_cost(b, H, D, Q, nh, 0, 4)
+        bms, by = bound(cost, "float32", peaks)
+        b_times[b] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                      "cuda_core_bound_ms": cuda_core_bound(cost, peaks)}
     state["timing"]["fused_history_score"] = dict(
         b_times[128], shape=[128, H, D, 0], dtype="float32", library_ms=None,
         by_bucket=b_times,
@@ -511,16 +533,19 @@ def _check_backward_kernels(state: dict, args, gen, record) -> None:
         del table, head
     c_ms = time_ms(lambda: fused_gather_encode(table32, ids, head32), reps=10)
     c_plain = time_ms(lambda: fused_gather_encode_plain(table32, ids, head32), reps=5)
-    c_bound, c_by = bound(*gather_cost(U, L, Dh, Ah, D, 4), peaks["f32"], peaks)
+    c_cost = gather_cost(U, L, Dh, Ah, D, 4)
+    c_bound, c_by = bound(c_cost, "float32", peaks)
     d_ms = time_ms(lambda: fused_gather_encode_bwd(table32, ids, head32, g32), reps=5)
     d_plain = time_ms(lambda: fused_gather_encode_bwd_plain(table32, ids, head32, g32), reps=3)
-    d_bound, d_by = bound(*gather_bwd_cost(U, L, Dh, Ah, D, 4), peaks["f32"], peaks)
-    for name, ms, plain_ms, bms, by in (
-        ("fused_gather_encode", c_ms, c_plain, c_bound, c_by),
-        ("fused_gather_encode_bwd", d_ms, d_plain, d_bound, d_by),
+    d_cost = gather_bwd_cost(U, L, Dh, Ah, D, 4)
+    d_bound, d_by = bound(d_cost, "float32", peaks)
+    for name, ms, plain_ms, bms, by, cost in (
+        ("fused_gather_encode", c_ms, c_plain, c_bound, c_by, c_cost),
+        ("fused_gather_encode_bwd", d_ms, d_plain, d_bound, d_by, d_cost),
     ):
         state["timing"][name] = {"shape": [U, L, Dh, D], "dtype": "float32", "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                                 "cuda_core_bound_ms": cuda_core_bound(cost, peaks),
                                  "library_ms": None}
     del table32, g32
 
@@ -552,10 +577,12 @@ def _check_backward_kernels(state: dict, args, gen, record) -> None:
                 record("fused_history_score_bwd:" + name, [n, H, D, C], dt, kind, ok, err, tol)
     e_ms = time_ms(lambda: fused_history_score_bwd(x32, c32, None, w32, gs, gu, nh), reps=10)
     e_plain = time_ms(lambda: fused_history_score_bwd_plain(x32, c32, None, w32, gs, gu, nh), reps=5)
-    e_bound, e_by = bound(*hist_bwd_cost(n, H, D, Q, nh, C, 4), peaks["f32"], peaks)
+    e_cost = hist_bwd_cost(n, H, D, Q, nh, C, 4)
+    e_bound, e_by = bound(e_cost, "float32", peaks)
     state["timing"]["fused_history_score_bwd"] = {
         "shape": [n, H, D, C], "dtype": "float32", "ms": e_ms, "plain_ms": e_plain,
-        "bound_ms": e_bound, "bound_by": e_by, "library_ms": None,
+        "bound_ms": e_bound, "bound_by": e_by, "cuda_core_bound_ms": cuda_core_bound(e_cost, peaks),
+        "library_ms": None,
     }
 
 
@@ -654,10 +681,11 @@ def _check_long_kernels(state: dict, args, gen, record) -> None:
         ("flash_backward_dq", "dq", dq_ms, dq_plain, lib_bwd),
         ("flash_backward_dkv", "dkv", dkv_ms, dkv_plain, lib_bwd),
     ):
-        flops, nbytes = flash_cost(bh, L, L, d, d, which, 4)
-        bms, by = bound(flops, nbytes, peaks["f32"], peaks)
+        cost = flash_cost(bh, L, L, d, d, which, 4)
+        bms, by = bound(cost, "float32", peaks)
         timing[name] = {"shape": [bh, L, d], "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bms, "bound_by": by, "gflop": flops / 1e9,
+                        "bound_ms": bms, "bound_by": by, "gflop": cost[0] / 1e9,
+                        "cuda_core_bound_ms": cuda_core_bound(cost, peaks),
                         "library_ms": lib, "library": "F.scaled_dot_product_attention "
                         + ("forward" if which == "fwd" else "backward (dq, dk, dv together)")}
     timing["flash_forward"]["library_max_abs_err"] = lib_err
@@ -680,9 +708,11 @@ def _check_long_kernels(state: dict, args, gen, record) -> None:
             record("additive_pool_long", [n, L, D], dt, kind, ok, err, tol)
     a2_ms = time_ms(lambda: additive_pool_long(x32, w1, b1, w2), reps=10)
     a2_plain = time_ms(lambda: additive_pool_plain(x32, w1, b1, w2), reps=5)
-    a2_bound, a2_by = bound(*pool_cost(n, L, D, hd, 4), peaks["f32"], peaks)
+    a2_cost = pool_cost(n, L, D, hd, 4)
+    a2_bound, a2_by = bound(a2_cost, "float32", peaks)
     timing["additive_pool_long"] = {"shape": [n, L, D], "dtype": "float32", "ms": a2_ms,
                                     "plain_ms": a2_plain, "bound_ms": a2_bound, "bound_by": a2_by,
+                                    "cuda_core_bound_ms": cuda_core_bound(a2_cost, peaks),
                                     "library_ms": None}
     del x32
 
@@ -1439,6 +1469,15 @@ def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
     step1 = build_fed_train_step(model, cfg, get_strategy("local"), device=dev)
     breakdown = _device_breakdown(lambda: step1(states[:1], one, tokens)[1]["loss"].tolist(),
                                   reps=2, top=12)
+    # kernel A on the unfused text head: one launch a client step over the
+    # step's U deduplicated slots, its device time from the breakdown
+    U, Dh = min(B * (1 + dc.npratio + H), N), mc.bert_hidden
+    a_cost = pool_cost(U, T, Dh, Dh // 2, 4)
+    a_us = [r["us_per_call"] for r in breakdown["top"] if "additive_pool_kernel<float>" in r["kernel"]]
+    text_head_pool = {"shape": [U, T, Dh], "hidden": Dh // 2, "launches_per_client_step": 1,
+                      "device_ms": a_us[0] / 1e3 if a_us else None,
+                      "bound_ms": bound(a_cost, "float32", state["peaks"])[0],
+                      "cuda_core_bound_ms": cuda_core_bound(a_cost, state["peaks"])}
     del states, step, step1
     torch.cuda.empty_cache()
 
@@ -1493,6 +1532,7 @@ def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
         "unique_overflow": overflow,
         "launches": launches,
         "step_device_breakdown": breakdown,
+        "text_head_pool": text_head_pool,
         "max_abs_err_vs_plain": errs,
         "trajectory_losses_kernel_vs_dense": traj,
         "trajectory_max_param_diff": worst,

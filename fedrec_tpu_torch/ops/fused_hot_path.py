@@ -6,8 +6,9 @@
   user vector, and dot scores against C candidates, in one launch per batch.
   ``fused_user_vector`` is the serving entry (no candidates).
 * ``fused_gather_encode`` (kernels C and D, ``csrc/fused_gather_encode.cu``):
-  the frozen token-state table gather and the additive text head, one block
-  per unique news id; the (U, T, Dh) gather never exists in device memory,
+  the frozen token-state table gather and the additive text head, its
+  products on the tensor cores (3xTF32 in f32) over the gathered rows; the
+  (U, T, Dh) gather never exists in device memory,
   forward or backward, and the table gets no cotangent (the trunk is frozen).
 
 Numerics follow the JAX kernels: every normalization is the module's
@@ -410,10 +411,12 @@ def fused_gather_encode_plain(
 
 def _gather_lib() -> ctypes.CDLL:
     return _build.bind(_GATHER, {
-        "fused_gather_encode_launch": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+        "fused_gather_encode_launch": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
         "fused_gather_encode_bwd_launch": ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
         "fused_gather_encode_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
+        "fused_gather_encode_scratch_floats": ([ctypes.c_int] * 5, ctypes.c_size_t),
         "fused_gather_encode_bwd_scratch_floats": ([ctypes.c_int] * 5, ctypes.c_size_t),
+        "fused_gather_encode_tf32_check": ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     })
 
 
@@ -424,8 +427,10 @@ def _check_gather(name, table, uniq, w: TextHeadWeights) -> tuple[int, int, int,
         raise ValueError(f"{name}: the table must be contiguous (N, T, Dh), got {tuple(table.shape)}")
     n, t, dh = table.shape
     ah, d = w.w1.shape[-1], w.fcw.shape[-1]
-    if dh % 4:
-        raise ValueError(f"{name}: Dh={dh} must divide by 4")
+    if dh % 4 or ah % 4:
+        raise ValueError(f"{name}: Dh={dh} and Ah={ah} must divide by 4 (16-byte row copies)")
+    if table.data_ptr() % 16 or w.w1.data_ptr() % 16:
+        raise ValueError(f"{name}: the table and w1 must start on a 16-byte boundary")
     if uniq.dim() != 1 or uniq.dtype != torch.int64 or uniq.device != table.device or not uniq.is_contiguous():
         raise ValueError(f"{name}: ids must be a contiguous int64 vector on {table.device}")
     shapes = {"w1": (dh, ah), "b1": (ah,), "w2": (ah,), "fcw": (dh, d), "fcb": (d,)}
@@ -439,11 +444,14 @@ def _launch_gather(table, uniq, w: TextHeadWeights) -> torch.Tensor:
     """Kernel C on CUDA tensors: checks, allocates, launches, or raises."""
     n, t, dh, ah, d = _check_gather(_GATHER, table, uniq, w)
     u = uniq.shape[0]
+    lib = _gather_lib()
     out = torch.empty((u, d), dtype=table.dtype, device=table.device)
+    scratch = torch.empty(lib.fused_gather_encode_scratch_floats(u, t, dh, ah, d),
+                          dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
-        err = _gather_lib().fused_gather_encode_launch(
+        err = lib.fused_gather_encode_launch(
             table.data_ptr(), uniq.data_ptr(), *(x.data_ptr() for x in w), out.data_ptr(),
-            u, n, t, dh, ah, d, _dtype_code(_GATHER, table.dtype), _stream(table.device),
+            scratch.data_ptr(), u, n, t, dh, ah, d, _dtype_code(_GATHER, table.dtype), _stream(table.device),
         )
     _build.check(err, _GATHER)
     fused_gather_encode.launches += 1

@@ -1,24 +1,45 @@
 #!/usr/bin/env python3
-"""Time the long-history kernels of one checkout of the port on the card.
+"""Time the kernels of one checkout of the port on the card, for A/B runs.
 
 Usage:
-  python3 kernel_ab.py [ROOT]    # ROOT holds fedrec_tpu_torch/ (default: .)
+  python3 kernel_ab.py [ROOT] [--only text_head|long] [--profile] [--ptxas]
+  # ROOT holds fedrec_tpu_torch/ (default: .)
 
-Kernel A2 (``additive_pool_long``) at (n, 2048, 400), hidden 200, for n = 1,
-16 and 128, and kernels F1, F2, F3 at the long path's attention shape
-(16 x 20 heads, L = 2048, width 20), f32, with CUDA events. Prints one JSON
-line: ms per launch, A2's largest error against its plain version and
-whether a repeat gives the same bits, and a hash of the flash outputs
-(equal hashes: equal results). To compare two checkouts on one card, run
-it for both on the same machine, in turns (a, b, b, a). Needs a CUDA device.
+``text_head``: kernels C (``fused_gather_encode``) and D
+(``fused_gather_encode_bwd``) at the train path's shape (U = 3,520 ids of a
+16,384-row (50, 768) table, Ah = 384, D = 400), f32 and bf16, each with its
+largest error against its plain version (D's relative to each gradient's
+largest value) and whether a repeat gives the same bits; and a hash of
+kernel E's outputs (``fused_history_score_bwd`` at n = 64, H = 50, D = 400,
+C = 5), which a change to C and D must leave equal.
+``long``: kernel A2 (``additive_pool_long``) at (n, 2048, 400), hidden 200,
+for n = 1, 16 and 128, and kernels F1, F2, F3 at the long path's attention
+shape (16 x 20 heads, L = 2048, width 20), f32, with a hash of the flash
+outputs. Both by default.
+``--profile``: also the device time of each CUDA kernel that C and D launch
+(``torch.profiler``), f32 and bf16, per call.
+``--ptxas``: also build ``fused_gather_encode.cu`` with ``-Xptxas -v`` into
+``ROOT/build/kernel_ab/`` and report each kernel's registers, spills and
+shared memory, and the ``HMMA`` (tensor-core) instructions ``cuobjdump
+-sass`` finds in it.
+
+Times are CUDA-event means. Prints one JSON line (equal hashes: equal
+results). To compare two checkouts on one card, run it for both on the same
+machine, in turns (a, b, b, a). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import math
+import os
+import re
+import shutil
+import subprocess
 import sys
+from pathlib import Path
 
 
 def time_ms(fn, reps: int) -> float:
@@ -36,23 +57,140 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main(argv: list[str]) -> int:
-    root = argv[0] if argv else "."
-    sys.path.insert(0, root)
+def _profile(fn, reps: int = 5) -> dict:
+    """Device ms per call of each CUDA kernel ``fn`` launches."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("kernel_ab: needs a CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = float(getattr(ev, "self_device_time_total", 0.0))
+        if us > 0:
+            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = re.sub(r"\(.*", "", name)
+            out[name] = out.get(name, 0.0) + us / reps / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _ptxas(root: str) -> dict:
+    """Registers, spills, shared memory and HMMA count of each kernel in
+    fused_gather_encode.cu, built here with -Xptxas -v."""
+    from fedrec_tpu_torch.ops import _build
+
+    src = Path(root) / "fedrec_tpu_torch" / "ops" / "csrc" / "fused_gather_encode.cu"
+    out_dir = Path(root) / "build" / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "fused_gather_encode_ptxas.so"
+    log = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)],
+                         capture_output=True, text=True, check=True).stderr
+
+    def short(mangled: str) -> str:
+        """A kernel's name and template arguments from its mangled symbol:
+        the first length-prefixed name ending in _kernel."""
+        for m in re.finditer(r"\d+", mangled):
+            # a length prefix may follow other digits (an anonymous namespace's hash)
+            lengths = (int(m.group()[i:]) for i in range(len(m.group())))
+            name = next((mangled[m.end():m.end() + n] for n in lengths
+                         if mangled[m.end():m.end() + n].endswith("_kernel")), "")
+            if name:
+                args = mangled[m.end() + len(name):]
+                args = args[:args.index("E") + 1] if args.startswith("I") else ""
+                dt = "bf16" if "bfloat16" in args else ("f32" if args.startswith("If") else "")
+                return f"{name}<{dt}{',e32' if 'Lb1' in args else ''}>" if dt else name
+        return mangled
+
+    kernels, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = short(m.group(1))
+            while name in kernels:  # two instances with one short name
+                name += "'"
+            cur = kernels[name] = {"mangled": m.group(1)}
+        elif cur is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"), ("static_smem", r"(\d+) bytes smem")):
+                hit = re.search(pat, line)
+                if hit:
+                    cur[key] = int(hit.group(1))
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = next((k for k, v in kernels.items() if v.get("mangled") == m.group(1)), None)
+        elif fn in kernels and "HMMA" in line:
+            kernels[fn]["hmma"] = kernels[fn].get("hmma", 0) + 1
+    for k in kernels.values():
+        k.setdefault("hmma", 0)
+    for k in kernels.values():
+        k.pop("mangled")
+    return kernels
+
+
+def _text_head(res: dict, rnd, gen, profile: bool) -> None:
+    import torch
+    from fedrec_tpu_torch.ops import fused_hot_path as fh
+
+    N, T, Dh, Ah, D, U = 16384, 50, 768, 384, 400, 3520
+    table32 = rnd(N, T, Dh)
+    real = U - U // 64  # the dedup's static slots, padded with id 0
+    ids = torch.sort(torch.randperm(N - 1, generator=gen, device="cuda")[:real] + 1).values
+    ids = torch.cat([ids, torch.zeros(U - real, dtype=torch.int64, device="cuda")])
+    head32 = fh.TextHeadWeights(rnd(Dh, Ah) / math.sqrt(Dh), rnd(Ah) * 0.02,
+                                rnd(Ah) / math.sqrt(Ah), rnd(Dh, D) / math.sqrt(Dh),
+                                rnd(D) * 0.02)
+    g = rnd(U, D)
+    g[real:] = 0.0
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        table, head = table32.to(dt), head32.to(dt)
+        res[f"C_ms_{tag}"] = time_ms(lambda: fh.fused_gather_encode(table, ids, head), 10)
+        res[f"D_ms_{tag}"] = time_ms(lambda: fh.fused_gather_encode_bwd(table, ids, head, g), 5)
+        out = fh.fused_gather_encode(table, ids, head)
+        res[f"C_err_{tag}"] = float((out.float() - fh.fused_gather_encode_plain(table, ids, head)
+                                     .float()).abs().max())
+        res[f"C_repeats_{tag}"] = bool(torch.equal(out, fh.fused_gather_encode(table, ids, head)))
+        got = fh.fused_gather_encode_bwd(table, ids, head, g)
+        want = fh.fused_gather_encode_bwd_plain(table, ids, head, g)
+        res[f"D_rel_err_{tag}"] = max(
+            float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+            for a, b in zip(got, want))
+        again = fh.fused_gather_encode_bwd(table, ids, head, g)
+        res[f"D_repeats_{tag}"] = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        if profile:
+            res[f"C_kernels_ms_{tag}"] = _profile(lambda: fh.fused_gather_encode(table, ids, head))
+            res[f"D_kernels_ms_{tag}"] = _profile(lambda: fh.fused_gather_encode_bwd(table, ids, head, g))
+        del table, head, out, got, want, again
+    del table32
+    # kernel E at the train path's shape: its outputs must not move
+    n, H, Dm, Q, nh, C = 64, 50, 400, 200, 20, 5
+    lim = math.sqrt(6.0 / (2 * Dm))  # xavier-uniform bound of a (D, D) kernel
+
+    def uni(*shape):
+        return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) * lim
+
+    w = fh.UserTowerWeights(uni(Dm, Dm), rnd(Dm) * 0.02, uni(Dm, Dm), rnd(Dm) * 0.02,
+                            uni(Dm, Dm), rnd(Dm) * 0.02, rnd(Dm, Q) / math.sqrt(Dm),
+                            rnd(Q) * 0.02, rnd(Q) / math.sqrt(Q))
+    x, cand, gs, gu = rnd(n, H, Dm), rnd(n, C, Dm), rnd(n, C), rnd(n, Dm)
+    dx, dcand, dw = fh.fused_history_score_bwd(x, cand, None, w, gs, gu, nh)
+    h = hashlib.sha256()
+    for t in (dx, dcand, *dw):
+        h.update(t.cpu().numpy().tobytes())
+    res["E_outputs_sha256"] = h.hexdigest()[:16]
+
+
+def _long(res: dict, rnd) -> None:
+    import torch
     from fedrec_tpu_torch.ops import attention_kernels as ak
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    res = {"module": ak.__file__, "card": torch.cuda.get_device_name(0)}
     w1, b1, w2 = rnd(400, 200) / 20, rnd(200) * 0.02, rnd(200) / math.sqrt(200)
     for n in (1, 16, 128):
         x = rnd(n, 2048, 400)
@@ -72,6 +210,38 @@ def main(argv: list[str]) -> int:
               *ak.flash_backward_dkv(q, k, v, bias, g, lse, delta)):
         h.update(t.cpu().numpy().tobytes())
     res["flash_outputs_sha256"] = h.hexdigest()[:16]
+
+
+def main(argv: list[str]) -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("root", nargs="?", default=".")
+    p.add_argument("--only", choices=("text_head", "long"))
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--ptxas", action="store_true")
+    args = p.parse_args(argv)
+    root, only = args.root, args.only
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fedrec_tpu_torch.ops import fused_hot_path
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    res = {"module": fused_hot_path.__file__, "card": torch.cuda.get_device_name(0)}
+    if only in (None, "text_head"):
+        _text_head(res, rnd, gen, args.profile)
+        if args.ptxas:
+            res["ptxas"] = _ptxas(root)
+    if only in (None, "long"):
+        _long(res, rnd)
     print(json.dumps(res), flush=True)
     return 0
 

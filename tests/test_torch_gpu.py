@@ -256,6 +256,65 @@ def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
         _close_grad(a, b_, dtype, name)
 
 
+# (table rows, T, Dh, Ah, D, ids): the row tiling's edges of kernels C and D
+_GATHER_EDGES = {
+    "one_id": (5, 50, 768, 384, 400, [3]),
+    "rows_not_a_tile_multiple": (8, 50, 768, 384, 400, [1, 6, 2]),   # R = 150
+    "ids_at_the_clamp_edges": (6, 7, 48, 24, 20, [-1, 6, 2, 5, 0]),
+    "all_padded": (6, 33, 64, 40, 24, [0, 0, 0, 0]),
+    "full_width": (64, 50, 768, 384, 400, "random_300"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_GATHER_EDGES))
+def test_fused_gather_encode_row_tiling_edges(cuda, rng, dtype, case):
+    """One id, R = U T not a multiple of the 64-row tile, ids out of range
+    (clamped into the table, as JAX's gather clamps), every slot padded with
+    g = 0, and the full width at U = 300: kernels C and D against the plain
+    versions (given the clamped ids) at the bars above."""
+    n, t, dh, ah, d, ids = _GATHER_EDGES[case]
+    table = _t(rng.standard_normal((n, t, dh)), cuda, dtype)
+    if ids == "random_300":
+        ids = rng.integers(0, n, 300).tolist()
+    ids = torch.tensor(ids, dtype=torch.int64, device=cuda)
+    w = _head(rng, dh, ah, d, cuda, dtype)
+    g = _t(rng.standard_normal((ids.numel(), d)), cuda)
+    if case == "all_padded":
+        g.zero_()
+    reset_launch_counts()
+    out = fused_gather_encode(table, ids, w)
+    got = fused_gather_encode_bwd(table, ids, w, g)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_gather_encode"] == 1
+    assert launch_counts()["fused_gather_encode_bwd"] == 1
+    clamped = ids.clamp(0, n - 1)
+    _close(out, fused_gather_encode_plain(table, clamped, w), dtype)
+    want = fused_gather_encode_bwd_plain(table, clamped, w, g)
+    for name, a, b in zip(TextHeadWeights._fields, got, want):
+        _close_grad(a, b, dtype, name)
+        if case == "all_padded":
+            assert not bool(a.any()), f"{name}: g = 0 must add exactly zero"
+
+
+def test_tf32_split_rounding_is_cvt_rna(cuda, rng):
+    """Kernels C and D round f32 to TF32 with two integer ops; on the card
+    they must give the bits of cvt.rna.tf32.f32 itself, ties included."""
+    from fedrec_tpu_torch.ops import fused_hot_path as fh
+
+    bits = rng.integers(0x00800000, 0x7F000000, 1 << 16, dtype=np.uint32)  # finite normals
+    bits[::4] = (bits[::4] & np.uint32(0xFFFFE000)) | np.uint32(0x1000)      # exact ties
+    bits[1::2] |= np.uint32(0x80000000)                                     # and negatives
+    x = torch.from_numpy(bits.view(np.float32)).to(cuda)
+    by_ops, by_cvt = (torch.empty(x.shape, dtype=torch.int32, device=cuda) for _ in range(2))
+    err = fh._gather_lib().fused_gather_encode_tf32_check(
+        x.data_ptr(), by_ops.data_ptr(), by_cvt.data_ptr(), x.numel(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(by_ops, by_cvt)
+
+
 def test_backward_kernels_are_deterministic(cuda, rng):
     table = _t(rng.standard_normal((30, 50, 768)), cuda)
     ids = torch.from_numpy(rng.integers(0, 30, 64)).to(cuda)
