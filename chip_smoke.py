@@ -420,10 +420,23 @@ def phase_kernels(state: dict, args) -> dict:
     a_bound, a_by = bound(a_cost, "float32", peaks)
     a_bound_bf16, _ = bound(pool_cost(n_t, L, D, hd, 2), "bfloat16", peaks)
     del xt, a_bf
+    # and at the long path's text head: one launch a client step over
+    # U = B x (1 + npratio 4 + history) rows of (50, 768) token states
+    n_l = min(args.long_batch_size * (5 + args.long_history), args.num_news)
+    xl = torch.randn((n_l, L, D), generator=gen, device=DEV)
+    long_ms = time_ms(lambda: additive_pool(xl, w1, b1, w2), reps=3)
+    long_plain = time_ms(lambda: additive_pool_plain(xl, w1, b1, w2), reps=2, warmup=1)
+    long_err = max_err(additive_pool(xl, w1, b1, w2), additive_pool_plain(xl, w1, b1, w2))
+    check(long_err <= F32_ATOL, f"additive_pool at {[n_l, L, D]}: error {long_err} against {F32_ATOL}")
+    long_bound, long_by = bound(pool_cost(n_l, L, D, hd, 4), "float32", peaks)
+    del xl
+    torch.cuda.empty_cache()
     state["timing"] = {"additive_pool": {
         "shape": [n_t, L, D], "dtype": "float32", "ms": a_ms, "plain_ms": a_plain,
         "bound_ms": a_bound, "bound_by": a_by, "cuda_core_bound_ms": cuda_core_bound(a_cost, peaks),
         "library_ms": None, "bf16_ms": a_ms_bf16, "bf16_bound_ms": a_bound_bf16,
+        "long_text_head": {"shape": [n_l, L, D], "ms": long_ms, "plain_ms": long_plain,
+                           "bound_ms": long_bound, "bound_by": long_by, "max_abs_err": long_err},
     }}
 
     # ---- kernel B at every serving bucket, H=50, D=400, 20 heads, Q=200
@@ -776,9 +789,12 @@ def _plain_recommend(model, table, hist, top_k: int):
     return torch.topk(scores, top_k + 1, dim=1)
 
 
-def _device_breakdown(call, reps: int, top: int = 8) -> dict:
+def _device_breakdown(call, reps: int, top: int = 8, sum_of: dict | None = None) -> dict:
     """Device time by kernel and the device's busy share over ``reps``
-    calls of ``call`` (torch.profiler; each call ends in a host read-back)."""
+    calls of ``call`` (torch.profiler; each call ends in a host read-back).
+    ``sum_of`` maps a label to kernel names: ``sums_us`` holds, per label,
+    the device time per call of every kernel whose name contains one of
+    them (None where none ran)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -796,13 +812,19 @@ def _device_breakdown(call, reps: int, top: int = 8) -> dict:
             rows.append((ev.key, dev_us / reps, ev.count / reps))
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    return {
+    out = {
         "wall_ms_per_call_profiled": wall_us / reps / 1e3,
         "device_ms_per_call": busy_us / 1e3,
         "device_busy_share": busy_us * reps / wall_us if wall_us else None,
         "top": [{"kernel": k[:90], "us_per_call": us, "launches_per_call": c}
                 for k, us, c in rows[:top]],
     }
+    if sum_of:
+        out["sums_us"] = {}
+        for label, names in sum_of.items():
+            hits = [us for k, us, _ in rows if any(n in k for n in names)]
+            out["sums_us"][label] = sum(hits) if hits else None
+    return out
 
 
 def _tokens(state: dict, args, title_len: int, bert_hidden: int):
@@ -1389,6 +1411,7 @@ def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
         launch_counts,
         reset_launch_counts,
     )
+    from fedrec_tpu_torch.ops.attention_kernels import additive_pool_kernel_names
     from fedrec_tpu_torch.params import init_params
     from fedrec_tpu_torch.train import (
         build_fed_train_step,
@@ -1467,15 +1490,20 @@ def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
 
     one = {k: v[:1] for k, v in batches[0].items()}
     step1 = build_fed_train_step(model, cfg, get_strategy("local"), device=dev)
-    breakdown = _device_breakdown(lambda: step1(states[:1], one, tokens)[1]["loss"].tolist(),
-                                  reps=2, top=12)
     # kernel A on the unfused text head: one launch a client step over the
-    # step's U deduplicated slots, its device time from the breakdown
+    # step's U deduplicated slots, its device time from the breakdown: the
+    # sum of the kernels it launches (its logits pass at hidden Dh / 2 and
+    # its pool pass; the user tower's A2 runs its own instances)
     U, Dh = min(B * (1 + dc.npratio + H), N), mc.bert_hidden
+    a_names = additive_pool_kernel_names(Dh // 2)
+    breakdown = _device_breakdown(lambda: step1(states[:1], one, tokens)[1]["loss"].tolist(),
+                                  reps=2, top=12, sum_of={"text_head_pool": a_names})
     a_cost = pool_cost(U, T, Dh, Dh // 2, 4)
-    a_us = [r["us_per_call"] for r in breakdown["top"] if "additive_pool_kernel<float>" in r["kernel"]]
+    a_us = breakdown["sums_us"]["text_head_pool"]
+    check(a_us is not None, f"kernel A's kernels {a_names} not found in the step's profile")
     text_head_pool = {"shape": [U, T, Dh], "hidden": Dh // 2, "launches_per_client_step": 1,
-                      "device_ms": a_us[0] / 1e3 if a_us else None,
+                      "kernels": list(a_names),
+                      "device_ms": a_us / 1e3 if a_us is not None else None,
                       "bound_ms": bound(a_cost, "float32", state["peaks"])[0],
                       "cuda_core_bound_ms": cuda_core_bound(a_cost, state["peaks"])}
     del states, step, step1

@@ -14,8 +14,9 @@
 
 A wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in its ``launches`` attribute; CPU tensors take the plain version and
-count nothing. ``additive_pool`` launches A, or A2 where a row does not fit
-A's shared memory, and counts under the kernel it launched. D, E, F2 and F3
+count nothing. ``additive_pool`` launches A, or A2 where a row is longer
+than a block's shared memory would hold, and counts under the kernel it
+launched. D, E, F2 and F3
 are backward kernels: the forward wrappers (``fused_gather_encode``,
 ``fused_history_score``, ``flash_attention``) run inside an autograd function
 that calls them when a gradient is needed. Kernel A's (and A2's) backward is

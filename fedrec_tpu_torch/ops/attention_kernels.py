@@ -7,9 +7,11 @@ bias) . x`` over the sequence axis, the learned-query pooling of
 logit equally and cancels in the softmax. A masked slot gets the bias -1e9,
 a true softmax follows, and a row with no valid slot pools to exactly 0 (the
 module path's multiply-after-exp semantics). On a CUDA tensor it launches
-kernel A (``csrc/additive_pool.cu``), which stages a whole row in shared
-memory, or, for rows too long for that, kernel A2, which streams the row:
-the wrapper picks from the shape before the launch. When autograd needs a
+kernel A (``csrc/additive_pool.cu``: the logits as one tensor-core GEMM over
+the token rows, then a pass a block per row) or, for rows longer than a
+block's shared memory would hold, kernel A2, the same logits pass with each
+row's pool split over blocks: the wrapper picks from the shape before the
+launch. When autograd needs a
 gradient, the launch runs inside a ``torch.autograd.Function`` whose
 backward is autograd of ``additive_pool_plain`` on the saved inputs: a
 recompute, as the JAX backward is a dense ``jax.vjp``, not a kernel.
@@ -17,9 +19,10 @@ recompute, as the JAX backward is a dense ``jax.vjp``, not a kernel.
 Flash attention. ``flash_attention`` is multi-head attention in the JAX
 ``(..., L, H, d)`` layout with an optional key mask, computed blockwise
 with an online softmax so the ``(L, L)`` scores never exist. On CUDA
-tensors its forward is kernel F1 and its backward kernels F2 (dq) and F3
-(dk, dv, dbias) (``csrc/flash_attention.cu``), with ``delta = rowsum(g *
-out)`` taken in f32 between them, as the JAX backward does.
+tensors its forward is kernel F1 (on the tensor cores) and its backward
+kernels F2 (dq) and F3 (dk, dv, dbias) (``csrc/flash_attention.cu``), with
+``delta = rowsum(g * out)`` taken in f32 between them, as the JAX backward
+does.
 ``flash_forward_plain`` and ``flash_backward_plain`` repeat the kernels'
 math and rounding points with dense PyTorch ops.
 
@@ -68,15 +71,25 @@ def _kernel():
     """The built library, its C functions typed for ctypes."""
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind(_LIB, {
-        "additive_pool_launch": ([p] * 6 + [i] * 5 + [p], i),
-        "additive_pool_long_launch": ([p] * 8 + [i] * 5 + [p], i),
-        "additive_pool_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
-        "additive_pool_long_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_size_t),
+        "additive_pool_launch": ([p] * 7 + [i] * 5 + [p], i),
+        "additive_pool_long_launch": ([p] * 7 + [i] * 5 + [p], i),
+        "additive_pool_smem_bytes": ([i] * 3, ctypes.c_size_t),
+        "additive_pool_long_smem_bytes": ([i] * 3, ctypes.c_size_t),
+        "additive_pool_logit_tiles": ([i], i),
+        "additive_pool_hidden_tile": ([i], i),
     })
 
 
+def additive_pool_kernel_names(hd: int, long: bool = False, dtype: str = "float") -> tuple[str, str]:
+    """The CUDA kernels kernel A (``long``: A2) launches at hidden width
+    ``hd``, as a profiler names them: the logits pass and the pool pass."""
+    nt = _kernel().additive_pool_hidden_tile(hd) // 32
+    return (f"pool_logits_kernel<{dtype}, {nt}>",
+            f"pool_rows_kernel<{dtype}, {'true' if long else 'false'}>")
+
+
 def _launch(x, w1, b1, w2, mask) -> torch.Tensor:
-    """Kernel A, or A2 for rows A cannot stage, on CUDA tensors."""
+    """Kernel A, or A2 for long rows, on CUDA tensors."""
     return _launch_pool(x, w1, b1, w2, mask, long=None)
 
 
@@ -104,6 +117,8 @@ def _launch_pool(x, w1, b1, w2, mask, long: bool | None) -> torch.Tensor:
             raise ValueError(f"additive_pool: {name} must be contiguous float32 on {x.device}")
     if not x.is_contiguous():
         raise ValueError("additive_pool: x must be contiguous")
+    if x.data_ptr() % (4 * x.element_size()) or w1.data_ptr() % 16:
+        raise ValueError("additive_pool: x and w1 must start on a 4-element boundary")
     n = x.numel() // (L * D) if L * D else 0
     if mask is not None:
         if mask.dtype != torch.float32 or mask.device != x.device or not mask.is_contiguous():
@@ -112,24 +127,22 @@ def _launch_pool(x, w1, b1, w2, mask, long: bool | None) -> torch.Tensor:
             raise ValueError(f"additive_pool: mask {tuple(mask.shape)} does not match x {tuple(x.shape)}")
     lib = _kernel()
     limit = _build.smem_limit(x.device)
-    if long is None:  # kernel A stages the whole row; A2 streams it
+    if long is None:  # A for rows a block could hold whole, A2 for longer ones
         long = lib.additive_pool_smem_bytes(L, D, Hd) > limit
     need = (lib.additive_pool_long_smem_bytes if long else lib.additive_pool_smem_bytes)(L, D, Hd)
     if need > limit:
         raise ValueError(f"additive_pool: a row needs {need} B of shared memory, the card allows {limit}")
     out = torch.empty((*batch, D), dtype=x.dtype, device=x.device)
-    args = [x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr()]
-    if long:  # A2's scratch: the rows' logits and each row's arrival count
-        logits = torch.empty((n, L), dtype=torch.float32, device=x.device)
-        arrived = torch.zeros((n,), dtype=torch.int32, device=x.device)
-        launch, counter = lib.additive_pool_long_launch, additive_pool_long
-        args += [logits.data_ptr(), arrived.data_ptr()]
-    else:
-        launch, counter = lib.additive_pool_launch, additive_pool
+    # scratch: one partial logit per token row and hidden-unit tile
+    logits = torch.empty((lib.additive_pool_logit_tiles(Hd), n * L), dtype=torch.float32,
+                         device=x.device)
+    launch, counter = ((lib.additive_pool_long_launch, additive_pool_long) if long
+                       else (lib.additive_pool_launch, additive_pool))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(*args, n, L, D, Hd, 0 if x.dtype == torch.float32 else 1, stream)
+        err = launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                     None if mask is None else mask.data_ptr(), out.data_ptr(), logits.data_ptr(),
+                     n, L, D, Hd, 0 if x.dtype == torch.float32 else 1, stream)
     _build.check(err, _LIB)
     counter.launches += 1
     return out
@@ -167,10 +180,10 @@ def additive_pool(
     ``w1`` (D, hidden), ``b1`` (hidden,), ``w2`` (hidden,): the two Dense
     layers of ``AdditiveAttention`` in the (in, out) layout, float32.
     ``mask`` optional (..., L), 1 = keep. CUDA tensors launch kernel A (one
-    count in ``additive_pool.launches``) or, for rows longer than A can
-    stage, kernel A2 (counted in ``additive_pool_long.launches``), inside an
-    autograd function when a gradient is needed; CPU tensors take
-    ``additive_pool_plain``.
+    count in ``additive_pool.launches``) or, for rows longer than a
+    block's shared memory would hold, kernel A2 (counted in
+    ``additive_pool_long.launches``), inside an autograd function when a
+    gradient is needed; CPU tensors take ``additive_pool_plain``.
     """
     return _pool(x, w1, b1, w2, mask, False)
 
@@ -294,6 +307,8 @@ def _check_flash(name: str, which: int, q, k, v, bias, *rows) -> tuple[int, ...]
             raise ValueError(f"{name}: {field} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dt or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: {field} must be contiguous {dt} on {q.device}")
+    if which == 0 and any(t.data_ptr() % (4 * t.element_size()) for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start on a 4-element boundary")
     need = _flash_lib().flash_smem_bytes(which, dk, dv)
     limit = _build.smem_limit(q.device)
     if need > limit:

@@ -9,35 +9,58 @@
 // What bounds them: the long-history user tower has 20 heads of width 20.
 // Per (query, key) pair F1 does 2*(dk + dv) operations, F2 2*(2*dk + dv)
 // and F3 2*(2*dk + 2*dv), against a few bytes per row of q/k/v: at L = 2048
-// every kernel is bound by operations, hundreds per byte. The tensor cores
-// take f32 only as TF32, which keeps about 3 decimal digits, so the products
-// run on the CUDA cores in full f32 (bf16 operands are widened to f32).
+// every kernel is bound by operations, hundreds per byte.
 //
-// Design: a block owns one tile of output rows and
-// walks the other axis in order, one thread per output row.
-//   F1, F2: one block per (bh, 64-query tile); K/V/bias tiles of 64 keys are
+// F1: an FA2-style forward on the tensor cores (mma.sync, mma.cuh). A block
+// of 4 warps owns a query tile, each warp one or two m-tiles of 16 query
+// rows (two for f32 at width 20, where the registers allow: each K and V
+// fragment a warp loads and splits then serves 32 rows); K, V and the key
+// bias stream through shared memory in 64-key tiles (a cp.async double
+// buffer). Per tile a warp forms S = Q K^T (f32: m16n8k8 TF32 with K's
+// width padded to 8, 24 at d = 20; bf16: m16n8k16 with it padded to 16),
+// runs the online softmax on the accumulator fragments (a row's max and sum
+// over its quad by shuffles), and forms P V on the tensor cores: the S
+// fragment is already P's operand fragment (bf16: m16n8k16's A layout; f32:
+// with the 8 keys of a step permuted, key 2c and 2c+1 as columns c and
+// c+4, and V read in that order). Each tile's P V sums in a fresh
+// accumulator and is added to the f32 output after the rescale.
+// Precision: f32 operands take three TF32 passes (lo hi, hi lo, hi hi: about
+// 2^-21 relative per product), P split like any other operand; bf16 ones
+// one bf16 mma with f32 sums, P rounded to bf16 as the JAX kernel's
+// p.astype(v.dtype). tests/test_torch_tc_precision.py holds the emulation
+// against float64.
+//
+// F2, F3: one thread per output row on CUDA cores, in full f32 (bf16
+// operands widened), a block owning one tile of output rows and walking the
+// other axis in order.
+//   F2:     one block per (bh, 64-query tile); K/V/bias tiles of 64 keys are
 //           staged in shared memory as f32 and read by every thread as
-//           broadcast float4s; each thread keeps its q (and do) row and its
-//           accumulator in registers. F1 runs the online softmax over
-//           16-key register sub-tiles (one max and one correction per
-//           sub-tile).
+//           broadcast float4s; each thread keeps its q and do rows and its
+//           accumulator in registers.
 //   F3:     one block per (bh, 64-key tile), walking 64-query tiles of
 //           q / do / lse / delta staged in shared memory; each thread keeps
 //           its k and v rows and the dk, dv, dbias accumulators.
 // Each output has one owner that sums in a fixed order: no atomics, so the
-// results repeat to the bit. The score of a pair is computed by the same
-// helper in all three kernels (the products of the same operands summed in
-// the same order), so F2 and F3 rebuild exactly F1's scores.
+// results repeat to the bit. F2 and F3 compute each score with the same
+// helper (the same products summed in the same order), so they agree with
+// each other exactly; F1 forms it on the tensor cores in 3xTF32, which
+// differs from theirs by about 2^-21 relative. The p that F2 and F3 rebuild
+// from F1's lse therefore differ from F1's own by as much: far inside the
+// backward's bars.
 //
 // Numerics follow the JAX kernels: the running max starts at -1e9 (not
 // -inf) and the sum is floored at 1e-30, so a fully-masked row attends
-// uniformly, as there (the wrapper then zeroes it); p is rounded to the
-// operand dtype before P.V (F1) and before dv (F3), ds before dq (F2) and
-// dk (F3); dbias sums the unrounded f32 ds. JAX pads keys to its block with
-// bias -1e9; here the tail of the last tile is skipped instead.
+// uniformly, as there (the wrapper then zeroes it); l sums the unrounded p;
+// p is rounded to the operand dtype before P.V (F1) and before dv (F3), ds
+// before dq (F2) and dk (F3); dbias sums the unrounded f32 ds. JAX pads
+// keys to its block with bias -1e9; here the keys past the end of the last
+// tile get bias -inf in F1 (p = 0 exactly) and are skipped in F2 and F3.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -45,7 +68,8 @@ using namespace fedrec;
 
 constexpr int BQ = 64;            // query rows of an F1/F2 block and of an F3 query tile
 constexpr int BK = 64;            // key rows of an F3 block and of an F1/F2 key tile
-constexpr int SUB = 16;           // keys per register sub-tile of F1's online softmax
+constexpr int kF1Warps = 4;       // F1: warps a block
+constexpr int kF1Threads = 32 * kF1Warps;
 constexpr float kNegInit = -1e9f; // JAX's running-max start (and the mask bias)
 
 __host__ __device__ inline int pad4(int d) { return (d + 3) & ~3; }
@@ -104,71 +128,360 @@ __device__ __forceinline__ void axpy_row(float (&acc)[4 * D4], float p, const fl
 }
 
 // ------------------------------------------------------------------- F1
-template <typename T, int D4, bool EXACT>
-__global__ void __launch_bounds__(BQ)
+// Shared-memory row pitches (elements) that keep the fragment loads free of
+// bank conflicts: Q and K rows (Q K^T's operands), V rows (P V's B operand).
+template <typename T>
+__host__ __device__ constexpr int f1_kpitch(int dk) {
+  return std::is_same<T, float>::value ? dk + 4 : dk + 8;
+}
+
+__host__ __device__ constexpr int f1_vpitch(int dv) { return dv + 4; }
+
+// m-tiles of 16 query rows a warp: two where the registers allow, so that
+// each K and V fragment a warp loads and splits serves 32 rows
+template <typename T, int DK>
+__host__ __device__ constexpr int f1_mtiles() {
+  return std::is_same<T, float>::value && DK <= 24 ? 2 : 1;
+}
+
+template <typename T, int DK>
+__host__ __device__ constexpr int f1_rows() {  // F1's query tile
+  return kF1Warps * 16 * f1_mtiles<T, DK>();
+}
+
+// Q tile, two stages of K and V tiles (T), two stages of key bias (f32).
+template <typename T, int DK, int DV>
+__host__ __device__ constexpr size_t f1_smem() {
+  return sizeof(T) * ((size_t)f1_rows<T, DK>() * f1_kpitch<T>(DK) +
+                      2 * (size_t)BK * (f1_kpitch<T>(DK) + f1_vpitch(DV))) +
+         2 * BK * sizeof(float);
+}
+
+// Rows [0, rows) x columns [0, d) of a row-major (., d) block into a
+// (ROWS, W) shared tile of row pitch `pitch`, zeros elsewhere: cp.async
+// where rows are whole 4-element groups (vec), else plain loads and stores.
+template <typename T, int ROWS, int W>
+__device__ __forceinline__ void f1_stage(T* dst, int pitch, const T* __restrict__ src, int rows,
+                                         int d, bool vec) {
+  if (vec) {
+    constexpr int Q4 = W / 4;
+    for (int i = threadIdx.x; i < ROWS * Q4; i += blockDim.x) {
+      const int r = i / Q4, c4 = (i - r * Q4) * 4;
+      const bool ok = r < rows && c4 < d;
+      cp_async4(dst + r * pitch + c4, ok ? src + (size_t)r * d + c4 : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * W; i += blockDim.x) {
+      const int r = i / W, cc = i - r * W;
+      dst[r * pitch + cc] = (r < rows && cc < d) ? src[(size_t)r * d + cc] : from_f32<T>(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A-operand fragment of rows row, row + 8 at depth k of a shared tile:
+// m16n8k8 TF32 (k = step * 8 + c, split hi/lo) or m16n8k16 bf16 (k = step *
+// 16 + 2c).
+__device__ __forceinline__ void a_frag(const float* t, int pitch, int row, int k, Tf32Pair* a) {
+  const float* p = t + row * pitch + k;
+  a[0] = split_tf32(p[0]);
+  a[1] = split_tf32(p[8 * pitch]);
+  a[2] = split_tf32(p[4]);
+  a[3] = split_tf32(p[8 * pitch + 4]);
+}
+
+__device__ __forceinline__ void a_frag(const __nv_bfloat16* t, int pitch, int row, int k,
+                                       uint32_t* a) {
+  const __nv_bfloat16* p = t + row * pitch + k;
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * pitch);
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * pitch + 8);
+}
+
+// B-operand fragment of K^T: key n of a (key, dim) shared tile at depth k
+// (the same k as a_frag's).
+__device__ __forceinline__ void b_frag(const float* t, int pitch, int n, int k, Tf32Pair* b) {
+  b[0] = split_tf32(t[n * pitch + k]);
+  b[1] = split_tf32(t[n * pitch + k + 4]);
+}
+
+__device__ __forceinline__ void b_frag(const __nv_bfloat16* t, int pitch, int n, int k,
+                                       uint32_t* b) {
+  b[0] = ld_u32(t + n * pitch + k);
+  b[1] = ld_u32(t + n * pitch + k + 8);
+}
+
+// One (bh, query tile) a block, MT m-tiles of 16 query rows a warp. DK:
+// the width of Q K^T padded to the mma depth (8 f32, 16 bf16); DV: the
+// output width padded to 8. Thread (g, c) of a warp holds rows g and g + 8
+// of each m-tile: S fragment (nt, i) is key nt*8 + 2c + (i & 1) of row
+// g + 8*(i >= 2), and output fragment (nv, i) column nv*8 + 2c + (i & 1) of
+// the same rows.
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(kF1Threads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ lse,
                  int Lq, int Lk, int dk, int dv, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dkp = pad4(dk), dvp = pad4(dv), dk4 = dkp / 4, dv4 = dvp / 4;
-  float* ks = smem;              // (BK, dkp)
-  float* vs = ks + BK * dkp;     // (BK, dvp)
-  float* bs = vs + BK * dvp;     // (BK)
-  const int nqt = (Lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, row = (blockIdx.x - bh * nqt) * BQ + threadIdx.x;
-  const bool live = row < Lq;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int KP = f1_kpitch<T>(DK), VP = f1_vpitch(DV);
+  constexpr int MT = f1_mtiles<T, DK>(), ROWS = f1_rows<T, DK>();
+  constexpr int KSTEP = kF32 ? 8 : 16;
+  constexpr int KS = DK / KSTEP;          // mma steps of Q K^T
+  constexpr int NV = DV / 8;              // output n-tiles
+  constexpr int kChunk = 32 / KSTEP;      // steps per promoted 32-deep chunk
+  constexpr bool kQReg = !kF32 || KS <= 4;  // Q's fragments held in registers
+  constexpr bool kPromote = KS > kChunk || !kQReg;  // S past one chunk: sc, promoted
+  using Frag = std::conditional_t<kF32, Tf32Pair, uint32_t>;
+  extern __shared__ __align__(16) unsigned char f1_smem_raw[];
+  T* qs = reinterpret_cast<T*>(f1_smem_raw);
+  float* bias_s = reinterpret_cast<float*>(qs + ROWS * KP + 2 * BK * (KP + VP));
+  auto kt = [&](int st) { return qs + ROWS * KP + st * BK * (KP + VP); };
+  auto vt = [&](int st) { return qs + ROWS * KP + st * BK * (KP + VP) + BK * KP; };
 
-  float qr[4 * D4], acc[4 * D4];
-  load_row<D4, EXACT>(qr, q + ((size_t)bh * Lq + (live ? row : 0)) * dk, dk);
-#pragma unroll
-  for (int i = 0; i < 4 * D4; ++i) acc[i] = 0.f;
-  float m = kNegInit, l = 0.f;
+  const int nqt = (Lq + ROWS - 1) / ROWS;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3, wq = warp * 16 * MT;
+  const int kc = kF32 ? c : 2 * c;  // a thread's depth offset in a fragment
   const T* kb = k + (size_t)bh * Lk * dk;
   const T* vb = v + (size_t)bh * Lk * dv;
   const float* bb = bias + (size_t)bh * Lk;
+  const bool vec = (dk & 3) == 0 && (dv & 3) == 0;
+  const int tiles = (Lk + BK - 1) / BK;
 
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    const int nk = min(BK, Lk - k0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows(ks, kb + (size_t)k0 * dk, nk, dk);
-    stage_rows(vs, vb + (size_t)k0 * dv, nk, dv);
-    for (int i = threadIdx.x; i < nk; i += blockDim.x) bs[i] = bb[k0 + i];
-    __syncthreads();
-    for (int j0 = 0; j0 < nk; j0 += SUB) {
-      float s[SUB];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        s[jj] = -INFINITY;
-        if (j < nk) {
-          s[jj] = fmaf(dot_row<D4, EXACT>(qr, ks + j * dkp, dk4), scale, bs[j]);
-          mx = fmaxf(mx, s[jj]);
-        }
+  auto stage_kv = [&](int st, int t) {
+    const int k0 = t * BK, nk = min(BK, Lk - k0);
+    f1_stage<T, BK, DK>(kt(st), KP, kb + (size_t)k0 * dk, nk, dk, vec);
+    f1_stage<T, BK, DV>(vt(st), VP, vb + (size_t)k0 * dv, nk, dv, vec);
+    float* bs = bias_s + st * BK;
+    for (int i = tid; i < BK; i += kF1Threads) {
+      if (i < nk) {
+        cp_async1(bs + i, bb + k0 + i, true);
+      } else {
+        bs[i] = -INFINITY;  // past the last key: p = 0 exactly
       }
-      const float corr = expf(m - mx);
-      l *= corr;
-#pragma unroll
-      for (int i = 0; i < 4 * D4; ++i) acc[i] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int j = j0 + jj;
-        if (j < nk) {
-          const float p = expf(s[jj] - mx);
-          l += p;
-          axpy_row<D4, EXACT>(acc, round_to<T>(p), vs + j * dvp, dv4);
-        }
-      }
-      m = mx;
     }
-  }
-  if (live) {
-    const float ls = fmaxf(l, 1e-30f);
-    T* orow = out + ((size_t)bh * Lq + row) * dv;
+  };
+
+  f1_stage<T, ROWS, DK>(qs, KP, q + ((size_t)bh * Lq + q0) * dk, min(ROWS, Lq - q0), dk, vec);
+  if (tiles > 0) stage_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  Frag qf[kQReg ? MT : 1][kQReg ? KS : 1][4];
+  if constexpr (kQReg) {
 #pragma unroll
-    for (int i = 0; i < 4 * D4; ++i)
-      if (EXACT || i < dv) orow[i] = from_f32<T>(acc[i] / ls);
-    lse[(size_t)bh * Lq + row] = m + logf(ls);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) a_frag(qs, KP, wq + mt * 16 + g, ks * KSTEP + kc, qf[mt][ks]);
+  }
+
+  float m[MT][2], l[MT][2], o[MT][NV][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInit;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) o[mt][nv][0] = o[mt][nv][1] = o[mt][nv][2] = o[mt][nv][3] = 0.f;
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();  // tile t landed
+      __syncthreads();     // and every warp is done with tile t - 1
+    }
+    if (t + 1 < tiles) stage_kv((t + 1) & 1, t + 1);
+    cp_async_commit();
+    const T* ks_t = kt(t & 1);
+    const T* vs_t = vt(t & 1);
+    const float* bs = bias_s + (t & 1) * BK;
+
+    // S = Q K^T over this tile's 64 keys, each K fragment serving every
+    // m-tile; past 32 deep, each 32-deep chunk sums in sc and is promoted
+    float s[MT][8][4], sc[kPromote ? MT : 1][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][nt][i] = 0.f;
+    if constexpr (kPromote) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[0][nt][i] = 0.f;
+    }
+    auto qk_mma = [&](float (&acc)[8][4], const Frag* qa, const Frag (&kf)[8][2]) {
+      if constexpr (kF32) {
+#pragma unroll
+        for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) mma_pass(acc[nt], qa, kf[nt], pass);
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mma_bf16_k16(acc[nt], qa, kf[nt]);
+      }
+    };
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      Frag kf[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) b_frag(ks_t, KP, nt * 8 + g, ks * KSTEP + kc, kf[nt]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (!kPromote) {
+          qk_mma(s[mt], qf[mt][ks], kf);
+        } else if constexpr (kQReg) {
+          qk_mma(sc[mt], qf[mt][ks], kf);
+        } else {
+          Frag qa[4];
+          a_frag(qs, KP, wq + mt * 16 + g, ks * KSTEP + kc, qa);
+          qk_mma(sc[mt], qa, kf);
+        }
+      }
+      if constexpr (kPromote) {
+        if ((ks + 1) % kChunk == 0 || ks + 1 == KS) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) promote(s[mt][nt], sc[mt][nt]);
+        }
+      }
+    }
+
+    // scores, then the online softmax on the fragments: a row's max and sum
+    // over the quad that holds it
+    float pv[MT][NV][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[mt][nt][i] = fmaf(s[mt][nt][i], scale, bs[nt * 8 + 2 * c + (i & 1)]);
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][nt][0], s[mt][nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][nt][2], s[mt][nt][3]));
+      }
+      float corr[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = expf(m[mt][r] - mx[r]);
+        m[mt][r] = mx[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = expf(s[mt][nt][i] - mx[i >> 1]);
+          ls[i >> 1] += p;               // l sums the unrounded p
+          s[mt][nt][i] = round_to<T>(p); // P V takes p in the operand dtype
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+        l[mt][r] = fmaf(l[mt][r], corr[r], ls[r]);
+      }
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        o[mt][nv][0] *= corr[0];
+        o[mt][nv][1] *= corr[0];
+        o[mt][nv][2] *= corr[1];
+        o[mt][nv][3] *= corr[1];
+        pv[mt][nv][0] = pv[mt][nv][1] = pv[mt][nv][2] = pv[mt][nv][3] = 0.f;
+      }
+    }
+
+    // P V in a fresh accumulator, each V fragment serving every m-tile,
+    // then added to the rescaled output
+    if constexpr (kF32) {
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {  // 8 keys a step; key 2c, 2c+1 as columns c, c+4
+        Tf32Pair pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = split_tf32(s[mt][kk][0]);
+          pa[mt][1] = split_tf32(s[mt][kk][2]);
+          pa[mt][2] = split_tf32(s[mt][kk][1]);
+          pa[mt][3] = split_tf32(s[mt][kk][3]);
+        }
+        const float* vr = vs_t + (kk * 8 + 2 * c) * VP + g;
+#pragma unroll
+        for (int nv0 = 0; nv0 < NV; nv0 += 4) {  // 4 n-tiles at a time: bounded registers
+          Tf32Pair vf[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (nv0 + j < NV) {
+              vf[j][0] = split_tf32(vr[(nv0 + j) * 8]);
+              vf[j][1] = split_tf32(vr[(nv0 + j) * 8 + VP]);
+            }
+          }
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (nv0 + j < NV) mma_pass(pv[mt][nv0 + j], pa[mt], vf[j], pass);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step: S n-tiles 2kk, 2kk+1 are P's fragment
+        uint32_t pa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          pa[mt][0] = pack_bf16(__float2bfloat16(s[mt][2 * kk][0]), __float2bfloat16(s[mt][2 * kk][1]));
+          pa[mt][1] = pack_bf16(__float2bfloat16(s[mt][2 * kk][2]), __float2bfloat16(s[mt][2 * kk][3]));
+          pa[mt][2] =
+              pack_bf16(__float2bfloat16(s[mt][2 * kk + 1][0]), __float2bfloat16(s[mt][2 * kk + 1][1]));
+          pa[mt][3] =
+              pack_bf16(__float2bfloat16(s[mt][2 * kk + 1][2]), __float2bfloat16(s[mt][2 * kk + 1][3]));
+        }
+        const T* vr = vs_t + (kk * 16 + 2 * c) * VP + g;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          const T* p = vr + nv * 8;
+          const uint32_t vf[2] = {pack_bf16(p[0], p[VP]), pack_bf16(p[8 * VP], p[9 * VP])};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16_k16(pv[mt][nv], pa[mt], vf);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[mt][nv][i] += pv[mt][nv][i];
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wq + mt * 16 + g + 8 * r;
+      if (row >= Lq) continue;
+      const float lsafe = fmaxf(l[mt][r], 1e-30f);
+      T* orow = out + ((size_t)bh * Lq + row) * dv;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nv * 8 + 2 * c + e;
+          if (col < dv) orow[col] = from_f32<T>(o[mt][nv][2 * r + e] / lsafe);
+        }
+      }
+      if (c == 0) lse[(size_t)bh * Lq + row] = m[mt][r] + logf(lsafe);
+    }
   }
 }
 
@@ -291,8 +604,27 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------- launch
+// F1's padded widths (f32 form): the user tower's 20 exactly (24, the next
+// multiple of the TF32 mma depth; bf16 pads the contraction to 32), else
+// the next of 32 / 64 / 128 for both.
+int f1_width(int dk, int dv) {
+  if (dk == 20 && dv == 20) return 24;
+  const int d = dk > dv ? dk : dv;
+  return d <= 32 ? 32 : (d <= 64 ? 64 : 128);
+}
+
 size_t smem_rows(int which, int dk, int dv) {
-  // F1 and F2 stage K, V and bias tiles; F3 stages q, do, lse and delta
+  // F1 stages Q once and double-buffers K, V and bias tiles (its f32 form
+  // is the larger); F2 stages K, V and bias tiles; F3 q, do, lse and delta
+  if (which == 0) {
+    const int w = f1_width(dk, dv);
+    switch (w) {
+      case 24: return f1_smem<float, 24, 24>();
+      case 32: return f1_smem<float, 32, 32>();
+      case 64: return f1_smem<float, 64, 64>();
+      default: return f1_smem<float, 128, 128>();
+    }
+  }
   if (which == 2) return sizeof(float) * ((size_t)BQ * (pad4(dk) + pad4(dv)) + 2 * BQ);
   return sizeof(float) * ((size_t)BK * (pad4(dk) + pad4(dv)) + BK);
 }
@@ -304,6 +636,32 @@ struct Args {
   float scale;
 };
 
+template <typename T, int DK, int DV>
+int launch_f1(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = f1_smem<T, DK, DV>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, DK, DV>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int rows = f1_rows<T, DK>();
+  const int grid = a.bh * ((a.lq + rows - 1) / rows);
+  if (grid > 0)
+    flash_fwd_kernel<T, DK, DV><<<grid, kF1Threads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const float*>(a.bias), static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.lq,
+        a.lk, a.dk, a.dv, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_f1(const Args& a, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  switch (f1_width(a.dk, a.dv)) {
+    case 24: return launch_f1<T, kF32 ? 24 : 32, 24>(a, stream);
+    case 32: return launch_f1<T, 32, 32>(a, stream);
+    case 64: return launch_f1<T, 64, 64>(a, stream);
+    default: return launch_f1<T, 128, 128>(a, stream);
+  }
+}
+
 template <typename T, int D4, bool EXACT>
 int launch(int which, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_rows(which, a.dk, a.dv);
@@ -312,15 +670,7 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const float* bias = static_cast<const float*>(a.bias);
-  if (which == 0) {
-    err = allow_smem(flash_fwd_kernel<T, D4, EXACT>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = a.bh * ((a.lq + BQ - 1) / BQ);
-    if (grid > 0)
-      flash_fwd_kernel<T, D4, EXACT><<<grid, BQ, smem, stream>>>(
-          q, k, v, bias, static_cast<T*>(a.o0), static_cast<float*>(a.o1), a.lq, a.lk, a.dk,
-          a.dv, a.scale);
-  } else if (which == 1) {
+  if (which == 1) {
     err = allow_smem(flash_bwd_dq_kernel<T, D4, EXACT>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int grid = a.bh * ((a.lq + BQ - 1) / BQ);
@@ -342,7 +692,7 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Width buckets: the user tower's 20 exactly (no bounds tests in the
+// F2, F3 width buckets: the user tower's 20 exactly (no bounds tests in the
 // unrolled loops), else the next of 32 / 64 / 128 with runtime bounds.
 template <typename T>
 int dispatch(int which, const Args& a, cudaStream_t stream) {
@@ -357,6 +707,7 @@ int run(int which, const Args& a, int dtype, void* stream) {
   if (a.dk < 1 || a.dv < 1 || a.dk > 128 || a.dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (which == 0) return dtype == 0 ? dispatch_f1<float>(a, s) : dispatch_f1<__nv_bfloat16>(a, s);
   return dtype == 0 ? dispatch<float>(which, a, s) : dispatch<__nv_bfloat16>(which, a, s);
 }
 

@@ -1,5 +1,6 @@
-// Tensor-core building blocks for the text head's kernels (C and D):
-// cp.async staging with zero fill, the TF32 split, and warp-level mma.sync.
+// Tensor-core building blocks for kernels A (the additive pool's logits), C
+// and D (the text head) and F1 (flash forward): cp.async staging with zero
+// fill, the TF32 split, and warp-level mma.sync.
 //
 // Precision. An f32 operand a is split as a_hi = tf32(a) (cvt.rna's rounding:
 // nearest, ties away, 10 mantissa bits) and a_lo = tf32(a - a_hi); a product is then
@@ -35,6 +36,12 @@ __device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// copy one 4-byte element (f32) to shared memory; zero where !valid
+__device__ __forceinline__ void cp_async1(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -82,6 +89,15 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       "{%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// d += a b, m16n8k16, bf16 operands (a: 4 registers of bf16 pairs, b: 2),
+// f32 accumulator
+__device__ __forceinline__ void mma_bf16_k16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Pass p of a product in TF32 passes, small terms first: p = 0 a_lo b_hi,

@@ -2,7 +2,7 @@
 """Time the kernels of one checkout of the port on the card, for A/B runs.
 
 Usage:
-  python3 kernel_ab.py [ROOT] [--only text_head|long] [--profile] [--ptxas]
+  python3 kernel_ab.py [ROOT] [--only text_head|long|pool_flash] [--profile] [--ptxas]
   # ROOT holds fedrec_tpu_torch/ (default: .)
 
 ``text_head``: kernels C (``fused_gather_encode``) and D
@@ -15,13 +15,23 @@ C = 5), which a change to C and D must leave equal.
 ``long``: kernel A2 (``additive_pool_long``) at (n, 2048, 400), hidden 200,
 for n = 1, 16 and 128, and kernels F1, F2, F3 at the long path's attention
 shape (16 x 20 heads, L = 2048, width 20), f32, with a hash of the flash
-outputs. Both by default.
-``--profile``: also the device time of each CUDA kernel that C and D launch
-(``torch.profiler``), f32 and bf16, per call.
-``--ptxas``: also build ``fused_gather_encode.cu`` with ``-Xptxas -v`` into
-``ROOT/build/kernel_ab/`` and report each kernel's registers, spills and
-shared memory, and the ``HMMA`` (tensor-core) instructions ``cuobjdump
--sass`` finds in it.
+outputs.
+``pool_flash``: kernel A (``additive_pool``) at the corpus encode's chunk
+(2048, 50, 768) and the long path's text head (32,848, 50, 768), hidden
+384, f32 and bf16; A2 (``additive_pool_long``) at (n, 2048, 400), hidden
+200, for n = 16 and 128; F1 (``flash_forward``) at (320, 2048, 20) f32;
+each with its largest error against its plain version and whether a repeat
+gives the same bits; whether A and A2 agree to the bit at (64, 50, 768);
+and a hash of F2's and F3's outputs fed with the plain forward's ``out``
+and ``lse`` (so that it compares across trees whose F1 differ).
+All three by default.
+``--profile``: also the device time of each CUDA kernel that C and D (and,
+with ``pool_flash``, A, A2 and F1) launch (``torch.profiler``), per call.
+``--ptxas``: also build ``fused_gather_encode.cu`` (``text_head``), or
+``additive_pool.cu`` and ``flash_attention.cu`` (``pool_flash``), with
+``-Xptxas -v`` into ``ROOT/build/kernel_ab/`` and report each kernel's
+registers, spills and shared memory, and the ``HMMA`` (tensor-core)
+instructions ``cuobjdump -sass`` finds in it.
 
 Times are CUDA-event means. Prints one JSON line (equal hashes: equal
 results). To compare two checkouts on one card, run it for both on the same
@@ -78,15 +88,41 @@ def _profile(fn, reps: int = 5) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def _ptxas(root: str) -> dict:
+def _template_args(mangled: str) -> list[str]:
+    """The template arguments at the start of ``mangled`` (``I...E``):
+    f32, bf16, integers and booleans."""
+    out, i = [], 1
+    if not mangled.startswith("I"):
+        return out
+    while i < len(mangled) and mangled[i] != "E":
+        ch = mangled[i]
+        if ch == "L":  # a literal: L<type><value>E
+            j = mangled.index("E", i)
+            lit = mangled[i + 1:j]
+            out.append({"b1": "true", "b0": "false"}.get(lit, lit[1:]))
+            i = j + 1
+        elif ch.isdigit():  # a type by name: <length><name>
+            k = i
+            while mangled[k].isdigit():
+                k += 1
+            name = mangled[k:k + int(mangled[i:k])]
+            out.append("bf16" if "bfloat16" in name else name)
+            i = k + int(mangled[i:k])
+        else:
+            out.append({"f": "f32"}.get(ch, ch))
+            i += 1
+    return out
+
+
+def _ptxas(root: str, source: str) -> dict:
     """Registers, spills, shared memory and HMMA count of each kernel in
-    fused_gather_encode.cu, built here with -Xptxas -v."""
+    ``csrc/<source>``, built here with -Xptxas -v."""
     from fedrec_tpu_torch.ops import _build
 
-    src = Path(root) / "fedrec_tpu_torch" / "ops" / "csrc" / "fused_gather_encode.cu"
+    src = Path(root) / "fedrec_tpu_torch" / "ops" / "csrc" / source
     out_dir = Path(root) / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "fused_gather_encode_ptxas.so"
+    lib = out_dir / f"{src.stem}_ptxas.so"
     log = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib), str(src)],
                          capture_output=True, text=True, check=True).stderr
 
@@ -99,10 +135,8 @@ def _ptxas(root: str) -> dict:
             name = next((mangled[m.end():m.end() + n] for n in lengths
                          if mangled[m.end():m.end() + n].endswith("_kernel")), "")
             if name:
-                args = mangled[m.end() + len(name):]
-                args = args[:args.index("E") + 1] if args.startswith("I") else ""
-                dt = "bf16" if "bfloat16" in args else ("f32" if args.startswith("If") else "")
-                return f"{name}<{dt}{',e32' if 'Lb1' in args else ''}>" if dt else name
+                args = _template_args(mangled[m.end() + len(name):])
+                return f"{name}<{','.join(args)}>" if args else name
         return mangled
 
     kernels, cur = {}, None
@@ -212,10 +246,64 @@ def _long(res: dict, rnd) -> None:
     res["flash_outputs_sha256"] = h.hexdigest()[:16]
 
 
+def _pool_flash(res: dict, rnd, profile: bool) -> None:
+    import torch
+    from fedrec_tpu_torch.ops import attention_kernels as ak
+
+    def err(a, b) -> float:
+        return float((a.float() - b.float()).abs().max())
+
+    w1, b1, w2 = rnd(768, 384) / math.sqrt(768), rnd(384) * 0.02, rnd(384) / math.sqrt(384)
+    for n, tag in ((2048, "chunk"), (32848, "long")):
+        x32 = rnd(n, 50, 768)
+        for dt, dtag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = x32 if dt == torch.float32 else x32.to(dt)
+            key = f"A_{tag}_{dtag}"
+            res[f"{key}_ms"] = time_ms(lambda: ak.additive_pool(x, w1, b1, w2), 10 if n < 10000 else 3)
+            out = ak.additive_pool(x, w1, b1, w2)
+            res[f"{key}_err"] = err(out, ak.additive_pool_plain(x, w1, b1, w2))
+            res[f"{key}_repeats"] = bool(torch.equal(out, ak.additive_pool(x, w1, b1, w2)))
+            if profile and dt == torch.float32:
+                res[f"{key}_kernels_ms"] = _profile(lambda: ak.additive_pool(x, w1, b1, w2), 3)
+            del x, out
+        del x32
+        torch.cuda.empty_cache()
+    x = rnd(64, 50, 768)
+    res["A_equals_A2_bitwise"] = bool(torch.equal(ak.additive_pool(x, w1, b1, w2),
+                                                  ak.additive_pool_long(x, w1, b1, w2)))
+    w1, b1, w2 = rnd(400, 200) / 20, rnd(200) * 0.02, rnd(200) / math.sqrt(200)
+    for n in (16, 128):
+        x = rnd(n, 2048, 400)
+        res[f"A2_n{n}_ms"] = time_ms(lambda: ak.additive_pool_long(x, w1, b1, w2), 20)
+        out = ak.additive_pool_long(x, w1, b1, w2)
+        res[f"A2_n{n}_err"] = err(out, ak.additive_pool_plain(x, w1, b1, w2))
+        res[f"A2_n{n}_repeats"] = bool(torch.equal(out, ak.additive_pool_long(x, w1, b1, w2)))
+        if profile and n == 16:
+            res["A2_n16_kernels_ms"] = _profile(lambda: ak.additive_pool_long(x, w1, b1, w2))
+    q, k, v, g = (rnd(320, 2048, 20) for _ in range(4))
+    bias = torch.zeros((320, 2048), device="cuda")
+    res["F1_ms"] = time_ms(lambda: ak.flash_forward(q, k, v, bias), 10)
+    out, lse = ak.flash_forward(q, k, v, bias)
+    want_out, want_lse = ak.flash_forward_plain(q, k, v, bias)
+    res["F1_err"] = err(out, want_out)
+    res["F1_lse_err"] = err(lse, want_lse)
+    again = ak.flash_forward(q, k, v, bias)
+    res["F1_repeats"] = bool(torch.equal(out, again[0]) and torch.equal(lse, again[1]))
+    if profile:
+        res["F1_kernels_ms"] = _profile(lambda: ak.flash_forward(q, k, v, bias))
+    # F2 and F3 from the plain forward's out and lse: equal in both trees
+    delta = (g * want_out).sum(-1)
+    h = hashlib.sha256()
+    for t in (ak.flash_backward_dq(q, k, v, bias, g, want_lse, delta),
+              *ak.flash_backward_dkv(q, k, v, bias, g, want_lse, delta)):
+        h.update(t.cpu().numpy().tobytes())
+    res["F2_F3_outputs_sha256"] = h.hexdigest()[:16]
+
+
 def main(argv: list[str]) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("root", nargs="?", default=".")
-    p.add_argument("--only", choices=("text_head", "long"))
+    p.add_argument("--only", choices=("text_head", "long", "pool_flash"))
     p.add_argument("--profile", action="store_true")
     p.add_argument("--ptxas", action="store_true")
     args = p.parse_args(argv)
@@ -239,9 +327,14 @@ def main(argv: list[str]) -> int:
     if only in (None, "text_head"):
         _text_head(res, rnd, gen, args.profile)
         if args.ptxas:
-            res["ptxas"] = _ptxas(root)
+            res["ptxas"] = _ptxas(root, "fused_gather_encode.cu")
     if only in (None, "long"):
         _long(res, rnd)
+    if only in (None, "pool_flash"):
+        _pool_flash(res, rnd, args.profile)
+        if args.ptxas:
+            res["ptxas_pool_flash"] = {src: _ptxas(root, src)
+                                       for src in ("additive_pool.cu", "flash_attention.cu")}
     print(json.dumps(res), flush=True)
     return 0
 

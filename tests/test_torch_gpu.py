@@ -104,6 +104,46 @@ def test_additive_pool_kernel_matches_plain(cuda, rng, dtype, shape, kind):
         assert bool((got[1] == 0).all())
 
 
+# (n, L, D, Hd): the edges of kernel A's logits pass (64-row tiles, 32-deep
+# chunks, 32 NT-unit hidden tiles) and of its pool pass (column blocks)
+_POOL_EDGES = {
+    "rows_not_a_tile_multiple": (3, 50, 768, 384),  # R = 150
+    "one_token": (70, 1, 768, 384),                 # L = 1
+    "hidden_200_width_400": (5, 50, 400, 200),      # one 224-wide tile, a 16-deep tail chunk
+    "hidden_not_a_multiple_of_4": (4, 9, 48, 29),   # W1 copied an element at a time
+    "width_over_1024": (2, 5, 1100, 64),            # two column blocks, a 12-deep tail chunk
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_POOL_EDGES))
+@pytest.mark.parametrize("kind", ["none", "partial", "fully_masked_row"])
+def test_additive_pool_tile_edges(cuda, rng, dtype, case, kind):
+    """Kernel A where its tiles end ragged, against the plain version at the
+    bars above; a fully-masked row pools to exactly 0."""
+    test_additive_pool_kernel_matches_plain(cuda, rng, dtype, _POOL_EDGES[case], kind)
+
+
+def test_pool_and_flash_forward_repeat_to_the_bit(cuda, rng):
+    """Kernels A (f32 and bf16), A2 and F1 give the same bits twice."""
+    x = _t(rng.standard_normal((9, 50, 768)), cuda)
+    w1 = _t(rng.standard_normal((768, 384)) / np.sqrt(768), cuda)
+    b1, w2 = _t(rng.standard_normal(384) * 0.05, cuda), _t(rng.standard_normal(384) / 20, cuda)
+    m = (rng.random((9, 50)) > 0.3).astype(np.float32)
+    m[:, 0] = 1.0
+    mask = _t(m, cuda)
+    for xx in (x, x.bfloat16()):
+        assert torch.equal(additive_pool(xx, w1, b1, w2, mask), additive_pool(xx, w1, b1, w2, mask))
+    xl = _t(rng.standard_normal((3, 2048, 400)), cuda)
+    w1l = _t(rng.standard_normal((400, 200)) / 20, cuda)
+    b1l, w2l = _t(rng.standard_normal(200) * 0.05, cuda), _t(rng.standard_normal(200) / 14, cuda)
+    assert torch.equal(additive_pool_long(xl, w1l, b1l, w2l), additive_pool_long(xl, w1l, b1l, w2l))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias, _ = _flash_inputs(rng, cuda, dtype, 6, 333, 20, "partial")
+        a, b = flash_forward(q, k, v, bias), flash_forward(q, k, v, bias)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 def _tower(rng, d, q, dev, dtype):
     """Weights scaled by 1/sqrt(fan-in), so activations stay O(1) at any width."""
     def r(*s, scale=None):
@@ -405,6 +445,28 @@ def test_flash_kernels_match_plain(cuda, rng, dtype, L, d, kind):
     # both sides hold the cancellation's noise, a few f32 ulps of |delta|
     _close_grad(dbias, want[3], torch.float32, "dbias",
                 floor=1e-6 * (1.0 + float(delta.abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", [(20, 8), (8, 64), (33, 17), (128, 20)])
+def test_flash_kernels_with_unequal_widths(cuda, rng, dtype, dk, dv):
+    """dk != dv (and widths that are not multiples of 4, staged without
+    cp.async): F1, F2 and F3 against the plain versions at the bars above."""
+    bh, L = 3, 130
+    q, k, _, bias, _ = _flash_inputs(rng, cuda, dtype, bh, L, dk, "partial")
+    v = _t(rng.standard_normal((bh, L, dv)), cuda, dtype)
+    g = _t(rng.standard_normal((bh, L, dv)), cuda, dtype)
+    out, lse = flash_forward(q, k, v, bias)
+    want_out, want_lse = flash_forward_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    _close(out, want_out, dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(), atol=1e-4, rtol=1e-6)
+    delta = (g.float() * want_out.float()).sum(-1)
+    got = (flash_backward_dq(q, k, v, bias, g, want_lse, delta),
+           *flash_backward_dkv(q, k, v, bias, g, want_lse, delta))
+    want = flash_backward_plain(q, k, v, bias, want_out, want_lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_grad(a, b, dtype, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,4 +1,4 @@
-"""The precision argument of kernels C and D's tensor-core products, on the CPU.
+"""The precision argument of the kernels' tensor-core products, on the CPU.
 
 Kernels C and D (``fedrec_tpu_torch/ops/csrc/fused_gather_encode.cu``,
 ``wgrad.cuh:wgrad_tc``, ``mma.cuh``) run the text head's two large products
@@ -18,6 +18,15 @@ against float64 at the text head's widths (T 50, Dh 768, Ah 384):
   GRAD_REL["float32"] = 1e-4 of the largest |dW1| on the weight sum;
 * one TF32 pass (what ``allow_tf32`` would give) misses both bars, so the
   test would catch a kernel that dropped the low parts.
+
+Kernel A (``csrc/additive_pool.cu``) forms the pool's logits the same way
+at (D 768 -> Hd 384) and (400 -> 200, whose last 32-deep chunk is 16 deep
+and zero-filled): three passes for an f32 x, two for a bf16 x (exact in
+TF32; W1 split), held at f32's 1e-5 bar. Kernel F1
+(``csrc/flash_attention.cu``) forms Q K^T (width 20 padded to 24) and P V
+(P split like any operand, each 64-key tile's product summed in a fresh
+accumulator and added to the rescaled output) inside an f32 online softmax
+over 64-key tiles: ``out`` within 1e-5 and ``lse`` within 1e-4 of float64.
 """
 
 import numpy as np
@@ -47,16 +56,18 @@ def trunc_f32(v: np.ndarray) -> np.ndarray:
     return bits.view(np.float64).astype(np.float32)
 
 
-def tc_matmul(a: np.ndarray, b: np.ndarray, passes: list[tuple[int, int]]) -> np.ndarray:
+def tc_matmul(a: np.ndarray, b: np.ndarray, passes: list[tuple[int, int]],
+              chunk_depth: int = CHUNK) -> np.ndarray:
     """a (M, K) @ b (K, N) as the kernels form it: per 8-deep step, each pass
     (i, j) adds a_parts[i] @ b_parts[j] into a chunk accumulator truncated to
-    f32; every 32-deep chunk is added to the f32 total round-to-nearest.
-    Part 0 is hi, part 1 lo; a TF32 product of two TF32 values is exact."""
+    f32; every ``chunk_depth``-deep chunk is added to the f32 total
+    round-to-nearest. Part 0 is hi, part 1 lo; a TF32 product of two TF32
+    values is exact."""
     ap, bp = split(a), split(b)
     total = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for c0 in range(0, a.shape[1], CHUNK):
+    for c0 in range(0, a.shape[1], chunk_depth):
         chunk = np.zeros_like(total)
-        for k in range(c0, min(c0 + CHUNK, a.shape[1]), K_STEP):
+        for k in range(c0, min(c0 + chunk_depth, a.shape[1]), K_STEP):
             for i, j in passes:
                 prod = ap[i][:, k:k + K_STEP].astype(np.float64) @ bp[j][k:k + K_STEP].astype(np.float64)
                 chunk = trunc_f32(chunk.astype(np.float64) + prod)
@@ -130,3 +141,78 @@ def test_dw1_sum_against_float64(route, holds):
     err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
     assert (err <= GRAD_REL_F32 * scale) == holds, (
         f"{route}: max dW1 error {err:.3g} against {GRAD_REL_F32} x {scale:.3g}")
+
+
+F32_BAR = 1e-5  # the kernels' f32 bar against their plain versions (tests/test_torch_gpu.py)
+
+
+def _pad_cols(a: np.ndarray, mult: int) -> np.ndarray:
+    return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, (-a.shape[-1]) % mult)])
+
+
+@pytest.mark.parametrize("width", ["768_to_384", "400_to_200"])
+@pytest.mark.parametrize("route,holds", [
+    ("f32_three_tf32_passes", True),
+    ("bf16_x_two_tf32_passes", True),
+    ("f32_one_tf32_pass", False),
+])
+def test_pool_logits_against_float64(width, route, holds):
+    """Kernel A's logits tanh(x W1 + b1) . w2 over 4 rows of 50 tokens."""
+    d, hd = {"768_to_384": (768, 384), "400_to_200": (400, 200)}[width]
+    x, w1, b1, w2 = _head(np.random.default_rng(2), dh=d, ah=hd)
+    passes = {"f32_three_tf32_passes": THREE, "bf16_x_two_tf32_passes": TWO,
+              "f32_one_tf32_pass": ONE}[route]
+    if route.startswith("bf16"):
+        x = to_bf16(x)
+        assert np.array_equal(tf32_rna(x), x)  # exact in TF32: no low part
+    # the kernel zero-fills the depth to whole 32-deep chunks (D = 400: the
+    # last is 16 deep); the zeros add nothing
+    pre = tc_matmul(_pad_cols(x, CHUNK), _pad_cols(w1.T, CHUNK).T, passes)
+    if d % CHUNK:
+        assert np.array_equal(pre, tc_matmul(x, w1, passes))
+    lg = np.zeros(x.shape[0], np.float32)
+    for j in range(hd):  # the epilogue's f32 sum of tanh(pre + b1) w2
+        lg = (lg + np.tanh(pre[:, j] + b1[j]) * w2[j]).astype(np.float32)
+    ref = np.tanh(x.astype(np.float64) @ w1.astype(np.float64) + b1) @ w2.astype(np.float64)
+    err = float(np.abs(lg - ref).max())
+    assert (err <= F32_BAR) == holds, f"{route}: max logit error {err:.3g} against {F32_BAR}"
+
+
+def _flash_emulated(q, k, v, bias, passes):
+    """Kernel F1 on one 64-query tile: Q K^T and P V in TF32 passes (width
+    padded to 24), the f32 online softmax over 64-key tiles from a running
+    max of -1e9, each tile's P V promoted into the rescaled output."""
+    f32 = np.float32
+    scale = f32(1.0 / np.sqrt(q.shape[1]))
+    qp, kp, vp = _pad_cols(q, K_STEP), _pad_cols(k, K_STEP), _pad_cols(v, K_STEP)
+    m = np.full(q.shape[0], -1e9, f32)
+    l = np.zeros(q.shape[0], f32)
+    acc = np.zeros((q.shape[0], vp.shape[1]), f32)
+    for k0 in range(0, k.shape[0], 64):
+        s = tc_matmul(qp, np.ascontiguousarray(kp[k0:k0 + 64].T), passes)
+        s = (s.astype(np.float64) * scale + bias[k0:k0 + 64]).astype(f32)  # one rounding: fmaf
+        mx = np.maximum(m, s.max(1))
+        corr = np.exp(m - mx)
+        p = np.exp(s - mx[:, None])
+        l = (l.astype(np.float64) * corr + p.sum(1, dtype=f32)).astype(f32)
+        acc = (acc * corr[:, None]).astype(f32)
+        acc = (acc + tc_matmul(p, vp[k0:k0 + 64], passes, chunk_depth=64)).astype(f32)
+        m = mx
+    ls = np.maximum(l, f32(1e-30))
+    return (acc / ls[:, None])[:, :v.shape[1]], m + np.log(ls)
+
+
+@pytest.mark.parametrize("route,holds", [("three_tf32_passes", True), ("one_tf32_pass", False)])
+def test_flash_forward_against_float64(route, holds):
+    """Kernel F1 at width 20: 64 queries against 2,048 keys, a quarter of
+    them masked (bias -1e9)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (rng.standard_normal((n, 20)).astype(np.float32) for n in (64, 2048, 2048))
+    bias = np.where(rng.random(2048) > 0.25, 0.0, -1e9).astype(np.float32)
+    out, lse = _flash_emulated(q, k, v, bias, THREE if route == "three_tf32_passes" else ONE)
+    s = (q.astype(np.float64) @ k.T.astype(np.float64)) / np.sqrt(20) + bias
+    ref_lse = s.max(1) + np.log(np.exp(s - s.max(1, keepdims=True)).sum(1))
+    ref = np.exp(s - ref_lse[:, None]) @ v.astype(np.float64)
+    err, lse_err = float(np.abs(out - ref).max()), float(np.abs(lse - ref_lse).max())
+    assert (err <= F32_BAR and lse_err <= 1e-4) == holds, (
+        f"{route}: max out error {err:.3g} against {F32_BAR}, lse error {lse_err:.3g} against 1e-4")
