@@ -88,7 +88,7 @@ class OptimConfig:
 
 @dataclass
 class FedConfig:
-    strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg"
+    strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg" | "coordinator"
     num_clients: int = 8
     seq_shards: int = 1                # not ported: > 1 raises
 

@@ -72,9 +72,12 @@ _STRATEGIES = {s.name: s for s in (Local, GradAvg, ParamAvg)}
 
 
 def get_strategy(name: str) -> FedStrategy:
-    if name not in _STRATEGIES:
+    # "coordinator" shares the round-end math with param_avg (as in the JAX
+    # package, whose coordinator deployment runs its own host-side round loop)
+    key = "param_avg" if name == "coordinator" else name
+    if key not in _STRATEGIES:
         raise ValueError(f"unknown federation strategy {name!r}; have {sorted(_STRATEGIES)}")
-    return _STRATEGIES[name]()
+    return _STRATEGIES[key]()
 
 
 def weighted_param_avg(params: Sequence[Leaves], weights) -> list[Leaves]:

@@ -30,23 +30,18 @@
 // p.astype(v.dtype). tests/test_torch_tc_precision.py holds the emulation
 // against float64.
 //
-// F2, F3: one thread per output row on CUDA cores, in full f32 (bf16
-// operands widened), a block owning one tile of output rows and walking the
-// other axis in order.
-//   F2:     one block per (bh, 64-query tile); K/V/bias tiles of 64 keys are
-//           staged in shared memory as f32 and read by every thread as
-//           broadcast float4s; each thread keeps its q and do rows and its
-//           accumulator in registers.
-//   F3:     one block per (bh, 64-key tile), walking 64-query tiles of
-//           q / do / lse / delta staged in shared memory; each thread keeps
-//           its k and v rows and the dk, dv, dbias accumulators.
+// F2: one thread per output row on CUDA cores, in full f32 (bf16 operands
+// widened): one block per (bh, 64-query tile); K/V/bias tiles of 64 keys
+// are staged in shared memory as f32 and read by every thread as broadcast
+// float4s; each thread keeps its q and do rows and its accumulator in
+// registers.
+// F3: FA2's dk/dv half on the tensor cores, as F1's fragments with keys as
+// the m-dimension (described at the kernel).
 // Each output has one owner that sums in a fixed order: no atomics, so the
-// results repeat to the bit. F2 and F3 compute each score with the same
-// helper (the same products summed in the same order), so they agree with
-// each other exactly; F1 forms it on the tensor cores in 3xTF32, which
-// differs from theirs by about 2^-21 relative. The p that F2 and F3 rebuild
-// from F1's lse therefore differ from F1's own by as much: far inside the
-// backward's bars.
+// results repeat to the bit. F1 and F3 form each score on the tensor cores
+// in 3xTF32, F2 on CUDA cores in f32: the two differ by about 2^-21
+// relative, so the p that F2 rebuilds from F1's lse differs from F1's and
+// F3's own by as much: far inside the backward's bars.
 //
 // Numerics follow the JAX kernels: the running max starts at -1e9 (not
 // -inf) and the sum is floored at 1e-30, so a fully-masked row attends
@@ -54,7 +49,8 @@
 // p is rounded to the operand dtype before P.V (F1) and before dv (F3), ds
 // before dq (F2) and dk (F3); dbias sums the unrounded f32 ds. JAX pads
 // keys to its block with bias -1e9; here the keys past the end of the last
-// tile get bias -inf in F1 (p = 0 exactly) and are skipped in F2 and F3.
+// tile get bias -inf in F1 and F3 and the queries past it lse +inf in F3
+// (p = 0 exactly), and F2 skips them.
 #include <stdint.h>
 
 #include <type_traits>
@@ -539,67 +535,269 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // ------------------------------------------------------------------- F3
-template <typename T, int D4, bool EXACT>
-__global__ void __launch_bounds__(BK)
+// FA2's dk/dv half on the tensor cores, keys as the m-dimension so that F1's
+// fragment forms carry over. A block of 4 warps owns a 64-key tile, each
+// warp one m-tile of 16 keys (its K and V fragments held in registers at
+// widths <= 32); it walks 64-query tiles of Q, dO, lse and delta staged
+// through a cp.async double buffer. Per query tile a warp forms
+//   S^T  = K Q^T                         (16 keys x 64 queries, depth dk)
+//   P^T  = exp(scale S^T + bias - lse)   on the accumulator fragment
+//   dV  += P^T dO                        (P^T's fragment is the A operand
+//                                          with F1's query permutation)
+//   dP^T = V dO^T                        (depth dv)
+//   dS^T = P^T (dP^T - delta);  dbias += sum over the queries of dS^T
+//   dK  += dS^T Q
+// and at the end dK *= scale. The operands are TF32 (m16n8k8) at every
+// width: f32 values split into hi and lo (three passes: lo hi, hi lo, hi hi;
+// P^T and dS^T split like any operand), bf16 values exact (one pass, the
+// exact products a bf16 mma forms). p is rounded to the operand dtype before
+// dV and ds before dK; dbias sums the unrounded f32 ds of a row over its
+// quad and n-tiles in a fixed order. dV's and dK's sums take a fresh
+// accumulator for every 32 queries, promoted with a round-to-nearest add;
+// S^T and dP^T likewise for every 32 of depth past the first.
+constexpr int kF3Warps = 4;  // one 16-key m-tile each
+constexpr int kF3Threads = 32 * kF3Warps;
+
+__host__ __device__ constexpr int f3_pitch(int w) {  // conflict-free reads by row and by column
+  return w + 4;
+}
+
+// the K and V tiles, two stages of Q and dO tiles (T), two of lse and delta
+template <typename T, int W>
+__host__ __device__ constexpr size_t f3_smem() {
+  return sizeof(T) * (size_t)f3_pitch(W) * (2 * BK + 4 * BQ) + 4 * BQ * sizeof(float);
+}
+
+// A fragment of rows row, row + 8 at depth k of a (., P) tile
+template <typename T, int P>
+__device__ __forceinline__ void f3_afrag(const T* t, int row, int k, Tf32Pair* a) {
+  const T* p = t + row * P + k;
+  a[0] = tf32_op(p[0]);
+  a[1] = tf32_op(p[8 * P]);
+  a[2] = tf32_op(p[4]);
+  a[3] = tf32_op(p[8 * P + 4]);
+}
+
+// acc (16 rows x 64 columns) = A B^T over depth W: A's rows from registers
+// (REG: af) or rows row, row + 8 of the tile at; B the 64 rows of bt. Thread
+// (g, c) holds column nt*8 + 2c + (i & 1) of row g + 8*(i >= 2) in acc[nt][i].
+template <typename T, int W, bool REG>
+__device__ __forceinline__ void f3_scores(float (&acc)[8][4], Tf32Pair (&af)[REG ? W / 8 : 1][4],
+                                          const T* at, const T* bt, int row, int g, int c) {
+  constexpr int P = f3_pitch(W), NS = W / 8;
+  constexpr int kFirst = std::is_same<T, float>::value ? 0 : 2;
+  constexpr bool kPromote = NS > 4;
+  float ch[kPromote ? 8 : 1][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[nt][i] = 0.f;
+      if constexpr (kPromote) ch[nt][i] = 0.f;
+    }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    Tf32Pair a[4];
+    if constexpr (REG) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = af[s][i];
+    } else {
+      f3_afrag<T, P>(at, row, s * 8 + c, a);
+    }
+    Tf32Pair b[8][2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const T* p = bt + (nt * 8 + g) * P + s * 8 + c;
+      b[nt][0] = tf32_op(p[0]);
+      b[nt][1] = tf32_op(p[4]);
+    }
+#pragma unroll
+    for (int pass = kFirst; pass < 3; ++pass)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mma_pass(kPromote ? ch[nt] : acc[nt], a, b[nt], pass);
+    if constexpr (kPromote) {
+      if ((s + 1) % 4 == 0 || s + 1 == NS) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) promote(acc[nt], ch[nt]);
+      }
+    }
+  }
+}
+
+// tot (16 rows x W) += round(x) B: x (16 rows x 64 queries) in acc form,
+// B the (64 queries, P) tile bt. Query 2c and 2c + 1 of each 8-query step
+// are A columns c and c + 4, so x's fragment is the A operand as it stands
+// and B's rows are read in that order (F1's permutation). Every 32 queries
+// sum in a fresh accumulator, promoted into tot.
+template <typename T, int W>
+__device__ __forceinline__ void f3_accumulate(float (&tot)[W / 8][4], float (&x)[8][4],
+                                              const T* bt, int g, int c) {
+  constexpr int P = f3_pitch(W), NS = W / 8;
+  constexpr bool kBf16 = !std::is_same<T, float>::value;  // rounded x: exact in TF32
+  constexpr int kFirst = kBf16 ? 2 : 0;
+  float ch[NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) ch[n][0] = ch[n][1] = ch[n][2] = ch[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const Tf32Pair a[4] = {
+        tf32_op<kBf16>(round_to<T>(x[kk][0])), tf32_op<kBf16>(round_to<T>(x[kk][2])),
+        tf32_op<kBf16>(round_to<T>(x[kk][1])), tf32_op<kBf16>(round_to<T>(x[kk][3]))};
+    const T* br = bt + (kk * 8 + 2 * c) * P + g;
+#pragma unroll
+    for (int n0 = 0; n0 < NS; n0 += 4) {  // 4 n-tiles at a time: bounded registers
+      Tf32Pair b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n0 + j < NS) {
+          b[j][0] = tf32_op(br[(n0 + j) * 8]);
+          b[j][1] = tf32_op(br[(n0 + j) * 8 + P]);
+        }
+      }
+#pragma unroll
+      for (int pass = kFirst; pass < 3; ++pass)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n0 + j < NS) mma_pass(ch[n0 + j], a, b[j], pass);
+    }
+    if (kk % 4 == 3) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) promote(tot[n], ch[n]);
+    }
+  }
+}
+
+// One (bh, 64-key tile) a block; W: the padded width of both dk and dv.
+template <typename T, int W>
+__global__ void __launch_bounds__(kF3Threads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ bias, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk_out, T* __restrict__ dv_out, float* __restrict__ dbias,
                      int Lq, int Lk, int dk, int dv, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dkp = pad4(dk), dvp = pad4(dv), dk4 = dkp / 4, dv4 = dvp / 4;
-  float* qs = smem;               // (BQ, dkp)
-  float* dos = qs + BQ * dkp;     // (BQ, dvp)
-  float* lss = dos + BQ * dvp;    // (BQ)
-  float* dls = lss + BQ;          // (BQ)
-  const int nkt = (Lk + BK - 1) / BK;
-  const int bh = blockIdx.x / nkt, key = (blockIdx.x - bh * nkt) * BK + threadIdx.x;
-  const bool live = key < Lk;
-  const size_t c = (size_t)bh * Lk + (live ? key : 0);
+  constexpr int P = f3_pitch(W), NS = W / 8;
+  constexpr bool kReg = W <= 32;  // K and V fragments held in registers
+  extern __shared__ __align__(16) unsigned char f3_smem_raw[];
+  T* ks = reinterpret_cast<T*>(f3_smem_raw);  // (BK, P)
+  T* vs = ks + BK * P;                         // (BK, P)
+  auto qt = [&](int st) { return vs + BK * P + st * 2 * BQ * P; };
+  auto gt = [&](int st) { return vs + BK * P + st * 2 * BQ * P + BQ * P; };
+  float* stats = reinterpret_cast<float*>(vs + BK * P + 4 * BQ * P);  // [stage][lse | delta]
 
-  float kr[4 * D4], vr[4 * D4], dka[4 * D4], dva[4 * D4];
-  load_row<D4, EXACT>(kr, k + c * dk, dk);
-  load_row<D4, EXACT>(vr, v + c * dv, dv);
-#pragma unroll
-  for (int i = 0; i < 4 * D4; ++i) {
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-  const float b = bias[c];
-  float db = 0.f;
+  const int nkt = (Lk + BK - 1) / BK;
+  const int bh = blockIdx.x / nkt, k0 = (blockIdx.x - bh * nkt) * BK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3, wk = warp * 16;
   const T* qb = q + (size_t)bh * Lq * dk;
   const T* gb = dout + (size_t)bh * Lq * dv;
+  const float* lb = lse + (size_t)bh * Lq;
+  const float* eb = delta + (size_t)bh * Lq;
+  const bool vec = (dk & 3) == 0 && (dv & 3) == 0;
+  const int tiles = (Lq + BQ - 1) / BQ;
 
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    const int nq = min(BQ, Lq - q0);
-    __syncthreads();
-    stage_rows(qs, qb + (size_t)q0 * dk, nq, dk);
-    stage_rows(dos, gb + (size_t)q0 * dv, nq, dv);
-    for (int i = threadIdx.x; i < nq; i += blockDim.x) {
-      lss[i] = lse[(size_t)bh * Lq + q0 + i];
-      dls[i] = delta[(size_t)bh * Lq + q0 + i];
+  auto stage_q = [&](int st, int t) {
+    const int q0 = t * BQ, nq = min(BQ, Lq - q0);
+    f1_stage<T, BQ, W>(qt(st), P, qb + (size_t)q0 * dk, nq, dk, vec);
+    f1_stage<T, BQ, W>(gt(st), P, gb + (size_t)q0 * dv, nq, dv, vec);
+    float* ls = stats + st * 2 * BQ;
+    for (int i = tid; i < BQ; i += kF3Threads) {
+      if (i < nq) {
+        cp_async1(ls + i, lb + q0 + i, true);
+        cp_async1(ls + BQ + i, eb + q0 + i, true);
+      } else {  // past the last query: p = 0 exactly
+        ls[i] = INFINITY;
+        ls[BQ + i] = 0.f;
+      }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < nq; ++i) {
-      const float s = fmaf(dot_row<D4, EXACT>(kr, qs + i * dkp, dk4), scale, b);
-      const float p = expf(s - lss[i]);
-      axpy_row<D4, EXACT>(dva, round_to<T>(p), dos + i * dvp, dv4);
-      const float dp = dot_row<D4, EXACT>(vr, dos + i * dvp, dv4);
-      const float ds = p * (dp - dls[i]);
-      db += ds;
-      axpy_row<D4, EXACT>(dka, round_to<T>(ds), qs + i * dkp, dk4);
+  };
+
+  const int nk = min(BK, Lk - k0);
+  f1_stage<T, BK, W>(ks, P, k + ((size_t)bh * Lk + k0) * dk, nk, dk, vec);
+  f1_stage<T, BK, W>(vs, P, v + ((size_t)bh * Lk + k0) * dv, nk, dv, vec);
+  if (tiles > 0) stage_q(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this thread's keys wk + g and wk + g + 8: their bias, -inf past the end
+  float kb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wk + g + 8 * r;
+    kb[r] = key < Lk ? bias[(size_t)bh * Lk + key] : -INFINITY;
+  }
+  Tf32Pair kf[kReg ? NS : 1][4], vf[kReg ? NS : 1][4];
+  if constexpr (kReg) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      f3_afrag<T, P>(ks, wk + g, s * 8 + c, kf[s]);
+      f3_afrag<T, P>(vs, wk + g, s * 8 + c, vf[s]);
     }
   }
-  if (live) {
-    T* ko = dk_out + c * dk;
-    T* vo = dv_out + c * dv;
+
+  float dka[NS][4], dva[NS][4], dbr[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 4 * D4; ++i) {
-      if (EXACT || i < dk) ko[i] = from_f32<T>(dka[i] * scale);
-      if (EXACT || i < dv) vo[i] = from_f32<T>(dva[i]);
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[n][i] = dva[n][i] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();  // tile t landed
+      __syncthreads();     // and every warp is done with tile t - 1
     }
-    dbias[c] = db;
+    if (t + 1 < tiles) stage_q((t + 1) & 1, t + 1);
+    cp_async_commit();
+    const T* qs = qt(t & 1);
+    const T* gs = gt(t & 1);
+    const float* ls = stats + (t & 1) * 2 * BQ;
+    const float* es = ls + BQ;
+
+    float p[8][4], ds[8][4];
+    f3_scores<T, W, kReg>(p, kf, ks, qs, wk + g, g, c);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[nt][i] = expf(fmaf(p[nt][i], scale, kb[i >> 1]) - ls[nt * 8 + 2 * c + (i & 1)]);
+    f3_accumulate<T, W>(dva, p, gs, g, c);
+
+    f3_scores<T, W, kReg>(ds, vf, vs, gs, wk + g, g, c);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ds[nt][i] = p[nt][i] * (ds[nt][i] - es[nt * 8 + 2 * c + (i & 1)]);
+        part[i >> 1] += ds[nt][i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+      dbr[r] += part[r];
+    }
+    f3_accumulate<T, W>(dka, ds, qs, g, c);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wk + g + 8 * r;
+    if (key >= Lk) continue;
+    const size_t row = (size_t)bh * Lk + key;
+    T* ko = dk_out + row * dk;
+    T* vo = dv_out + row * dv;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (col < dk) ko[col] = from_f32<T>(dka[n][2 * r + e] * scale);
+        if (col < dv) vo[col] = from_f32<T>(dva[n][2 * r + e]);
+      }
+    }
+    if (c == 0) dbias[row] = dbr[r];
   }
 }
 
@@ -614,18 +812,18 @@ int f1_width(int dk, int dv) {
 }
 
 size_t smem_rows(int which, int dk, int dv) {
-  // F1 stages Q once and double-buffers K, V and bias tiles (its f32 form
-  // is the larger); F2 stages K, V and bias tiles; F3 q, do, lse and delta
-  if (which == 0) {
+  // F1 stages Q once and double-buffers K, V and bias tiles; F3 holds its K
+  // and V tiles and double-buffers Q, dO, lse and delta (the f32 forms are
+  // the larger); F2 stages K, V and bias tiles
+  if (which != 1) {
     const int w = f1_width(dk, dv);
     switch (w) {
-      case 24: return f1_smem<float, 24, 24>();
-      case 32: return f1_smem<float, 32, 32>();
-      case 64: return f1_smem<float, 64, 64>();
-      default: return f1_smem<float, 128, 128>();
+      case 24: return which == 0 ? f1_smem<float, 24, 24>() : f3_smem<float, 24>();
+      case 32: return which == 0 ? f1_smem<float, 32, 32>() : f3_smem<float, 32>();
+      case 64: return which == 0 ? f1_smem<float, 64, 64>() : f3_smem<float, 64>();
+      default: return which == 0 ? f1_smem<float, 128, 128>() : f3_smem<float, 128>();
     }
   }
-  if (which == 2) return sizeof(float) * ((size_t)BQ * (pad4(dk) + pad4(dv)) + 2 * BQ);
   return sizeof(float) * ((size_t)BK * (pad4(dk) + pad4(dv)) + BK);
 }
 
@@ -663,52 +861,66 @@ int dispatch_f1(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T, int D4, bool EXACT>
-int launch(int which, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_rows(which, a.dk, a.dv);
-  cudaError_t err;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const float* bias = static_cast<const float*>(a.bias);
-  if (which == 1) {
-    err = allow_smem(flash_bwd_dq_kernel<T, D4, EXACT>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = a.bh * ((a.lq + BQ - 1) / BQ);
-    if (grid > 0)
-      flash_bwd_dq_kernel<T, D4, EXACT><<<grid, BQ, smem, stream>>>(
-          q, k, v, bias, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(a.o0), a.lq, a.lk, a.dk, a.dv,
-          a.scale);
-  } else {
-    err = allow_smem(flash_bwd_dkv_kernel<T, D4, EXACT>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int grid = a.bh * ((a.lk + BK - 1) / BK);
-    if (grid > 0)
-      flash_bwd_dkv_kernel<T, D4, EXACT><<<grid, BK, smem, stream>>>(
-          q, k, v, bias, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<T*>(a.o0), static_cast<T*>(a.o1),
-          static_cast<float*>(a.o2), a.lq, a.lk, a.dk, a.dv, a.scale);
-  }
+int launch_f2(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_rows(1, a.dk, a.dv);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D4, EXACT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = a.bh * ((a.lq + BQ - 1) / BQ);
+  if (grid > 0)
+    flash_bwd_dq_kernel<T, D4, EXACT><<<grid, BQ, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const float*>(a.bias), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.o0), a.lq, a.lk, a.dk, a.dv, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// F2, F3 width buckets: the user tower's 20 exactly (no bounds tests in the
+// F2's width buckets: the user tower's 20 exactly (no bounds tests in the
 // unrolled loops), else the next of 32 / 64 / 128 with runtime bounds.
 template <typename T>
-int dispatch(int which, const Args& a, cudaStream_t stream) {
+int dispatch_f2(const Args& a, cudaStream_t stream) {
   const int d = a.dk > a.dv ? a.dk : a.dv;
-  if (a.dk == 20 && a.dv == 20) return launch<T, 5, true>(which, a, stream);
-  if (d <= 32) return launch<T, 8, false>(which, a, stream);
-  if (d <= 64) return launch<T, 16, false>(which, a, stream);
-  return launch<T, 32, false>(which, a, stream);
+  if (a.dk == 20 && a.dv == 20) return launch_f2<T, 5, true>(a, stream);
+  if (d <= 32) return launch_f2<T, 8, false>(a, stream);
+  if (d <= 64) return launch_f2<T, 16, false>(a, stream);
+  return launch_f2<T, 32, false>(a, stream);
+}
+
+template <typename T, int W>
+int launch_f3(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = f3_smem<T, W>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, W>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = a.bh * ((a.lk + BK - 1) / BK);
+  if (grid > 0)
+    flash_bwd_dkv_kernel<T, W><<<grid, kF3Threads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const float*>(a.bias), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.o0), static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.lq, a.lk,
+        a.dk, a.dv, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F3's widths are F1's: 24 for the user tower's 20, else 32 / 64 / 128
+template <typename T>
+int dispatch_f3(const Args& a, cudaStream_t stream) {
+  switch (f1_width(a.dk, a.dv)) {
+    case 24: return launch_f3<T, 24>(a, stream);
+    case 32: return launch_f3<T, 32>(a, stream);
+    case 64: return launch_f3<T, 64>(a, stream);
+    default: return launch_f3<T, 128>(a, stream);
+  }
 }
 
 int run(int which, const Args& a, int dtype, void* stream) {
   if (a.dk < 1 || a.dv < 1 || a.dk > 128 || a.dv > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (which == 0) return dtype == 0 ? dispatch_f1<float>(a, s) : dispatch_f1<__nv_bfloat16>(a, s);
-  return dtype == 0 ? dispatch<float>(which, a, s) : dispatch<__nv_bfloat16>(which, a, s);
+  const bool f32 = dtype == 0;
+  if (which == 0) return f32 ? dispatch_f1<float>(a, s) : dispatch_f1<__nv_bfloat16>(a, s);
+  if (which == 1) return f32 ? dispatch_f2<float>(a, s) : dispatch_f2<__nv_bfloat16>(a, s);
+  return f32 ? dispatch_f3<float>(a, s) : dispatch_f3<__nv_bfloat16>(a, s);
 }
 
 }  // namespace

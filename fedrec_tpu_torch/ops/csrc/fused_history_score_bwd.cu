@@ -8,92 +8,333 @@
 // gets none. As in the JAX kernel, the backward treats each softmax's
 // stabilising max as a constant, runs in f32, and reads the forward's
 // rounded q/k/v and ctx but its unrounded attention weights, pool hidden
-// e32, pool weights and user vector.
+// e32, pool weights and user vector. The masked softmax is
+// exp(v - max) * mask / (sum + 1e-8).
 //
-// Two stages:
-//   1. one block per history row recomputes kernel B's forward with B's
-//      rounding points, then walks back: scorer (dcand, du), additive pool
-//      (dalpha, dlg, dpre, dctx), each head's attention (da, ds / sqrt(dh),
-//      dq, dk, dv) and dx = dQ Wq^T + dK Wk^T + dV Wv^T. dx and dcand are
-//      written directly.
-//   2. the weight sums, by the deterministic tiled reduction of wgrad.cuh:
-//      x^T dQ, x^T dK, x^T dV, ctx^T dpre and the column sums.
+// What bounds it on an H100 (f32, n=64, H=50, D=400, 20 heads, Q=200, C=5):
+// about 11.7 GFLOP of products against a few MB of traffic, so operations.
+// Nearly all of it is four row products over the R = n H history rows and
+// two weight sums over the same rows; the attention is 50 x 50 per head.
 //
-// Shared memory is the constraint: kernel B already keeps x and ctx, (H, D)
-// each in f32 (160 KB at H=50, D=400); x, ctx and dctx together would be
-// 240 KB, above the 227 KB a block may have. So one (H, D) region holds x,
-// then dctx, then each dY in turn, and a second holds ctx, then dpre, then
-// the per-head da, then the dx sum. What a later phase or stage 2 needs goes
-// to global scratch that the wrapper allocates: q/k/v (overwritten, head by
-// head, with dq/dk/dv), ctx, e32 (overwritten with dpre) and each row's dpw2
-// share.
+// Design: the work is split by its shape, not by history row, into launches
+// on one stream (each output has one owner and one order, no atomics: same
+// inputs, same bits):
+//   (a) rows_gemm_kernel, the row products on the tensor cores: a block owns
+//       64 rows x 128 output columns, 8 warps of 32 x 32, the A rows and a
+//       B tile staged in 32-deep chunks through a 3-stage cp.async ring
+//       (kernel A's pool_logits_kernel and kernel C's row kernel in form):
+//         [q|k|v] = round(x [Wq|Wk|Wv] + b)      K = D,  N = 3D
+//         e32 = tanh(ctx pw1 + pb1), its logits   K = D,  N = Q
+//         dctx = alpha du + dpre pw1^T            K = Q,  N = D
+//         dx = [dQ|dK|dV] [Wq|Wk|Wv]^T            K = 3D, N = D
+//       B is read from the weights where they lie, as column pieces (KN) or
+//       transposed (NK), so no concatenated or transposed copy is made.
+//   (b) attn_head_kernel, one block per (history row, head): the forward
+//       (softmax(q k^T / sqrt(dh)) v, rounded, into ctx) and the backward
+//       (the softmax recomputed, unrounded; dq, dk, dv) on CUDA cores, from
+//       that head's columns of the scratch that (a) writes. n nh blocks
+//       (1,280 on the train path) fill the card.
+//   (c) pool_bwd_kernel, one block per history row: the pool's softmax from
+//       the logits (a), the user vector, the scorer (dcand, du) and the pool
+//       backward (dalpha, dlg, dpre over e32, this row's dpw2 share).
+//   (d) the weight sums by wgrad.cuh: x^T [dQ|dK|dV] and ctx^T dpre on the
+//       tensor cores (wgrad_tc), the column sums on CUDA cores (wgrad).
+// Order: (a) q|k|v -> (b) forward -> (a) e32 -> (c) -> (a) dctx -> (b)
+// backward -> (a) dx -> (d).
 //
-// Bound on an H100 (f32, n=64, H=50, D=400, 20 heads, Q=200, C=5): the
-// recompute and the backward products are about 3x kernel B's 60 MFLOP per
-// row, and stage 2 another 2 n H D (3 D + Q): about 13.8 GFLOP in all, 0.2 ms
-// at 67 TFLOP/s, against a few MB of traffic: bound by operations. With 64
-// rows on 132 SMs, stage 1 leaves half the card idle; this simple version is
-// far above its bound (PERF.md).
+// Precision (mma.cuh): an f32 operand is split into TF32 hi and lo, and a
+// product takes a_lo b_hi + a_hi b_lo + a_hi b_hi; an operand exact in TF32
+// (a bf16 value, or ctx rounded to bf16) has no low part, so its pass is
+// skipped: under bf16 x W and ctx pw1 take one pass (the exact products a
+// bf16 mma forms, summed in f32), dpre pw1^T and dY W^T two. Each 32-deep
+// chunk sums in a fresh accumulator and is promoted with a round-to-nearest
+// add (the tensor cores truncate as they accumulate).
+// tests/test_torch_tc_precision.py holds the emulation against float64.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
-constexpr int TR = 10;        // history rows per register tile
-constexpr float kEps = 1e-8f; // the module's denominator epsilon
+using namespace fedrec;
+
+constexpr float kEps = 1e-8f;  // the module's denominator epsilon
 
 struct Dims {
-  int H, D, C, Q, nh, dh, Hp, colpad, Qpad, W2;
+  int H, D, C, Q, nh, dh;
 };
 
 __host__ __device__ inline Dims make_dims(int H, int D, int C, int Q, int nh) {
-  Dims d;
-  d.H = H; d.D = D; d.C = C; d.Q = Q; d.nh = nh; d.dh = D / nh;
-  d.Hp = (H + TR - 1) / TR * TR;
-  d.colpad = (3 * d.dh + 31) / 32 * 32;
-  d.Qpad = (Q + 31) / 32 * 32;
-  d.W2 = D;  // width of the second (H, .) region: ctx, dpre, da, dx
-  if (Q > d.W2) d.W2 = Q;
-  if (H > d.W2) d.W2 = H;
-  return d;
+  return Dims{H, D, C, Q, nh, D / nh};
 }
 
-__host__ __device__ inline size_t smem_floats(const Dims& d) {
-  return (size_t)d.Hp * d.D          // r1: x, dctx, dY
-         + (size_t)d.Hp * d.W2       // r2: ctx, dpre, da, dx
-         + 3 * (size_t)d.Hp * d.dh   // one head's q, k, v
-         + (size_t)d.Hp * d.H        // one head's attention weights
-         + (size_t)(d.Qpad / 32) * d.Hp  // per-warp pool-logit sums
-         + 3 * (size_t)d.Hp          // alpha, dalpha, dlg
-         + d.H + 2 * (size_t)d.D;    // mask, user, du
+// ------------------------------------------------------------- (a) rows
+constexpr int kGM = 64;       // rows per block
+constexpr int kGN = 128;      // output columns per block
+constexpr int kGK = 32;       // depth of a staged chunk (one promotion)
+constexpr int kGStages = 3;   // cp.async ring
+constexpr int kGThreads = 256;
+
+enum Epilogue { kQkv, kE32, kDctx, kDx };
+
+template <typename T>
+__host__ __device__ constexpr int k_pitch() {  // a row of 32 depth values: conflict-free fragments
+  return std::is_same<T, float>::value ? kGK + 4 : kGK + 8;
 }
 
-__host__ inline int block_threads(const Dims& d) {
-  int t = (d.Hp / TR) * d.colpad;
-  if (t < 128) t = 128;
-  return t > 1024 ? 1024 : t;
+template <typename TB, bool NK>
+__host__ __device__ constexpr int b_pitch() {
+  return NK ? k_pitch<TB>() : kGN + 8;
 }
 
-struct Scratch {
-  float *qkv, *ctx, *ep, *dpw2_rows, *partial;
+template <typename TB, bool NK>
+__host__ __device__ constexpr int b_rows() {
+  return NK ? kGN : kGK;
+}
+
+template <typename TA, typename TB, bool NK>
+__host__ __device__ constexpr size_t gemm_stage_bytes() {
+  return (size_t)kGM * k_pitch<TA>() * sizeof(TA) +
+         (size_t)b_rows<TB, NK>() * b_pitch<TB, NK>() * sizeof(TB);
+}
+
+template <typename TA, typename TB, bool NK>
+__host__ __device__ constexpr size_t gemm_smem() {
+  return kGStages * gemm_stage_bytes<TA, TB, NK>();
+}
+
+// B (K, N) read from up to three weights: KN, B[k][n] = p[n / piece][k *
+// piece + n % piece] (column pieces of (K, piece) matrices); NK, B[k][n] =
+// p[k / piece][n * piece + k % piece] (the transpose of (N, piece)
+// matrices laid side by side along k).
+struct BOperand {
+  const void* p[3];
+  int piece;
 };
 
-__host__ __device__ inline Scratch carve(float* base, int n, const Dims& d) {
-  Scratch s;
-  s.qkv = base;                                      // (n, 3, H, D)
-  s.ctx = s.qkv + 3 * (size_t)n * d.H * d.D;         // (n, H, D)
-  s.ep = s.ctx + (size_t)n * d.H * d.D;              // (n, H, Q): e32, then dpre
-  s.dpw2_rows = s.ep + (size_t)n * d.H * d.Q;        // (n, Q)
-  s.partial = s.dpw2_rows + (size_t)n * d.Q;
-  return s;
+struct Epi {
+  const void* v0;       // kQkv: bq; kE32: pb1
+  const void* v1;       // kQkv: bk; kE32: pw2
+  const void* v2;       // kQkv: bv
+  float* out;           // kQkv, kE32, kDctx: f32 (R, N)
+  void* out_t;          // kDx: (R, N) in the operand dtype
+  float* part;          // kE32: logit partials (column tiles, R)
+  const float* alpha;   // kDctx: (R)
+  const float* du;      // kDctx: (R / H, N)
+  int H;
+};
+
+// out (R, N) = epilogue(A (R, K) B (K, N)); A row-major with row stride K.
+// K and N divide by 4 (16-byte copies), and so does `piece`.
+template <typename TA, bool A_EXACT, typename TB, bool NK, int EPI>
+__global__ void __launch_bounds__(kGThreads, 2)
+    rows_gemm_kernel(const TA* __restrict__ a, BOperand b, int R, int K, int N, Epi ep) {
+  extern __shared__ __align__(16) unsigned char gsm[];
+  __shared__ float red[4][kGM];  // kE32: the four column warps' logit partials
+  constexpr bool kBExact = !std::is_same<TB, float>::value;
+  constexpr bool kAExact = A_EXACT || !std::is_same<TA, float>::value;
+  constexpr int AP = k_pitch<TA>(), BP = b_pitch<TB, NK>();
+  constexpr size_t kStage = gemm_stage_bytes<TA, TB, NK>();
+  constexpr size_t kATile = (size_t)kGM * AP * sizeof(TA);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  const int r0 = blockIdx.x * kGM, n0 = blockIdx.y * kGN;
+  const int chunks = (K + kGK - 1) / kGK;
+  const TB* const bp[3] = {static_cast<const TB*>(b.p[0]), static_cast<const TB*>(b.p[1]),
+                           static_cast<const TB*>(b.p[2])};
+
+  auto a_tile = [&](int st) { return reinterpret_cast<TA*>(gsm + st * kStage); };
+  auto b_tile = [&](int st) { return reinterpret_cast<TB*>(gsm + st * kStage + kATile); };
+  const int xr = tid >> 3, xk = (tid & 7) * 4;  // A: rows xr, xr + 32 at depth xk..xk+3
+  auto load = [&](int st, int chunk) {
+    const int k0 = chunk * kGK;
+    TA* as = a_tile(st);
+    TB* bs = b_tile(st);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + xr + 32 * i;
+      const bool v = r < R && k0 + xk < K;
+      cp_async4(as + (xr + 32 * i) * AP + xk, v ? a + (size_t)r * K + k0 + xk : a, v);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // 32 x 128 values, 4 a copy
+      const int idx = tid + kGThreads * i;
+      int k, n;
+      TB* dst;
+      if constexpr (NK) {
+        const int nn = idx >> 3, kq = (idx & 7) * 4;
+        n = n0 + nn;
+        k = k0 + kq;
+        dst = bs + nn * BP + kq;
+      } else {
+        const int kk = idx >> 5, nq = (idx & 31) * 4;
+        n = n0 + nq;
+        k = k0 + kk;
+        dst = bs + kk * BP + nq;
+      }
+      const bool v = k < K && n < N;
+      const TB* src = bp[0];
+      if (v) {
+        if constexpr (NK) {
+          src = bp[k / b.piece] + (size_t)n * b.piece + k % b.piece;
+        } else {
+          src = bp[n / b.piece] + (size_t)k * b.piece + n % b.piece;
+        }
+      }
+      cp_async4(dst, src, v);
+    }
+  };
+
+  float acc[32], tot[32];  // [mt 2][nt 4][4], m16n8 accumulator fragments
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = tot[i] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kGStages - 1; ++st) {
+    if (st < chunks) load(st, st);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();
+    const int nxt = ch + kGStages - 1;
+    if (nxt < chunks) load(nxt % kGStages, nxt);
+    cp_async_commit();
+    const TA* as = a_tile(ch % kGStages);
+    const TB* bs = b_tile(ch % kGStages);
+#pragma unroll
+    for (int k = 0; k < kGK; k += 8) {
+      Tf32Pair bf[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = wn + nt * 8 + g;
+        if constexpr (NK) {
+          bf[nt][0] = tf32_op<kBExact>(bs[n * BP + k + c]);
+          bf[nt][1] = tf32_op<kBExact>(bs[n * BP + k + c + 4]);
+        } else {
+          bf[nt][0] = tf32_op<kBExact>(bs[(k + c) * BP + n]);
+          bf[nt][1] = tf32_op<kBExact>(bs[(k + c + 4) * BP + n]);
+        }
+      }
+      Tf32Pair af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const TA* p = as + (wm + mt * 16 + g) * AP + k + c;
+        af[mt][0] = tf32_op<kAExact>(p[0]);
+        af[mt][1] = tf32_op<kAExact>(p[8 * AP]);
+        af[mt][2] = tf32_op<kAExact>(p[4]);
+        af[mt][3] = tf32_op<kAExact>(p[8 * AP + 4]);
+      }
+      // pass 0 a_lo b_hi (A inexact), 1 a_hi b_lo (B inexact), 2 a_hi b_hi
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass) {
+        if ((pass == 0 && kAExact) || (pass == 1 && kBExact)) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_pass(&acc[(mt * 4 + nt) * 4], af[mt], bf[nt], pass);
+      }
+    }
+    promote(tot, acc);
+  }
+  cp_async_wait<0>();
+
+  // accumulator (mt, nt, i): row wm + mt*16 + g + 8*(i >= 2), column
+  // wn + nt*8 + 2c + (i & 1); N is even, so both columns are in or out
+  if constexpr (EPI == kE32) {
+    const TB* pb1 = static_cast<const TB*>(ep.v0);
+    const TB* pw2 = static_cast<const TB*>(ep.v1);
+    float lp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = n0 + wn + nt * 8 + 2 * c;
+      if (j >= N) continue;
+      const float b0 = to_f32(pb1[j]), b1 = to_f32(pb1[j + 1]);
+      const float q0 = to_f32(pw2[j]), q1 = to_f32(pw2[j + 1]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = r0 + wm + mt * 16 + g + 8 * hr;
+          const float* f = &tot[(mt * 4 + nt) * 4 + 2 * hr];
+          const float e0 = tanhf(f[0] + b0), e1 = tanhf(f[1] + b1);
+          if (r < R) *reinterpret_cast<float2*>(&ep.out[(size_t)r * N + j]) = make_float2(e0, e1);
+          lp[mt][hr] = fmaf(round_to<TB>(e0), q0, lp[mt][hr]);
+          lp[mt][hr] = fmaf(round_to<TB>(e1), q1, lp[mt][hr]);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float v = lp[mt][hr];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (c == 0) red[warp & 3][wm + mt * 16 + g + 8 * hr] = v;
+      }
+    }
+    __syncthreads();
+    if (tid < kGM && r0 + tid < R) {
+      ep.part[(size_t)blockIdx.y * R + r0 + tid] =
+          ((red[0][tid] + red[1][tid]) + red[2][tid]) + red[3][tid];
+    }
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int r = r0 + wm + mt * 16 + g + 8 * hr;
+          const int n = n0 + wn + nt * 8 + 2 * c;
+          if (r >= R || n >= N) continue;
+          const float v0 = tot[(mt * 4 + nt) * 4 + 2 * hr];
+          const float v1 = tot[(mt * 4 + nt) * 4 + 2 * hr + 1];
+          const size_t o = (size_t)r * N + n;
+          if constexpr (EPI == kQkv) {
+            const int m = n / b.piece, col = n % b.piece;
+            const TB* bias = static_cast<const TB*>(m == 0 ? ep.v0 : (m == 1 ? ep.v1 : ep.v2));
+            *reinterpret_cast<float2*>(&ep.out[o]) =
+                make_float2(round_to<TB>(v0 + to_f32(bias[col])),
+                            round_to<TB>(v1 + to_f32(bias[col + 1])));
+          } else if constexpr (EPI == kDctx) {
+            const float al = ep.alpha[r];
+            const float* du = ep.du + (size_t)(r / ep.H) * N + n;
+            *reinterpret_cast<float2*>(&ep.out[o]) = make_float2(al * du[0] + v0, al * du[1] + v1);
+          } else {
+            TB* out = static_cast<TB*>(ep.out_t) + o;
+            out[0] = from_f32<TB>(v0);
+            out[1] = from_f32<TB>(v1);
+          }
+        }
+      }
+    }
+  }
 }
+
+template <typename TA, bool A_EXACT, typename TB, bool NK, int EPI>
+cudaError_t rows_gemm(const TA* a, BOperand b, int R, int K, int N, const Epi& ep,
+                      cudaStream_t stream) {
+  constexpr size_t smem = gemm_smem<TA, TB, NK>();
+  cudaError_t err = allow_smem(rows_gemm_kernel<TA, A_EXACT, TB, NK, EPI>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R + kGM - 1) / kGM, (N + kGN - 1) / kGN);
+  rows_gemm_kernel<TA, A_EXACT, TB, NK, EPI><<<grid, kGThreads, smem, stream>>>(a, b, R, K, N, ep);
+  return cudaGetLastError();
+}
+
+// -------------------------------------------------------- (b) attention
+constexpr int kAttThreads = 256;
 
 // Masked exp-normalization of `len` values in place by one warp:
 // exp(v - max) * mask / (sum + 1e-8), the max over every slot.
 __device__ inline void warp_softmax(float* v, const float* mk, int len, int lane) {
-  using namespace fedrec;
   float m = -INFINITY;
   for (int u = lane; u < len; u += 32) m = fmaxf(m, v[u]);
   m = warp_max(m);
@@ -107,181 +348,160 @@ __device__ inline void warp_softmax(float* v, const float* mk, int len, int lane
   for (int u = lane; u < len; u += 32) v[u] = v[u] / sum;
 }
 
-template <typename T>
-__global__ void hist_score_bwd_rows_kernel(
-    const T* __restrict__ x, const T* __restrict__ cand, const float* __restrict__ mask,
-    const T* __restrict__ wq, const T* __restrict__ bq, const T* __restrict__ wk,
-    const T* __restrict__ bk, const T* __restrict__ wv, const T* __restrict__ bv,
-    const T* __restrict__ pw1, const T* __restrict__ pb1, const T* __restrict__ pw2,
-    const float* __restrict__ gs, const float* __restrict__ gu, T* __restrict__ dx,
-    T* __restrict__ dcand, float* __restrict__ scratch, int n, Dims dm) {
-  using namespace fedrec;
-  extern __shared__ __align__(16) float smem[];
-  const int H = dm.H, D = dm.D, Q = dm.Q, dh = dm.dh, Hp = dm.Hp;
-  float* r1 = smem;                                  // (Hp, D)
-  float* r2 = r1 + (size_t)Hp * D;                   // (Hp, W2)
-  float* qkv = r2 + (size_t)Hp * dm.W2;              // 3 x (Hp, dh)
-  float* S = qkv + 3 * (size_t)Hp * dh;              // (Hp, H)
-  float* red = S + (size_t)Hp * H;                   // (Qpad/32, Hp)
-  float* alpha = red + (size_t)(dm.Qpad / 32) * Hp;  // (Hp) unrounded
-  float* dalpha = alpha + Hp;                        // (Hp)
-  float* dlg = dalpha + Hp;                          // (Hp)
-  float* mk = dlg + Hp;                              // (H)
-  float* us = mk + H;                                // (D) unrounded user
-  float* du = us + D;                                // (D)
+// q, k, v (and dctx) of one head in shared memory, rows of dh + 1 floats
+// (an odd pitch: the score loops read neighbouring rows without bank
+// conflicts), then one (H, H) map (two in the backward) and the mask.
+__host__ __device__ inline size_t attn_smem_floats(const Dims& d, bool bwd) {
+  const size_t rows = (size_t)d.H * (d.dh + 1);
+  return (bwd ? 4 : 3) * rows + (bwd ? 2 : 1) * (size_t)d.H * d.H + d.H;
+}
 
-  const int row = blockIdx.x;
+// One (history row, head) a block. Forward: ctx[:, head] = round(softmax(
+// q k^T / sqrt(dh)) v) into `out` (R, D). Backward: the softmax recomputed
+// (unrounded), da = dctx v^T, ds = a (da - sum(a da)) / sqrt(dh), then
+// dq = ds k, dk = ds^T q, dv = a^T dctx into `out` (R, 3D).
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(kAttThreads)
+    attn_head_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
+                     const float* __restrict__ mask, float* __restrict__ out, Dims dm) {
+  extern __shared__ __align__(16) float asmem[];
+  const int H = dm.H, D = dm.D, dh = dm.dh, P = dh + 1;
+  const int row = blockIdx.x / dm.nh, h = blockIdx.x % dm.nh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const Scratch sc = carve(scratch, n, dm);
-  float* gqkv = sc.qkv + (size_t)row * 3 * H * D;    // this row's (3, H, D)
-  float* gctx = sc.ctx + (size_t)row * H * D;
-  float* gep = sc.ep + (size_t)row * H * Q;
+  float* qs = asmem;
+  float* ks = qs + H * P;
+  float* vs = ks + H * P;
+  float* gs = vs + H * P;                 // backward: dctx
+  float* S = BWD ? gs + H * P : gs;       // (H, H) attention weights
+  float* da = S + H * H;                  // backward: (H, H)
+  float* mk = BWD ? da + H * H : da;      // (H)
   const float scale = sqrtf(static_cast<float>(dh));
-  const int ntiles = Hp / TR;
 
-  const T* xr = x + (size_t)row * H * D;
-  for (int i = tid; i < Hp * D; i += blockDim.x) {
-    r1[i] = i < H * D ? to_f32(xr[i]) : 0.f;
-    r2[i] = 0.f;  // ctx; rows >= H stay zero
+  const size_t row0 = (size_t)row * H;
+  for (int i = tid; i < H * dh; i += blockDim.x) {
+    const int t = i / dh, j = i - t * dh;
+    const float* src = qkv + (row0 + t) * 3 * D + h * dh + j;
+    qs[t * P + j] = src[0];
+    ks[t * P + j] = src[D];
+    vs[t * P + j] = src[2 * D];
+    if constexpr (BWD) gs[t * P + j] = dctx[(row0 + t) * D + h * dh + j];
   }
-  for (int t = tid; t < H; t += blockDim.x) mk[t] = mask ? mask[(size_t)row * H + t] : 1.f;
+  for (int t = tid; t < H; t += blockDim.x) mk[t] = mask ? mask[row0 + t] : 1.f;
   __syncthreads();
-
-  // ================= forward recompute (kernel B's math and rounding)
-  for (int h = 0; h < dm.nh; ++h) {
-    for (int w = tid; w < ntiles * dm.colpad; w += blockDim.x) {
-      const int c = w % dm.colpad;
-      if (c >= 3 * dh) continue;
-      const int t0 = (w / dm.colpad) * TR;
-      const int m = c / dh, i = c % dh, col = h * dh + i;
-      const T* W = m == 0 ? wq : (m == 1 ? wk : wv);
-      const T* B = m == 0 ? bq : (m == 1 ? bk : bv);
-      float acc[TR];
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) acc[tt] = 0.f;
-      for (int k = 0; k < D; k += 4) {
-        const float wa = to_f32(W[(size_t)k * D + col]);
-        const float wb = to_f32(W[(size_t)(k + 1) * D + col]);
-        const float wc = to_f32(W[(size_t)(k + 2) * D + col]);
-        const float wd = to_f32(W[(size_t)(k + 3) * D + col]);
-#pragma unroll
-        for (int tt = 0; tt < TR; ++tt) {
-          const float4 xv = *reinterpret_cast<const float4*>(&r1[(t0 + tt) * D + k]);
-          acc[tt] = fmaf(xv.x, wa, acc[tt]);
-          acc[tt] = fmaf(xv.y, wb, acc[tt]);
-          acc[tt] = fmaf(xv.z, wc, acc[tt]);
-          acc[tt] = fmaf(xv.w, wd, acc[tt]);
-        }
-      }
-      const float b = to_f32(B[col]);
-      float* dst = qkv + (size_t)m * Hp * dh;
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) {
-        const float v = round_to<T>(acc[tt] + b);
-        dst[(t0 + tt) * dh + i] = v;
-        if (t0 + tt < H) gqkv[((size_t)m * H + t0 + tt) * D + col] = v;
-      }
+  for (int w = tid; w < H * H; w += blockDim.x) {
+    const int t = w / H, u = w - t * H;
+    float s = 0.f, g = 0.f;
+    for (int i = 0; i < dh; ++i) {
+      s = fmaf(qs[t * P + i], ks[u * P + i], s);
+      if constexpr (BWD) g = fmaf(gs[t * P + i], vs[u * P + i], g);
     }
-    __syncthreads();
-    const float* qh = qkv;
-    const float* kh = qkv + (size_t)Hp * dh;
-    const float* vh = qkv + 2 * (size_t)Hp * dh;
-    for (int w = tid; w < H * H; w += blockDim.x) {
-      const int t = w / H, u = w % H;
-      float acc = 0.f;
-      for (int i = 0; i < dh; ++i) acc = fmaf(qh[t * dh + i], kh[u * dh + i], acc);
-      S[t * H + u] = acc / scale;
-    }
-    __syncthreads();
-    for (int t = warp; t < H; t += nwarps) {
-      warp_softmax(S + t * H, mk, H, lane);
-      for (int u = lane; u < H; u += 32) S[t * H + u] = round_to<T>(S[t * H + u]);
-    }
-    __syncthreads();
-    for (int w = tid; w < H * dh; w += blockDim.x) {
-      const int t = w / dh, i = w % dh;
-      float acc = 0.f;
-      for (int u = 0; u < H; ++u) acc = fmaf(S[t * H + u], vh[u * dh + i], acc);
-      r2[t * D + h * dh + i] = round_to<T>(acc);
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < H * D; i += blockDim.x) gctx[i] = r2[i];
-
-  // pool hidden e32 (to scratch) and logits sum_j dt(e32) pw2_j
-  for (int w = tid; w < ntiles * dm.Qpad; w += blockDim.x) {
-    const int t0 = (w / dm.Qpad) * TR;
-    const int j = w % dm.Qpad;
-    float part[TR];
-#pragma unroll
-    for (int tt = 0; tt < TR; ++tt) part[tt] = 0.f;
-    if (j < Q) {
-      float acc[TR];
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) acc[tt] = 0.f;
-      for (int k = 0; k < D; k += 4) {
-        const float wa = to_f32(pw1[(size_t)k * Q + j]);
-        const float wb = to_f32(pw1[(size_t)(k + 1) * Q + j]);
-        const float wc = to_f32(pw1[(size_t)(k + 2) * Q + j]);
-        const float wd = to_f32(pw1[(size_t)(k + 3) * Q + j]);
-#pragma unroll
-        for (int tt = 0; tt < TR; ++tt) {
-          const float4 cv = *reinterpret_cast<const float4*>(&r2[(t0 + tt) * D + k]);
-          acc[tt] = fmaf(cv.x, wa, acc[tt]);
-          acc[tt] = fmaf(cv.y, wb, acc[tt]);
-          acc[tt] = fmaf(cv.z, wc, acc[tt]);
-          acc[tt] = fmaf(cv.w, wd, acc[tt]);
-        }
-      }
-      const float b = to_f32(pb1[j]), q = to_f32(pw2[j]);
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) {
-        const float e = tanhf(acc[tt] + b);
-        if (t0 + tt < H) gep[(size_t)(t0 + tt) * Q + j] = e;
-        part[tt] = round_to<T>(e) * q;
-      }
-    }
-#pragma unroll
-    for (int tt = 0; tt < TR; ++tt) {
-      const float s = warp_sum(part[tt]);
-      if (lane == 0) red[(j / 32) * Hp + t0 + tt] = s;
-    }
+    S[w] = s / scale;
+    if constexpr (BWD) da[w] = g;
   }
   __syncthreads();
-  if (warp == 0) {
-    const int jb = dm.Qpad / 32;
-    for (int t = lane; t < H; t += 32) {
-      float lg = 0.f;
-      for (int b = 0; b < jb; ++b) lg += red[b * Hp + t];
-      alpha[t] = lg;
-    }
+  for (int t = warp; t < H; t += nwarps) {
+    float* a = S + t * H;
+    warp_softmax(a, mk, H, lane);
     __syncwarp();
-    warp_softmax(alpha, mk, H, lane);
+    if constexpr (BWD) {
+      float s = 0.f;
+      for (int u = lane; u < H; u += 32) s = fmaf(a[u], da[t * H + u], s);
+      s = warp_sum(s);
+      for (int u = lane; u < H; u += 32) da[t * H + u] = a[u] * (da[t * H + u] - s) / scale;
+    } else {
+      for (int u = lane; u < H; u += 32) a[u] = round_to<T>(a[u]);
+    }
   }
   __syncthreads();
-  // user = dt(alpha) . ctx, kept unrounded for the backward
+  if constexpr (BWD) {
+    for (int w = tid; w < 3 * H * dh; w += blockDim.x) {
+      const int m = w / (H * dh), rest = w - m * H * dh, t = rest / dh, i = rest - t * dh;
+      float acc = 0.f;
+      if (m == 0) {
+        for (int u = 0; u < H; ++u) acc = fmaf(da[t * H + u], ks[u * P + i], acc);
+      } else if (m == 1) {
+        for (int u = 0; u < H; ++u) acc = fmaf(da[u * H + t], qs[u * P + i], acc);
+      } else {
+        for (int u = 0; u < H; ++u) acc = fmaf(S[u * H + t], gs[u * P + i], acc);
+      }
+      out[(row0 + t) * 3 * D + m * D + h * dh + i] = acc;
+    }
+  } else {
+    for (int w = tid; w < H * dh; w += blockDim.x) {
+      const int t = w / dh, i = w - t * dh;
+      float acc = 0.f;
+      for (int u = 0; u < H; ++u) acc = fmaf(S[t * H + u], vs[u * P + i], acc);
+      out[(row0 + t) * D + h * dh + i] = round_to<T>(acc);
+    }
+  }
+}
+
+// ------------------------------------------------------------- (c) pool
+constexpr int kPoolThreads = 256;
+
+__host__ __device__ inline size_t pool_smem_floats(const Dims& d) {
+  return 4 * (size_t)d.H + 2 * (size_t)d.D;
+}
+
+// One history row a block: logits (the column tiles' partials in order),
+// alpha = the masked softmax (unrounded), user = round(alpha) . ctx, the
+// scorer's dcand = g_scores user and du = g_user + g_scores cand, then
+// dalpha = du . ctx, dlg = alpha (dalpha - alpha . dalpha), dpre = dlg pw2
+// (1 - e32^2) over e32, this row's dpw2 share dlg . e32, and alpha and du
+// to scratch for the dctx epilogue.
+template <typename T>
+__global__ void __launch_bounds__(kPoolThreads)
+    pool_bwd_kernel(const T* __restrict__ cand, const float* __restrict__ mask,
+                    const T* __restrict__ pw2, const float* __restrict__ gs,
+                    const float* __restrict__ gu, const float* __restrict__ ctx,
+                    const float* __restrict__ part, int ntiles, float* __restrict__ ep,
+                    float* __restrict__ g_alpha, float* __restrict__ g_du,
+                    float* __restrict__ dpw2_rows, T* __restrict__ dcand, int n, Dims dm) {
+  extern __shared__ __align__(16) float psmem[];
+  const int H = dm.H, D = dm.D, Q = dm.Q, C = dm.C;
+  float* alpha = psmem;     // (H)
+  float* dalpha = alpha + H;
+  float* dlg = dalpha + H;
+  float* mk = dlg + H;
+  float* us = mk + H;       // (D) unrounded user
+  float* du = us + D;       // (D)
+  const int row = blockIdx.x, R = n * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t row0 = (size_t)row * H;
+  const float* cr = ctx + row0 * D;
+  float* er = ep + row0 * Q;
+
+  for (int t = tid; t < H; t += blockDim.x) {
+    mk[t] = mask ? mask[row0 + t] : 1.f;
+    float lg = 0.f;
+    for (int i = 0; i < ntiles; ++i) lg += part[(size_t)i * R + row0 + t];
+    alpha[t] = lg;
+  }
+  __syncthreads();
+  if (warp == 0) warp_softmax(alpha, mk, H, lane);
+  __syncthreads();
   for (int d = tid; d < D; d += blockDim.x) {
     float acc = 0.f;
-    for (int t = 0; t < H; ++t) acc = fmaf(round_to<T>(alpha[t]), r2[t * D + d], acc);
+    for (int t = 0; t < H; ++t) acc = fmaf(round_to<T>(alpha[t]), cr[(size_t)t * D + d], acc);
     us[d] = acc;
   }
   __syncthreads();
-
-  // ================= scorer and pool backward
   for (int d = tid; d < D; d += blockDim.x) {
     float acc = gu[(size_t)row * D + d];
-    for (int c = 0; c < dm.C; ++c) {
-      const float g = gs[(size_t)row * dm.C + c];
-      acc = fmaf(g, to_f32(cand[((size_t)row * dm.C + c) * D + d]), acc);
-      dcand[((size_t)row * dm.C + c) * D + d] = from_f32<T>(g * us[d]);
+    for (int k = 0; k < C; ++k) {
+      const float g = gs[(size_t)row * C + k];
+      acc = fmaf(g, to_f32(cand[((size_t)row * C + k) * D + d]), acc);
+      dcand[((size_t)row * C + k) * D + d] = from_f32<T>(g * us[d]);
     }
     du[d] = acc;
+    g_du[(size_t)row * D + d] = acc;
   }
   __syncthreads();
   for (int t = warp; t < H; t += nwarps) {
     float acc = 0.f;
-    for (int d = lane; d < D; d += 32) acc = fmaf(du[d], r2[t * D + d], acc);
+    for (int d = lane; d < D; d += 32) acc = fmaf(du[d], cr[(size_t)t * D + d], acc);
     acc = warp_sum(acc);
     if (lane == 0) dalpha[t] = acc;
   }
@@ -290,192 +510,168 @@ __global__ void hist_score_bwd_rows_kernel(
     float s = 0.f;
     for (int t = lane; t < H; t += 32) s = fmaf(alpha[t], dalpha[t], s);
     s = warp_sum(s);
-    for (int t = lane; t < H; t += 32) dlg[t] = alpha[t] * (dalpha[t] - s);
+    for (int t = lane; t < H; t += 32) {
+      dlg[t] = alpha[t] * (dalpha[t] - s);
+      g_alpha[row0 + t] = alpha[t];
+    }
   }
   __syncthreads();
-  // dpre = dlg pw2 (1 - e32^2), to scratch (over e32) and to r2 (over ctx);
-  // this row's dpw2 share = dlg . e32
   for (int j = tid; j < Q; j += blockDim.x) {
     const float q = to_f32(pw2[j]);
     float acc = 0.f;
-    for (int t = 0; t < Hp; ++t) {
-      float dp = 0.f;
-      if (t < H) {
-        const float e = gep[(size_t)t * Q + j];
-        acc = fmaf(dlg[t], e, acc);
-        dp = dlg[t] * q * (1.f - e * e);
-        gep[(size_t)t * Q + j] = dp;
-      }
-      r2[t * Q + j] = dp;
+    for (int t = 0; t < H; ++t) {
+      const float e = er[(size_t)t * Q + j];
+      acc = fmaf(dlg[t], e, acc);
+      er[(size_t)t * Q + j] = dlg[t] * q * (1.f - e * e);
     }
-    sc.dpw2_rows[(size_t)row * Q + j] = acc;
+    dpw2_rows[(size_t)row * Q + j] = acc;
   }
-  __syncthreads();
-  // dctx = alpha du + dpre pw1^T into r1 (x is no longer needed)
-  for (int w = tid; w < ntiles * D; w += blockDim.x) {
-    const int t0 = (w / D) * TR;
-    const int d = w % D;
-    float acc[TR];
-#pragma unroll
-    for (int tt = 0; tt < TR; ++tt) acc[tt] = 0.f;
-    const T* prow = pw1 + (size_t)d * Q;
-    for (int j = 0; j < Q; j += 4) {
-      const float pa = to_f32(prow[j]), pb = to_f32(prow[j + 1]);
-      const float pc = to_f32(prow[j + 2]), pd = to_f32(prow[j + 3]);
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) {
-        const float4 dv = *reinterpret_cast<const float4*>(&r2[(t0 + tt) * Q + j]);
-        acc[tt] = fmaf(dv.x, pa, acc[tt]);
-        acc[tt] = fmaf(dv.y, pb, acc[tt]);
-        acc[tt] = fmaf(dv.z, pc, acc[tt]);
-        acc[tt] = fmaf(dv.w, pd, acc[tt]);
-      }
-    }
-#pragma unroll
-    for (int tt = 0; tt < TR; ++tt) {
-      const int t = t0 + tt;
-      r1[t * D + d] = t < H ? fmaf(alpha[t], du[d], acc[tt]) : 0.f;
-    }
-  }
-  __syncthreads();
+}
 
-  // ================= per-head attention backward (r1 = dctx, r2 = da)
-  float* da = r2;
-  for (int h = 0; h < dm.nh; ++h) {
-    for (int w = tid; w < 3 * Hp * dh; w += blockDim.x) {
-      const int m = w / (Hp * dh), rest = w % (Hp * dh), t = rest / dh, i = rest % dh;
-      qkv[w] = t < H ? gqkv[((size_t)m * H + t) * D + h * dh + i] : 0.f;
-    }
-    __syncthreads();
-    const float* qh = qkv;
-    const float* kh = qkv + (size_t)Hp * dh;
-    const float* vh = qkv + 2 * (size_t)Hp * dh;
-    for (int w = tid; w < H * H; w += blockDim.x) {
-      const int t = w / H, u = w % H;
-      float s = 0.f, g = 0.f;
-      for (int i = 0; i < dh; ++i) {
-        s = fmaf(qh[t * dh + i], kh[u * dh + i], s);
-        g = fmaf(r1[t * D + h * dh + i], vh[u * dh + i], g);
-      }
-      S[t * H + u] = s / scale;
-      da[t * H + u] = g;
-    }
-    __syncthreads();
-    for (int t = warp; t < H; t += nwarps) {
-      float* a = S + t * H;
-      warp_softmax(a, mk, H, lane);
-      __syncwarp();
-      float s = 0.f;
-      for (int u = lane; u < H; u += 32) s = fmaf(a[u], da[t * H + u], s);
-      s = warp_sum(s);
-      for (int u = lane; u < H; u += 32) da[t * H + u] = a[u] * (da[t * H + u] - s) / scale;
-    }
-    __syncthreads();
-    // dq = ds kh, dk = ds^T qh, dv = a^T dctx_h, over this head's q/k/v columns
-    for (int w = tid; w < 3 * H * dh; w += blockDim.x) {
-      const int m = w / (H * dh), rest = w % (H * dh), t = rest / dh, i = rest % dh;
-      float acc = 0.f;
-      if (m == 0) {
-        for (int u = 0; u < H; ++u) acc = fmaf(da[t * H + u], kh[u * dh + i], acc);
-      } else if (m == 1) {
-        for (int u = 0; u < H; ++u) acc = fmaf(da[u * H + t], qh[u * dh + i], acc);
-      } else {
-        for (int u = 0; u < H; ++u) acc = fmaf(S[u * H + t], r1[u * D + h * dh + i], acc);
-      }
-      gqkv[((size_t)m * H + t) * D + h * dh + i] = acc;
-    }
-    __syncthreads();
-  }
+// ---------------------------------------------------------- scratch, launch
+__host__ __device__ inline size_t al4(size_t f) { return (f + 3) / 4 * 4; }
 
-  // ================= dx = dQ Wq^T + dK Wk^T + dV Wv^T (r1 = dY, r2 = sum)
-  for (int i = tid; i < Hp * D; i += blockDim.x) r2[i] = 0.f;
-  for (int m = 0; m < 3; ++m) {
-    const T* W = m == 0 ? wq : (m == 1 ? wk : wv);
-    for (int i = tid; i < Hp * D; i += blockDim.x) {
-      r1[i] = i < H * D ? gqkv[(size_t)m * H * D + i] : 0.f;
-    }
-    __syncthreads();
-    for (int w = tid; w < ntiles * D; w += blockDim.x) {
-      const int t0 = (w / D) * TR;
-      const int d = w % D;
-      float acc[TR];
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) acc[tt] = 0.f;
-      const T* wrow = W + (size_t)d * D;
-      for (int k = 0; k < D; k += 4) {
-        const float wa = to_f32(wrow[k]), wb = to_f32(wrow[k + 1]);
-        const float wc = to_f32(wrow[k + 2]), wd = to_f32(wrow[k + 3]);
-#pragma unroll
-        for (int tt = 0; tt < TR; ++tt) {
-          const float4 yv = *reinterpret_cast<const float4*>(&r1[(t0 + tt) * D + k]);
-          acc[tt] = fmaf(yv.x, wa, acc[tt]);
-          acc[tt] = fmaf(yv.y, wb, acc[tt]);
-          acc[tt] = fmaf(yv.z, wc, acc[tt]);
-          acc[tt] = fmaf(yv.w, wd, acc[tt]);
-        }
-      }
-#pragma unroll
-      for (int tt = 0; tt < TR; ++tt) r2[(t0 + tt) * D + d] += acc[tt];
-    }
-    __syncthreads();
-  }
-  T* dxr = dx + (size_t)row * H * D;
-  for (int i = tid; i < H * D; i += blockDim.x) dxr[i] = from_f32<T>(r2[i]);
+__host__ __device__ inline int e32_tiles(int Q) { return (Q + kGN - 1) / kGN; }
+
+struct Scratch {
+  float *qkv, *ctx, *ep, *dctx, *dqkv, *part, *alpha, *du, *dpw2_rows, *partial;
+};
+
+// Region sizes in floats, each rounded up to 4 (16-byte aligned rows for
+// cp.async and float2 stores), in carve()'s order.
+__host__ __device__ inline void region_floats(int n, const Dims& d, size_t (&f)[9]) {
+  const size_t R = (size_t)n * d.H;
+  f[0] = al4(3 * R * d.D);            // qkv: (R, 3D) rounded q|k|v
+  f[1] = al4(R * d.D);                // ctx: (R, D) rounded
+  f[2] = al4(R * d.Q);                // ep: (R, Q) e32, then dpre
+  f[3] = al4(R * d.D);                // dctx: (R, D)
+  f[4] = al4(3 * R * d.D);            // dqkv: (R, 3D)
+  f[5] = al4(e32_tiles(d.Q) * R);     // part: (Q tiles, R) logit partials
+  f[6] = al4(R);                      // alpha: (R)
+  f[7] = al4((size_t)n * d.D);        // du: (n, D)
+  f[8] = al4((size_t)n * d.Q);        // dpw2_rows: (n, Q)
+}
+
+__host__ __device__ inline Scratch carve(float* base, int n, const Dims& d) {
+  size_t f[9];
+  region_floats(n, d, f);
+  float* r[10];
+  r[0] = base;
+  for (int i = 0; i < 9; ++i) r[i + 1] = r[i] + f[i];
+  return Scratch{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8], r[9]};
+}
+
+__host__ inline size_t partial_floats(int n, const Dims& d) {
+  const int R = n * d.H;
+  const size_t sizes[5] = {wgrad_tc_scratch_floats(R, d.D, d.D), wgrad_tc_scratch_floats(R, d.D, d.Q),
+                           wgrad_scratch_floats(R, 0, d.D), wgrad_scratch_floats(R, 0, d.Q),
+                           wgrad_scratch_floats(n, 0, d.Q)};
+  size_t m = 0;
+  for (size_t s : sizes) m = s > m ? s : m;
+  return m;
 }
 
 template <typename T>
 int launch(const void* const* p, const float* gs, const float* gu, void* dx, void* dcand,
            float* scratch, float* const* grads, int n, Dims dm, void* stream_) {
-  using namespace fedrec;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const size_t smem = smem_floats(dm) * sizeof(float);
-  cudaError_t err = allow_smem(hist_score_bwd_rows_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    hist_score_bwd_rows_kernel<T><<<n, block_threads(dm), smem, stream>>>(
-        static_cast<const T*>(p[0]), static_cast<const T*>(p[1]),
-        static_cast<const float*>(p[2]), static_cast<const T*>(p[3]),
-        static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
-        static_cast<const T*>(p[6]), static_cast<const T*>(p[7]),
-        static_cast<const T*>(p[8]), static_cast<const T*>(p[9]),
-        static_cast<const T*>(p[10]), static_cast<const T*>(p[11]), gs, gu,
-        static_cast<T*>(dx), static_cast<T*>(dcand), scratch, n, dm);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  constexpr bool kBf16 = !std::is_same<T, float>::value;  // ctx rounded to bf16: exact in TF32
+  const int R = n * dm.H, D = dm.D, Q = dm.Q;
+  const T* x = static_cast<const T*>(p[0]);
+  const float* mask = static_cast<const float*>(p[2]);
   const Scratch sc = carve(scratch, n, dm);
-  const int R = n * dm.H;
-  const RowMap x_rows = rows_contiguous(p[0], dm.D);
-  for (int m = 0; m < 3; ++m) {  // dW, db for q, k, v
-    const RowMap dy{sc.qkv + (size_t)m * dm.H * dm.D, nullptr, dm.H, 3LL * dm.H * dm.D, dm.D, 0};
-    err = wgrad<T>(x_rows, dy, R, dm.D, dm.D, sc.partial, grads[2 * m], grads[2 * m + 1], stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const BOperand wqkv{{p[3], p[5], p[7]}, D};
+  const BOperand wpool{{p[9], nullptr, nullptr}, Q};
+  cudaError_t err;
+#define RETURN_IF(e)                                  \
+  do {                                                \
+    err = (e);                                        \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+  if (n > 0) {
+    Epi e{};
+    e.v0 = p[4];
+    e.v1 = p[6];
+    e.v2 = p[8];
+    e.out = sc.qkv;
+    RETURN_IF((rows_gemm<T, kBf16, T, false, kQkv>(x, wqkv, R, D, 3 * D, e, stream)));
+
+    const size_t fwd_smem = attn_smem_floats(dm, false) * sizeof(float);
+    const size_t bwd_smem = attn_smem_floats(dm, true) * sizeof(float);
+    RETURN_IF(allow_smem(attn_head_kernel<T, false>, fwd_smem));
+    attn_head_kernel<T, false><<<n * dm.nh, kAttThreads, fwd_smem, stream>>>(sc.qkv, nullptr, mask,
+                                                                            sc.ctx, dm);
+    RETURN_IF(cudaGetLastError());
+
+    e = Epi{};
+    e.v0 = p[10];
+    e.v1 = p[11];
+    e.out = sc.ep;
+    e.part = sc.part;
+    RETURN_IF((rows_gemm<float, kBf16, T, false, kE32>(sc.ctx, wpool, R, D, Q, e, stream)));
+
+    const size_t pool_smem = pool_smem_floats(dm) * sizeof(float);
+    RETURN_IF(allow_smem(pool_bwd_kernel<T>, pool_smem));
+    pool_bwd_kernel<T><<<n, kPoolThreads, pool_smem, stream>>>(
+        static_cast<const T*>(p[1]), mask, static_cast<const T*>(p[11]), gs, gu, sc.ctx, sc.part,
+        e32_tiles(Q), sc.ep, sc.alpha, sc.du, sc.dpw2_rows, static_cast<T*>(dcand), n, dm);
+    RETURN_IF(cudaGetLastError());
+
+    e = Epi{};
+    e.out = sc.dctx;
+    e.alpha = sc.alpha;
+    e.du = sc.du;
+    e.H = dm.H;
+    RETURN_IF((rows_gemm<float, false, T, true, kDctx>(sc.ep, wpool, R, Q, D, e, stream)));
+
+    RETURN_IF(allow_smem(attn_head_kernel<T, true>, bwd_smem));
+    attn_head_kernel<T, true><<<n * dm.nh, kAttThreads, bwd_smem, stream>>>(sc.qkv, sc.dctx, mask,
+                                                                           sc.dqkv, dm);
+    RETURN_IF(cudaGetLastError());
+
+    e = Epi{};
+    e.out_t = dx;
+    RETURN_IF((rows_gemm<float, false, T, true, kDx>(sc.dqkv, wqkv, R, 3 * D, D, e, stream)));
   }
-  err = wgrad<float>(rows_contiguous(sc.ctx, dm.D), rows_contiguous(sc.ep, dm.Q), R, dm.D, dm.Q,
-                     sc.partial, grads[6], grads[7], stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = wgrad<float>(rows_contiguous(sc.dpw2_rows, dm.Q), rows_contiguous(sc.dpw2_rows, dm.Q), n,
-                     0, dm.Q, sc.partial, nullptr, grads[8], stream);
-  return static_cast<int>(err);
+  // (d) the weight sums; with n = 0 they are zeros
+  const RowMap x_rows = rows_contiguous(x, D);
+  for (int m = 0; m < 3; ++m) {
+    const RowMap dy = rows_contiguous(sc.dqkv + (size_t)m * D, 3 * D);
+    RETURN_IF(wgrad_tc<T>(x_rows, dy, R, D, D, sc.partial, grads[2 * m], stream));
+    RETURN_IF(wgrad<float>(dy, dy, R, 0, D, sc.partial, nullptr, grads[2 * m + 1], stream));
+  }
+  const RowMap dpre = rows_contiguous(sc.ep, Q);
+  RETURN_IF(wgrad_tc<float>(rows_contiguous(sc.ctx, D), dpre, R, D, Q, sc.partial, grads[6], stream));
+  RETURN_IF(wgrad<float>(dpre, dpre, R, 0, Q, sc.partial, nullptr, grads[7], stream));
+  const RowMap share = rows_contiguous(sc.dpw2_rows, Q);
+  RETURN_IF(wgrad<float>(share, share, n, 0, Q, sc.partial, nullptr, grads[8], stream));
+#undef RETURN_IF
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The largest dynamic shared memory one block of E asks for at these sizes
+// (bytes): the row products' ring (fixed), an attention block, a pool block.
 size_t fused_history_score_bwd_smem_bytes(int H, int D, int Q, int nh) {
-  return smem_floats(make_dims(H, D, 0, Q, nh)) * sizeof(float);
+  const Dims d = make_dims(H, D, 0, Q, nh);
+  size_t m = gemm_smem<float, float, true>();
+  const size_t a = attn_smem_floats(d, true) * sizeof(float);
+  const size_t p = pool_smem_floats(d) * sizeof(float);
+  if (a > m) m = a;
+  if (p > m) m = p;
+  return m;
 }
 
 size_t fused_history_score_bwd_scratch_floats(int n, int H, int D, int Q, int nh) {
-  using namespace fedrec;
-  (void)nh;
-  size_t part = wgrad_scratch_floats(n * H, D, D);
-  const size_t p2 = wgrad_scratch_floats(n * H, D, Q);
-  const size_t p3 = wgrad_scratch_floats(n, 0, Q);
-  if (p2 > part) part = p2;
-  if (p3 > part) part = p3;
-  return 4 * (size_t)n * H * D + (size_t)n * H * Q + (size_t)n * Q + part;
+  const Dims d = make_dims(H, D, 0, Q, nh);
+  size_t f[9];
+  region_floats(n, d, f);
+  size_t total = partial_floats(n, d);
+  for (size_t v : f) total += v;
+  return total;
 }
 
 // x (n, H, D), cand (n, C, D) or null when C == 0, mask (n, H) f32 or null,
@@ -483,7 +679,7 @@ size_t fused_history_score_bwd_scratch_floats(int n, int H, int D, int Q, int nh
 // 1 bf16); g_scores (n, C) f32 or null, g_user (n, D) f32; scratch of
 // fused_history_score_bwd_scratch_floats floats. Outputs: dx (n, H, D) and
 // dcand (n, C, D) in the operand dtype, and f32 dwq, dbq, dwk, dbk, dwv, dbv,
-// dpw1, dpb1, dpw2. Returns the first launch error.
+// dpw1, dpb1, dpw2. D and Q divide by 4. Returns the first launch error.
 int fused_history_score_bwd_launch(const void* x, const void* cand, const void* mask,
                                    const void* wq, const void* bq, const void* wk,
                                    const void* bk, const void* wv, const void* bv,

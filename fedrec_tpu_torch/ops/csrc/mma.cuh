@@ -1,6 +1,7 @@
 // Tensor-core building blocks for kernels A (the additive pool's logits), C
-// and D (the text head) and F1 (flash forward): cp.async staging with zero
-// fill, the TF32 split, and warp-level mma.sync.
+// and D (the text head), E (the user tower's backward) and F1 and F3 (flash
+// forward, dk/dv backward): cp.async staging with zero fill, the TF32 split,
+// and warp-level mma.sync.
 //
 // Precision. An f32 operand a is split as a_hi = tf32(a) (cvt.rna's rounding:
 // nearest, ties away, 10 mantissa bits) and a_lo = tf32(a - a_hi); a product is then
@@ -129,6 +130,23 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi
 // the f32 bits of a bf16 value: already a TF32 operand, exactly
 __device__ __forceinline__ uint32_t bf16_tf32(__nv_bfloat16 v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(v)) << 16;
+}
+
+// An operand element from a staged value: an f32 value split into hi and
+// lo; with EXACT (an f32 value known to be exact in TF32, such as one
+// rounded to bf16) or a bf16 value, its bits and no low part.
+template <bool EXACT = false>
+__device__ __forceinline__ Tf32Pair tf32_op(float v) {
+  if constexpr (EXACT) {
+    return {__float_as_uint(v), 0u};
+  } else {
+    return split_tf32(v);
+  }
+}
+
+template <bool EXACT = false>
+__device__ __forceinline__ Tf32Pair tf32_op(__nv_bfloat16 v) {
+  return {bf16_tf32(v), 0u};
 }
 
 }  // namespace fedrec

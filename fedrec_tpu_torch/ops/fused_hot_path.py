@@ -4,6 +4,8 @@
   kernel E backward, ``csrc/fused_history_score_bwd.cu``): Q/K/V projections
   of the (H, D) history, per-head masked attention, additive pooling to the
   user vector, and dot scores against C candidates, in one launch per batch.
+  E runs its row products over all n H history rows on the tensor cores
+  (3xTF32 in f32).
   ``fused_user_vector`` is the serving entry (no candidates).
 * ``fused_gather_encode`` (kernels C and D, ``csrc/fused_gather_encode.cu``):
   the frozen token-state table gather and the additive text head, its
@@ -256,9 +258,10 @@ def fused_history_score_bwd_plain(x, cand, mask, w: UserTowerWeights, g_scores, 
 def fused_history_score_bwd(x, cand, mask, w: UserTowerWeights, g_scores, g_user, num_heads: int):
     """Kernel E: the cotangents of ``fused_history_score``'s (scores, user)
     outputs -> ``(dx, dcand, UserTowerWeights of gradients)``, weight
-    gradients in the weights' dtype. CUDA tensors launch the kernel (its two
-    stages count as one launch in ``fused_history_score_bwd.launches``); CPU
-    tensors take ``fused_history_score_bwd_plain``."""
+    gradients in the weights' dtype. CUDA tensors launch the kernel (its
+    row products, attention and pool passes and weight sums count as one
+    launch in ``fused_history_score_bwd.launches``); CPU tensors take
+    ``fused_history_score_bwd_plain``."""
     if x.device.type == "cpu":
         return fused_history_score_bwd_plain(x, cand, mask, w, g_scores, g_user, num_heads)
     if x.device.type != "cuda":
@@ -267,6 +270,8 @@ def fused_history_score_bwd(x, cand, mask, w: UserTowerWeights, g_scores, g_user
     n, h, d = x.shape
     if q % 4:
         raise ValueError(f"{_HIST_BWD}: the pool width Q={q} must divide by 4")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (x, w.wq, w.wk, w.wv, w.pw1)):
+        raise ValueError(f"{_HIST_BWD}: x and the weight matrices must start on a 4-element boundary")
     gu = g_user.to(torch.float32).contiguous()
     if tuple(gu.shape) != (n, d):
         raise ValueError(f"{_HIST_BWD}: g_user must be ({n}, {d}), got {tuple(gu.shape)}")

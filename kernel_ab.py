@@ -2,7 +2,7 @@
 """Time the kernels of one checkout of the port on the card, for A/B runs.
 
 Usage:
-  python3 kernel_ab.py [ROOT] [--only text_head|long|pool_flash] [--profile] [--ptxas]
+  python3 kernel_ab.py [ROOT] [--only text_head|long|pool_flash|bwd] [--profile] [--ptxas]
   # ROOT holds fedrec_tpu_torch/ (default: .)
 
 ``text_head``: kernels C (``fused_gather_encode``) and D
@@ -24,11 +24,22 @@ each with its largest error against its plain version and whether a repeat
 gives the same bits; whether A and A2 agree to the bit at (64, 50, 768);
 and a hash of F2's and F3's outputs fed with the plain forward's ``out``
 and ``lse`` (so that it compares across trees whose F1 differ).
-All three by default.
+``bwd``: kernel E (``fused_history_score_bwd``) at the train path's shape
+(n = 64, H = 50, D = 400, 20 heads, Q = 200, C = 5) and kernel F3
+(``flash_backward_dkv``) at (320, 2048, 20) with a quarter of the keys
+masked, f32 and bf16, each with its largest error against its plain
+version (relative to each output's largest value; E's key-bias gradient,
+whose true value is zero, left out), a hash of its outputs and whether a
+repeat gives the same bits; and hashes of F1's and F2's outputs (f32, from the plain forward's
+lse) and of C's and D's (f32, U = 3,520 ids of a 4,096-row table), which
+must not move.
+All four by default.
 ``--profile``: also the device time of each CUDA kernel that C and D (and,
-with ``pool_flash``, A, A2 and F1) launch (``torch.profiler``), per call.
-``--ptxas``: also build ``fused_gather_encode.cu`` (``text_head``), or
-``additive_pool.cu`` and ``flash_attention.cu`` (``pool_flash``), with
+with ``pool_flash``, A, A2 and F1; with ``bwd``, E) launch
+(``torch.profiler``), per call.
+``--ptxas``: also build ``fused_gather_encode.cu`` (``text_head``),
+``additive_pool.cu`` and ``flash_attention.cu`` (``pool_flash``), or
+``fused_history_score_bwd.cu`` and ``flash_attention.cu`` (``bwd``), with
 ``-Xptxas -v`` into ``ROOT/build/kernel_ab/`` and report each kernel's
 registers, spills and shared memory, and the ``HMMA`` (tensor-core)
 instructions ``cuobjdump -sass`` finds in it.
@@ -193,9 +204,7 @@ def _text_head(res: dict, rnd, gen, profile: bool) -> None:
         res[f"C_repeats_{tag}"] = bool(torch.equal(out, fh.fused_gather_encode(table, ids, head)))
         got = fh.fused_gather_encode_bwd(table, ids, head, g)
         want = fh.fused_gather_encode_bwd_plain(table, ids, head, g)
-        res[f"D_rel_err_{tag}"] = max(
-            float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
-            for a, b in zip(got, want))
+        res[f"D_rel_err_{tag}"] = _rel_err(got, want)
         again = fh.fused_gather_encode_bwd(table, ids, head, g)
         res[f"D_repeats_{tag}"] = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
         if profile:
@@ -204,7 +213,18 @@ def _text_head(res: dict, rnd, gen, profile: bool) -> None:
         del table, head, out, got, want, again
     del table32
     # kernel E at the train path's shape: its outputs must not move
-    n, H, Dm, Q, nh, C = 64, 50, 400, 200, 20, 5
+    x, cand, w, gs, gu = _tower(rnd, gen)
+    dx, dcand, dw = fh.fused_history_score_bwd(x, cand, None, w, gs, gu, 20)
+    res["E_outputs_sha256"] = _sha((dx, dcand, *dw))
+
+
+def _tower(rnd, gen):
+    """Kernel E's inputs at the train path's shape (n = 64, H = 50, D = 400,
+    20 heads, Q = 200, C = 5): x, cand, UserTowerWeights, g_scores, g_user."""
+    import torch
+    from fedrec_tpu_torch.ops import fused_hot_path as fh
+
+    n, H, Dm, Q, C = 64, 50, 400, 200, 5
     lim = math.sqrt(6.0 / (2 * Dm))  # xavier-uniform bound of a (D, D) kernel
 
     def uni(*shape):
@@ -214,11 +234,82 @@ def _text_head(res: dict, rnd, gen, profile: bool) -> None:
                             uni(Dm, Dm), rnd(Dm) * 0.02, rnd(Dm, Q) / math.sqrt(Dm),
                             rnd(Q) * 0.02, rnd(Q) / math.sqrt(Q))
     x, cand, gs, gu = rnd(n, H, Dm), rnd(n, C, Dm), rnd(n, C), rnd(n, Dm)
-    dx, dcand, dw = fh.fused_history_score_bwd(x, cand, None, w, gs, gu, nh)
+    return x, cand, w, gs, gu
+
+
+def _sha(tensors) -> str:
+    """A hash of the tensors' bytes (f32 or bf16), in order."""
+    import torch
+
     h = hashlib.sha256()
-    for t in (dx, dcand, *dw):
-        h.update(t.cpu().numpy().tobytes())
-    res["E_outputs_sha256"] = h.hexdigest()[:16]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over outputs, each relative to its largest |want|."""
+    return max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want) if b is not None and b.numel())
+
+
+def _bwd(res: dict, rnd, gen, profile: bool) -> None:
+    """Kernels E and F3 (this PR's pair) in f32 and bf16, with the hashes of
+    C, D, F1 and F2's outputs, which must not move."""
+    import torch
+    from fedrec_tpu_torch.ops import attention_kernels as ak
+    from fedrec_tpu_torch.ops import fused_hot_path as fh
+
+    x32, cand32, w32, gs, gu = _tower(rnd, gen)
+    q32, k32, v32, g32 = (rnd(320, 2048, 20) for _ in range(4))
+    keep = torch.rand((320, 2048), generator=gen, device="cuda") > 0.25
+    keep[:, 0] = True
+    bias = torch.where(keep, 0.0, -1e9)
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x, cand, w = x32.to(dt), cand32.to(dt), w32.to(dt)
+
+        def e_call():
+            return fh.fused_history_score_bwd(x, cand, None, w, gs, gu, 20)
+
+        res[f"E_ms_{tag}"] = time_ms(e_call, 20)
+        got = e_call()
+        want = fh.fused_history_score_bwd_plain(x, cand, None, w, gs, gu, 20)
+        flat = lambda o: [o[0], o[1], *(t for f, t in zip(fh.UserTowerWeights._fields, o[2]) if f != "bk")]
+        res[f"E_rel_err_{tag}"] = _rel_err(flat(got), flat(want))
+        res[f"E_outputs_sha256_{tag}"] = _sha((got[0], got[1], *got[2]))
+        again = e_call()
+        res[f"E_repeats_{tag}"] = bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+                                       and all(torch.equal(a, b) for a, b in zip(got[2], again[2])))
+        if profile:
+            res[f"E_kernels_ms_{tag}"] = _profile(e_call)
+        del got, want, again
+
+        q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+        want_out, lse = ak.flash_forward_plain(q, k, v, bias)
+        delta = (g.float() * want_out.float()).sum(-1)
+
+        def f3_call():
+            return ak.flash_backward_dkv(q, k, v, bias, g, lse, delta)
+
+        res[f"F3_ms_{tag}"] = time_ms(f3_call, 5)
+        got = f3_call()
+        want = ak.flash_backward_dkv_plain(q, k, v, bias, g, lse, delta)
+        res[f"F3_rel_err_{tag}"] = _rel_err(got, want)
+        res[f"F3_outputs_sha256_{tag}"] = _sha(got)
+        res[f"F3_repeats_{tag}"] = all(bool(torch.equal(a, b)) for a, b in zip(got, f3_call()))
+        if dt == torch.float32:
+            res["F2_F1_outputs_sha256"] = _sha((ak.flash_backward_dq(q, k, v, bias, g, lse, delta),
+                                                *ak.flash_forward(q, k, v, bias)))
+        del q, k, v, g, want_out, lse, delta, got, want
+        torch.cuda.empty_cache()
+    # kernels C and D at the text head's train-path shape (smaller table): must not move
+    N, T, Dh, Ah, D, U = 4096, 50, 768, 384, 400, 3520
+    table = rnd(N, T, Dh)
+    ids = torch.randint(0, N, (U,), generator=gen, device="cuda")
+    head = fh.TextHeadWeights(rnd(Dh, Ah) / math.sqrt(Dh), rnd(Ah) * 0.02,
+                              rnd(Ah) / math.sqrt(Ah), rnd(Dh, D) / math.sqrt(Dh), rnd(D) * 0.02)
+    res["C_D_outputs_sha256"] = _sha((fh.fused_gather_encode(table, ids, head),
+                                      *fh.fused_gather_encode_bwd(table, ids, head, rnd(U, D))))
 
 
 def _long(res: dict, rnd) -> None:
@@ -239,11 +330,8 @@ def _long(res: dict, rnd) -> None:
     res["F1_ms"] = time_ms(lambda: ak.flash_forward(q, k, v, bias), 5)
     res["F2_ms"] = time_ms(lambda: ak.flash_backward_dq(q, k, v, bias, g, lse, delta), 5)
     res["F3_ms"] = time_ms(lambda: ak.flash_backward_dkv(q, k, v, bias, g, lse, delta), 5)
-    h = hashlib.sha256()
-    for t in (out, lse, ak.flash_backward_dq(q, k, v, bias, g, lse, delta),
-              *ak.flash_backward_dkv(q, k, v, bias, g, lse, delta)):
-        h.update(t.cpu().numpy().tobytes())
-    res["flash_outputs_sha256"] = h.hexdigest()[:16]
+    res["flash_outputs_sha256"] = _sha((out, lse, ak.flash_backward_dq(q, k, v, bias, g, lse, delta),
+                                        *ak.flash_backward_dkv(q, k, v, bias, g, lse, delta)))
 
 
 def _pool_flash(res: dict, rnd, profile: bool) -> None:
@@ -293,17 +381,14 @@ def _pool_flash(res: dict, rnd, profile: bool) -> None:
         res["F1_kernels_ms"] = _profile(lambda: ak.flash_forward(q, k, v, bias))
     # F2 and F3 from the plain forward's out and lse: equal in both trees
     delta = (g * want_out).sum(-1)
-    h = hashlib.sha256()
-    for t in (ak.flash_backward_dq(q, k, v, bias, g, want_lse, delta),
-              *ak.flash_backward_dkv(q, k, v, bias, g, want_lse, delta)):
-        h.update(t.cpu().numpy().tobytes())
-    res["F2_F3_outputs_sha256"] = h.hexdigest()[:16]
+    res["F2_F3_outputs_sha256"] = _sha((ak.flash_backward_dq(q, k, v, bias, g, want_lse, delta),
+                                        *ak.flash_backward_dkv(q, k, v, bias, g, want_lse, delta)))
 
 
 def main(argv: list[str]) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("root", nargs="?", default=".")
-    p.add_argument("--only", choices=("text_head", "long", "pool_flash"))
+    p.add_argument("--only", choices=("text_head", "long", "pool_flash", "bwd"))
     p.add_argument("--profile", action="store_true")
     p.add_argument("--ptxas", action="store_true")
     args = p.parse_args(argv)
@@ -335,6 +420,11 @@ def main(argv: list[str]) -> int:
         if args.ptxas:
             res["ptxas_pool_flash"] = {src: _ptxas(root, src)
                                        for src in ("additive_pool.cu", "flash_attention.cu")}
+    if only in (None, "bwd"):
+        _bwd(res, rnd, gen, args.profile)
+        if args.ptxas:
+            res["ptxas_bwd"] = {src: _ptxas(root, src)
+                                for src in ("fused_history_score_bwd.cu", "flash_attention.cu")}
     print(json.dumps(res), flush=True)
     return 0
 

@@ -265,20 +265,19 @@ def test_fused_gather_encode_kernels_match_plain(cuda, rng, dtype, shape):
     assert launch_counts()["fused_gather_encode_bwd"] == 3
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(5, 7, 32, 4, 16), (3, 50, 400, 20, 200), (2, 13, 40, 5, 24)])
-@pytest.mark.parametrize("c", [0, 5])
-def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
-    b, h, d, nh, q = shape
-    x = _t(rng.standard_normal((b, h, d)), cuda, dtype)
-    cand = _t(rng.standard_normal((b, c, d)), cuda, dtype) if c else None
+def _check_history_score_backward(dev, rng, dtype, b, h, d, nh, q, c, dead):
+    """Kernel E against autograd of the plain version on random inputs, a
+    quarter of the clicks masked and history row ``dead`` (if any) fully."""
+    x = _t(rng.standard_normal((b, h, d)), dev, dtype)
+    cand = _t(rng.standard_normal((b, c, d)), dev, dtype) if c else None
     m = (rng.random((b, h)) > 0.25).astype(np.float32)
     m[:, 0] = 1.0
-    m[1] = 0.0  # a fully-masked history row
-    mask = _t(m, cuda)
-    w = _tower(rng, d, q, cuda, dtype)
-    gs = _t(rng.standard_normal((b, c)), cuda) if c else None
-    gu = _t(rng.standard_normal((b, d)), cuda)
+    if dead is not None:
+        m[dead] = 0.0
+    mask = _t(m, dev)
+    w = _tower(rng, d, q, dev, dtype)
+    gs = _t(rng.standard_normal((b, c)), dev) if c else None
+    gu = _t(rng.standard_normal((b, d)), dev)
     reset_launch_counts()
     dx, dcand, dw = fused_history_score_bwd(x, cand, mask, w, gs, gu, nh)
     torch.cuda.synchronize()
@@ -289,11 +288,38 @@ def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
         _close_grad(dcand, pc, dtype, "dcand")
     else:
         assert dcand is None
+    if dead is not None:  # a fully-masked row pools to ~0: no gradient reaches its history
+        assert float(dx[dead].float().abs().max()) <= 1e-6
     for name, a, b_ in zip(UserTowerWeights._fields, dw, pw):
         if name == "bk":  # its true gradient is zero: both sides are float noise
             assert float(a.float().abs().max()) <= 1e-3 * max(1.0, float(b_.float().abs().max()))
             continue
         _close_grad(a, b_, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 7, 32, 4, 16), (3, 50, 400, 20, 200), (2, 13, 40, 5, 24)])
+@pytest.mark.parametrize("c", [0, 5])
+def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
+    _check_history_score_backward(cuda, rng, dtype, *shape, c, dead=1)
+
+
+# (n, H, D, heads, Q, C, fully-masked row or None): the edges of kernel E's
+# row products (64-row tiles over the flat n H rows) and per-head blocks
+_HIST_BWD_EDGES = {
+    "one_row": (1, 50, 400, 20, 200, 5, None),
+    "rows_not_a_tile_multiple": (3, 13, 40, 5, 24, 5, None),   # n H = 39
+    "train_path": (64, 50, 400, 20, 200, 5, None),
+    "no_candidates": (4, 50, 400, 20, 200, 0, None),
+    "fully_masked_row": (4, 50, 400, 20, 200, 5, 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_HIST_BWD_EDGES))
+def test_fused_history_score_backward_tiling_edges(cuda, rng, dtype, case):
+    b, h, d, nh, q, c, dead = _HIST_BWD_EDGES[case]
+    _check_history_score_backward(cuda, rng, dtype, b, h, d, nh, q, c, dead)
 
 
 # (table rows, T, Dh, Ah, D, ids): the row tiling's edges of kernels C and D
@@ -490,6 +516,26 @@ def test_flash_attention_module_layout_and_gradients(cuda, rng, dtype):
     _close(out.detach(), ref.detach(), dtype)
     for name, a, b in zip("qkv", grads, ref_grads):
         _close_grad(a, b, dtype, "d" + name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [65, 2049])
+def test_flash_backward_one_query_past_a_tile(cuda, rng, dtype, L):
+    """One query and one key past a whole 64-row tile: F3's last query tile
+    and last key block hold a single row each."""
+    q, k, v, bias, g = _flash_inputs(rng, cuda, dtype, 2, L, 20, "partial")
+    want_out, want_lse = flash_forward_plain(q, k, v, bias)
+    delta = (g.float() * want_out.float()).sum(-1)
+    reset_launch_counts()
+    dk, dv, dbias = flash_backward_dkv(q, k, v, bias, g, want_lse, delta)
+    dq = flash_backward_dq(q, k, v, bias, g, want_lse, delta)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_backward_dkv"] == 1
+    want = flash_backward_plain(q, k, v, bias, want_out, want_lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _close_grad(a, b, dtype, name)
+    _close_grad(dbias, want[3], torch.float32, "dbias",
+                floor=1e-6 * (1.0 + float(delta.abs().max())))
 
 
 def test_flash_backward_kernels_are_deterministic(cuda, rng):

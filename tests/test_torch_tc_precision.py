@@ -27,6 +27,15 @@ TF32; W1 split), held at f32's 1e-5 bar. Kernel F1
 (P split like any operand, each 64-key tile's product summed in a fresh
 accumulator and added to the rescaled output) inside an f32 online softmax
 over 64-key tiles: ``out`` within 1e-5 and ``lse`` within 1e-4 of float64.
+
+Kernel E (``csrc/fused_history_score_bwd.cu``) forms its row products the
+same way: the recompute x [Wq|Wk|Wv] (K = 400, three passes; bf16 x and W
+exact, one) within the f32 output bar, and dx = dY [Wq|Wk|Wv]^T (K = 1,200;
+the f32 cotangents split against an exact bf16 W, two passes) within
+GRAD_REL_F32. Kernel F3 (``csrc/flash_attention.cu``) forms S^T, dP^T,
+dV = P^T dO and dK = dS^T Q of one 64-key tile over 2,048 queries at width
+20 (P^T and dS^T split like any operand, every 32 queries promoted): dK, dV
+and dbias within GRAD_REL_F32 of float64. One TF32 pass misses each bar.
 """
 
 import numpy as np
@@ -216,3 +225,103 @@ def test_flash_forward_against_float64(route, holds):
     err, lse_err = float(np.abs(out - ref).max()), float(np.abs(lse - ref_lse).max())
     assert (err <= F32_BAR and lse_err <= 1e-4) == holds, (
         f"{route}: max out error {err:.3g} against {F32_BAR}, lse error {lse_err:.3g} against 1e-4")
+
+
+# --------------------------------------------------- kernels E and F3
+TWO_A = [(1, 0), (0, 0)]  # a_lo b_hi, a_hi b_hi: an f32 A against a bf16 (exact) B
+
+
+def _f3_emulated(q, k, v, do, bias, lse, delta, passes):
+    """Kernel F3 on one tile of keys against every query: S^T = K Q^T and
+    dP^T = V dO^T in TF32 passes (width padded to 24, one 32-deep chunk),
+    P^T and dS^T in f32 on the fragments, then dV = P^T dO and dK = dS^T Q
+    over all the queries, a fresh accumulator every 32 queries promoted
+    into the f32 total, and dK scaled at the end."""
+    f32 = np.float32
+    scale = f32(1.0 / np.sqrt(q.shape[1]))
+    qp, kp, vp, dop = (_pad_cols(a, K_STEP) for a in (q, k, v, do))
+    st = tc_matmul(kp, np.ascontiguousarray(qp.T), passes)
+    st = (st.astype(np.float64) * scale + bias[:, None]).astype(f32)  # one rounding: fmaf
+    p = np.exp(st - lse[None, :]).astype(f32)
+    dpt = tc_matmul(vp, np.ascontiguousarray(dop.T), passes)
+    ds = (p * (dpt - delta[None, :])).astype(f32)
+    dv = tc_matmul(p, dop, passes, chunk_depth=CHUNK)
+    dk = (tc_matmul(ds, qp, passes, chunk_depth=CHUNK) * scale).astype(f32)
+    return dk[:, :q.shape[1]], dv[:, :v.shape[1]], ds.sum(1, dtype=f32)
+
+
+@pytest.mark.parametrize("route,holds", [("three_tf32_passes", True), ("one_tf32_pass", False)])
+def test_flash_dkv_against_float64(route, holds):
+    """Kernel F3 at width 20: one 64-key tile against 2,048 queries, whose
+    lse and delta come from all 2,048 keys (a quarter masked, bias -1e9);
+    dK, dV and dbias within GRAD_REL_F32 of their largest value."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (rng.standard_normal((2048, 20)).astype(np.float32) for _ in range(4))
+    bias = np.where(rng.random(2048) > 0.25, 0.0, -1e9).astype(np.float32)
+    bias[:8] = 0.0
+    s = (q.astype(np.float64) @ k.T.astype(np.float64)) / np.sqrt(20) + bias   # (queries, keys)
+    lse = s.max(1) + np.log(np.exp(s - s.max(1, keepdims=True)).sum(1))
+    p = np.exp(s - lse[:, None])
+    delta = ((p @ v.astype(np.float64)) * do).sum(1)
+    tile = slice(0, 64)
+    got = _f3_emulated(q, k[tile], v[tile], do, bias[tile], lse.astype(np.float32),
+                       delta.astype(np.float32), THREE if route == "three_tf32_passes" else ONE)
+    pt = p[:, tile].T                                        # (keys, queries)
+    dst = pt * (v[tile].astype(np.float64) @ do.T.astype(np.float64) - delta[None, :])
+    want = (dst @ q.astype(np.float64) / np.sqrt(20), pt @ do.astype(np.float64), dst.sum(1))
+    errs = [float(np.abs(a - b).max()) / float(np.abs(b).max()) for a, b in zip(got, want)]
+    assert (max(errs) <= GRAD_REL_F32) == holds, f"{route}: dk, dv, dbias relative errors {errs}"
+
+
+def _tower_rows(rng, rows=256, d=400):
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    lim = np.sqrt(6.0 / (2 * d))  # xavier-uniform, as the tower's Dense kernels
+    w = rng.uniform(-lim, lim, (d, 3 * d)).astype(np.float32)  # [Wq | Wk | Wv]
+    return x, w
+
+
+@pytest.mark.parametrize("route,holds", [
+    ("f32_three_tf32_passes", True),
+    ("bf16_one_tf32_pass", True),
+    ("f32_one_tf32_pass", False),
+])
+def test_user_tower_qkv_product_against_float64(route, holds):
+    """Kernel E's recompute x [Wq|Wk|Wv] (K = 400 -> 1,200) over 256 history
+    rows, within chip_smoke.py's f32 output bar. Under bf16 x and W are
+    exact in TF32 and one pass forms the exact products."""
+    x, w = _tower_rows(np.random.default_rng(5))
+    if route.startswith("bf16"):
+        x, w = to_bf16(x), to_bf16(w)
+        assert np.array_equal(tf32_rna(x), x) and np.array_equal(tf32_rna(w), w)
+    passes = THREE if route == "f32_three_tf32_passes" else ONE
+    # D = 400 is 12.5 chunks: the last one zero-filled to 32 deep
+    got = tc_matmul(_pad_cols(x, CHUNK), _pad_cols(w.T, CHUNK).T, passes)
+    err = float(np.abs(got - x.astype(np.float64) @ w.astype(np.float64)).max())
+    assert (err <= F32_ATOL) == holds, f"{route}: max q|k|v error {err:.3g} against {F32_ATOL}"
+    if holds:  # and with room: the kernel adds its own reduction order
+        assert err <= F32_ATOL / 10
+
+
+@pytest.mark.parametrize("route,holds", [
+    ("f32_three_tf32_passes", True),
+    ("bf16_weights_two_tf32_passes", True),
+    ("f32_one_tf32_pass", False),
+])
+def test_user_tower_dx_product_against_float64(route, holds):
+    """Kernel E's dx = [dQ|dK|dV] [Wq|Wk|Wv]^T (K = 1,200 -> 400) over 256
+    history rows, within GRAD_REL_F32 of the largest |dx|. The cotangents
+    stay f32 under bf16, so they are split against the exact bf16 W."""
+    rng = np.random.default_rng(6)
+    _, w = _tower_rows(rng)
+    dy = (rng.standard_normal((256, 1200)) * 1e-2).astype(np.float32)
+    passes = {"f32_three_tf32_passes": THREE, "bf16_weights_two_tf32_passes": TWO_A,
+              "f32_one_tf32_pass": ONE}[route]
+    if route.startswith("bf16"):
+        w = to_bf16(w)
+    got = tc_matmul(dy, np.ascontiguousarray(w.T), passes)
+    ref = dy.astype(np.float64) @ w.T.astype(np.float64)
+    err, scale = float(np.abs(got - ref).max()), float(np.abs(ref).max())
+    assert (err <= GRAD_REL_F32 * scale) == holds, (
+        f"{route}: max dx error {err:.3g} against {GRAD_REL_F32} x {scale:.3g}")
+    if holds:
+        assert err <= GRAD_REL_F32 * scale / 10

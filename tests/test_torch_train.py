@@ -264,6 +264,21 @@ def test_weighted_param_avg_masks_zero_weight_clients():
     assert len(mean) == 3 and float(mean[2][0]) == 1.0
 
 
+@pytest.mark.parametrize("name", ["local", "grad_avg", "param_avg", "coordinator"])
+def test_get_strategy_names_match_jax(name):
+    jax_s, torch_s = jax_get_strategy(name), get_strategy(name)
+    assert type(torch_s).__name__ == type(jax_s).__name__
+    assert torch_s.name == jax_s.name
+    assert torch_s.sync_grads_every_step == jax_s.sync_grads_every_step
+    assert torch_s.sync_params_every_round == jax_s.sync_params_every_round
+
+
+def test_get_strategy_rejects_unknown_names_as_jax_does():
+    for get in (jax_get_strategy, get_strategy):
+        with pytest.raises(ValueError, match="unknown federation strategy"):
+            get("fedprox")
+
+
 # --------------------------------------------------- data port-copies
 def test_synthetic_data_and_batches_equal_jax():
     kw = dict(num_news=64, num_train=48, num_valid=8, title_len=12, his_len_range=(2, 10),
