@@ -442,7 +442,7 @@ def phase_kernels(state: dict, args) -> dict:
     # ---- kernel B at every serving bucket, H=50, D=400, 20 heads, Q=200
     H, D, Q, nh = 50, 400, 200, 20
     w32 = _tower_weights(gen, D, Q)
-    for b in (1, 8, 32, 128):
+    for b in (1, 8, 32, 64, 128):
         x32 = torch.randn((b, H, D), generator=gen, device=DEV)
         c32 = torch.randn((b, 5, D), generator=gen, device=DEV)
         for c in (0, 5):
@@ -459,18 +459,21 @@ def phase_kernels(state: dict, args) -> dict:
                         ok_s, err_s, _ = within(sk, sp, dt)
                         ok, err = ok and ok_s, max(err, err_s)
                     record("fused_history_score", [b, H, D, c], dt, kind, ok, err, tol)
-    b_times = {}
-    for b in (1, 8, 32, 128):
+    def b_timing(b: int, c: int) -> dict:
         x = torch.randn((b, H, D), generator=gen, device=DEV)
-        k_ms = time_ms(lambda: fused_history_score(x, None, None, w32, nh), reps=50)
-        p_ms = time_ms(lambda: fused_history_score_plain(x, None, None, w32, nh), reps=20)
-        cost = hist_cost(b, H, D, Q, nh, 0, 4)
+        cand = torch.randn((b, c, D), generator=gen, device=DEV) if c else None
+        k_ms = time_ms(lambda: fused_history_score(x, cand, None, w32, nh), reps=50)
+        p_ms = time_ms(lambda: fused_history_score_plain(x, cand, None, w32, nh), reps=20)
+        cost = hist_cost(b, H, D, Q, nh, c, 4)
         bms, by = bound(cost, "float32", peaks)
-        b_times[b] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
-                      "cuda_core_bound_ms": cuda_core_bound(cost, peaks)}
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
+                "cuda_core_bound_ms": cuda_core_bound(cost, peaks)}
+
+    # the serving buckets (C = 0), and the train path's shape (n = 64, C = 5)
+    b_times = {b: b_timing(b, 0) for b in (1, 8, 32, 128)}
     state["timing"]["fused_history_score"] = dict(
         b_times[128], shape=[128, H, D, 0], dtype="float32", library_ms=None,
-        by_bucket=b_times,
+        by_bucket=b_times, train_shape=dict(b_timing(64, 5), shape=[64, H, D, 5]),
     )
     _check_backward_kernels(state, args, gen, record)
     _check_long_kernels(state, args, gen, record)
@@ -1582,6 +1585,8 @@ def kernels_line(state: dict) -> dict:
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "path": meta["path"],
             "launches": state["launches"][meta["path"]][name],
+            "launches_by_path": {path: counts[name] for path, counts in state["launches"].items()
+                                 if counts.get(name)},
             "max_abs_err": state["path_errs"][name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],

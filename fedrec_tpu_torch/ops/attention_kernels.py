@@ -19,9 +19,8 @@ recompute, as the JAX backward is a dense ``jax.vjp``, not a kernel.
 Flash attention. ``flash_attention`` is multi-head attention in the JAX
 ``(..., L, H, d)`` layout with an optional key mask, computed blockwise
 with an online softmax so the ``(L, L)`` scores never exist. On CUDA
-tensors its forward is kernel F1 (on the tensor cores) and its backward
-kernels F2 (dq, on CUDA cores) and F3 (dk, dv, dbias, on the tensor cores)
-(``csrc/flash_attention.cu``), with
+tensors its forward is kernel F1 and its backward kernels F2 (dq) and F3
+(dk, dv, dbias), all on the tensor cores (``csrc/flash_attention.cu``), with
 ``delta = rowsum(g * out)`` taken in f32 between them, as the JAX backward
 does.
 ``flash_forward_plain`` and ``flash_backward_plain`` repeat the kernels'
@@ -308,7 +307,7 @@ def _check_flash(name: str, which: int, q, k, v, bias, *rows) -> tuple[int, ...]
             raise ValueError(f"{name}: {field} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dt or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: {field} must be contiguous {dt} on {q.device}")
-    staged = (q, k, v) if which == 0 else (q, k, v, rows[0][1]) if which == 2 else ()  # by cp.async
+    staged = (q, k, v) if which == 0 else (q, k, v, rows[0][1])  # by cp.async
     if any(t.data_ptr() % (4 * t.element_size()) for t in staged):
         raise ValueError(f"{name}: q, k, v and g must start on a 4-element boundary")
     need = _flash_lib().flash_smem_bytes(which, dk, dv)

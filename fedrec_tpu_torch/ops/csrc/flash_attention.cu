@@ -30,18 +30,14 @@
 // p.astype(v.dtype). tests/test_torch_tc_precision.py holds the emulation
 // against float64.
 //
-// F2: one thread per output row on CUDA cores, in full f32 (bf16 operands
-// widened): one block per (bh, 64-query tile); K/V/bias tiles of 64 keys
-// are staged in shared memory as f32 and read by every thread as broadcast
-// float4s; each thread keeps its q and do rows and its accumulator in
-// registers.
-// F3: FA2's dk/dv half on the tensor cores, as F1's fragments with keys as
-// the m-dimension (described at the kernel).
+// F2 and F3: FA2's backward on the tensor cores in two kernels, F2 the dq
+// half with queries as the m-dimension and F3 the dk/dv half with keys as
+// the m-dimension (described at the kernels); both TF32 m16n8k8 at every
+// width (three passes for f32, one for bf16 values, exact in TF32), with
+// F1's fragment forms and pass order, so in f32 the scores they rebuild are
+// F1's to the bit.
 // Each output has one owner that sums in a fixed order: no atomics, so the
-// results repeat to the bit. F1 and F3 form each score on the tensor cores
-// in 3xTF32, F2 on CUDA cores in f32: the two differ by about 2^-21
-// relative, so the p that F2 rebuilds from F1's lse differs from F1's and
-// F3's own by as much: far inside the backward's bars.
+// results repeat to the bit.
 //
 // Numerics follow the JAX kernels: the running max starts at -1e9 (not
 // -inf) and the sum is floored at 1e-30, so a fully-masked row attends
@@ -49,8 +45,8 @@
 // p is rounded to the operand dtype before P.V (F1) and before dv (F3), ds
 // before dq (F2) and dk (F3); dbias sums the unrounded f32 ds. JAX pads
 // keys to its block with bias -1e9; here the keys past the end of the last
-// tile get bias -inf in F1 and F3 and the queries past it lse +inf in F3
-// (p = 0 exactly), and F2 skips them.
+// tile get bias -inf and the queries past it lse +inf in F2 and F3 (p = 0
+// exactly).
 #include <stdint.h>
 
 #include <type_traits>
@@ -62,66 +58,11 @@ namespace {
 
 using namespace fedrec;
 
-constexpr int BQ = 64;            // query rows of an F1/F2 block and of an F3 query tile
+constexpr int BQ = 64;            // query rows of an F2 block and of an F3 query tile
 constexpr int BK = 64;            // key rows of an F3 block and of an F1/F2 key tile
 constexpr int kF1Warps = 4;       // F1: warps a block
 constexpr int kF1Threads = 32 * kF1Warps;
 constexpr float kNegInit = -1e9f; // JAX's running-max start (and the mask bias)
-
-__host__ __device__ inline int pad4(int d) { return (d + 3) & ~3; }
-
-// Rows [0, rows) of a row-major (rows, d) block in global memory into a
-// shared tile with row stride pad4(d), as f32; the padding columns are 0 so
-// that float4 dot products over them add exact zeros.
-template <typename T>
-__device__ void stage_rows(float* dst, const T* __restrict__ src, int rows, int d) {
-  const int dp = pad4(d);
-  for (int i = threadIdx.x; i < rows * dp; i += blockDim.x) {
-    const int r = i / dp, c = i - r * dp;
-    dst[i] = c < d ? to_f32(src[(size_t)r * d + c]) : 0.f;
-  }
-}
-
-// A (d,) row into registers as f32, zero past d. EXACT: d == 4 * D4.
-template <int D4, bool EXACT, typename T>
-__device__ __forceinline__ void load_row(float (&r)[4 * D4], const T* __restrict__ src, int d) {
-#pragma unroll
-  for (int i = 0; i < 4 * D4; ++i) r[i] = (EXACT || i < d) ? to_f32(src[i]) : 0.f;
-}
-
-// sum_i a[i] * row[i], left to right, over n4 float4s of a shared row.
-template <int D4, bool EXACT>
-__device__ __forceinline__ float dot_row(const float (&a)[4 * D4], const float* row, int n4) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < D4; ++i) {
-    if (EXACT || i < n4) {
-      const float4 b = r4[i];
-      s = fmaf(a[4 * i], b.x, s);
-      s = fmaf(a[4 * i + 1], b.y, s);
-      s = fmaf(a[4 * i + 2], b.z, s);
-      s = fmaf(a[4 * i + 3], b.w, s);
-    }
-  }
-  return s;
-}
-
-// acc[i] += p * row[i] over n4 float4s of a shared row.
-template <int D4, bool EXACT>
-__device__ __forceinline__ void axpy_row(float (&acc)[4 * D4], float p, const float* row, int n4) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < D4; ++i) {
-    if (EXACT || i < n4) {
-      const float4 b = r4[i];
-      acc[4 * i] = fmaf(p, b.x, acc[4 * i]);
-      acc[4 * i + 1] = fmaf(p, b.y, acc[4 * i + 1]);
-      acc[4 * i + 2] = fmaf(p, b.z, acc[4 * i + 2]);
-      acc[4 * i + 3] = fmaf(p, b.w, acc[4 * i + 3]);
-    }
-  }
-}
 
 // ------------------------------------------------------------------- F1
 // Shared-memory row pitches (elements) that keep the fragment loads free of
@@ -481,59 +422,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// ------------------------------------------------------------------- F2
-template <typename T, int D4, bool EXACT>
-__global__ void __launch_bounds__(BQ)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const float* __restrict__ bias, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int Lq, int Lk, int dk, int dv, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dkp = pad4(dk), dvp = pad4(dv), dk4 = dkp / 4, dv4 = dvp / 4;
-  float* ks = smem;
-  float* vs = ks + BK * dkp;
-  float* bs = vs + BK * dvp;
-  const int nqt = (Lq + BQ - 1) / BQ;
-  const int bh = blockIdx.x / nqt, row = (blockIdx.x - bh * nqt) * BQ + threadIdx.x;
-  const bool live = row < Lq;
-  const size_t r = (size_t)bh * Lq + (live ? row : 0);
-
-  float qr[4 * D4], dor[4 * D4], acc[4 * D4];
-  load_row<D4, EXACT>(qr, q + r * dk, dk);
-  load_row<D4, EXACT>(dor, dout + r * dv, dv);
-#pragma unroll
-  for (int i = 0; i < 4 * D4; ++i) acc[i] = 0.f;
-  const float lse_r = lse[r], delta_r = delta[r];
-  const T* kb = k + (size_t)bh * Lk * dk;
-  const T* vb = v + (size_t)bh * Lk * dv;
-  const float* bb = bias + (size_t)bh * Lk;
-
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    const int nk = min(BK, Lk - k0);
-    __syncthreads();
-    stage_rows(ks, kb + (size_t)k0 * dk, nk, dk);
-    stage_rows(vs, vb + (size_t)k0 * dv, nk, dv);
-    for (int i = threadIdx.x; i < nk; i += blockDim.x) bs[i] = bb[k0 + i];
-    __syncthreads();
-    // unrolled so that several keys' dot chains interleave; each sum keeps
-    // its order, so the results do not change
-#pragma unroll 4
-    for (int j = 0; j < nk; ++j) {
-      const float s = fmaf(dot_row<D4, EXACT>(qr, ks + j * dkp, dk4), scale, bs[j]);
-      const float p = expf(s - lse_r);
-      const float dp = dot_row<D4, EXACT>(dor, vs + j * dvp, dv4);
-      const float ds = p * (dp - delta_r);
-      axpy_row<D4, EXACT>(acc, round_to<T>(ds), ks + j * dkp, dk4);
-    }
-  }
-  if (live) {
-    T* out = dq + r * dk;
-#pragma unroll
-    for (int i = 0; i < 4 * D4; ++i)
-      if (EXACT || i < dk) out[i] = from_f32<T>(acc[i] * scale);
-  }
-}
-
 // ------------------------------------------------------------------- F3
 // FA2's dk/dv half on the tensor cores, keys as the m-dimension so that F1's
 // fragment forms carry over. A block of 4 warps owns a 64-key tile, each
@@ -581,12 +469,16 @@ __device__ __forceinline__ void f3_afrag(const T* t, int row, int k, Tf32Pair* a
 // acc (16 rows x 64 columns) = A B^T over depth W: A's rows from registers
 // (REG: af) or rows row, row + 8 of the tile at; B the 64 rows of bt. Thread
 // (g, c) holds column nt*8 + 2c + (i & 1) of row g + 8*(i >= 2) in acc[nt][i].
-template <typename T, int W, bool REG>
+// Past 32 deep, each 32 of depth sums in a fresh accumulator; STEP: each 8
+// (F2's dP, which cancels against delta, so its truncation error counts
+// relative to dS).
+template <typename T, int W, bool REG, bool STEP = false>
 __device__ __forceinline__ void f3_scores(float (&acc)[8][4], Tf32Pair (&af)[REG ? W / 8 : 1][4],
                                           const T* at, const T* bt, int row, int g, int c) {
   constexpr int P = f3_pitch(W), NS = W / 8;
   constexpr int kFirst = std::is_same<T, float>::value ? 0 : 2;
-  constexpr bool kPromote = NS > 4;
+  constexpr int kChunk = STEP ? 1 : 4;  // steps of 8 a fresh accumulator sums
+  constexpr bool kPromote = NS > kChunk;
   float ch[kPromote ? 8 : 1][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
@@ -616,7 +508,7 @@ __device__ __forceinline__ void f3_scores(float (&acc)[8][4], Tf32Pair (&af)[REG
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) mma_pass(kPromote ? ch[nt] : acc[nt], a, b[nt], pass);
     if constexpr (kPromote) {
-      if ((s + 1) % 4 == 0 || s + 1 == NS) {
+      if ((s + 1) % kChunk == 0 || s + 1 == NS) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) promote(acc[nt], ch[nt]);
       }
@@ -801,6 +693,159 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// ------------------------------------------------------------------- F2
+// FA2's dq half on the tensor cores: the mirror of F3, with queries as the
+// m-dimension as in F1. A block of 4 warps owns a 64-query tile, each warp
+// one m-tile of 16 queries (its Q and dO fragments, split, held in
+// registers in bf16 at widths <= 32, else re-read from shared memory at
+// each key tile; its rows' lse and delta in registers); K, V and the key
+// bias stream through shared memory in 64-key tiles (F1's cp.async double
+// buffer, bias -inf past the last key). Per key tile a warp forms
+//   S  = Q K^T                           (16 queries x 64 keys, depth dk)
+//   P  = exp(scale S + bias - lse)       on the accumulator fragment
+//   dP = dO V^T                          (depth dv)
+//   dS = P (dP - delta)
+//   dQ += round(dS) K                    (dS's fragment is the A operand with
+//                                          F1's key permutation, K's rows
+//                                          read in that order)
+// with F3's helpers, and at the end dQ *= scale. dP sums each 8 of its
+// depth in a fresh accumulator (it cancels against delta, so its error
+// counts against dS, not dP); S sums as F1's does. K is read by rows (S's B
+// operand) and by columns (dQ's): f3_pitch keeps both conflict-free. One
+// m-tile a warp, not F1's two: S, dP and the Q and dO fragments of a second
+// would not fit in the registers. Queries past the end get lse +inf (p = 0
+// exactly) and are neither read past the arrays nor stored.
+constexpr int kF2Warps = 4;  // one 16-query m-tile each
+constexpr int kF2Threads = 32 * kF2Warps;
+
+// the Q and dO tiles, two stages of K and V tiles (T) and of key bias (f32)
+template <typename T, int W>
+__host__ __device__ constexpr size_t f2_smem() {
+  return sizeof(T) * (size_t)f3_pitch(W) * (2 * BQ + 4 * BK) + 2 * BK * sizeof(float);
+}
+
+// Which shape each fragment path serves (kernel_ab.py --only fwd, PERF.md):
+// bf16 fragments (one pass, no lo half) are held in registers at widths
+// <= 32, faster than re-reading them; f32's split pairs take twice the
+// registers and are re-read, which at width 32 avoids spills and at the
+// user tower's width lets F2 run three blocks an SM (a cap of 168
+// registers for ptxas), faster than two blocks with them held.
+template <typename T, int W>
+__host__ __device__ constexpr bool f2_three_blocks() {
+  return std::is_same<T, float>::value && W == 24;
+}
+
+// One (bh, 64-query tile) a block; W: the padded width of both dk and dv.
+template <typename T, int W>
+__global__ void __launch_bounds__(kF2Threads, f2_three_blocks<T, W>() ? 3 : 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ bias, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int Lq, int Lk, int dk, int dv, float scale) {
+  constexpr int P = f3_pitch(W), NS = W / 8;
+  constexpr bool kReg = !std::is_same<T, float>::value && W <= 32;  // Q, dO fragments held
+  extern __shared__ __align__(16) unsigned char f2_smem_raw[];
+  T* qs = reinterpret_cast<T*>(f2_smem_raw);  // (BQ, P)
+  T* gs = qs + BQ * P;                         // (BQ, P)
+  auto kt = [&](int st) { return gs + BQ * P + st * 2 * BK * P; };
+  auto vt = [&](int st) { return gs + BQ * P + st * 2 * BK * P + BK * P; };
+  float* bias_s = reinterpret_cast<float*>(gs + BQ * P + 4 * BK * P);  // [stage][BK]
+
+  const int nqt = (Lq + BQ - 1) / BQ;
+  const int bh = blockIdx.x / nqt, q0 = (blockIdx.x - bh * nqt) * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3, wq = warp * 16;
+  const T* kb = k + (size_t)bh * Lk * dk;
+  const T* vb = v + (size_t)bh * Lk * dv;
+  const float* bb = bias + (size_t)bh * Lk;
+  const bool vec = (dk & 3) == 0 && (dv & 3) == 0;
+  const int tiles = (Lk + BK - 1) / BK;
+
+  auto stage_kv = [&](int st, int t) {
+    const int k0 = t * BK, nk = min(BK, Lk - k0);
+    f1_stage<T, BK, W>(kt(st), P, kb + (size_t)k0 * dk, nk, dk, vec);
+    f1_stage<T, BK, W>(vt(st), P, vb + (size_t)k0 * dv, nk, dv, vec);
+    float* bs = bias_s + st * BK;
+    for (int i = tid; i < BK; i += kF2Threads) {
+      if (i < nk) {
+        cp_async1(bs + i, bb + k0 + i, true);
+      } else {
+        bs[i] = -INFINITY;  // past the last key: p = 0 exactly
+      }
+    }
+  };
+
+  const int nq = min(BQ, Lq - q0);
+  f1_stage<T, BQ, W>(qs, P, q + ((size_t)bh * Lq + q0) * dk, nq, dk, vec);
+  f1_stage<T, BQ, W>(gs, P, dout + ((size_t)bh * Lq + q0) * dv, nq, dv, vec);
+  if (tiles > 0) stage_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this thread's queries q0 + wq + g and + 8: lse +inf past the end
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wq + g + 8 * r;
+    lr[r] = row < Lq ? lse[(size_t)bh * Lq + row] : INFINITY;
+    dr[r] = row < Lq ? delta[(size_t)bh * Lq + row] : 0.f;
+  }
+  Tf32Pair qf[kReg ? NS : 1][4], gf[kReg ? NS : 1][4];
+  if constexpr (kReg) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      f3_afrag<T, P>(qs, wq + g, s * 8 + c, qf[s]);
+      f3_afrag<T, P>(gs, wq + g, s * 8 + c, gf[s]);
+    }
+  }
+
+  float dqa[NS][4];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t > 0) {
+      cp_async_wait<0>();  // tile t landed
+      __syncthreads();     // and every warp is done with tile t - 1
+    }
+    if (t + 1 < tiles) stage_kv((t + 1) & 1, t + 1);
+    cp_async_commit();
+    const T* ks_t = kt(t & 1);
+    const T* vs_t = vt(t & 1);
+    const float* bs = bias_s + (t & 1) * BK;
+
+    float p[8][4], ds[8][4];
+    f3_scores<T, W, kReg>(p, qf, qs, ks_t, wq + g, g, c);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[nt][i] = expf(fmaf(p[nt][i], scale, bs[nt * 8 + 2 * c + (i & 1)]) - lr[i >> 1]);
+    f3_scores<T, W, kReg, true>(ds, gf, gs, vs_t, wq + g, g, c);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[nt][i] = p[nt][i] * (ds[nt][i] - dr[i >> 1]);
+    f3_accumulate<T, W>(dqa, ds, ks_t, g, c);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wq + g + 8 * r;
+    if (row >= Lq) continue;
+    T* qo = dq + ((size_t)bh * Lq + row) * dk;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * c + e;
+        if (col < dk) qo[col] = from_f32<T>(dqa[n][2 * r + e] * scale);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 // F1's padded widths (f32 form): the user tower's 20 exactly (24, the next
 // multiple of the TF32 mma depth; bf16 pads the contraction to 32), else
@@ -811,20 +856,21 @@ int f1_width(int dk, int dv) {
   return d <= 32 ? 32 : (d <= 64 ? 64 : 128);
 }
 
+// F1 stages Q once and double-buffers K, V and bias tiles; F2 stages Q and
+// dO once and double-buffers K, V and bias tiles; F3 holds its K and V tiles
+// and double-buffers Q, dO, lse and delta (the f32 forms are the larger)
+template <int W>
+size_t smem_at(int which) {
+  return which == 0 ? f1_smem<float, W, W>() : which == 1 ? f2_smem<float, W>() : f3_smem<float, W>();
+}
+
 size_t smem_rows(int which, int dk, int dv) {
-  // F1 stages Q once and double-buffers K, V and bias tiles; F3 holds its K
-  // and V tiles and double-buffers Q, dO, lse and delta (the f32 forms are
-  // the larger); F2 stages K, V and bias tiles
-  if (which != 1) {
-    const int w = f1_width(dk, dv);
-    switch (w) {
-      case 24: return which == 0 ? f1_smem<float, 24, 24>() : f3_smem<float, 24>();
-      case 32: return which == 0 ? f1_smem<float, 32, 32>() : f3_smem<float, 32>();
-      case 64: return which == 0 ? f1_smem<float, 64, 64>() : f3_smem<float, 64>();
-      default: return which == 0 ? f1_smem<float, 128, 128>() : f3_smem<float, 128>();
-    }
+  switch (f1_width(dk, dv)) {
+    case 24: return smem_at<24>(which);
+    case 32: return smem_at<32>(which);
+    case 64: return smem_at<64>(which);
+    default: return smem_at<128>(which);
   }
-  return sizeof(float) * ((size_t)BK * (pad4(dk) + pad4(dv)) + BK);
 }
 
 struct Args {
@@ -860,14 +906,14 @@ int dispatch_f1(const Args& a, cudaStream_t stream) {
   }
 }
 
-template <typename T, int D4, bool EXACT>
+template <typename T, int W>
 int launch_f2(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_rows(1, a.dk, a.dv);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D4, EXACT>, smem);
+  constexpr size_t smem = f2_smem<T, W>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, W>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = a.bh * ((a.lq + BQ - 1) / BQ);
   if (grid > 0)
-    flash_bwd_dq_kernel<T, D4, EXACT><<<grid, BQ, smem, stream>>>(
+    flash_bwd_dq_kernel<T, W><<<grid, kF2Threads, smem, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const float*>(a.bias), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -875,15 +921,15 @@ int launch_f2(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// F2's width buckets: the user tower's 20 exactly (no bounds tests in the
-// unrolled loops), else the next of 32 / 64 / 128 with runtime bounds.
+// F2's widths are F1's: 24 for the user tower's 20, else 32 / 64 / 128
 template <typename T>
 int dispatch_f2(const Args& a, cudaStream_t stream) {
-  const int d = a.dk > a.dv ? a.dk : a.dv;
-  if (a.dk == 20 && a.dv == 20) return launch_f2<T, 5, true>(a, stream);
-  if (d <= 32) return launch_f2<T, 8, false>(a, stream);
-  if (d <= 64) return launch_f2<T, 16, false>(a, stream);
-  return launch_f2<T, 32, false>(a, stream);
+  switch (f1_width(a.dk, a.dv)) {
+    case 24: return launch_f2<T, 24>(a, stream);
+    case 32: return launch_f2<T, 32>(a, stream);
+    case 64: return launch_f2<T, 64>(a, stream);
+    default: return launch_f2<T, 128>(a, stream);
+  }
 }
 
 template <typename T, int W>

@@ -3,9 +3,11 @@
 * ``fused_history_score`` (kernel B forward, ``csrc/fused_history_score.cu``;
   kernel E backward, ``csrc/fused_history_score_bwd.cu``): Q/K/V projections
   of the (H, D) history, per-head masked attention, additive pooling to the
-  user vector, and dot scores against C candidates, in one launch per batch.
-  E runs its row products over all n H history rows on the tensor cores
-  (3xTF32 in f32).
+  user vector, and dot scores against C candidates. Both split the work by
+  shape (``csrc/user_tower.cuh``): the row products over all n H history
+  rows on the tensor cores (3xTF32 in f32), the attention a block per
+  (row, head), the pool a block per row; B's four launches and E's
+  recompute and backward each count as one launch.
   ``fused_user_vector`` is the serving entry (no candidates).
 * ``fused_gather_encode`` (kernels C and D, ``csrc/fused_gather_encode.cu``):
   the frozen token-state table gather and the additive text head, its
@@ -175,8 +177,9 @@ def fused_history_score_plain(
 
 def _hist_lib() -> ctypes.CDLL:
     return _build.bind(_HIST, {
-        "fused_history_score_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
+        "fused_history_score_launch": ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p], ctypes.c_int),
         "fused_history_score_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_size_t),
+        "fused_history_score_scratch_floats": ([ctypes.c_int] * 5, ctypes.c_size_t),
     })
 
 
@@ -213,20 +216,32 @@ def _check_tower(name, x, cand, mask, w: UserTowerWeights, num_heads: int) -> tu
     return c, q
 
 
+def _check_row_products(name, x, w: UserTowerWeights, q: int) -> None:
+    """What the tensor-core row products of kernels B and E take: x and the
+    weight matrices copied four elements at a time (cp.async)."""
+    if q % 4:
+        raise ValueError(f"{name}: the pool width Q={q} must divide by 4")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (x, w.wq, w.wk, w.wv, w.pw1)):
+        raise ValueError(f"{name}: x and the weight matrices must start on a 4-element boundary")
+
+
 def _launch_hist(x, cand, mask, w: UserTowerWeights, num_heads: int):
     """Kernel B on CUDA tensors: checks, allocates, launches, or raises."""
     c, q = _check_tower(_HIST, x, cand, mask, w, num_heads)
+    _check_row_products(_HIST, x, w, q)
     n, h, d = x.shape
     lib = _hist_lib()
     _smem_check(_HIST, lib.fused_history_score_smem_bytes(h, d, q, num_heads), x.device)
     user = torch.empty((n, d), dtype=x.dtype, device=x.device)
     scores = torch.empty((n, c), dtype=x.dtype, device=x.device) if c else None
+    scratch = torch.empty(lib.fused_history_score_scratch_floats(n, h, d, q, num_heads),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.fused_history_score_launch(
             x.data_ptr(), None if cand is None else cand.data_ptr(),
             None if mask is None else mask.data_ptr(),
             *(t.data_ptr() for t in w),
-            None if scores is None else scores.data_ptr(), user.data_ptr(),
+            None if scores is None else scores.data_ptr(), user.data_ptr(), scratch.data_ptr(),
             n, h, d, c, q, num_heads, _dtype_code(_HIST, x.dtype), _stream(x.device),
         )
     _build.check(err, _HIST)
@@ -267,11 +282,8 @@ def fused_history_score_bwd(x, cand, mask, w: UserTowerWeights, g_scores, g_user
     if x.device.type != "cuda":
         raise ValueError(f"{_HIST_BWD}: unsupported device {x.device}")
     c, q = _check_tower(_HIST_BWD, x, cand, mask, w, num_heads)
+    _check_row_products(_HIST_BWD, x, w, q)
     n, h, d = x.shape
-    if q % 4:
-        raise ValueError(f"{_HIST_BWD}: the pool width Q={q} must divide by 4")
-    if any(t.data_ptr() % (4 * t.element_size()) for t in (x, w.wq, w.wk, w.wv, w.pw1)):
-        raise ValueError(f"{_HIST_BWD}: x and the weight matrices must start on a 4-element boundary")
     gu = g_user.to(torch.float32).contiguous()
     if tuple(gu.shape) != (n, d):
         raise ValueError(f"{_HIST_BWD}: g_user must be ({n}, {d}), got {tuple(gu.shape)}")
@@ -384,8 +396,8 @@ def fused_user_vector(
     weights: UserTowerWeights,
     num_heads: int,
 ) -> torch.Tensor:
-    """The serving entry: attention + pool in one launch, no candidates;
-    the full-catalog product then runs on the returned user vector."""
+    """The serving entry: the user tower (kernel B) without candidates; the
+    full-catalog product then runs on the returned user vector."""
     return fused_history_score(his_vecs, None, mask, weights, num_heads)[1]
 
 

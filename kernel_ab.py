@@ -2,7 +2,8 @@
 """Time the kernels of one checkout of the port on the card, for A/B runs.
 
 Usage:
-  python3 kernel_ab.py [ROOT] [--only text_head|long|pool_flash|bwd] [--profile] [--ptxas]
+  python3 kernel_ab.py [ROOT] [--only text_head|long|pool_flash|bwd|fwd|repeat]
+                       [--profile] [--ptxas]
   # ROOT holds fedrec_tpu_torch/ (default: .)
 
 ``text_head``: kernels C (``fused_gather_encode``) and D
@@ -33,13 +34,28 @@ whose true value is zero, left out), a hash of its outputs and whether a
 repeat gives the same bits; and hashes of F1's and F2's outputs (f32, from the plain forward's
 lse) and of C's and D's (f32, U = 3,520 ids of a 4,096-row table), which
 must not move.
-All four by default.
+``fwd``: kernel B (``fused_history_score``) at the serving buckets n = 1, 8,
+32, 128 (C = 0) and at the train path's shape (n = 64, C = 5), and kernel
+F2 (``flash_backward_dq``) at (320, 2048, 20) and (320, 2048, 32) with a
+quarter of the keys masked, f32 and bf16, each with its largest error against its plain version
+(F2's relative to its largest value), a hash of its outputs and whether a
+repeat gives the same bits; and hashes of E's (f32, the train path's
+shape), F1's and F3's (f32, from the plain forward's lse) and C's and D's
+outputs, which must not move.
+All five by default.
+``repeat`` (not in the default): the body of tests/test_torch_gpu.py::
+test_flash_attention_module_layout_and_gradients 200 times in one process,
+each run after the widths-(128, 20) case of
+test_flash_kernels_with_unequal_widths, with the number of distinct output
+hashes of the kernel route and of the CPU route.
 ``--profile``: also the device time of each CUDA kernel that C and D (and,
-with ``pool_flash``, A, A2 and F1; with ``bwd``, E) launch
+with ``pool_flash``, A, A2 and F1; with ``bwd``, E; with ``fwd``, B and F2)
+launch
 (``torch.profiler``), per call.
 ``--ptxas``: also build ``fused_gather_encode.cu`` (``text_head``),
-``additive_pool.cu`` and ``flash_attention.cu`` (``pool_flash``), or
-``fused_history_score_bwd.cu`` and ``flash_attention.cu`` (``bwd``), with
+``additive_pool.cu`` and ``flash_attention.cu`` (``pool_flash``),
+``fused_history_score_bwd.cu`` and ``flash_attention.cu`` (``bwd``), or
+``fused_history_score.cu`` and ``flash_attention.cu`` (``fwd``), with
 ``-Xptxas -v`` into ``ROOT/build/kernel_ab/`` and report each kernel's
 registers, spills and shared memory, and the ``HMMA`` (tensor-core)
 instructions ``cuobjdump -sass`` finds in it.
@@ -312,6 +328,168 @@ def _bwd(res: dict, rnd, gen, profile: bool) -> None:
                                       *fh.fused_gather_encode_bwd(table, ids, head, rnd(U, D))))
 
 
+def _fwd(res: dict, rnd, gen, profile: bool) -> None:
+    """Kernels B and F2 (this PR's pair) in f32 and bf16, with the hashes of
+    E, F1, F3, C and D's outputs, which must not move."""
+    import torch
+    from fedrec_tpu_torch.ops import attention_kernels as ak
+    from fedrec_tpu_torch.ops import fused_hot_path as fh
+
+    x64, cand64, w32, gs, gu = _tower(rnd, gen)
+    dx, dcand, dw = fh.fused_history_score_bwd(x64, cand64, None, w32, gs, gu, 20)
+    res["E_outputs_sha256"] = _sha((dx, dcand, *dw))
+    del dx, dcand, dw
+    xs = {n: rnd(n, 50, 400) for n in (1, 8, 32, 128)}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        w = w32.to(dt)
+        # the serving buckets (C = 0), then the train path's shape (n = 64, C = 5)
+        for key, x, cand in [*((f"n{n}", xs[n].to(dt), None) for n in (1, 8, 32, 128)),
+                             ("n64_C5", x64.to(dt), cand64.to(dt))]:
+            def b_call():
+                return fh.fused_history_score(x, cand, None, w, 20)
+
+            res[f"B_{key}_ms_{tag}"] = time_ms(b_call, 50)
+            got = b_call()
+            want = fh.fused_history_score_plain(x, cand, None, w, 20)
+            res[f"B_{key}_err_{tag}"] = max(float((a.float() - b.float()).abs().max())
+                                            for a, b in zip(got, want) if a is not None)
+            res[f"B_{key}_outputs_sha256_{tag}"] = _sha([t for t in got if t is not None])
+            again = b_call()
+            res[f"B_{key}_repeats_{tag}"] = all(bool(torch.equal(a, b)) for a, b in zip(got, again)
+                                                if a is not None)
+            if profile and key in ("n1", "n128", "n64_C5"):
+                res[f"B_{key}_kernels_ms_{tag}"] = _profile(b_call)
+
+    keep = torch.rand((320, 2048), generator=gen, device="cuda") > 0.25
+    keep[:, 0] = True
+    bias = torch.where(keep, 0.0, -1e9)
+    # the user tower's width 20, then 32 (F2's widest padded width at one block of 64 queries)
+    for d, name in ((20, "F2"), (32, "F2_w32")):
+        q32, k32, v32, g32 = (rnd(320, 2048, d) for _ in range(4))
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v, g = (t.to(dt) for t in (q32, k32, v32, g32))
+            want_out, lse = ak.flash_forward_plain(q, k, v, bias)
+            delta = (g.float() * want_out.float()).sum(-1)
+
+            def f2_call():
+                return ak.flash_backward_dq(q, k, v, bias, g, lse, delta)
+
+            res[f"{name}_ms_{tag}"] = time_ms(f2_call, 5)
+            got = f2_call()
+            want = ak.flash_backward_dq_plain(q, k, v, bias, g, lse, delta)
+            res[f"{name}_rel_err_{tag}"] = _rel_err([got], [want])
+            res[f"{name}_outputs_sha256_{tag}"] = _sha([got])
+            res[f"{name}_repeats_{tag}"] = bool(torch.equal(got, f2_call()))
+            if d == 20 and dt == torch.float32:
+                if profile:
+                    res["F2_kernels_ms_f32"] = _profile(f2_call)
+                res["F1_outputs_sha256"] = _sha(ak.flash_forward(q, k, v, bias))
+                res["F3_outputs_sha256"] = _sha(ak.flash_backward_dkv(q, k, v, bias, g, lse, delta))
+            del q, k, v, g, want_out, lse, delta, got, want
+            torch.cuda.empty_cache()
+        del q32, k32, v32, g32
+    # kernels C and D at the text head's train-path shape (smaller table): must not move
+    N, T, Dh, Ah, D, U = 4096, 50, 768, 384, 400, 3520
+    table = rnd(N, T, Dh)
+    ids = torch.randint(0, N, (U,), generator=gen, device="cuda")
+    head = fh.TextHeadWeights(rnd(Dh, Ah) / math.sqrt(Dh), rnd(Ah) * 0.02,
+                              rnd(Ah) / math.sqrt(Ah), rnd(Dh, D) / math.sqrt(Dh), rnd(D) * 0.02)
+    res["C_D_outputs_sha256"] = _sha((fh.fused_gather_encode(table, ids, head),
+                                      *fh.fused_gather_encode_bwd(table, ids, head, rnd(U, D))))
+
+
+def _module_case():
+    """The inputs of tests/test_torch_gpu.py::
+    test_flash_attention_module_layout_and_gradients (B = 2, L = 77, 4 heads
+    of width 20, a key mask), drawn as the test draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    B, L, h, d = 2, 77, 4, 20
+    x = [rng.standard_normal((B, L, h, d)) for _ in range(3)]
+    m = (rng.random((B, L)) > 0.3).astype(np.float32)
+    m[:, 0] = 1.0
+    g = rng.standard_normal((B, L, h, d))
+    return x, m, g
+
+
+def _wide_case(dtype):
+    """test_flash_kernels_with_unequal_widths at (dk, dv) = (128, 20): F1,
+    F2, F3 at width 128, which leave non-zero values in shared memory."""
+    import numpy as np
+    import torch
+    from fedrec_tpu_torch.ops import attention_kernels as ak
+
+    rng = np.random.default_rng(0)
+    bh, L, dk, dv = 3, 130, 128, 20
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+
+    q, k = t(rng.standard_normal((bh, L, dk))), t(rng.standard_normal((bh, L, dk)))
+    rng.standard_normal((bh, L, dk))
+    keep = rng.random((bh, L)) > 0.3
+    keep[:, 0] = True
+    bias = torch.from_numpy(np.where(keep, 0.0, -1e9)).to("cuda", torch.float32)
+    rng.standard_normal((bh, L, dk))
+    v, g = t(rng.standard_normal((bh, L, dv))), t(rng.standard_normal((bh, L, dv)))
+    out, lse = ak.flash_forward(q, k, v, bias)
+    delta = (g.float() * out.float()).sum(-1)
+    ak.flash_backward_dq(q, k, v, bias, g, lse, delta)
+    ak.flash_backward_dkv(q, k, v, bias, g, lse, delta)
+
+
+REPEAT_RUNS = 200
+
+
+def _repeat(res: dict) -> None:
+    """The body of test_flash_attention_module_layout_and_gradients
+    REPEAT_RUNS times in one process, each run right after the widths-128 case (f32 and
+    bf16), the kernel route's outputs (F1's out; F2 and F3's dq, dk, dv) and
+    the CPU route's hashed per run: the number of distinct hashes of each,
+    and how far each route is from float64 (f32)."""
+    import numpy as np
+    import torch
+    from fedrec_tpu_torch.ops import flash_attention
+
+    x, m, g = _module_case()
+    d = x[0].shape[-1]
+    q64, k64, v64 = (np.transpose(a, (0, 2, 1, 3)) for a in x)
+    s = np.einsum("bhqd,bhkd->bhqk", q64, k64) / np.sqrt(d) + np.where(m > 0, 0.0, -1e9)[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    ref64 = np.transpose(np.einsum("bhqk,bhkd->bhqd", p, v64), (0, 2, 1, 3))
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        def t(a, dev):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        hashes = {"gpu_out": set(), "gpu_grads": set(), "cpu_out": set(), "cpu_grads": set()}
+        worst_gpu, worst_cpu, fails = 0.0, 0.0, 0
+        for _ in range(REPEAT_RUNS):
+            _wide_case(torch.float32)
+            _wide_case(torch.bfloat16)
+            leaves = [t(a, "cuda").requires_grad_() for a in x]
+            out = flash_attention(*leaves, t(m, "cuda").float())
+            grads = torch.autograd.grad(out, leaves, t(g, "cuda"))
+            cpu = [t(a, "cpu").requires_grad_() for a in x]
+            ref = flash_attention(*cpu, t(m, "cpu").float())
+            ref_grads = torch.autograd.grad(ref, cpu, t(g, "cpu"))
+            hashes["gpu_out"].add(_sha([out]))
+            hashes["gpu_grads"].add(_sha(grads))
+            hashes["cpu_out"].add(_sha([ref]))
+            hashes["cpu_grads"].add(_sha(ref_grads))
+            go, co = out.detach().double().cpu().numpy(), ref.detach().double().numpy()
+            if dtype == torch.float32:
+                worst_gpu = max(worst_gpu, float(np.abs(go - ref64).max()))
+                worst_cpu = max(worst_cpu, float(np.abs(co - ref64).max()))
+                fails += int(not np.allclose(go, co, atol=1e-5, rtol=1e-5))
+        res[f"repeat_{tag}"] = {
+            "runs": REPEAT_RUNS, **{f"distinct_{k}": len(v) for k, v in hashes.items()},
+            **({"gpu_out_vs_f64": worst_gpu, "cpu_out_vs_f64": worst_cpu, "runs_off_the_bar": fails}
+               if dtype == torch.float32 else {}),
+        }
+
+
 def _long(res: dict, rnd) -> None:
     import torch
     from fedrec_tpu_torch.ops import attention_kernels as ak
@@ -388,7 +566,7 @@ def _pool_flash(res: dict, rnd, profile: bool) -> None:
 def main(argv: list[str]) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("root", nargs="?", default=".")
-    p.add_argument("--only", choices=("text_head", "long", "pool_flash", "bwd"))
+    p.add_argument("--only", choices=("text_head", "long", "pool_flash", "bwd", "fwd", "repeat"))
     p.add_argument("--profile", action="store_true")
     p.add_argument("--ptxas", action="store_true")
     args = p.parse_args(argv)
@@ -409,6 +587,8 @@ def main(argv: list[str]) -> int:
         return torch.randn(shape, generator=gen, device="cuda")
 
     res = {"module": fused_hot_path.__file__, "card": torch.cuda.get_device_name(0)}
+    if only == "repeat":
+        _repeat(res)
     if only in (None, "text_head"):
         _text_head(res, rnd, gen, args.profile)
         if args.ptxas:
@@ -425,6 +605,11 @@ def main(argv: list[str]) -> int:
         if args.ptxas:
             res["ptxas_bwd"] = {src: _ptxas(root, src)
                                 for src in ("fused_history_score_bwd.cu", "flash_attention.cu")}
+    if only in (None, "fwd"):
+        _fwd(res, rnd, gen, args.profile)
+        if args.ptxas:
+            res["ptxas_fwd"] = {src: _ptxas(root, src)
+                                for src in ("fused_history_score.cu", "flash_attention.cu")}
     print(json.dumps(res), flush=True)
     return 0
 

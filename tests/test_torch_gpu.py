@@ -181,6 +181,48 @@ def test_fused_history_score_kernel_matches_plain(cuda, rng, dtype, shape, c):
     assert float(uk[1].float().abs().max()) < 1e-5
 
 
+# (n, H, D, heads, Q, C, fully-masked row or None): the edges of kernel B's
+# row products (64-row tiles over the flat n H rows), per-head and per-row
+# blocks
+_HIST_FWD_EDGES = {
+    "one_row": (1, 50, 400, 20, 200, 0, None),
+    "rows_not_a_tile_multiple": (3, 13, 40, 5, 24, 5, None),   # n H = 39
+    "serving_bucket_128": (128, 50, 400, 20, 200, 0, None),
+    "train_path": (64, 50, 400, 20, 200, 5, None),
+    "fully_masked_row": (4, 50, 400, 20, 200, 5, 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_HIST_FWD_EDGES))
+def test_fused_history_score_tiling_edges(cuda, rng, dtype, case):
+    """Kernel B where its launches end ragged, against the plain version at
+    the bars above; a fully-masked row's user vector is ~0."""
+    b, h, d, nh, q, c, dead = _HIST_FWD_EDGES[case]
+    x = _t(rng.standard_normal((b, h, d)), cuda, dtype)
+    cand = _t(rng.standard_normal((b, c, d)), cuda, dtype) if c else None
+    m = (rng.random((b, h)) > 0.25).astype(np.float32)
+    m[:, 0] = 1.0
+    if dead is not None:
+        m[dead] = 0.0
+    mask = _t(m, cuda)
+    w = _tower(rng, d, q, cuda, dtype)
+    reset_launch_counts()
+    sk, uk = fused_history_score(x, cand, mask, w, nh)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_history_score"] == 1
+    assert uk.dtype == dtype and uk.shape == (b, d)
+    sp, up = fused_history_score_plain(x, cand, mask, w, nh)
+    _close(uk, up, dtype)
+    if c:
+        assert sk.dtype == dtype and sk.shape == (b, c)
+        _close(sk, sp, dtype)
+    else:
+        assert sk is None
+    if dead is not None:
+        assert float(uk[dead].float().abs().max()) < 1e-5
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda, rng):
     x = torch.randn((2, 7, 48), device=cuda)
     w1, b1, w2 = torch.randn((48, 24), device=cuda), torch.zeros(24, device=cuda), torch.randn(24, device=cuda)
@@ -395,6 +437,11 @@ def test_backward_kernels_are_deterministic(cuda, rng):
     a = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
     b = fused_history_score_bwd(x, None, None, tw, None, gu, 20)
     assert torch.equal(a[0], b[0]) and all(torch.equal(p, q) for p, q in zip(a[2], b[2]))
+    # and kernel B, the forward E recomputes
+    cand = _t(rng.standard_normal((8, 5, 400)), cuda)
+    a = fused_history_score(x, cand, None, tw, 20)
+    b = fused_history_score(x, cand, None, tw, 20)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # ------------------------------------------------- long-history kernels

@@ -36,6 +36,12 @@ GRAD_REL_F32. Kernel F3 (``csrc/flash_attention.cu``) forms S^T, dP^T,
 dV = P^T dO and dK = dS^T Q of one 64-key tile over 2,048 queries at width
 20 (P^T and dS^T split like any operand, every 32 queries promoted): dK, dV
 and dbias within GRAD_REL_F32 of float64. One TF32 pass misses each bar.
+Kernel F2 (the same file) forms S = Q K^T and dP = dO V^T (a fresh
+accumulator every 8 of its depth) of one 64-query tile in 64-key tiles over
+2,048 keys at width 20, and dQ = dS K with a fresh accumulator every 32 keys
+(dS split like any operand): dQ within GRAD_REL_F32 of float64, which one
+TF32 pass misses. ``test_flash_dq_of_one_key`` holds dP's step-wise
+accumulation at width 64 against the case where dS cancels to zero.
 """
 
 import numpy as np
@@ -325,3 +331,71 @@ def test_user_tower_dx_product_against_float64(route, holds):
         f"{route}: max dx error {err:.3g} against {GRAD_REL_F32} x {scale:.3g}")
     if holds:
         assert err <= GRAD_REL_F32 * scale / 10
+
+
+def _f2_emulated(q, k, v, do, bias, lse, delta, passes):
+    """Kernel F2 on one tile of queries against every key: S = Q K^T (one
+    32-deep chunk at width 24) and dP = dO V^T (a fresh accumulator every 8
+    of depth) in TF32 passes per 64-key tile, P and dS in f32 on the
+    fragments, then dQ = dS K over
+    all the keys, a fresh accumulator every 32 keys promoted into the f32
+    total, and dQ scaled at the end."""
+    f32 = np.float32
+    scale = f32(1.0 / np.sqrt(q.shape[1]))
+    qp, kp, vp, dop = (_pad_cols(a, K_STEP) for a in (q, k, v, do))
+    ds = np.zeros((q.shape[0], k.shape[0]), f32)
+    for k0 in range(0, k.shape[0], 64):
+        s = tc_matmul(qp, np.ascontiguousarray(kp[k0:k0 + 64].T), passes)
+        s = (s.astype(np.float64) * scale + bias[k0:k0 + 64]).astype(f32)  # one rounding: fmaf
+        p = np.exp(s - lse[:, None]).astype(f32)
+        # dP: a fresh accumulator every 8 of depth (it cancels against delta)
+        dp = tc_matmul(dop, np.ascontiguousarray(vp[k0:k0 + 64].T), passes, chunk_depth=K_STEP)
+        ds[:, k0:k0 + 64] = p * (dp - delta[:, None])
+    dq = (tc_matmul(ds, kp, passes, chunk_depth=CHUNK) * scale).astype(f32)
+    return dq[:, :q.shape[1]]
+
+
+@pytest.mark.parametrize("queries", ["first_tile", "last_tile"])
+@pytest.mark.parametrize("route,holds", [("three_tf32_passes", True), ("one_tf32_pass", False)])
+def test_flash_dq_against_float64(queries, route, holds):
+    """Kernel F2 at width 20: a 64-query tile against 2,048 keys (a quarter
+    masked, bias -1e9), lse and delta from float64 over all the keys; dQ
+    within GRAD_REL_F32 of its largest value."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (rng.standard_normal((2048, 20)).astype(np.float32) for _ in range(4))
+    bias = np.where(rng.random(2048) > 0.25, 0.0, -1e9).astype(np.float32)
+    bias[:8] = 0.0
+    tile = slice(0, 64) if queries == "first_tile" else slice(2048 - 64, 2048)
+    s = (q[tile].astype(np.float64) @ k.T.astype(np.float64)) / np.sqrt(20) + bias  # (queries, keys)
+    lse = s.max(1) + np.log(np.exp(s - s.max(1, keepdims=True)).sum(1))
+    p = np.exp(s - lse[:, None])
+    delta = ((p @ v.astype(np.float64)) * do[tile]).sum(1)
+    got = _f2_emulated(q[tile], k, v, do[tile], bias, lse.astype(np.float32),
+                       delta.astype(np.float32), THREE if route == "three_tf32_passes" else ONE)
+    ds = p * (do[tile].astype(np.float64) @ v.T.astype(np.float64) - delta[:, None])
+    want = ds @ k.astype(np.float64) / np.sqrt(20)
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert (err <= GRAD_REL_F32 * scale) == holds, (
+        f"{route}: max dq error {err:.3g} against {GRAD_REL_F32} x {scale:.3g}")
+    if holds:  # and with room: the kernel adds its own reduction order
+        assert err <= GRAD_REL_F32 * scale / 10
+
+
+@pytest.mark.parametrize("dp_chunk,holds", [(K_STEP, True), (CHUNK, False)])
+def test_flash_dq_of_one_key(dp_chunk, holds):
+    """The inputs of tests/test_torch_gpu.py::test_flash_kernels_match_plain
+    at one key and width 64: p = 1 and dP = delta, so the true dq is 0 and
+    F2's is dP's error times K. With dP in a fresh accumulator every 8 of
+    depth it stays inside that test's 1e-6 floor; with 32-deep chunks, as
+    S is summed, it does not."""
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((3, 1, 64)).astype(np.float32) for _ in range(3))
+    g = rng.standard_normal((3, 1, 64)).astype(np.float32)
+    worst = 0.0
+    for b in range(3):
+        delta = (g[b] * v[b]).sum(-1, dtype=np.float32)  # out = v: one key
+        dp = tc_matmul(g[b], np.ascontiguousarray(v[b].T), THREE, chunk_depth=dp_chunk)
+        ds = (dp - delta[:, None]).astype(np.float32)
+        dq = tc_matmul(_pad_cols(ds, K_STEP), _pad_cols(k[b].T, K_STEP).T, THREE) / np.float32(8.0)
+        worst = max(worst, float(np.abs(dq).max()))
+    assert (worst <= 1e-6) == holds, f"dP summed {dp_chunk} deep: |dq| {worst:.3g} against 1e-6"
