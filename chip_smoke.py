@@ -19,7 +19,14 @@ then drives two paths at full width through the entry points a user calls:
   1,024-2,048-click requests (kernels A, F1 and A2), against the dense
   route; then one ``param_avg`` round of 2 clients x 4 steps at B=16
   (kernels A, F1, F2, F3 and A2), the kernel route against the dense route
-  over 3 steps, and the same 3 steps twice for bitwise-equal parameters.
+  over 3 steps, and the same 3 steps twice for bitwise-equal parameters;
+* ``trainer_path`` (a whole federated run through ``train.trainer.Trainer``):
+  3 ``param_avg`` rounds of 4 clients x 4 steps at B=64 (kernels B, C, D
+  and E), each followed by a full-pool evaluation of 8,192 impressions (the
+  corpus encode on kernel A, the user vectors on kernel B at n = 256), a
+  snapshot and the best-AUC snapshot; then the export served through the
+  store and the scorer, the same run on the dense route, and a 2-round run
+  resumed to 3 rounds, bitwise equal to the uninterrupted one.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 final result line. The last line is
@@ -31,6 +38,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels    # kernels only
   python3 chip_smoke.py --phases build,kernels,train_path
   python3 chip_smoke.py --phases build,kernels,long_path
+  python3 chip_smoke.py --phases build,kernels,trainer_path
 """
 
 from __future__ import annotations
@@ -43,11 +51,12 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path")
-PATHS = ("main_path", "train_path", "long_path")
+PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path")
+PATHS = ("main_path", "train_path", "long_path", "trainer_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
@@ -81,6 +90,13 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 0.05}
 TRAJ_LOSS_RTOL, TRAJ_LOSS_ATOL = 1e-5, 1e-6
 TRAJ_RTOL, TRAJ_ATOL, TRAJ_NOISE = 2e-4, 1e-4, 1e-3
 TRAJ_STEPS = 5
+# trainer_path: rounds of the uninterrupted run; the resume check runs one
+# fewer, then resumes to this many
+TRAINER_ROUNDS = 3
+# per-round validation means, kernel route against dense route: a score pair
+# closer than the routes' difference may swap, which moves one impression's
+# metric; 1e-4 of a mean over thousands of impressions allows a few
+VAL_ATOL = 1e-4
 ZERO_GRAD_LEAVES = ("user_encoder.self_attn.w_k.bias", "user_encoder.pool.att_fc2.bias",
                     "text_head.pool.att_fc2.bias")
 
@@ -442,7 +458,7 @@ def phase_kernels(state: dict, args) -> dict:
     # ---- kernel B at every serving bucket, H=50, D=400, 20 heads, Q=200
     H, D, Q, nh = 50, 400, 200, 20
     w32 = _tower_weights(gen, D, Q)
-    for b in (1, 8, 32, 64, 128):
+    for b in (1, 8, 32, 64, 128, 256):
         x32 = torch.randn((b, H, D), generator=gen, device=DEV)
         c32 = torch.randn((b, 5, D), generator=gen, device=DEV)
         for c in (0, 5):
@@ -469,11 +485,13 @@ def phase_kernels(state: dict, args) -> dict:
         return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bms, "bound_by": by,
                 "cuda_core_bound_ms": cuda_core_bound(cost, peaks)}
 
-    # the serving buckets (C = 0), and the train path's shape (n = 64, C = 5)
+    # the serving buckets (C = 0), the train path's shape (n = 64, C = 5)
+    # and the evaluation's (n = 256, C = 0)
     b_times = {b: b_timing(b, 0) for b in (1, 8, 32, 128)}
     state["timing"]["fused_history_score"] = dict(
         b_times[128], shape=[128, H, D, 0], dtype="float32", library_ms=None,
         by_bucket=b_times, train_shape=dict(b_timing(64, 5), shape=[64, H, D, 5]),
+        eval_shape=dict(b_timing(256, 0), shape=[256, H, D, 0]),
     )
     _check_backward_kernels(state, args, gen, record)
     _check_long_kernels(state, args, gen, record)
@@ -1574,10 +1592,252 @@ def _long_train(state: dict, args, tokens) -> tuple[dict, dict, dict]:
     }, launches, errs
 
 
+def _trainer_cfg(args, snapshot_dir: str, *overrides: str):
+    """The trainer path's configuration: ExperimentConfig's widths, joint
+    mode on the kernel route, param_avg, a full-pool evaluation and a
+    snapshot every round, keep_best."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.fuse_hot_path=true", "model.use_pallas=true", "model.text_encoder_mode=head",
+        f"data.batch_size={args.batch_size}", f"fed.num_clients={args.clients}",
+        "fed.strategy=param_avg", f"fed.rounds={TRAINER_ROUNDS}", "train.eval_every=1",
+        "train.eval_protocol=full", "train.save_every=1", "train.keep_best=true",
+        f"train.seed={args.seed}", f"train.snapshot_dir={snapshot_dir}", *overrides,
+    ])
+
+
+def _time_calls(obj, name: str, sink: list) -> None:
+    """Replace ``obj.name`` by a wrapper that appends each call's wall time
+    (ms, synchronised on both ends) to ``sink``."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _trainer_params(trainer) -> list:
+    return [p.detach().clone() for st in trainer.states for p in st.model.parameters()]
+
+
+def phase_trainer_path(state: dict, args) -> dict:
+    """A whole evaluated, resumable federated run through ``Trainer``."""
+    import contextlib
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.ops import (
+        additive_pool_plain,
+        fused_history_score,
+        fused_history_score_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.ops.attention_kernels import additive_pool_kernel_names
+    from fedrec_tpu_torch.models.attention import dense
+    from fedrec_tpu_torch.serve import build_recommend_fn
+    from fedrec_tpu_torch.serving import EmbeddingStore
+    from fedrec_tpu_torch.train import SnapshotManager, Trainer
+
+    K, B, S, R = args.clients, args.batch_size, args.trainer_steps, TRAINER_ROUNDS
+    dev = torch.device(DEV)
+    # snapshots under the checkout's git-ignored build directory
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="trainer_path_", dir=build)
+    root = work.name
+    cfg = _trainer_cfg(args, f"{root}/kernel")
+    mc, dc = cfg.model, cfg.data
+    N, T, H = args.num_news, dc.max_title_len, dc.max_his_len
+    tokens = _tokens(state, args, T, mc.bert_hidden)
+    data = make_synthetic_mind(num_news=N, num_train=K * B * S, num_valid=args.valid,
+                               title_len=T, seed=args.seed)
+    # the trainer's per-round lines go to stderr: stdout holds the phases' JSON
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    with quiet:
+        trainer = Trainer(cfg, data, tokens, device=dev)
+    check(trainer.token_states.data_ptr() == tokens.data_ptr(), "the trainer copied the table")
+    check(trainer.batcher.num_batches(len(trainer.batcher.indexed) // K) == S,
+          f"{S} steps a local epoch expected")
+    times: dict[str, list] = {"round": [], "eval": [], "encode": []}
+    _time_calls(trainer, "train_round", times["round"])
+    _time_calls(trainer, "_eval_if_due", times["eval"])
+    _time_calls(trainer, "_encode_corpus", times["encode"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---------------- the trainer path, with every launch count from 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with quiet:
+        history = trainer.run()
+        user, table = trainer.export_for_serving()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    # ---------------- end of the trainer path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [h.train_loss for h in history]
+    metrics = [h.val_metrics for h in history]
+    check([h.round_idx for h in history] == list(range(R)), f"rounds {[h.round_idx for h in history]}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite round loss: {losses}")
+    check(all(set(m) == {"auc", "mrr", "ndcg5", "ndcg10"} for m in metrics), f"metrics {metrics}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for m in metrics for v in m.values()),
+          f"metrics outside [0, 1]: {metrics}")
+    for name in ("additive_pool", "fused_history_score", "fused_gather_encode",
+                 "fused_gather_encode_bwd", "fused_history_score_bwd"):
+        check(launches[name] > 0, f"kernel {name} never launched on the trainer path")
+    eval_batches = -(-args.valid // 256)
+    check(launches["fused_history_score"] >= R * (K * S + eval_batches),
+          f"kernel B launched {launches['fused_history_score']} times: fewer than the "
+          f"train steps' and the {eval_batches} eval batches a pass")
+    best = json.loads((trainer.best_snapshots.directory / "best.json").read_text())
+    aucs = [m["auc"] for m in metrics]
+    check(best["round"] == int(np.argmax(aucs)) and best["auc"] == max(aucs),
+          f"best.json {best} against the rounds' AUC {aucs}")
+    state.setdefault("launches", {})["trainer_path"] = launches
+
+    # ---- the path's kernels against their plain versions on its inputs:
+    # the corpus encode's first chunk (A), the first eval batch's user
+    # vectors (B at n = 256, C = 0)
+    m0 = trainer.states[0].model
+    with torch.no_grad():
+        th = m0.text_head
+        pooled = additive_pool_plain(tokens[: args.chunk], th.pool.att_fc1.weight.t().contiguous(),
+                                     th.pool.att_fc1.bias, th.pool.att_fc2.weight[0].contiguous())
+        err_a = max_err(table[: args.chunk], dense(th.fc, pooled, torch.float32))
+        his = table[torch.as_tensor(trainer.valid_ix.history[:256], device=dev).long()]
+        w = m0.user_encoder.fused_weights(his.dtype)
+        err_b = max_err(fused_history_score(his, None, None, w, mc.num_heads)[1],
+                        fused_history_score_plain(his, None, None, w, mc.num_heads)[1])
+    check(err_a <= F32_ATOL and err_b <= F32_ATOL,
+          f"trainer path kernels vs plain: A {err_a}, B {err_b} (atol {F32_ATOL})")
+
+    # ---- serving the export: the store and the scorer take it unchanged
+    store = EmbeddingStore()
+    store.publish(table, user, round=R - 1, source="trainer")
+    gen = store.current()
+    rng = np.random.default_rng(args.seed + 11)
+    hist = torch.as_tensor(rng.integers(1, N, size=(8, H)), device=dev)
+    ids, _ = build_recommend_fn(top_k=10, device=dev)(gen.user_params, gen.news_vecs, hist)
+    ref_scores, ref_ids = _plain_recommend(m0, table, hist, 10)
+    mismatch = _topk_disagreements(ids, ref_scores, ref_ids, 10)
+    check(mismatch == 0, f"served top-k differ from the plain route where apart: {mismatch}")
+
+    # ---- one evaluation pass: device time by kernel, busy share
+    corpus_names = additive_pool_kernel_names(mc.bert_hidden // 2)
+    breakdown = _device_breakdown(lambda: trainer.evaluate_full(), reps=2, top=10,
+                                  sum_of={"corpus_encode_A": corpus_names})
+
+    # ---- snapshot cost: a blocking save of the K clients, then a restore
+    mgr = SnapshotManager(f"{root}/timing")
+    t0 = time.perf_counter()
+    mgr.save(0, trainer.states, wait=True)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    snap_mb = sum(f.stat().st_size for f in mgr.directory.rglob("state.pt")) / 2**20
+    t0 = time.perf_counter()
+    with quiet:
+        mgr.restore(trainer.states)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    mgr.close()
+
+    # ---- the kernel route against the dense route, from the same seeds
+    dense_cfg = _trainer_cfg(args, f"{root}/dense", "model.fuse_hot_path=false",
+                             "model.use_pallas=false")
+    reset_launch_counts()
+    with quiet:
+        dense_trainer = Trainer(dense_cfg, data, tokens, device=dev)
+        dense_hist = dense_trainer.run()
+    dense_launches = launch_counts()
+    check(not any(dense_launches.values()), f"the dense route launched {dense_launches}")
+    traj = [(a, h.train_loss) for a, h in zip(losses, dense_hist)]
+    for r, (lk, ld) in enumerate(traj):
+        check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+              f"round {r}: kernel-route loss {lk!r} vs dense {ld!r}")
+    val_diff = max(abs(m[k] - h.val_metrics[k]) for m, h in zip(metrics, dense_hist) for k in m)
+    check(val_diff <= VAL_ATOL, f"validation means: kernel vs dense route differ by {val_diff}")
+    # the final parameters at the train path's bars: the run's loss and AUC
+    # sit near chance on random data, so they alone would not show a wrong
+    # gradient
+    param_worst, param_worst_noise = 0.0, 0.0
+    for c, (sk, sd) in enumerate(zip(trainer.states, dense_trainer.states)):
+        bad, worst, worst_noise = _param_diffs(sk.model, sd.model)
+        check(not bad, f"client {c}: kernel route vs dense after {R} rounds: {bad} "
+                       "outside the bars")
+        param_worst = max(param_worst, worst)
+        param_worst_noise = max(param_worst_noise, worst_noise)
+    del dense_trainer
+
+    # ---- resume: 2 rounds, then a fresh Trainer on the same directory
+    # finishes the run; bitwise equal to the uninterrupted run
+    with quiet:
+        Trainer(_trainer_cfg(args, f"{root}/resume", f"fed.rounds={R - 1}"), data, tokens,
+                device=dev).run()
+        resumed = Trainer(_trainer_cfg(args, f"{root}/resume"), data, tokens, device=dev)
+        check(resumed.start_round == R - 1, f"resumed at round {resumed.start_round}")
+        last = resumed.run()
+    check(len(last) == 1 and last[0].train_loss == losses[-1]
+          and last[0].val_metrics == metrics[-1],
+          f"resumed round {last[0].round_idx}: {last[0].train_loss!r} {last[0].val_metrics} vs "
+          f"{losses[-1]!r} {metrics[-1]}")
+    bitwise = all(torch.equal(a, b) for a, b in zip(_trainer_params(trainer),
+                                                    _trainer_params(resumed)))
+    check(bitwise, "the resumed run's parameters differ from the uninterrupted run's")
+    work.cleanup()
+
+    round_ms = times["round"]
+    return {
+        "config": {"num_news": N, "clients": K, "local_steps": S, "batch_size": B,
+                   "rounds": R, "num_train": K * B * S, "num_valid": args.valid,
+                   "eval_batch": 256, "eval_protocol": cfg.train.eval_protocol,
+                   "title_len": T, "history": H, "bert_hidden": mc.bert_hidden,
+                   "news_dim": mc.news_dim, "num_heads": mc.num_heads,
+                   "query_dim": mc.query_dim, "dtype": mc.dtype,
+                   "dropout_rate": mc.dropout_rate, "strategy": cfg.fed.strategy,
+                   "fuse_hot_path": mc.fuse_hot_path, "use_pallas": mc.use_pallas,
+                   "keep_best": cfg.train.keep_best, "save_every": cfg.train.save_every},
+        "run_ms": run_ms,
+        "round_ms": round_ms,
+        "round_ms_without_eval": [r - e for r, e in zip(round_ms, times["eval"])],
+        "eval_ms": times["eval"],
+        "eval_corpus_encode_ms": times["encode"][:R],
+        "export_corpus_encode_ms": times["encode"][R],
+        "eval_device_breakdown": breakdown,
+        "snapshot_save_ms": save_ms,
+        "snapshot_mb": snap_mb,
+        "restore_ms": restore_ms,
+        "losses": losses,
+        "val_metrics": metrics,
+        "best": best,
+        "launches": launches,
+        "max_abs_err_vs_plain": {"additive_pool": err_a, "fused_history_score": err_b},
+        "kernel_vs_dense": {"losses": traj, "max_val_metric_diff": val_diff,
+                            "max_param_diff": param_worst,
+                            "max_zero_grad_leaf_diff": param_worst_noise,
+                            "dense_val_metrics": [h.val_metrics for h in dense_hist],
+                            "dense_route_launches": sum(dense_launches.values())},
+        "resume": {"start_round": resumed.start_round, "bitwise": bitwise},
+        "peak_mem_gb": peak_gb,
+    }
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
-    (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path),
-    times from the kernels phase."""
+    (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
+    launches on every path (trainer_path runs A through E), times from the
+    kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -1623,6 +1883,10 @@ def main(argv=None) -> int:
                    help="long_path: steps of the kernel route against the dense route")
     p.add_argument("--flash-bh", type=int, default=320,
                    help="kernels: batch x heads of the flash kernels' checks (16 x 20)")
+    p.add_argument("--trainer-steps", type=int, default=4,
+                   help="trainer_path: steps per client a local epoch")
+    p.add_argument("--valid", type=int, default=8192,
+                   help="trainer_path: validation impressions (full-pool evaluation)")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     args.long_waves = [int(w) for w in args.long_waves.split(",")]
@@ -1653,6 +1917,7 @@ def main(argv=None) -> int:
         "main_path": lambda: phase_main_path(state, args),
         "train_path": lambda: phase_train_path(state, args),
         "long_path": lambda: phase_long_path(state, args),
+        "trainer_path": lambda: phase_trainer_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
         t0 = time.perf_counter()

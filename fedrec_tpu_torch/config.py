@@ -7,7 +7,8 @@ section.key=value`` overrides work as they do there
 (``obs.health.sentry=0``).
 
 Some fields exist only so that a lever the port does not run yet can be
-named and refused at build time (``train.step.build_fed_train_step``):
+named and refused at build time (``train.step.build_fed_train_step`` and
+``train.trainer.Trainer``):
 ``data.gather_chunk``, ``fed.seq_shards``, ``privacy.enabled``,
 ``shard.table``, ``chaos.enabled`` and ``obs.health.sentry``. The JAX
 package turns the sentry on by default; the port defaults it off, since
@@ -17,6 +18,7 @@ it has no sentry to run.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -90,6 +92,9 @@ class OptimConfig:
 class FedConfig:
     strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg" | "coordinator"
     num_clients: int = 8
+    local_epochs: int = 1              # client epochs per round
+    rounds: int = 10                   # global rounds (reference server.py global_epochs)
+    participation: float = 1.0         # fraction of clients aggregated per round
     seq_shards: int = 1                # not ported: > 1 raises
 
 
@@ -118,16 +123,42 @@ class ObsConfig:
     health: HealthConfig = field(default_factory=HealthConfig)
 
 
+EVAL_PROTOCOLS = ("sampled", "full", "last4")
+
+
+@dataclass
+class TrainConfig:
+    """The round loop's cadences (``train.trainer.Trainer``)."""
+
+    save_every: int = 1                # snapshot cadence (reference main.py argv)
+    snapshot_dir: str = "snapshots"
+    resume: bool = True                # resume from the newest snapshot when one exists
+    eval_every: int = 1
+    # "sampled" - 1 positive + npratio sampled negatives per impression (the
+    #             reference's per-epoch validate, client.py:149-171)
+    # "full"    - every negative of the impression's pool (the protocol
+    #             behind the published MIND table, evaluation_functions.py:33-47)
+    # "last4"   - the pool's last 4 negatives (client.py:159-160)
+    eval_protocol: str = "full"
+    # keep the best-validation-AUC round's snapshot under <snapshot_dir>/best
+    keep_best: bool = False
+    seed: int = 42                     # init, dropout streams, participation masks
+
+
 @dataclass
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     fed: FedConfig = field(default_factory=FedConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     privacy: PrivacyConfig = field(default_factory=PrivacyConfig)
     shard: ShardConfig = field(default_factory=ShardConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
     def apply_overrides(self, overrides: list[str]) -> "ExperimentConfig":
         """Apply ``section.key=value`` strings (e.g. ``model.news_dim=32``,

@@ -6,7 +6,9 @@ from fedrec_tpu_torch.fed.strategies import (
     Local,
     ParamAvg,
     get_strategy,
+    participation_mask,
     weighted_param_avg,
 )
 
-__all__ = ["FedStrategy", "GradAvg", "Local", "ParamAvg", "get_strategy", "weighted_param_avg"]
+__all__ = ["FedStrategy", "GradAvg", "Local", "ParamAvg", "get_strategy", "participation_mask",
+           "weighted_param_avg"]

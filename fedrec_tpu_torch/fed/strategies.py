@@ -80,6 +80,23 @@ def get_strategy(name: str) -> FedStrategy:
     return _STRATEGIES[key]()
 
 
+def participation_mask(rng: np.random.Generator, num_clients: int, fraction: float) -> np.ndarray:
+    """(num_clients,) float32 round weights with at least one participant:
+    all ones at ``fraction >= 1``; otherwise uniform scores and the
+    ``k = max(1, round(fraction * num_clients))`` lowest kept.
+
+    The algorithm of the JAX package's mask, drawn from a numpy
+    ``Generator`` instead of ``jax.random`` (which the port cannot
+    reproduce): for the same seed the two packages pick different clients.
+    """
+    if fraction >= 1.0:
+        return np.ones((num_clients,), dtype=np.float32)
+    scores = rng.random(num_clients, dtype=np.float32)
+    k = max(1, int(round(fraction * num_clients)))
+    threshold = np.sort(scores)[k - 1]
+    return (scores <= threshold).astype(np.float32)
+
+
 def weighted_param_avg(params: Sequence[Leaves], weights) -> list[Leaves]:
     """Participation-weighted FedAvg over the K clients' parameters.
 

@@ -1,3 +1,9 @@
+from fedrec_tpu_torch.train.checkpoint import (
+    SnapshotIntegrityError,
+    SnapshotManager,
+    atomic_write_bytes,
+    verify_state_tree,
+)
 from fedrec_tpu_torch.train.state import (
     ClientState,
     init_client_state,
@@ -6,16 +12,26 @@ from fedrec_tpu_torch.train.state import (
     stack_states,
 )
 from fedrec_tpu_torch.train.step import (
+    build_eval_step,
     build_fed_train_step,
+    build_full_eval_step,
     build_param_sync,
     encode_all_news,
     resolve_unique_cap,
     unique_overflow,
 )
+from fedrec_tpu_torch.train.trainer import RoundResult, Trainer
 
 __all__ = [
     "ClientState",
+    "RoundResult",
+    "SnapshotIntegrityError",
+    "SnapshotManager",
+    "Trainer",
+    "atomic_write_bytes",
+    "build_eval_step",
     "build_fed_train_step",
+    "build_full_eval_step",
     "build_param_sync",
     "encode_all_news",
     "init_client_state",
@@ -24,4 +40,5 @@ __all__ = [
     "resolve_unique_cap",
     "stack_states",
     "unique_overflow",
+    "verify_state_tree",
 ]

@@ -1,0 +1,250 @@
+"""Snapshots of the federated state with resume, the torch-native
+counterpart of ``fedrec_tpu/train/checkpoint.py``.
+
+A snapshot holds everything a bitwise resume needs, per client: both
+towers' parameters, both optimizer states (Adam's ``count``, ``mu``,
+``nu``), the step count and the dropout ``torch.Generator``'s state; and
+the round index. The batchers are stateless in ``(seed, epoch)``, so they
+need none. (The reference's params-only snapshot resets Adam's moments on
+resume; the JAX package's holds its PRNG keys for the same reason this one
+holds the generators.)
+
+Layout: one directory per round, ``round_<r>/state.pt``, written by
+``torch.save`` to a temporary name and moved into place with
+``os.replace``, so a torn write is never visible; the newest ``max_to_keep``
+rounds are retained. Loading uses ``torch.load(..., weights_only=True)``:
+tensors, numbers, lists and dicts only. There is no multi-host layout, so
+no gather on save.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from fedrec_tpu_torch.train.state import ClientState, OptState
+
+_STATE_FILE = "state.pt"
+_ROUND_PREFIX = "round_"
+
+
+class SnapshotIntegrityError(RuntimeError):
+    """A restored snapshot failed verification (non-finite parameters):
+    the bytes parsed but the state is not trainable."""
+
+
+def verify_state_tree(state: Any, samples_per_leaf: int = 256) -> None:
+    """A strided sample of every float parameter of every client must be
+    finite. Parameters only: an optimizer moment may legitimately be
+    non-finite, a parameter never (every client adopts the finite mean at
+    round end). Raises :class:`SnapshotIntegrityError` on the first bad
+    leaf."""
+    for c, client in enumerate(state["clients"]):
+        for part in ("user_params", "news_params"):
+            for name, leaf in client[part].items():
+                if not torch.is_floating_point(leaf):
+                    continue
+                flat = leaf.reshape(-1)
+                stride = max(1, flat.numel() // samples_per_leaf)
+                if not bool(torch.isfinite(flat[::stride]).all()):
+                    raise SnapshotIntegrityError(
+                        f"non-finite values in restored clients[{c}].{part}.{name}"
+                    )
+
+
+def atomic_write_bytes(path: Path, blob: bytes) -> None:
+    """Write to a temporary name, flush to disk, then rename, so that a
+    reader never sees a torn file."""
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as f:
+        f.write(blob)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _opt_dict(opt: OptState) -> dict:
+    moments = lambda ts: None if ts is None else [_host(t) for t in ts]  # noqa: E731
+    return {"count": opt.count, "mu": moments(opt.mu), "nu": moments(opt.nu)}
+
+
+def _client_snapshot(st: ClientState) -> dict:
+    """One client's state as host tensors, numbers, lists and dicts."""
+    m = st.model
+    return {
+        "step": st.step,
+        "user_params": {k: _host(v) for k, v in m.user_encoder.named_parameters()},
+        "news_params": {k: _host(v) for k, v in m.text_head.named_parameters()},
+        "opt_user": _opt_dict(st.opt_user),
+        "opt_news": _opt_dict(st.opt_news),
+        "generator": st.generator.get_state(),
+    }
+
+
+def _check_against(template: list[ClientState], snap: dict) -> None:
+    """The snapshot must hold the template's clients, parameter names and
+    shapes, and moment shapes; raises ``ValueError`` naming the first
+    difference."""
+    clients = snap["clients"]
+    if len(clients) != len(template):
+        raise ValueError(f"snapshot holds {len(clients)} clients, this run {len(template)}")
+    for c, (st, cs) in enumerate(zip(template, clients)):
+        for part, module in (("user_params", st.model.user_encoder),
+                             ("news_params", st.model.text_head)):
+            want = {k: tuple(v.shape) for k, v in module.named_parameters()}
+            got = {k: tuple(v.shape) for k, v in cs[part].items()}
+            if got != want:
+                raise ValueError(f"clients[{c}].{part}: snapshot {got} vs this run {want}")
+        for part, params in (("opt_user", st.user_params()), ("opt_news", st.news_params())):
+            for moment in ("mu", "nu"):
+                ts = cs[part][moment]
+                shapes = None if ts is None else [tuple(t.shape) for t in ts]
+                want = None if getattr(getattr(st, part), moment) is None else [
+                    tuple(p.shape) for p in params]
+                if shapes != want:
+                    raise ValueError(f"clients[{c}].{part}.{moment}: snapshot shapes {shapes} "
+                                     f"vs this run {want}")
+
+
+def _load_into(template: list[ClientState], snap: dict) -> list[ClientState]:
+    with torch.no_grad():
+        for st, cs in zip(template, snap["clients"]):
+            for part, module in (("user_params", st.model.user_encoder),
+                                 ("news_params", st.model.text_head)):
+                for name, p in module.named_parameters():
+                    p.copy_(cs[part][name])
+            dev = st.generator.device
+            for part in ("opt_user", "opt_news"):
+                o = cs[part]
+                moments = lambda ts: None if ts is None else [t.to(dev) for t in ts]  # noqa: E731
+                setattr(st, part, OptState(int(o["count"]), moments(o["mu"]), moments(o["nu"])))
+            st.step = int(cs["step"])
+            st.generator.set_state(cs["generator"])
+    return template
+
+
+class SnapshotManager:
+    """``save`` / ``latest_round`` / ``restore`` over a directory of
+    per-round snapshots, the interface of the JAX package's orbax manager.
+
+    ``save`` copies the state to host memory at once (the values are those
+    of the call) and writes in a background thread; readers
+    (``latest_round``, ``restore``, ``restore_raw``) and ``close`` wait for
+    writes in flight first, so no torn snapshot is ever observed.
+    """
+
+    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: list[Future] = []
+        # the round restore() landed on: older than latest_round() when the
+        # newest snapshot failed to load or verify
+        self.last_restored_round: int | None = None
+
+    def _path(self, round_idx: int) -> Path:
+        return self.directory / f"{_ROUND_PREFIX}{round_idx}" / _STATE_FILE
+
+    def all_rounds(self) -> list[int]:
+        out = []
+        for p in self.directory.glob(f"{_ROUND_PREFIX}*/{_STATE_FILE}"):
+            try:
+                out.append(int(p.parent.name[len(_ROUND_PREFIX):]))
+            except ValueError:
+                continue
+        return sorted(out)
+
+    def wait(self) -> None:
+        """Settle writes in flight; re-raises a write's error."""
+        pending, self._pending = self._pending, []
+        for f in pending:
+            f.result()
+
+    def latest_round(self) -> int | None:
+        self.wait()
+        rounds = self.all_rounds()
+        return rounds[-1] if rounds else None
+
+    def _write(self, round_idx: int, snap: dict) -> None:
+        buf = io.BytesIO()
+        torch.save(snap, buf)
+        path = self._path(round_idx)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        atomic_write_bytes(path, buf.getvalue())
+        for old in self.all_rounds()[: -self.max_to_keep]:
+            shutil.rmtree(self._path(old).parent, ignore_errors=True)
+
+    def save(self, round_idx: int, states: list[ClientState], wait: bool = False) -> None:
+        """Persist every client's state for ``round_idx``; ``wait=True``
+        returns only once the file is in place."""
+        snap = {"round": int(round_idx), "clients": [_client_snapshot(st) for st in states]}
+        self._pending.append(self._pool.submit(self._write, int(round_idx), snap))
+        if wait:
+            self.wait()
+
+    def restore_raw(self, round_idx: int | None = None) -> dict:
+        """The saved snapshot as host tensors, without a template."""
+        r = self.latest_round() if round_idx is None else round_idx
+        if r is None:
+            raise FileNotFoundError(f"no snapshot under {self.directory}")
+        return torch.load(self._path(r), map_location="cpu", weights_only=True)
+
+    def restore(
+        self,
+        template: list[ClientState],
+        round_idx: int | None = None,
+        verify: bool = True,
+    ) -> list[ClientState]:
+        """Load a snapshot into ``template`` (the run's client states, in
+        place) and return it. The snapshot must fit the template's
+        structure and, with ``verify``, pass :func:`verify_state_tree`.
+        Without an explicit ``round_idx``, a newest snapshot that fails to
+        load or verify (a torn or truncated file, a bad disk) falls back to
+        the previous retained one; ``last_restored_round`` records which
+        round loaded, and a caller resumes from the round after it."""
+        newest = self.latest_round() if round_idx is None else round_idx
+        if newest is None:
+            raise FileNotFoundError(f"no snapshot under {self.directory}")
+        if round_idx is not None:
+            candidates = [round_idx]
+        else:
+            candidates = sorted((r for r in self.all_rounds() if r <= newest), reverse=True)
+        last_err: Exception | None = None
+        for r in candidates:
+            try:
+                snap = torch.load(self._path(r), map_location="cpu", weights_only=True)
+                _check_against(template, snap)
+                if verify:
+                    verify_state_tree(snap)
+            except Exception as e:  # noqa: BLE001 — each retained snapshot gets its
+                # chance; the last error is raised below
+                last_err = e
+                print(f"[checkpoint] snapshot at round {r} failed to restore/verify "
+                      f"({type(e).__name__}: {e}); "
+                      + ("trying the previous retained snapshot" if r != candidates[-1]
+                         else "no older snapshot left"))
+                continue
+            self.last_restored_round = int(r)
+            if r != candidates[0]:
+                print(f"[checkpoint] fell back to the round-{r} snapshot (newest at round "
+                      f"{candidates[0]} is corrupt: {type(last_err).__name__})")
+            return _load_into(template, snap)
+        raise RuntimeError(
+            f"every retained snapshot under {self.directory} failed to restore "
+            f"(rounds {candidates}); point train.snapshot_dir somewhere fresh"
+        ) from last_err
+
+    def close(self) -> None:
+        self.wait()
+        self._pool.shutdown()

@@ -20,6 +20,15 @@ K clients run in a Python loop on one device. ``build_param_sync`` is the
 round-end weighted mean. The levers the port does not run yet raise
 ``NotImplementedError`` at build time and name the lever, as the JAX
 package fails fast on unsupported combinations.
+
+The eval steps (``build_eval_step``, ``build_full_eval_step``) score
+validation impressions against a news-vector table from
+``encode_all_news``: the user vectors come from kernel B (``n`` = the eval
+batch, no candidates) under ``model.fuse_hot_path``. A step takes the
+client's ``UserEncoder`` where the JAX step takes ``user_params``: the
+module holds its architecture and weights, so JAX's ``model`` argument has
+no counterpart here (as in ``serve.py``). ``build_full_eval_step_sharded``
+is not ported: on one card it is the unsharded step.
 """
 
 from __future__ import annotations
@@ -31,8 +40,13 @@ import torch
 
 from fedrec_tpu_torch.config import ExperimentConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
+from fedrec_tpu_torch.eval.metrics import (
+    full_pool_metrics_batch,
+    quality_stats_batch,
+    ranking_metrics_batch,
+)
 from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg
-from fedrec_tpu_torch.models import NewsRecommender, score_loss
+from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
 from fedrec_tpu_torch.ops import fused_gather_encode
 from fedrec_tpu_torch.train.state import ClientState, make_optimizers
 
@@ -161,12 +175,15 @@ def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
 
 
 def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
-    """Fail at build time, naming the lever, for what the port cannot run."""
+    """Fail at build time, naming the lever, for what the port cannot run:
+    the one list of refusals, which the train step and ``Trainer`` share."""
     if mode != "joint":
+        item = {"decoupled": 3, "finetune": 8}.get(mode)
         raise NotImplementedError(
             f"train mode {mode!r} (model.text_encoder_mode="
             f"{cfg.model.text_encoder_mode!r}) is not ported; the port trains "
             "model.text_encoder_mode='head' (joint)"
+            + (f"; {mode} mode is ROADMAP.md's Queue A item {item}" if item else "")
         )
     levers = [
         ("privacy.enabled", cfg.privacy.enabled),
@@ -309,3 +326,77 @@ def encode_all_news(
         vecs = model.encode_news(token_states[start:start + chunk].to(dev))
         out[start:start + vecs.shape[0]] = vecs
     return out
+
+
+# --------------------------------------------------------------- eval steps
+def _eval_inputs(batch: dict, news_vecs: torch.Tensor, dev: torch.device) -> dict:
+    if news_vecs.device.type != dev.type:
+        raise ValueError(f"news_vecs live on {news_vecs.device}, the eval step runs on {dev}")
+    return {k: _as_device(v, dev) for k, v in batch.items()}
+
+
+def build_eval_step(cfg: ExperimentConfig, device: str | torch.device | None = None) -> Callable:
+    """Per-impression validation metrics of 1 positive + ``npratio``
+    sampled negatives (reference ``Trainer.validate``, ``client.py:149-171``).
+
+    ``evaluate(user_encoder, news_vecs, batch) -> dict of (B,) tensors``:
+    ``batch`` holds ``candidates`` (B, C), ``history`` (B, H) and ``labels``
+    (B,); the history runs through ``user_encoder`` with no mask, as in the
+    JAX step, and the candidates score by dot product. Returns
+    ``ranking_metrics_batch`` and the per-row ``loss``, so that the caller
+    can trim batch padding before averaging. ``device`` defaults to
+    ``cuda`` and raises without a GPU unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    sigmoid_ce = cfg.model.sigmoid_before_ce
+
+    @torch.no_grad()
+    def evaluate(user_encoder, news_vecs: torch.Tensor, batch: dict) -> dict:
+        b = _eval_inputs(batch, news_vecs, dev)
+        cand_vecs = news_vecs[b["candidates"].long()]
+        user_vec = user_encoder(news_vecs[b["history"].long()])
+        scores = score_candidates(cand_vecs, user_vec)
+        out = ranking_metrics_batch(scores)
+        out["loss"] = score_loss(scores, b["labels"], sigmoid_ce, reduce=False)
+        return out
+
+    return evaluate
+
+
+def _full_eval_body(dev: torch.device, quality: tuple | None = None) -> Callable:
+    """Per-impression full-pool scoring. ``quality`` = ``(score_bins,
+    score_range, ece_bins)`` adds ``quality_stats_batch``'s fixed-shape sums
+    of the same scores; the batch then carries ``keep`` (B,), 0 on padded
+    impressions."""
+
+    @torch.no_grad()
+    def evaluate(user_encoder, news_vecs: torch.Tensor, batch: dict) -> dict:
+        b = _eval_inputs(batch, news_vecs, dev)
+        user_vec = user_encoder(news_vecs[b["history"].long()])              # (B, D)
+        pos_scores = torch.einsum("bd,bd->b", news_vecs[b["pos"].long()], user_vec)
+        neg_scores = torch.einsum("bpd,bd->bp", news_vecs[b["neg_pools"].long()], user_vec)
+        out = full_pool_metrics_batch(pos_scores, neg_scores, b["neg_mask"])
+        if quality is not None:
+            score_bins, score_range, ece_bins = quality
+            out.update(quality_stats_batch(pos_scores, neg_scores, b["neg_mask"], b["keep"],
+                                           score_bins, score_range, ece_bins))
+        return out
+
+    return evaluate
+
+
+def build_full_eval_step(
+    quality: tuple | None = None, device: str | torch.device | None = None
+) -> Callable:
+    """Deterministic full-pool evaluation: the protocol behind the
+    reference's published MIND table (``evaluation_split``, reference
+    ``evaluation_functions.py:33-47``), every real pool negative against the
+    one positive, no sampling noise.
+
+    ``evaluate(user_encoder, news_vecs, batch) -> dict of (B,) tensors``
+    with ``batch`` holding ``pos`` (B,), ``neg_pools`` (B, P), ``neg_mask``
+    (B, P) and ``history`` (B, H) (and ``keep`` (B,) with ``quality``).
+    ``device`` defaults to ``cuda`` and raises without a GPU unless
+    ``device="cpu"``.
+    """
+    return _full_eval_body(resolve_device(device), quality)

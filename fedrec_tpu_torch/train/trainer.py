@@ -1,0 +1,423 @@
+"""The federated round loop, the port of ``fedrec_tpu/train/trainer.py``'s
+flat path: a fixed world of ``fed.num_clients`` clients on one card, joint
+("head") mode over the frozen trunk's cached token states, no cohorts,
+chaos, codecs or server optimizer.
+
+A run is ``fed.rounds`` rounds. A round draws its participation weights,
+runs ``fed.local_epochs`` epochs of the joint train step (kernels C, D, B
+and E under ``model.fuse_hot_path``) over the batcher's per-client shards,
+takes the strategy's round-end mean, and every ``train.eval_every`` rounds
+evaluates: the corpus encode (kernel A under ``model.use_pallas``), then the
+validation impressions under ``train.eval_protocol`` (user vectors from
+kernel B). ``run`` snapshots every ``train.save_every`` rounds and at the
+last, keeps the best-AUC round under ``train.keep_best``, and resumes from
+the newest snapshot bitwise. ``export_for_serving`` hands client 0's user
+tower and news table to ``serving.store`` / ``serve.build_recommend_fn``.
+
+The levers this trainer does not run are refused by name at construction
+(``train.step._refuse_unported``). Observability is a print per round.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from fedrec_tpu_torch.config import EVAL_PROTOCOLS, ExperimentConfig
+from fedrec_tpu_torch.data import IndexedSamples, MindData, TrainBatcher, index_samples
+from fedrec_tpu_torch.device import resolve_device, torch_dtype
+from fedrec_tpu_torch.fed.strategies import get_strategy, participation_mask
+from fedrec_tpu_torch.models import NewsRecommender
+from fedrec_tpu_torch.params import from_flax, init_params
+from fedrec_tpu_torch.train.checkpoint import SnapshotManager, atomic_write_bytes
+from fedrec_tpu_torch.train.state import init_client_state, replicate_state
+from fedrec_tpu_torch.train.step import (
+    build_eval_step,
+    build_fed_train_step,
+    build_full_eval_step,
+    build_param_sync,
+    encode_all_news,
+)
+
+# the model knobs that change the parameter tree: a snapshot written under
+# other values cannot load
+_TREE_KNOBS = ("user_tower", "news_dim", "num_heads", "head_dim", "query_dim",
+               "text_encoder_mode", "bert_hidden", "text_head_arch")
+_EVAL_BATCH = 256
+
+
+@dataclass
+class RoundResult:
+    round_idx: int
+    train_loss: float
+    val_metrics: dict[str, float] = field(default_factory=dict)
+
+
+class Trainer:
+    """Federated trainer over K clients on one device.
+
+    ``token_states``: the (N_news, L, bert_hidden) cached frozen-trunk token
+    states (numpy or a tensor), moved to the device once. ``snapshot_dir``
+    overrides ``train.snapshot_dir``. ``device`` defaults to ``cuda`` and
+    raises without a GPU unless ``device="cpu"``.
+    """
+
+    def __init__(
+        self,
+        cfg: ExperimentConfig,
+        data: MindData,
+        token_states: Any,
+        snapshot_dir: str | None = None,
+        device: str | torch.device | None = None,
+    ):
+        self.dev = resolve_device(device)
+        self.cfg = cfg
+        if cfg.train.eval_protocol not in EVAL_PROTOCOLS:
+            raise ValueError(
+                f"unknown train.eval_protocol {cfg.train.eval_protocol!r}; "
+                f"expected one of {EVAL_PROTOCOLS}"
+            )
+        self.strategy = get_strategy(cfg.fed.strategy)
+        self.token_states = torch.as_tensor(token_states).to(
+            self.dev, torch_dtype(cfg.model.dtype))
+
+        # the JAX package's data.shuffle / drop_remainder / seed defaults
+        self.batcher = TrainBatcher(
+            index_samples(data.train_samples, data.nid2index, cfg.data.max_his_len),
+            cfg.data.batch_size, cfg.data.npratio,
+        )
+        self.valid_ix: IndexedSamples | None = None
+        if data.valid_samples:
+            self.valid_ix = index_samples(data.valid_samples, data.nid2index,
+                                          cfg.data.max_his_len)
+
+        model = init_params(NewsRecommender(cfg.model), seed=cfg.train.seed).to(self.dev)
+        self.states = replicate_state(init_client_state(model, cfg, cfg.train.seed),
+                                      cfg.fed.num_clients, cfg.train.seed + 1)
+        self.train_step = build_fed_train_step(model, cfg, self.strategy, device=self.dev)
+        self.param_sync = build_param_sync(cfg, self.strategy)
+        self.eval_step = build_eval_step(cfg, device=self.dev)
+        self.full_eval_step = build_full_eval_step(device=self.dev)
+        self.last_per_client_metrics: list[dict[str, float]] | None = None
+
+        self.start_round = 0
+        self.snapshots: SnapshotManager | None = None
+        directory = snapshot_dir or cfg.train.snapshot_dir
+        if directory:
+            self.snapshots = SnapshotManager(directory)
+            if cfg.train.resume and self.snapshots.latest_round() is not None:
+                # the incumbent config.json records what the snapshot was
+                # trained with: read it before this run's replaces it
+                self._check_snapshot_config(cfg)
+                try:
+                    self.states = self.snapshots.restore(self.states)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"snapshot restore from {self.snapshots.directory} failed "
+                        f"({type(e).__name__}; chained below). If it names parameter "
+                        "shapes, the model config likely changed since the snapshot was "
+                        "written: compare its config.json with this run's --set flags. "
+                        "Otherwise point train.snapshot_dir at a fresh directory."
+                    ) from e
+                # the round that loaded, not latest_round(): a corrupt newest
+                # snapshot falls back to the previous retained one
+                self.start_round = self.snapshots.last_restored_round + 1
+                print(f"[trainer] resumed from snapshot at round {self.start_round - 1}")
+            try:
+                atomic_write_bytes(self.snapshots.directory / "config.json",
+                                   cfg.to_json().encode())
+            except OSError as e:
+                print(f"[trainer] could not persist config.json: {e}")
+
+        self.best_snapshots: SnapshotManager | None = None
+        self._best_auc: float | None = None
+        if self.snapshots is not None and cfg.train.keep_best:
+            best_dir = self.snapshots.directory / "best"
+            self.best_snapshots = SnapshotManager(best_dir, max_to_keep=1)
+            marker = best_dir / "best.json"
+            if marker.exists():
+                # a resumed run: a worse later round never replaces the best
+                try:
+                    m = json.loads(marker.read_text())
+                    best_round, best_auc = int(m["round"]), float(m["auc"])
+                except (OSError, ValueError, KeyError, TypeError):
+                    best_round = best_auc = None
+                stored = self.best_snapshots.latest_round()
+                if best_round is not None and stored == best_round:
+                    self._best_auc = best_auc
+                elif stored is not None or best_round is not None:
+                    # torn (a crash between the snapshot and the marker): the
+                    # stored round's AUC is unknown; the next improvement
+                    # rewrites both
+                    print("[trainer] best-snapshot marker/round mismatch "
+                          f"(marker {best_round}, stored {stored}); best-AUC "
+                          "tracking restarts this run")
+
+    # ------------------------------------------------------------------
+    def _check_snapshot_config(self, cfg: ExperimentConfig) -> None:
+        """A guided error when resuming under a model config whose parameter
+        tree cannot match the snapshot's (the raw error names tensor shapes,
+        not the knob). Reads the config.json the writing run persisted;
+        absent or unreadable, the restore's own structure check decides."""
+        try:
+            saved = json.loads((self.snapshots.directory / "config.json").read_text())
+            saved = saved.get("model", {})
+        except (OSError, ValueError):
+            return
+        diffs = [(k, saved[k], getattr(cfg.model, k))
+                 for k in _TREE_KNOBS if k in saved and saved[k] != getattr(cfg.model, k)]
+        if diffs:
+            detail = "; ".join(f"model.{k}: snapshot={s!r} vs this run={c!r}"
+                               for k, s, c in diffs)
+            raise ValueError(
+                f"cannot resume from {self.snapshots.directory}: the snapshot was trained "
+                f"under a different model config ({detail}). Re-run with the snapshot's "
+                "settings (its config.json has the full record) or point "
+                "train.snapshot_dir at a fresh directory."
+            )
+
+    def set_global_params(self, user_params: Any, news_params: Any) -> None:
+        """Every client adopts the given parameters: Flax-layout numpy trees
+        of the user tower and the text head (``params.from_flax``).
+        Optimizer states and dropout streams stay per client."""
+        for st in self.states:
+            from_flax(st.model.user_encoder, user_params)
+            from_flax(st.model.text_head, news_params)
+
+    def _clients_in_sync(self) -> bool:
+        """True when every client holds bitwise-identical parameters (after
+        a ``param_avg`` mean, or under ``grad_avg``); one host read."""
+        if len(self.states) == 1:
+            return True
+        ref = list(self.states[0].model.parameters())
+        same = [(p == q).all()
+                for st in self.states[1:] for p, q in zip(ref, st.model.parameters())]
+        return bool(torch.stack(same).all())
+
+    def _encode_corpus(self, client: int) -> torch.Tensor:
+        """The (N, D) news table through ``client``'s text head."""
+        return encode_all_news(self.states[client].model, self.token_states, device=self.dev)
+
+    def _aggregate_eval(self, eval_one: Callable[[int], dict]) -> dict[str, float]:
+        """Client 0's metrics when the clients are in sync; otherwise the
+        mean of per-client metrics, with the per-client list kept on
+        ``last_per_client_metrics``."""
+        if self.cfg.fed.num_clients == 1 or self._clients_in_sync():
+            self.last_per_client_metrics = None
+            return eval_one(0)
+        per = [eval_one(c) for c in range(self.cfg.fed.num_clients)]
+        self.last_per_client_metrics = per
+        return {k: float(np.mean([m[k] for m in per])) for k in per[0]}
+
+    def export_for_serving(self) -> tuple[torch.nn.Module, torch.Tensor]:
+        """``(user tower, (N, D) news table)`` of client 0, the inputs of
+        ``serving.store.EmbeddingStore.publish`` and
+        ``serve.build_recommend_fn``. The tower is a frozen copy, so later
+        rounds or a restore do not move a published generation. Warns when the clients have diverged
+        (``local``, or a round nobody reported): client 0 is then one
+        client's model, not the model."""
+        if self.cfg.fed.num_clients > 1 and not self._clients_in_sync():
+            print("[trainer] WARNING: exporting client 0 for serving while clients hold "
+                  "DIVERGED parameters (local strategy or an unsynced round) — run a "
+                  "param sync first, or serve per-client models deliberately")
+        tower = copy.deepcopy(self.states[0].model.user_encoder).eval().requires_grad_(False)
+        return tower, self._encode_corpus(0)
+
+    # ------------------------------------------------------------------
+    def _round_weights(self, round_idx: int) -> np.ndarray:
+        """The round's aggregation weights: the participation mask, drawn
+        from ``hash((train.seed, round))`` as the JAX trainer keys its mask."""
+        rng = np.random.default_rng(hash((self.cfg.train.seed, round_idx)) & 0x7FFFFFFF)
+        return participation_mask(rng, self.cfg.fed.num_clients, self.cfg.fed.participation)
+
+    @staticmethod
+    def _round_loss_mean(mean_cells: np.ndarray, loss_cells: np.ndarray) -> float:
+        """The flat mean of the per-step client means; when one is not
+        finite (a NaN client poisons its step's mean), the mean of the
+        finite per-client cells."""
+        mean_cells = mean_cells.reshape(-1)
+        if np.isfinite(mean_cells).all():
+            return float(mean_cells.mean())
+        loss_cells = loss_cells.reshape(-1)
+        finite = loss_cells[np.isfinite(loss_cells)]
+        return float(finite.mean()) if finite.size else float("nan")
+
+    def _overflow_message(self, total: int) -> str:
+        cfg = self.cfg
+        policy = (f"data.unique_news_cap_buckets={cfg.data.unique_news_cap_buckets!r}"
+                  if cfg.data.unique_news_cap_buckets
+                  else f"data.unique_news_cap={cfg.data.unique_news_cap}")
+        return (f"{policy} overflowed on {total} step(s) this round — the capped "
+                "unique-news dedup dropped ids and the gradients are invalid. Raise the "
+                "cap (or set it to 0 for the exact worst-case bound).")
+
+    def train_round(self, round_idx: int) -> RoundResult:
+        """One round: the local epochs, the round-end mean, then the
+        evaluation when due."""
+        cfg = self.cfg
+        weights = self._round_weights(round_idx)
+        means, losses, overflow = [], [], 0
+        for local_epoch in range(cfg.fed.local_epochs):
+            epoch_idx = round_idx * cfg.fed.local_epochs + local_epoch
+            for b in self.batcher.epoch_batches_sharded(cfg.fed.num_clients, epoch_idx):
+                batch = {"candidates": b.candidates, "history": b.history, "labels": b.labels}
+                self.states, metrics = self.train_step(self.states, batch, self.token_states)
+                means.append(metrics["mean_loss"])
+                losses.append(metrics["loss"])
+                overflow += metrics["unique_overflow"]
+        self.states = self.param_sync(self.states, weights)
+        # one host read of the round's losses
+        train_loss = self._round_loss_mean(torch.stack(means).cpu().numpy(),
+                                           torch.stack(losses).cpu().numpy())
+        if overflow > 0:
+            raise RuntimeError(self._overflow_message(overflow))
+        result = RoundResult(round_idx, train_loss)
+        self._eval_if_due(result)
+        return result
+
+    def _eval_if_due(self, result: RoundResult) -> None:
+        """Round-cadence evaluation (``train.eval_every``)."""
+        if self.valid_ix is None or (result.round_idx + 1) % self.cfg.train.eval_every != 0:
+            return
+        protocol = self.cfg.train.eval_protocol
+        if protocol == "full":
+            result.val_metrics = self.evaluate_full()
+        elif protocol == "last4":
+            result.val_metrics = self.evaluate_full(last_k=4)
+        else:
+            result.val_metrics = self.evaluate()
+
+    def evaluate(self, client: int | None = None) -> dict[str, float]:
+        """Mean validation metrics over all impressions of 1 positive +
+        ``npratio`` sampled negatives (the reference's per-epoch validate,
+        ``client.py:149-171``), batches of up to 256 with the last batch's
+        wrap-around padding trimmed. ``client=None`` resolves the target as
+        ``_aggregate_eval`` does."""
+        if self.valid_ix is None:
+            raise ValueError("no validation samples")
+        if client is None:
+            return self._aggregate_eval(lambda c: self.evaluate(client=c))
+        user = self.states[client].model.user_encoder
+        table = self._encode_corpus(client)
+        n = len(self.valid_ix)
+        bsz = min(n, _EVAL_BATCH)
+        vb = TrainBatcher(self.valid_ix, batch_size=bsz, npratio=self.cfg.data.npratio,
+                          shuffle=False, drop_remainder=False, seed=0)
+        sums: dict[str, float] = {}
+        count = 0
+        for batch in vb.epoch_batches(0):
+            out = self.eval_step(user, table, {"candidates": batch.candidates,
+                                               "history": batch.history,
+                                               "labels": batch.labels})
+            valid_n = min(bsz, n - count)  # trim the wrap-around pad rows
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + float(v[:valid_n].sum())
+            count += valid_n
+        return {k: v / count for k, v in sums.items()}
+
+    def evaluate_full(self, last_k: int | None = None,
+                      client: int | None = None) -> dict[str, float]:
+        """Deterministic evaluation over each impression's full negative
+        pool (the protocol behind the reference's published MIND table);
+        ``last_k`` keeps each pool's last k negatives (``last_k=4`` is the
+        reference client's per-round slice, ``client.py:159-160``).
+        Impressions with an empty pool are skipped, as the reference's
+        try/except does; padding is masked out of every mean. ``client``
+        resolves as in :meth:`evaluate`."""
+        if self.valid_ix is None:
+            raise ValueError("no validation samples")
+        if client is None:
+            return self._aggregate_eval(
+                lambda c: self.evaluate_full(last_k=last_k, client=c))
+        user = self.states[client].model.user_encoder
+        table = self._encode_corpus(client)
+
+        ix = self.valid_ix
+        n = len(ix)
+        pools = ix.neg_pools
+        lens = ix.neg_lens.astype(np.int64)
+        if last_k is not None:
+            # each pool's last k real negatives, left-aligned
+            p = min(last_k, pools.shape[1])
+            start = np.maximum(lens - p, 0)[:, None]
+            idx = np.minimum(start + np.arange(p)[None, :], pools.shape[1] - 1)
+            pools = np.take_along_axis(pools, idx, axis=1)
+            lens = np.minimum(lens, p)
+        width = max(1, pools.shape[1])
+        mask = (np.arange(width)[None, :] < lens[:, None]).astype(np.float32)
+
+        bsz = min(n, _EVAL_BATCH)
+        pad = (-n) % bsz
+
+        def _pad(a):
+            return np.concatenate([a, np.repeat(a[:1], pad, axis=0)]) if pad else a
+
+        pos_a = _pad(ix.pos)
+        pools_a = _pad(pools.astype(np.int32))
+        mask_a = _pad(mask)
+        his_a = _pad(ix.history)
+        keep_a = _pad((lens > 0).astype(np.float32))
+        if pad:
+            keep_a[n:] = 0.0  # padded rows never count
+        sums = {k: 0.0 for k in ("auc", "mrr", "ndcg5", "ndcg10")}
+        kept = 0.0
+        for b in range(0, n + pad, bsz):
+            sl = slice(b, b + bsz)
+            out = self.full_eval_step(user, table, {"pos": pos_a[sl], "neg_pools": pools_a[sl],
+                                                    "neg_mask": mask_a[sl],
+                                                    "history": his_a[sl]})
+            w = torch.from_numpy(keep_a[sl]).to(self.dev)
+            for k in sums:
+                sums[k] += float((out[k] * w).sum())
+            kept += float(keep_a[sl].sum())
+        if kept == 0:
+            raise ValueError("no impression has a non-empty negative pool")
+        return {k: v / kept for k, v in sums.items()}
+
+    # ------------------------------------------------------------------
+    def run(self) -> list[RoundResult]:
+        """Rounds ``start_round`` .. ``fed.rounds - 1``, each followed by
+        its snapshot bookkeeping; returns the rounds' results."""
+        history = []
+        for round_idx in range(self.start_round, self.cfg.fed.rounds):
+            result = self.train_round(round_idx)
+            history.append(result)
+            self._after_round(result)
+        if self.snapshots is not None:
+            self.snapshots.wait()  # settle the writes before handing back
+        return history
+
+    def _after_round(self, result: RoundResult) -> None:
+        """The round's log line, the best-AUC snapshot and the cadence
+        snapshot."""
+        cfg = self.cfg
+        r = result.round_idx
+        log = {"round": r, "training_loss": result.train_loss}
+        m = result.val_metrics
+        log.update({name: m[key] for name, key in (
+            ("validation_loss", "loss"), ("val_auc", "auc"), ("val_mrr", "mrr"),
+            ("val_ndcg5", "ndcg5"), ("val_ndcg10", "ndcg10")) if key in m})
+        print(f"[trainer] {json.dumps(log)}", flush=True)
+        auc = m.get("auc")
+        if (self.best_snapshots is not None and auc is not None
+                and (self._best_auc is None or auc > self._best_auc)):
+            # a failed best-write must not end training, nor advance the best
+            try:
+                # blocking: the marker never names a snapshot still in flight
+                self.best_snapshots.save(r, self.states, wait=True)
+                best = self.best_snapshots.directory
+                atomic_write_bytes(best / "best.json",
+                                   json.dumps({"round": r, "auc": float(auc)}).encode())
+                atomic_write_bytes(best / "config.json", cfg.to_json().encode())
+                self._best_auc = float(auc)
+            except OSError as e:
+                print(f"[trainer] could not persist best snapshot at round {r}: {e}")
+        if self.snapshots is not None and (
+            (r + 1) % cfg.train.save_every == 0 or r == cfg.fed.rounds - 1
+        ):
+            self.snapshots.save(r, self.states)

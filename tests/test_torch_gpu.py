@@ -628,3 +628,70 @@ def test_take_rows_backward_is_deterministic_on_the_card(cuda, rng):
     lengths = torch.bincount(inv, minlength=4096).double()[:, None]
     err = (got.double() - want).abs()
     assert bool((err <= 1e-5 * (1 + lengths)).all()), float(err.max())
+
+
+def test_quality_stats_repeat_to_the_bit_on_the_card(cuda, rng):
+    """The eval step's quality sums (one-hot products summed over rows, no
+    atomics) give the same bits every call on the card, and the CPU's
+    counts."""
+    from fedrec_tpu_torch.eval import QUALITY_SUM_KEYS, quality_stats_batch
+
+    b, p = 256, 40
+    pos, neg = rng.standard_normal(b) * 3, rng.standard_normal((b, p)) * 3
+    lens = rng.integers(0, p + 1, b)
+    mask = (np.arange(p)[None, :] < lens[:, None]).astype(np.float32)
+    keep = (np.arange(b) < b - 7).astype(np.float32)
+    args = [_t(a, cuda) for a in (pos, neg, mask, keep)]
+    first = quality_stats_batch(*args, 20, 5.0, 10)
+    again = quality_stats_batch(*args, 20, 5.0, 10)
+    cpu = quality_stats_batch(*[a.cpu() for a in args], 20, 5.0, 10)
+    for k in QUALITY_SUM_KEYS:
+        assert torch.equal(first[k], again[k]), k
+        np.testing.assert_allclose(first[k].cpu().numpy(), cpu[k].numpy(), rtol=1e-6, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_trainer_on_the_card_matches_the_cpu_and_resumes_bitwise(cuda, tmp_path):
+    """A small evaluated run on the kernel route: kernels A-E launch, the
+    round losses match the CPU's plain route at the trajectory bars (dropout
+    0: the card's generators draw other masks than the CPU's), and with
+    dropout on a 2-round run resumed to 3 equals a straight 3-round run to
+    the bit."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.train import Trainer
+
+    def cfg(rounds, where, dropout):
+        return ExperimentConfig().apply_overrides([
+            "model.news_dim=32", "model.num_heads=4", "model.head_dim=8", "model.query_dim=16",
+            "model.bert_hidden=48", "data.max_his_len=10", "data.max_title_len=12",
+            "data.batch_size=8", "fed.num_clients=2", "model.text_encoder_mode=head",
+            "model.fuse_hot_path=true", "model.use_pallas=true", f"fed.rounds={rounds}",
+            f"train.snapshot_dir={where}", f"model.dropout_rate={dropout}",
+        ])
+
+    data = make_synthetic_mind(num_news=300, num_train=64, num_valid=300, title_len=12,
+                               his_len_range=(2, 10), seed=1)
+    toks = np.random.default_rng(1).standard_normal((300, 12, 48)).astype(np.float32)
+    reset_launch_counts()
+    card = Trainer(cfg(3, tmp_path / "card", 0.0), data, toks, device=cuda).run()
+    counts = launch_counts()
+    for name in ("additive_pool", "fused_history_score", "fused_gather_encode",
+                 "fused_gather_encode_bwd", "fused_history_score_bwd"):
+        assert counts[name] > 0, name
+    plain = Trainer(cfg(3, tmp_path / "cpu", 0.0), data, toks, device="cpu").run()
+    np.testing.assert_allclose([h.train_loss for h in card], [h.train_loss for h in plain],
+                               rtol=1e-5, atol=1e-6)
+    assert all(0.0 <= v <= 1.0 for h in card for v in h.val_metrics.values())
+
+    straight = Trainer(cfg(3, tmp_path / "a", 0.2), data, toks, device=cuda)
+    hist = straight.run()
+    Trainer(cfg(2, tmp_path / "b", 0.2), data, toks, device=cuda).run()
+    resumed = Trainer(cfg(3, tmp_path / "b", 0.2), data, toks, device=cuda)
+    assert resumed.start_round == 2
+    last = resumed.run()[0]
+    assert last.train_loss == hist[2].train_loss and last.val_metrics == hist[2].val_metrics
+    for a, b in zip(straight.states, resumed.states):
+        for p, q in zip(a.model.parameters(), b.model.parameters()):
+            assert torch.equal(p, q)
+        assert torch.equal(a.generator.get_state(), b.generator.get_state())

@@ -14,6 +14,7 @@ import torch
 
 import fedrec_tpu_torch
 from fedrec_tpu_torch.config import ExperimentConfig, ModelConfig
+from fedrec_tpu_torch.data import make_synthetic_mind
 from fedrec_tpu_torch.device import NoGPUError
 from fedrec_tpu_torch.models import NewsRecommender
 from fedrec_tpu_torch.ops import (
@@ -26,6 +27,7 @@ from fedrec_tpu_torch.ops import (
 from fedrec_tpu_torch.params import init_params
 from fedrec_tpu_torch.serve import build_recommend_fn
 from fedrec_tpu_torch.serving import EmbeddingStore, ServingService
+from fedrec_tpu_torch.train import Trainer, build_eval_step, build_full_eval_step
 from fedrec_tpu_torch.train.step import encode_all_news
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -84,10 +86,20 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu):
     toks = torch.randn((3, 5, 8))
     store = EmbeddingStore()
     store.publish(torch.randn((6, 8)), model.user_encoder)
+    cfg = ExperimentConfig().apply_overrides([
+        "model.text_encoder_mode=head", "model.news_dim=8", "model.num_heads=2",
+        "model.head_dim=4", "model.query_dim=4", "model.bert_hidden=8", "data.max_his_len=4",
+        "data.max_title_len=5", "data.batch_size=2", "fed.num_clients=2", "train.snapshot_dir=",
+    ])
+    data = make_synthetic_mind(num_news=6, num_train=4, num_valid=2, title_len=5,
+                               his_len_range=(1, 4))
     calls = [
         lambda **kw: encode_all_news(model, toks, **kw),
         lambda **kw: build_recommend_fn(**kw),
         lambda **kw: ServingService(store, history_len=4, **kw),
+        lambda **kw: Trainer(cfg, data, np.zeros((6, 5, 8), np.float32), **kw),
+        lambda **kw: build_eval_step(cfg, **kw),
+        lambda **kw: build_full_eval_step(**kw),
     ]
     for call in calls:
         with pytest.raises(NoGPUError):
@@ -123,6 +135,25 @@ def test_overrides_set_the_slice_and_reject_unknown_keys():
     assert (cfg.model.news_dim, cfg.model.num_heads, cfg.data.max_his_len) == (400, 20, 50)
     with pytest.raises(KeyError):
         ExperimentConfig().apply_overrides(["model.nope=1"])
+    # the round loop's fields, with the JAX package's defaults
+    train, fed = ExperimentConfig().train, ExperimentConfig().fed
+    assert (train.save_every, train.snapshot_dir, train.resume, train.eval_every,
+            train.eval_protocol, train.keep_best, train.seed) == (
+        1, "snapshots", True, 1, "full", False, 42)
+    assert (fed.rounds, fed.local_epochs, fed.participation) == (10, 1, 1.0)
+    cfg = ExperimentConfig().apply_overrides([
+        "train.save_every=2", "train.snapshot_dir=/tmp/x", "train.resume=0",
+        "train.eval_every=3", "train.eval_protocol=last4", "train.keep_best=1", "train.seed=7",
+        "fed.rounds=4", "fed.local_epochs=2", "fed.participation=0.5",
+    ])
+    assert (cfg.train.save_every, cfg.train.snapshot_dir, cfg.train.resume,
+            cfg.train.eval_every, cfg.train.eval_protocol, cfg.train.keep_best,
+            cfg.train.seed) == (2, "/tmp/x", False, 3, "last4", True, 7)
+    assert (cfg.fed.rounds, cfg.fed.local_epochs, cfg.fed.participation) == (4, 2, 0.5)
+    for unported in ("train.scan_steps=2", "train.rounds_per_scan=2", "train.profile=1",
+                     "fed.weight_by_samples=1", "fed.server_opt=adam"):
+        with pytest.raises(KeyError):
+            ExperimentConfig().apply_overrides([unported])
     with pytest.raises(ValueError):
         ExperimentConfig().apply_overrides(["model.fuse_hot_path=maybe"])
 
