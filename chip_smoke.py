@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives two paths at full width through the entry points a user calls:
+then drives five paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -26,7 +26,19 @@ then drives two paths at full width through the entry points a user calls:
   corpus encode on kernel A, the user vectors on kernel B at n = 256), a
   snapshot and the best-AUC snapshot; then the export served through the
   store and the scorer, the same run on the dense route, and a 2-round run
-  resumed to 3 rounds, bitwise equal to the uninterrupted one.
+  resumed to 3 rounds, bitwise equal to the uninterrupted one;
+* ``decoupled_path`` (the JAX CLI's default run: decoupled mode, the
+  config's default): ``Trainer.run`` for 3 ``param_avg`` rounds of 4 clients
+  x 2 local epochs of 4 steps at B=64, each epoch ended by the news update
+  (the corpus-wide replay of the accumulated news gradients through the
+  text head: kernel A and its plain-autograd backward), each round by the
+  table's refresh and a full-pool evaluation of 8,192 impressions on the
+  cached table (kernels B and E on every step, B at n = 256 on every eval
+  batch), snapshots and ``keep_best``; then the same run on the dense
+  route, a 2-round run resumed to 3, a repeat (both bitwise), the export
+  served; one ldp_news round against the same round without noise (the
+  user tower bitwise equal); and ``fedrec_tpu_torch.cli.run`` in this
+  process, decoupled, ``--mode joint`` and ``--dp-epsilon 8``.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 final result line. The last line is
@@ -39,6 +51,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,train_path
   python3 chip_smoke.py --phases build,kernels,long_path
   python3 chip_smoke.py --phases build,kernels,trainer_path
+  python3 chip_smoke.py --phases build,kernels,decoupled_path
 """
 
 from __future__ import annotations
@@ -55,8 +68,9 @@ from pathlib import Path
 
 import numpy as np
 
-PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path")
-PATHS = ("main_path", "train_path", "long_path", "trainer_path")
+PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
+          "decoupled_path")
+PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
@@ -90,9 +104,11 @@ GRAD_REL = {"float32": 1e-4, "bfloat16": 0.05}
 TRAJ_LOSS_RTOL, TRAJ_LOSS_ATOL = 1e-5, 1e-6
 TRAJ_RTOL, TRAJ_ATOL, TRAJ_NOISE = 2e-4, 1e-4, 1e-3
 TRAJ_STEPS = 5
-# trainer_path: rounds of the uninterrupted run; the resume check runs one
-# fewer, then resumes to this many
+# trainer_path, decoupled_path: rounds of the uninterrupted run; the resume
+# check runs one fewer, then resumes to this many
 TRAINER_ROUNDS = 3
+# decoupled_path: local epochs a round (a news update ends each)
+DECOUPLED_EPOCHS = 2
 # per-round validation means, kernel route against dense route: a score pair
 # closer than the routes' difference may swap, which moves one impression's
 # metric; 1e-4 of a mean over thousands of impressions allows a few
@@ -1635,7 +1651,6 @@ def phase_trainer_path(state: dict, args) -> dict:
     import tempfile
 
     import torch
-    from fedrec_tpu_torch.data import make_synthetic_mind
     from fedrec_tpu_torch.ops import (
         additive_pool_plain,
         fused_history_score,
@@ -1660,8 +1675,7 @@ def phase_trainer_path(state: dict, args) -> dict:
     mc, dc = cfg.model, cfg.data
     N, T, H = args.num_news, dc.max_title_len, dc.max_his_len
     tokens = _tokens(state, args, T, mc.bert_hidden)
-    data = make_synthetic_mind(num_news=N, num_train=K * B * S, num_valid=args.valid,
-                               title_len=T, seed=args.seed)
+    data = _mind_data(state, args, T)
     # the trainer's per-round lines go to stderr: stdout holds the phases' JSON
     quiet = contextlib.redirect_stdout(sys.stderr)
     with quiet:
@@ -1833,11 +1847,411 @@ def phase_trainer_path(state: dict, args) -> dict:
     }
 
 
+def _decoupled_cfg(args, snapshot_dir: str, *overrides: str):
+    """The decoupled path's configuration: ExperimentConfig's widths and its
+    default text_encoder_mode ("table"), the kernel route, param_avg, two
+    local epochs, a full-pool evaluation and a snapshot every round,
+    keep_best."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig().apply_overrides([
+        "model.fuse_hot_path=true", "model.use_pallas=true",
+        f"data.batch_size={args.batch_size}", f"fed.num_clients={args.clients}",
+        "fed.strategy=param_avg", f"fed.rounds={TRAINER_ROUNDS}",
+        f"fed.local_epochs={DECOUPLED_EPOCHS}", "train.eval_every=1",
+        "train.eval_protocol=full", "train.save_every=1", "train.keep_best=true",
+        f"train.seed={args.seed}", f"train.snapshot_dir={snapshot_dir}", *overrides,
+    ])
+    check(cfg.model.text_encoder_mode == "table", "decoupled mode is the config's default")
+    return cfg
+
+
+def _mind_data(state: dict, args, title_len: int):
+    """The trainer paths' synthetic MIND split (K x B x steps training
+    samples, ``--valid`` validation impressions), made once."""
+    from fedrec_tpu_torch.data import make_synthetic_mind
+
+    if "mind" not in state:
+        state["mind"] = make_synthetic_mind(
+            num_news=args.num_news, num_train=args.clients * args.batch_size * args.trainer_steps,
+            num_valid=args.valid, title_len=title_len, seed=args.seed)
+    return state["mind"]
+
+
+def _news_update_parts(model, tokens, chunk: int, gen) -> dict:
+    """Device time (CUDA events, ms) of one client's news update, part by
+    part over the whole corpus: A's forward over every chunk, A's backward
+    (autograd of the plain pool, as the update runs it), the fc layer's
+    backward, the re-encode (``encode_all_news``), and the train step's
+    scatter into the accumulator at the step's size."""
+    import torch
+    from fedrec_tpu_torch.models.attention import dense
+    from fedrec_tpu_torch.ops import additive_pool, additive_pool_plain
+    from fedrec_tpu_torch.train import encode_all_news, scatter_add_rows
+
+    th = model.text_head
+    n, d = tokens.shape[0], th.fc.out_features
+    w = [th.pool.att_fc1.weight.t().contiguous(), th.pool.att_fc1.bias.detach(),
+         th.pool.att_fc2.weight[0].detach().contiguous()]
+    spans = [(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+    cot = torch.randn((n, d), generator=gen, device=DEV)
+    with torch.no_grad():
+        pooled = [additive_pool(tokens[a:b], *w) for a, b in spans]
+    g_pooled = [c @ th.fc.weight.detach() for c in cot.split(chunk)]
+
+    def a_forward():
+        with torch.no_grad():
+            for a, b in spans:
+                additive_pool(tokens[a:b], *w)
+
+    def a_backward():
+        leaves = [t.detach().requires_grad_() for t in w]
+        with torch.enable_grad():
+            for (a, b), g in zip(spans, g_pooled):
+                torch.autograd.grad(additive_pool_plain(tokens[a:b], *leaves), leaves, g)
+
+    def fc_backward():
+        params = list(th.fc.parameters())
+        with torch.enable_grad():
+            for p_, c in zip(pooled, cot.split(chunk)):
+                leaf = p_.requires_grad_()
+                torch.autograd.grad(dense(th.fc, leaf, torch.float32), [leaf, *params], c)
+
+    accum = torch.zeros((n, d), device=DEV)
+    ids = torch.randint(0, n, (64 * 55,), generator=gen, device=DEV)
+    rows = torch.randn((ids.numel(), d), generator=gen, device=DEV)
+    with torch.no_grad():
+        return {
+            "a_forward_ms": time_ms(a_forward, 2, warmup=1),
+            "a_plain_backward_ms": time_ms(a_backward, 2, warmup=1),
+            "fc_backward_ms": time_ms(fc_backward, 2, warmup=1),
+            "re_encode_ms": time_ms(lambda: encode_all_news(model, tokens, chunk, device=DEV),
+                                    2, warmup=1),
+            "scatter_ms_per_step": time_ms(lambda: scatter_add_rows(accum, ids, rows), 20),
+            "rows": n, "chunk": chunk,
+        }
+
+
+def _cli_leg(argv: list[str]) -> dict:
+    """``fedrec_tpu_torch.cli.run.main(argv)`` in this process: its exit code,
+    its ``final:`` line parsed, its wall time and its kernel launches."""
+    import contextlib
+    import io
+
+    import torch
+    from fedrec_tpu_torch.cli import run
+    from fedrec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    finals = [ln for ln in out.getvalue().splitlines() if ln.startswith("final: ")]
+    check(rc == 0 and len(finals) == 1, f"cli {argv}: rc {rc}, final lines {finals}")
+    fields = {k: float(v) for k, v in (kv.split("=") for kv in finals[0][7:].split())}
+    check(math.isfinite(fields["loss"]) and 0.0 <= fields["auc"] <= 1.0,
+          f"cli {argv}: {finals[0]}")
+    return {"argv": argv, "rc": rc, "final": fields, "wall_s": wall_s, "launches": launches}
+
+
+def phase_decoupled_path(state: dict, args) -> dict:
+    """The JAX CLI's default run: decoupled mode through ``Trainer``, its
+    ldp_news leg, and the run CLI itself."""
+    import contextlib
+    import copy
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.models.attention import dense
+    from fedrec_tpu_torch.ops import (
+        additive_pool_plain,
+        fused_history_score_bwd,
+        fused_history_score_bwd_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.ops.attention_kernels import additive_pool_kernel_names
+    from fedrec_tpu_torch.serve import build_recommend_fn
+    from fedrec_tpu_torch.serving import EmbeddingStore
+    from fedrec_tpu_torch.train import SnapshotManager, Trainer
+
+    K, B, S, R, E = args.clients, args.batch_size, args.trainer_steps, TRAINER_ROUNDS, DECOUPLED_EPOCHS
+    dev = torch.device(DEV)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="decoupled_path_", dir=build)
+    root = work.name
+    cfg = _decoupled_cfg(args, f"{root}/kernel")
+    mc, dc = cfg.model, cfg.data
+    N, T, H = args.num_news, dc.max_title_len, dc.max_his_len
+    tokens = _tokens(state, args, T, mc.bert_hidden)
+    data = _mind_data(state, args, T)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    with quiet:
+        trainer = Trainer(cfg, data, tokens, device=dev)
+    check(trainer.mode == "decoupled" and trainer.token_states.data_ptr() == tokens.data_ptr(),
+          "a decoupled trainer over the shared table")
+    check(trainer.batcher.num_batches(len(trainer.batcher.indexed) // K) == S,
+          f"{S} steps a local epoch expected")
+    step_fn, update_fn = trainer.train_step, trainer.news_update  # untimed, for the profiles
+    times: dict[str, list] = {k: [] for k in ("round", "eval", "step", "news_update", "refresh")}
+    _time_calls(trainer, "train_round", times["round"])
+    _time_calls(trainer, "_eval_if_due", times["eval"])
+    _time_calls(trainer, "train_step", times["step"])
+    _time_calls(trainer, "news_update", times["news_update"])
+    _time_calls(trainer, "_refresh_table", times["refresh"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---------------- the decoupled path, with every launch count from 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with quiet:
+        history = trainer.run()
+        user, table = trainer.export_for_serving()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    # ---------------- end of the decoupled path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    losses = [h.train_loss for h in history]
+    metrics = [h.val_metrics for h in history]
+    check([h.round_idx for h in history] == list(range(R)), f"rounds {[h.round_idx for h in history]}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite round loss: {losses}")
+    check(all(set(m) == {"auc", "mrr", "ndcg5", "ndcg10"} for m in metrics), f"metrics {metrics}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for m in metrics for v in m.values()),
+          f"metrics outside [0, 1]: {metrics}")
+    for name in ("additive_pool", "fused_history_score", "fused_history_score_bwd"):
+        check(launches[name] > 0, f"kernel {name} never launched on the decoupled path")
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd"):
+        check(launches[name] == 0, f"joint-mode kernel {name} launched on the decoupled path")
+    chunks = -(-N // 2048)  # encode_all_news's and the news update's chunk
+    # the first table, each news update's forward and re-encode per client,
+    # each round-end refresh (evaluation and the export reuse the table)
+    want_a = chunks * (1 + R * (E * 2 * K + 1))
+    check(launches["additive_pool"] == want_a,
+          f"kernel A launched {launches['additive_pool']} times, {want_a} expected")
+    check(len(times["refresh"]) == R + 1, f"table refreshes {len(times['refresh'])}")
+    check(all(float(st.news_grad_accum.abs().max()) == 0.0 for st in trainer.states),
+          "an accumulator is not zero at the round end")
+    best = json.loads((trainer.best_snapshots.directory / "best.json").read_text())
+    aucs = [m["auc"] for m in metrics]
+    check(best["round"] == int(np.argmax(aucs)) and best["auc"] == max(aucs),
+          f"best.json {best} against the rounds' AUC {aucs}")
+    state.setdefault("launches", {})["decoupled_path"] = launches
+
+    # ---- the path's kernels against their plain versions on its inputs:
+    # A on the table's first chunk, E on the first step's gathered vectors
+    m0 = trainer.states[0].model
+    gen = torch.Generator(device=DEV).manual_seed(args.seed + 21)
+    batch0 = next(iter(trainer.batcher.epoch_batches_sharded(K, 0)))
+    batch0 = {"candidates": batch0.candidates, "history": batch0.history, "labels": batch0.labels}
+    with torch.no_grad():
+        th = m0.text_head
+        pooled = additive_pool_plain(tokens[: args.chunk], th.pool.att_fc1.weight.t().contiguous(),
+                                     th.pool.att_fc1.bias, th.pool.att_fc2.weight[0].contiguous())
+        err_a = max_err(table[: args.chunk], dense(th.fc, pooled, torch.float32))
+        cand = table[torch.as_tensor(batch0["candidates"][0], device=dev).long()]
+        his = table[torch.as_tensor(batch0["history"][0], device=dev).long()]
+        w = m0.user_encoder.fused_weights(his.dtype)
+        g_s = torch.randn(cand.shape[:2], generator=gen, device=DEV)
+        g_u = torch.zeros((B, mc.news_dim), device=DEV)
+        got = fused_history_score_bwd(his, cand, None, w, g_s, g_u, mc.num_heads)
+        want = fused_history_score_bwd_plain(his, cand, None, w, g_s, g_u, mc.num_heads)
+        errs_e = [within_grad(a, b, torch.float32) for a, b in zip(got[:2], want[:2])]
+    check(err_a <= F32_ATOL, f"decoupled path: A vs plain {err_a} (atol {F32_ATOL})")
+    check(all(ok for ok, _, _ in errs_e), f"decoupled path: E's dx, dcand vs plain {errs_e}")
+    err_e = max(e for _, e, _ in errs_e)
+
+    # ---- serving the export: the store and the scorer take it unchanged
+    store = EmbeddingStore()
+    store.publish(table, user, round=R - 1, source="decoupled")
+    gen_s = store.current()
+    rng = np.random.default_rng(args.seed + 13)
+    hist = torch.as_tensor(rng.integers(1, N, size=(8, H)), device=dev)
+    ids, _ = build_recommend_fn(top_k=10, device=dev)(gen_s.user_params, gen_s.news_vecs, hist)
+    ref_scores, ref_ids = _plain_recommend(m0, table, hist, 10)
+    mismatch = _topk_disagreements(ids, ref_scores, ref_ids, 10)
+    check(mismatch == 0, f"served top-k differ from the plain route where apart: {mismatch}")
+
+    # ---- one client's news update and one 4-client step, by kernel, on
+    # copies of the final states (the copies step; the run is untouched)
+    corpus_names = additive_pool_kernel_names(mc.bert_hidden // 2)
+    spare = copy.deepcopy(trainer.states)
+    # each call ends in a synchronise: neither reads a result back
+    update_breakdown = _device_breakdown(
+        lambda: (update_fn(spare[:1], tokens), torch.cuda.synchronize()), reps=1, top=10,
+        sum_of={"A": corpus_names})
+    step_breakdown = _device_breakdown(
+        lambda: (step_fn(spare, batch0, table), torch.cuda.synchronize()), reps=2, top=10)
+    parts = _news_update_parts(m0, tokens, args.chunk, gen)
+    del spare
+
+    # ---- snapshot cost: a blocking save of the K clients, then a restore
+    mgr = SnapshotManager(f"{root}/timing")
+    t0 = time.perf_counter()
+    mgr.save(0, trainer.states, wait=True)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    snap_mb = sum(f.stat().st_size for f in mgr.directory.rglob("state.pt")) / 2**20
+    restored = copy.deepcopy(trainer.states)
+    t0 = time.perf_counter()
+    with quiet:
+        mgr.restore(restored)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    mgr.close()
+    del restored
+
+    # ---- the kernel route against the dense route, from the same seeds
+    reset_launch_counts()
+    with quiet:
+        dense_trainer = Trainer(_decoupled_cfg(args, f"{root}/dense", "model.fuse_hot_path=false",
+                                               "model.use_pallas=false"), data, tokens, device=dev)
+        dense_hist = dense_trainer.run()
+        _, dense_table = dense_trainer.export_for_serving()
+    dense_launches = launch_counts()
+    check(not any(dense_launches.values()), f"the dense route launched {dense_launches}")
+    traj = [(a, h.train_loss) for a, h in zip(losses, dense_hist)]
+    for r, (lk, ld) in enumerate(traj):
+        check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+              f"round {r}: kernel-route loss {lk!r} vs dense {ld!r}")
+    val_diff = max(abs(m[k] - h.val_metrics[k]) for m, h in zip(metrics, dense_hist) for k in m)
+    check(val_diff <= VAL_ATOL, f"validation means: kernel vs dense route differ by {val_diff}")
+    param_worst, param_worst_noise = 0.0, 0.0
+    for c, (sk, sd) in enumerate(zip(trainer.states, dense_trainer.states)):
+        bad, worst, worst_noise = _param_diffs(sk.model, sd.model)
+        check(not bad, f"client {c}: kernel route vs dense after {R} rounds: {bad} outside the bars")
+        param_worst = max(param_worst, worst)
+        param_worst_noise = max(param_worst_noise, worst_noise)
+    table_diff = max_err(table, dense_table)
+    check(bool(torch.allclose(table, dense_table, rtol=TRAJ_RTOL, atol=TRAJ_ATOL)),
+          f"final table: kernel route vs dense route differ by {table_diff}")
+    dense_val = [h.val_metrics for h in dense_hist]
+    del dense_trainer, dense_table
+
+    # ---- resume: 2 rounds, then a fresh Trainer on the same directory
+    # finishes the run; bitwise equal to the uninterrupted run
+    with quiet:
+        Trainer(_decoupled_cfg(args, f"{root}/resume", f"fed.rounds={R - 1}"), data, tokens,
+                device=dev).run()
+        resumed = Trainer(_decoupled_cfg(args, f"{root}/resume"), data, tokens, device=dev)
+        check(resumed.start_round == R - 1, f"resumed at round {resumed.start_round}")
+        last = resumed.run()
+    check(len(last) == 1 and last[0].train_loss == losses[-1]
+          and last[0].val_metrics == metrics[-1],
+          f"resumed round {last[0].round_idx}: {last[0].train_loss!r} {last[0].val_metrics} vs "
+          f"{losses[-1]!r} {metrics[-1]}")
+    resume_bitwise = (all(torch.equal(a, b) for a, b in zip(_trainer_params(trainer),
+                                                            _trainer_params(resumed)))
+                      and torch.equal(trainer._table, resumed._table))
+    check(resume_bitwise, "the resumed run's parameters or table differ from the uninterrupted run's")
+    del resumed
+
+    # ---- a repeat of the kernel route: bitwise equal
+    with quiet:
+        again = Trainer(_decoupled_cfg(args, f"{root}/again"), data, tokens, device=dev)
+        again_hist = again.run()
+    repeat_bitwise = ([h.train_loss for h in again_hist] == losses
+                      and [h.val_metrics for h in again_hist] == metrics
+                      and all(torch.equal(a, b) for a, b in zip(_trainer_params(trainer),
+                                                                _trainer_params(again)))
+                      and torch.equal(trainer._table, again._table))
+    check(repeat_bitwise, "a repeat of the kernel route differs from the first run")
+    del again
+
+    # ---- ldp_news: one round of one epoch, noise on and off, same seeds
+    legs = {}
+    for name, extra in (("clean", ()), ("noised", ("privacy.enabled=true",
+                                                    "privacy.mechanism=ldp_news",
+                                                    "privacy.sigma=1.0"))):
+        with quiet:
+            t = Trainer(_decoupled_cfg(args, "", "fed.rounds=1", "fed.local_epochs=1",
+                                       "train.eval_every=1000", *extra), data, tokens, device=dev)
+            legs[name] = (t, t.run())
+    (clean, clean_hist), (noised, noised_hist) = legs["clean"], legs["noised"]
+    check(all(math.isfinite(h.train_loss) for h in noised_hist), f"ldp_news loss {noised_hist}")
+    user_equal = all(torch.equal(p, q) for a, b in zip(clean.states, noised.states)
+                     for p, q in zip(a.user_params(), b.user_params()))
+    head_diff = max(max_err(p, q) for a, b in zip(clean.states, noised.states)
+                    for p, q in zip(a.news_params(), b.news_params()))
+    check(user_equal, "ldp_news moved the user tower")
+    check(head_diff > 0, "ldp_news left the text head as it was")
+    ldp = {"sigma": 1.0, "loss": noised_hist[0].train_loss, "clean_loss": clean_hist[0].train_loss,
+           "user_params_bitwise_equal": user_equal, "max_text_head_diff": head_diff}
+    del legs, clean, noised
+
+    # ---- the run CLI, in this process, at its own synthetic defaults, on
+    # the kernel route (model.fuse_hot_path and use_pallas default off)
+    base = ["2", str(B), "1", "--synthetic", "--clients", str(K),
+            "--set", "model.fuse_hot_path=true", "--set", "model.use_pallas=true"]
+    cli = {}
+    for name, extra in (("decoupled", []), ("joint", ["--mode", "joint"]),
+                        ("dp_epsilon", ["--dp-epsilon", "8"])):
+        cli[name] = _cli_leg([*base, *extra, "--set", f"train.snapshot_dir={root}/cli_{name}"])
+    for name in ("decoupled", "dp_epsilon"):
+        n = cli[name]["launches"]
+        check(n["additive_pool"] > 0 and n["fused_history_score"] > 0
+              and n["fused_history_score_bwd"] > 0, f"cli {name}: kernels A, B, E {n}")
+        check(n["fused_gather_encode"] == n["fused_gather_encode_bwd"] == 0,
+              f"cli {name}: kernels C, D launched {n}")
+    n = cli["joint"]["launches"]
+    check(n["fused_gather_encode"] > 0 and n["fused_gather_encode_bwd"] > 0,
+          f"cli joint: kernels C, D never launched {n}")
+    work.cleanup()
+
+    round_ms = times["round"]
+    return {
+        "config": {"num_news": N, "clients": K, "local_steps": S, "local_epochs": E,
+                   "batch_size": B, "rounds": R, "num_train": K * B * S, "num_valid": args.valid,
+                   "eval_protocol": cfg.train.eval_protocol, "mode": mc.text_encoder_mode,
+                   "title_len": T, "history": H, "bert_hidden": mc.bert_hidden,
+                   "news_dim": mc.news_dim, "num_heads": mc.num_heads, "query_dim": mc.query_dim,
+                   "dtype": mc.dtype, "dropout_rate": mc.dropout_rate,
+                   "strategy": cfg.fed.strategy, "fuse_hot_path": mc.fuse_hot_path,
+                   "use_pallas": mc.use_pallas, "keep_best": cfg.train.keep_best,
+                   "save_every": cfg.train.save_every},
+        "run_ms": run_ms,
+        "round_ms": round_ms,
+        "round_ms_without_eval": [r - e for r, e in zip(round_ms, times["eval"])],
+        "eval_ms": times["eval"],
+        "step_ms": times["step"],
+        "news_update_ms": times["news_update"],
+        "news_update_ms_per_client": [t / K for t in times["news_update"]],
+        "news_update_parts_one_client": parts,
+        "news_update_device_breakdown": update_breakdown,
+        "step_device_breakdown": step_breakdown,
+        "refresh_ms": times["refresh"],
+        "snapshot_save_ms": save_ms,
+        "snapshot_mb": snap_mb,
+        "restore_ms": restore_ms,
+        "losses": losses,
+        "val_metrics": metrics,
+        "best": best,
+        "launches": launches,
+        "max_abs_err_vs_plain": {"additive_pool": err_a, "fused_history_score_bwd": err_e},
+        "kernel_vs_dense": {"losses": traj, "max_val_metric_diff": val_diff,
+                            "max_param_diff": param_worst,
+                            "max_zero_grad_leaf_diff": param_worst_noise,
+                            "max_table_diff": table_diff, "dense_val_metrics": dense_val,
+                            "dense_route_launches": sum(dense_launches.values())},
+        "resume_bitwise": resume_bitwise,
+        "repeat_bitwise": repeat_bitwise,
+        "ldp_news": ldp,
+        "cli": cli,
+        "peak_mem_gb": peak_gb,
+    }
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
-    launches on every path (trainer_path runs A through E), times from the
-    kernels phase."""
+    launches on every path (trainer_path runs A through E, decoupled_path
+    A, B and E), times from the kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -1884,9 +2298,9 @@ def main(argv=None) -> int:
     p.add_argument("--flash-bh", type=int, default=320,
                    help="kernels: batch x heads of the flash kernels' checks (16 x 20)")
     p.add_argument("--trainer-steps", type=int, default=4,
-                   help="trainer_path: steps per client a local epoch")
+                   help="trainer_path, decoupled_path: steps per client a local epoch")
     p.add_argument("--valid", type=int, default=8192,
-                   help="trainer_path: validation impressions (full-pool evaluation)")
+                   help="trainer_path, decoupled_path: validation impressions (full-pool evaluation)")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     args.long_waves = [int(w) for w in args.long_waves.split(",")]
@@ -1918,6 +2332,7 @@ def main(argv=None) -> int:
         "train_path": lambda: phase_train_path(state, args),
         "long_path": lambda: phase_long_path(state, args),
         "trainer_path": lambda: phase_trainer_path(state, args),
+        "decoupled_path": lambda: phase_decoupled_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
         t0 = time.perf_counter()

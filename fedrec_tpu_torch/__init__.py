@@ -4,7 +4,7 @@ The JAX package stays the reference; every module here keeps the name and
 place of its counterpart there, so a reader finds one from the other. This
 package imports ``torch`` and never ``jax``, ``flax`` or ``fedrec_tpu``:
 what it needs from the JAX package's host-only modules it keeps as its own
-copy (``config``, ``obs``).
+copy (``config``, ``obs``, ``privacy.accountant``).
 
 Slice 1 is serving: one user's click history in, the top-k news ids out
 (``train.step.encode_all_news`` -> ``serving.store`` -> ``serve``'s exact

@@ -1,0 +1,182 @@
+"""The port's training entry point, the counterpart of
+``python -m fedrec_tpu.cli.run`` (the reference's ``main.py`` flow): the
+same positional arguments and options, one federated run through
+``train.trainer.Trainer`` on one card.
+
+Usage:
+  python -m fedrec_tpu_torch.cli.run EPOCHS BATCH SAVE_EVERY \\
+      [--strategy param_avg] [--clients 4] [--data-dir UserData] \\
+      [--dp-epsilon 10] [--mode joint|decoupled] [--set section.key=value ...]
+  python -m fedrec_tpu_torch.cli.run 2 16 1 --synthetic --device cpu --clients 2 \\
+      --set model.news_dim=32 --set model.num_heads=4 --set model.head_dim=8 \\
+      --set model.query_dim=16 --set model.bert_hidden=48 --set train.snapshot_dir=
+
+Without ``--mode`` the run is decoupled (``model.text_encoder_mode``'s
+default). ``--dp-epsilon`` turns on ``ldp_news`` in decoupled mode, with
+sigma calibrated by the accountant; in joint mode it means per-example
+DP-SGD, which is not ported yet. ``--device`` defaults to ``cuda`` and
+raises without a GPU unless it is ``cpu``; ``--clients`` defaults to the
+number of devices of that kind (the JAX CLI's ``len(jax.local_devices())``).
+The multi-process options (``--agg-server``, ``--worker-id``) and
+``--obs-dir`` are accepted and refused by name. Snapshots go to
+``train.snapshot_dir`` (``snapshots`` in the working directory; empty for
+none). Ends with ``final: loss=... auc=... ndcg10=...`` when the last
+round was evaluated.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("total_epochs", type=int, help="global rounds (reference argv 1)")
+    p.add_argument("batch_size", type=int, help="per-client batch size (argv 2)")
+    p.add_argument("save_every", type=int, help="snapshot cadence in rounds (argv 3)")
+    p.add_argument("--strategy", default="param_avg",
+                   choices=["local", "grad_avg", "param_avg", "coordinator"])
+    p.add_argument("--clients", type=int, default=None,
+                   help="default: the number of devices of --device's kind")
+    p.add_argument("--data-dir", default="UserData",
+                   help="directory with bert_news_index.npy etc.")
+    p.add_argument("--token-states", default=None,
+                   help="path to cached (N, L, H) trunk token states .npy; "
+                        "default <data-dir>/token_states.npy if present, else "
+                        "random states (smoke mode)")
+    p.add_argument("--dp-epsilon", type=float, default=0.0,
+                   help="enable LDP with this epsilon (reference argv 4; 0 = off)")
+    p.add_argument("--local-epochs", type=int, default=1)
+    p.add_argument("--participation", type=float, default=1.0)
+    p.add_argument("--mode", default=None, choices=[None, "joint", "decoupled"])
+    p.add_argument("--synthetic", action="store_true",
+                   help="use synthetic data instead of --data-dir artifacts")
+    p.add_argument("--synthetic-train", type=int, default=2048,
+                   help="synthetic corpus size (train samples)")
+    p.add_argument("--synthetic-news", type=int, default=512,
+                   help="synthetic corpus size (distinct news)")
+    p.add_argument("--obs-dir", default=None,
+                   help="not ported: observability artifacts (ROADMAP.md Queue A item 10)")
+    p.add_argument("--agg-server", default=None, metavar="HOST:PORT",
+                   help="not ported: async federation (ROADMAP.md Queue A item 9)")
+    p.add_argument("--worker-id", default=None,
+                   help="not ported: the worker's name on the agg server (Queue A item 9)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; raises without a GPU unless 'cpu')")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="SECTION.KEY=VALUE")
+    return p
+
+
+def make_synthetic_from_args(args, cfg):
+    """The synthetic corpus of the JAX CLI (one definition of the valid-set
+    sizing)."""
+    from fedrec_tpu_torch.data import make_synthetic_mind
+
+    return make_synthetic_mind(
+        num_news=args.synthetic_news, num_train=args.synthetic_train,
+        num_valid=max(args.synthetic_train // 8, 32),
+        title_len=cfg.data.max_title_len, popular_frac=0.2,
+    )
+
+
+def _refuse_unported_args(args) -> None:
+    for flag, value, item in (("--agg-server", args.agg_server, 9),
+                              ("--worker-id", args.worker_id, 9),
+                              ("--obs-dir", args.obs_dir, 10)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A "
+                f"item {item})"
+            )
+
+
+def _device_count(dev) -> int:
+    import torch
+
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported_args(args)
+
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import load_mind_artifacts
+    from fedrec_tpu_torch.device import resolve_device
+    from fedrec_tpu_torch.privacy import calibrate_from_config
+    from fedrec_tpu_torch.train.step import refuse_unported
+    from fedrec_tpu_torch.train.trainer import Trainer
+
+    dev = resolve_device(args.device)
+    cfg = ExperimentConfig()
+    cfg.fed.rounds = args.total_epochs
+    cfg.data.batch_size = args.batch_size
+    cfg.train.save_every = args.save_every
+    cfg.fed.strategy = args.strategy
+    cfg.fed.local_epochs = args.local_epochs
+    cfg.fed.participation = args.participation
+    cfg.fed.num_clients = args.clients or _device_count(dev)
+    if args.mode:
+        cfg.model.text_encoder_mode = "table" if args.mode == "decoupled" else "head"
+    # the data source is recorded in the config (a snapshot's config.json is
+    # the record of what a run trained on); --set data.* still wins
+    cfg.data.data_dir = args.data_dir
+    if args.synthetic:
+        cfg.data.dataset = "synthetic"
+    cfg.apply_overrides(args.overrides)
+
+    if args.dp_epsilon > 0:
+        cfg.privacy.enabled = True
+        cfg.privacy.epsilon = args.dp_epsilon
+        if cfg.model.text_encoder_mode == "table":
+            # decoupled path: reference-parity noise-only mechanism (the
+            # reference's sigma-from-Opacus + unclipped noise, client.py:87-89,
+            # 271-281 — carries no rigorous epsilon)
+            cfg.privacy.mechanism = "ldp_news"
+            print("[run] decoupled mode: using ldp_news (reference-parity, no rigorous "
+                  "epsilon); --mode joint means DP-SGD, which is not ported yet",
+                  file=sys.stderr)
+    # what the Trainer would refuse, before the data loads
+    refuse_unported(cfg)
+
+    if cfg.data.dataset == "synthetic":
+        data = make_synthetic_from_args(args, cfg)
+    else:
+        # "mind" and "adressa" share the artifact schema
+        data = load_mind_artifacts(cfg.data.data_dir)
+
+    token_path = args.token_states or str(Path(cfg.data.data_dir) / "token_states.npy")
+    if Path(token_path).exists():
+        token_states = np.load(token_path)
+    else:
+        print(f"[run] no cached token states at {token_path}; using random states "
+              "(smoke mode)", file=sys.stderr)
+        token_states = np.random.default_rng(0).standard_normal(
+            (data.num_news, data.title_len, cfg.model.bert_hidden)
+        ).astype(np.float32)
+
+    if args.dp_epsilon > 0:
+        cfg.privacy.sigma = calibrate_from_config(cfg, len(data.train_samples))
+        print(f"[run] DP enabled: eps={cfg.privacy.epsilon} delta={cfg.privacy.delta} "
+              f"sigma={cfg.privacy.sigma:.4f} clip={cfg.privacy.clip_norm}", file=sys.stderr)
+
+    trainer = Trainer(cfg, data, token_states, device=dev)
+    history = trainer.run()
+    if history and history[-1].val_metrics:
+        m = history[-1].val_metrics
+        print(
+            f"final: loss={history[-1].train_loss:.4f} "
+            f"auc={m.get('auc', float('nan')):.4f} "
+            f"ndcg10={m.get('ndcg10', float('nan')):.4f}"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

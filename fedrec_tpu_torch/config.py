@@ -9,7 +9,7 @@ section.key=value`` overrides work as they do there
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
 ``train.trainer.Trainer``):
-``data.gather_chunk``, ``fed.seq_shards``, ``privacy.enabled``,
+``data.gather_chunk``, ``fed.seq_shards``, ``privacy.mechanism='dpsgd'``,
 ``shard.table``, ``chaos.enabled`` and ``obs.health.sentry``. The JAX
 package turns the sentry on by default; the port defaults it off, since
 it has no sentry to run.
@@ -27,6 +27,8 @@ from typing import Any
 class DataConfig:
     """Dataset and batching knobs."""
 
+    data_dir: str = "UserData"         # the reference's artifacts (cli/run.py)
+    dataset: str = "mind"              # "mind" | "adressa" | "synthetic"
     npratio: int = 4                   # negatives per impression
     max_his_len: int = 50              # click-history cap (pad id 0 = <unk>)
     max_title_len: int = 50            # tokens per news title
@@ -52,8 +54,9 @@ class ModelConfig:
     user_tower: str = "mha"            # only "mha" is ported
     text_head_arch: str = "additive"   # only "additive" is ported
     bert_hidden: int = 768             # frozen-trunk hidden size
-    # "table" (decoupled) | "head" (joint, frozen-trunk token states) |
-    # "finetune"; the port trains "head" only
+    # "table" (decoupled: the user tower trains on a news-vector table, the
+    # text head steps once an epoch) | "head" (joint, frozen-trunk token
+    # states) | "finetune" (not ported)
     text_encoder_mode: str = "table"
     # the reference's CrossEntropyLoss over sigmoid(scores)
     sigmoid_before_ce: bool = True
@@ -100,7 +103,23 @@ class FedConfig:
 
 @dataclass
 class PrivacyConfig:
-    enabled: bool = False              # not ported: True raises
+    """Local DP (``privacy.dpsgd``); the fields and defaults of the JAX
+    package's."""
+
+    enabled: bool = False
+    epsilon: float = 10.0
+    delta: float = 1e-5
+    clip_norm: float = 2.0             # C (MAX_GRAD_NORM)
+    # if sigma > 0 it overrides the accountant-calibrated value
+    sigma: float = 0.0
+    accountant_epochs: int = 50        # EPOCHS used for calibration
+    # "dpsgd"    - per-example clip + noise on all trainable grads (not
+    #              ported: refused by name)
+    # "ldp_news" - reference parity: noise only on news-embedding grads, no
+    #              clipping
+    mechanism: str = "dpsgd"
+    # "all" | "user" (user tower only; dpsgd only)
+    dp_scope: str = "all"
 
 
 @dataclass

@@ -1,5 +1,5 @@
 """Host-side data for the port: numpy copies of the JAX package's batcher,
-negative sampling and synthetic MIND generators."""
+negative sampling, artifact loader and synthetic MIND generators."""
 
 from fedrec_tpu_torch.data.batcher import (
     Batch,
@@ -8,7 +8,12 @@ from fedrec_tpu_torch.data.batcher import (
     index_samples,
     shard_indices,
 )
-from fedrec_tpu_torch.data.mind import MindData, make_synthetic_mind, make_synthetic_mind_topics
+from fedrec_tpu_torch.data.mind import (
+    MindData,
+    load_mind_artifacts,
+    make_synthetic_mind,
+    make_synthetic_mind_topics,
+)
 from fedrec_tpu_torch.data.sampling import newsample, sample_negatives_array
 
 __all__ = [
@@ -17,6 +22,7 @@ __all__ = [
     "MindData",
     "TrainBatcher",
     "index_samples",
+    "load_mind_artifacts",
     "make_synthetic_mind",
     "make_synthetic_mind_topics",
     "newsample",

@@ -1,17 +1,21 @@
-"""Synthetic MIND-shaped data, a numpy copy of the two generators of
-``fedrec_tpu/data/mind.py`` (``make_synthetic_mind``,
+"""MIND data, a numpy copy of ``fedrec_tpu/data/mind.py``'s loader
+(``load_mind_artifacts``) and two generators (``make_synthetic_mind``,
 ``make_synthetic_mind_topics``): the same seed gives the same arrays and
 samples as the JAX package (``tests/test_torch_train.py``).
 
 ``MindData`` holds the reference artifacts' shapes: ``news_tokens``
 ``(N_news, 2, title_len)`` int64, ``nid2index`` with ``<unk> -> 0``, and
-``[uidx, pos_nid, neg_nids, history_nids, uid]`` samples. Loading the real
-artifacts is not ported.
+``[uidx, pos_nid, neg_nids, history_nids, uid]`` samples.
+``load_mind_artifacts`` reads them from the reference's ``UserData``
+layout: ``bert_news_index.npy`` and three pickles, which must come from a
+trusted preprocessing run (unpickling runs code).
 """
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -30,6 +34,21 @@ class MindData:
     @property
     def title_len(self) -> int:
         return self.news_tokens.shape[2]
+
+
+def load_mind_artifacts(data_dir: str | Path) -> MindData:
+    """The reference's preprocessed artifacts under ``data_dir``:
+    ``bert_news_index.npy``, ``bert_nid2index.pkl``, ``train_sam_uid.pkl``
+    and ``valid_sam_uid.pkl``."""
+    data_dir = Path(data_dir)
+    news_tokens = np.load(data_dir / "bert_news_index.npy", allow_pickle=True)
+    with open(data_dir / "bert_nid2index.pkl", "rb") as f:
+        nid2index = pickle.load(f)
+    with open(data_dir / "train_sam_uid.pkl", "rb") as f:
+        train_samples = pickle.load(f)
+    with open(data_dir / "valid_sam_uid.pkl", "rb") as f:
+        valid_samples = pickle.load(f)
+    return MindData(news_tokens, nid2index, train_samples, valid_samples)
 
 
 def _synth_news_table(rng, num_news: int, title_len: int, vocab: int):

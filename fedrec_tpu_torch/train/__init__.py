@@ -15,9 +15,11 @@ from fedrec_tpu_torch.train.step import (
     build_eval_step,
     build_fed_train_step,
     build_full_eval_step,
+    build_news_update_step,
     build_param_sync,
     encode_all_news,
     resolve_unique_cap,
+    scatter_add_rows,
     unique_overflow,
 )
 from fedrec_tpu_torch.train.trainer import RoundResult, Trainer
@@ -32,12 +34,14 @@ __all__ = [
     "build_eval_step",
     "build_fed_train_step",
     "build_full_eval_step",
+    "build_news_update_step",
     "build_param_sync",
     "encode_all_news",
     "init_client_state",
     "make_optimizers",
     "replicate_state",
     "resolve_unique_cap",
+    "scatter_add_rows",
     "stack_states",
     "unique_overflow",
     "verify_state_tree",

@@ -3,9 +3,12 @@ counterpart of ``fedrec_tpu/train/checkpoint.py``.
 
 A snapshot holds everything a bitwise resume needs, per client: both
 towers' parameters, both optimizer states (Adam's ``count``, ``mu``,
-``nu``), the step count and the dropout ``torch.Generator``'s state; and
-the round index. The batchers are stateless in ``(seed, epoch)``, so they
-need none. (The reference's params-only snapshot resets Adam's moments on
+``nu``), the step count and the states of the dropout and DP-noise
+``torch.Generator``s; and the round index. The batchers are stateless in
+``(seed, epoch)``, so they need none. Decoupled mode's news-gradient
+accumulators are zero at every round end (each epoch's news update zeroes
+them), so a snapshot leaves them out and a restore drops them; the next
+step allocates them anew. (The reference's params-only snapshot resets Adam's moments on
 resume; the JAX package's holds its PRNG keys for the same reason this one
 holds the generators.)
 
@@ -88,6 +91,7 @@ def _client_snapshot(st: ClientState) -> dict:
         "opt_user": _opt_dict(st.opt_user),
         "opt_news": _opt_dict(st.opt_news),
         "generator": st.generator.get_state(),
+        "noise_generator": st.noise_generator.get_state(),
     }
 
 
@@ -130,6 +134,9 @@ def _load_into(template: list[ClientState], snap: dict) -> list[ClientState]:
                 setattr(st, part, OptState(int(o["count"]), moments(o["mu"]), moments(o["nu"])))
             st.step = int(cs["step"])
             st.generator.set_state(cs["generator"])
+            if "noise_generator" in cs:  # absent from snapshots that predate DP noise
+                st.noise_generator.set_state(cs["noise_generator"])
+            st.news_grad_accum = None
     return template
 
 

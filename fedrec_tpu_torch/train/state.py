@@ -2,7 +2,9 @@
 
 A client's state is its own copy of the two towers (a ``NewsRecommender``
 whose parameters are the client's), one optimizer state per tower, a step
-count and a ``torch.Generator`` for its dropout. K federated clients are a
+count, a ``torch.Generator`` for its dropout and another for its DP noise
+(the JAX step splits one key into the two), and, in decoupled mode, its
+``(N, news_dim)`` f32 news-gradient accumulator. K federated clients are a
 Python list of K states on one device, not a leading axis.
 
 ``make_optimizers`` builds the two optax chains of the JAX package by hand —
@@ -11,9 +13,8 @@ cosine schedule — so that the arithmetic follows optax's step for step:
 the clip scales by ``max_norm / norm`` only when ``norm >= max_norm`` (no
 epsilon, unlike ``torch.nn.utils.clip_grad_norm_``); Adam's moments update
 as ``(1 - b) g + b m``, its bias correction reads the incremented count, and
-the schedule reads the count before the increment. The decoupled mode's
-news-gradient accumulator and the codecs' error-feedback residual are not
-ported yet.
+the schedule reads the count before the increment. The codecs'
+error-feedback residual is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ import torch
 from fedrec_tpu_torch.config import ExperimentConfig
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+# a client's noise stream is seeded this far from its dropout stream, so the
+# two never coincide (dropout seeds are small: train.seed + client)
+_NOISE_SEED_OFFSET = 1 << 32
 
 
 @dataclass
@@ -114,6 +118,11 @@ class ClientState:
     opt_user: OptState
     opt_news: OptState
     generator: torch.Generator = field(repr=False)
+    noise_generator: torch.Generator | None = field(default=None, repr=False)
+    # decoupled mode: the (N, news_dim) f32 per-news-id gradient sum of the
+    # current epoch; allocated by the train step from the table it is given,
+    # zeroed by the epoch-end news update
+    news_grad_accum: torch.Tensor | None = field(default=None, repr=False)
 
     def user_params(self) -> list[torch.Tensor]:
         return list(self.model.user_encoder.parameters())
@@ -133,20 +142,24 @@ def init_client_state(model: torch.nn.Module, cfg: ExperimentConfig, seed: int =
         opt_user=opt_user.init(list(model.user_encoder.parameters())),
         opt_news=opt_news.init(list(model.text_head.parameters())),
         generator=torch.Generator(device=dev).manual_seed(seed),
+        noise_generator=torch.Generator(device=dev).manual_seed(seed + _NOISE_SEED_OFFSET),
     )
 
 
 def replicate_state(state: ClientState, num_clients: int, seed: int = 0) -> list[ClientState]:
     """One init copied to every client, each with its own dropout stream
-    (seeded ``seed + c``): all clients start from identical parameters, as
-    the reference's server broadcasts the initial model."""
+    (seeded ``seed + c``) and noise stream: all clients start from identical
+    parameters, as the reference's server broadcasts the initial model."""
+    dev = state.generator.device
     return [
         ClientState(
             step=state.step,
             model=copy.deepcopy(state.model),
             opt_user=copy.deepcopy(state.opt_user),
             opt_news=copy.deepcopy(state.opt_news),
-            generator=torch.Generator(device=state.generator.device).manual_seed(seed + c),
+            generator=torch.Generator(device=dev).manual_seed(seed + c),
+            noise_generator=torch.Generator(device=dev).manual_seed(
+                seed + c + _NOISE_SEED_OFFSET),
         )
         for c in range(num_clients)
     ]

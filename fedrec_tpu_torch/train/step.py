@@ -1,5 +1,6 @@
-"""The joint-mode federated train step, the round-end parameter sync and the
-corpus encode: the port of ``fedrec_tpu/train/step.py``.
+"""The federated train steps, the epoch-end news update, the round-end
+parameter sync and the corpus encode: the port of
+``fedrec_tpu/train/step.py``.
 
 The joint ("head") step trains both towers end to end over the frozen
 trunk's cached token states, a (N, T, bert_hidden) table on the device:
@@ -15,6 +16,22 @@ trunk's cached token states, a (N, T, bert_hidden) table on the device:
      with ``fuse_hot_path``), then sigmoid-then-CE in f32;
   4. each tower steps its own optimizer chain (``train.state``), after the
      strategy's gradient sync.
+
+The decoupled ("table") step trains the user tower only, on vectors
+gathered from an (N, news_dim) news-vector table: the gathered candidate
+and history vectors are leaves of the gradient (kernel E's dx and dcand
+under ``fuse_hot_path``), and their gradients are summed per news id into
+the client's ``news_grad_accum`` (``scatter_add_rows``: sorted, summed per
+id, then added to those rows; no atomics). At each epoch end
+``build_news_update_step`` replays the accumulator through the text head
+over the whole corpus (kernel A under ``use_pallas``, its backward the
+autograd of the plain pool), steps the news Adam chain once and re-encodes
+the table (reference ``model.py:66-90``).
+
+With ``privacy.enabled`` and ``mechanism='ldp_news'`` the news parts of
+each client's gradients get ``N(0, sigma^2)`` noise before any sync: the
+text head's gradients in joint mode, the candidate and history vectors'
+in decoupled mode (``privacy.dpsgd``).
 
 K clients run in a Python loop on one device. ``build_param_sync`` is the
 round-end weighted mean. The levers the port does not run yet raise
@@ -48,7 +65,10 @@ from fedrec_tpu_torch.eval.metrics import (
 from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg
 from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
 from fedrec_tpu_torch.ops import fused_gather_encode
+from fedrec_tpu_torch.privacy import make_noise_fn
 from fedrec_tpu_torch.train.state import ClientState, make_optimizers
+
+MODES = {"table": "decoupled", "head": "joint", "finetune": "finetune"}
 
 
 def parse_cap_buckets(spec: str) -> list[tuple[int, int]]:
@@ -128,6 +148,21 @@ def take_rows_backward(g: torch.Tensor, inv: torch.Tensor, rows: int) -> torch.T
     return torch.segment_reduce(g[order], "sum", lengths=lengths, unsafe=True)
 
 
+def scatter_add_rows(accum: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
+    """``accum[ids] += rows`` in place with every id's rows summed, as
+    ``np.add.at`` / JAX's ``.at[ids].add``, deterministic on the CPU and the
+    GPU: the ids are sorted once (stable), each distinct id's rows summed
+    left to right (``torch.segment_reduce``), and the sums added to those
+    distinct rows, each written once. (``index_add_`` and
+    ``index_put_(accumulate=True)`` use atomics on the GPU.) The sum order
+    differs from JAX's, which adds each row to the accumulator in turn."""
+    order = torch.argsort(ids, stable=True)
+    uniq, counts = torch.unique_consecutive(ids[order], return_counts=True)
+    sums = torch.segment_reduce(rows[order].to(accum.dtype), "sum", lengths=counts,
+                                unsafe=True)
+    accum.index_copy_(0, uniq, accum.index_select(0, uniq) + sums)
+
+
 class _TakeRows(torch.autograd.Function):
     """``vecs[inv]`` with a deterministic backward (``take_rows_backward``).
     Indexing's own backward accumulates with atomics on the GPU and with
@@ -176,17 +211,25 @@ def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
 
 def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
     """Fail at build time, naming the lever, for what the port cannot run:
-    the one list of refusals, which the train step and ``Trainer`` share."""
-    if mode != "joint":
-        item = {"decoupled": 3, "finetune": 8}.get(mode)
+    the one list of refusals, which the train step, ``Trainer`` and the run
+    CLI share."""
+    if mode not in ("joint", "decoupled"):
+        item = {"finetune": 8}.get(mode)
         raise NotImplementedError(
             f"train mode {mode!r} (model.text_encoder_mode="
             f"{cfg.model.text_encoder_mode!r}) is not ported; the port trains "
-            "model.text_encoder_mode='head' (joint)"
+            "model.text_encoder_mode='head' (joint) and 'table' (decoupled)"
             + (f"; {mode} mode is ROADMAP.md's Queue A item {item}" if item else "")
         )
+    if cfg.privacy.enabled and cfg.privacy.mechanism == "dpsgd" and mode == "joint":
+        # decoupled mode refuses dpsgd with the JAX package's ValueError
+        # (_noise_hook)
+        raise NotImplementedError(
+            "privacy.enabled with privacy.mechanism='dpsgd' (per-example DP-SGD) is not "
+            "ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A item 6); use "
+            "mechanism='ldp_news' in decoupled mode, or unset privacy.enabled"
+        )
     levers = [
-        ("privacy.enabled", cfg.privacy.enabled),
         ("fed.seq_shards>1", cfg.fed.seq_shards > 1),
         ("shard.table", cfg.shard.table),
         ("chaos.enabled", cfg.chaos.enabled),
@@ -198,6 +241,47 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
     for name, on in levers:
         if on:
             raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")
+
+
+def refuse_unported(cfg: ExperimentConfig) -> None:
+    """``_refuse_unported`` for the mode ``cfg`` names: the run CLI's check
+    before it loads data."""
+    _refuse_unported(cfg, MODES.get(cfg.model.text_encoder_mode, "joint"))
+
+
+def _noise_hook(cfg: ExperimentConfig, mode: str) -> Callable | None:
+    """The privacy checks of the JAX step builder, then the noise hook
+    (``privacy.make_noise_fn``: ``sigma <= 0`` raises), or None."""
+    p = cfg.privacy
+    if not p.enabled:
+        return None
+    use_dpsgd = p.mechanism == "dpsgd"
+    if use_dpsgd and mode != "joint":
+        # decoupled mode has no per-example clipping path; noising
+        # unclipped grads with a DP-SGD-calibrated sigma would claim an
+        # (epsilon, delta) guarantee that does not hold
+        raise ValueError(
+            "mechanism='dpsgd' requires mode='joint'; use mechanism='ldp_news' "
+            "(reference-parity noise, no rigorous epsilon) for decoupled mode"
+        )
+    if p.dp_scope not in ("all", "user"):
+        raise ValueError(f"unknown privacy.dp_scope {p.dp_scope!r}; expected 'all' or 'user'")
+    if p.dp_scope == "user" and not use_dpsgd:
+        raise ValueError(
+            "privacy.dp_scope='user' requires mechanism='dpsgd' — ldp_news "
+            "noises only the news grads, which contradicts a user-only scope"
+        )
+    return make_noise_fn(p, cfg.data.batch_size)
+
+
+def _optimizer_step(tx, st: ClientState, which: str, params, grads) -> None:
+    """One step of chain ``tx`` on ``params`` with ``grads``; the new state
+    goes to ``st.<which>`` (``opt_user`` or ``opt_news``)."""
+    updates, new_opt = tx.update(grads, getattr(st, which), params)
+    setattr(st, which, new_opt)
+    with torch.no_grad():
+        for p, u in zip(params, updates):
+            p.add_(u)
 
 
 def _as_device(a: Any, device: torch.device) -> torch.Tensor:
@@ -213,13 +297,20 @@ def build_fed_train_step(
 ) -> Callable:
     """The per-batch federated train step.
 
-    Returns ``step(states, batch, token_states) -> (states, metrics)``:
-    ``states`` is the list of K ``ClientState``s (updated in place and
-    returned), ``batch`` a dict of ``(K, B, ...)`` ``candidates`` /
-    ``history`` / ``labels`` arrays (numpy or tensors), ``token_states`` the
-    (N, T, bert_hidden) frozen-trunk table on ``device``. ``metrics`` holds
+    Returns ``step(states, batch, table) -> (states, metrics)``: ``states``
+    is the list of K ``ClientState``s (updated in place and returned),
+    ``batch`` a dict of ``(K, B, ...)`` ``candidates`` / ``history`` /
+    ``labels`` arrays (numpy or tensors), ``table`` on ``device``: the
+    (N, T, bert_hidden) frozen-trunk token states in joint mode, the
+    (N, news_dim) news-vector table in decoupled mode. ``metrics`` holds
     each client's ``loss`` (K,), their ``mean_loss`` and ``unique_overflow``
-    (how many clients' batches held more distinct ids than the cap).
+    (how many clients' batches held more distinct ids than the cap; 0 in
+    decoupled mode, which encodes nothing).
+
+    ``mode`` defaults to the one ``model.text_encoder_mode`` names ("head"
+    -> "joint", "table" -> "decoupled"). In decoupled mode each client's
+    ``news_grad_accum`` is allocated at its first step, (N, news_dim) f32,
+    and the text head does not move (``build_news_update_step`` steps it).
 
     ``model`` is the clients' architecture (``model.cfg``); the step runs
     each client's own copy. ``device`` defaults to ``cuda`` and raises
@@ -227,45 +318,75 @@ def build_fed_train_step(
     """
     dev = resolve_device(device)
     if mode is None:
-        mode = {"table": "decoupled", "head": "joint", "finetune": "finetune"}.get(
-            cfg.model.text_encoder_mode, "joint"
-        )
+        mode = MODES.get(cfg.model.text_encoder_mode, "joint")
     _refuse_unported(cfg, mode)
+    noise_fn = _noise_hook(cfg, mode)
     opt_user, opt_news = make_optimizers(cfg)
     fused = model.cfg.fuse_hot_path and model.cfg.text_head_arch == "additive"
     sigmoid_ce = cfg.model.sigmoid_before_ce
+    joint = mode == "joint"
 
-    def step(states: list[ClientState], batch: dict, token_states: torch.Tensor):
+    def joint_grads(st: ClientState, cand, hist, lab, token_states, cap: int):
+        m = st.model
+        user_p, news_p = st.user_params(), st.news_params()
+        cand_vecs, his_vecs = _batch_news_vecs(m, token_states, cand, hist, cap, fused)
+        scores = m(cand_vecs, his_vecs, None, train=True, generator=st.generator)
+        loss = score_loss(scores, lab, sigmoid_ce)
+        grads = torch.autograd.grad(loss, user_p + news_p, allow_unused=True)
+        user_g, news_g = grads[:len(user_p)], grads[len(user_p):]
+        if noise_fn is not None:
+            # an unused leaf's gradient is zero, and noised as one
+            news_g = [torch.zeros_like(p) if g is None else g for g, p in zip(news_g, news_p)]
+            user_g, news_g = noise_fn((user_g, news_g), st.noise_generator)
+        return loss, user_g, news_g
+
+    def decoupled_grads(st: ClientState, cand, hist, lab, table):
+        # the gathered vectors are the gradient's leaves; the table is not
+        cand_vecs0 = table[cand.long()].requires_grad_()
+        his_vecs0 = table[hist.long()].requires_grad_()
+        scores = st.model(cand_vecs0, his_vecs0, None, train=True, generator=st.generator)
+        loss = score_loss(scores, lab, sigmoid_ce)
+        user_p = st.user_params()
+        grads = torch.autograd.grad(loss, [*user_p, cand_vecs0, his_vecs0], allow_unused=True)
+        user_g, (cand_g, his_g) = grads[:len(user_p)], grads[len(user_p):]
+        if noise_fn is not None:
+            user_g, cand_g, his_g = noise_fn((user_g, cand_g, his_g), st.noise_generator)
+        # per-nid scatter-add (reference process_news_grad, main.py:20-42)
+        n, d = table.shape
+        if st.news_grad_accum is None:
+            st.news_grad_accum = torch.zeros((n, d), dtype=torch.float32, device=dev)
+        elif st.news_grad_accum.shape != (n, d):
+            raise ValueError(f"news_grad_accum {tuple(st.news_grad_accum.shape)} does not "
+                             f"match the table {(n, d)}")
+        ids = torch.cat([cand.reshape(-1), hist.reshape(-1)]).long()
+        rows = torch.cat([cand_g.reshape(-1, d), his_g.reshape(-1, d)])
+        scatter_add_rows(st.news_grad_accum, ids, rows)
+        return loss, user_g, None
+
+    def step(states: list[ClientState], batch: dict, table: torch.Tensor):
         cands = _as_device(batch["candidates"], dev)
         hists = _as_device(batch["history"], dev)
         labels = _as_device(batch["labels"], dev)
         if cands.shape[0] != len(states):
             raise ValueError(f"batch holds {cands.shape[0]} clients, states {len(states)}")
-        cap = resolve_unique_cap(cfg, labels.shape[1])
-        n_news = token_states.shape[0]
+        cap = resolve_unique_cap(cfg, labels.shape[1]) if joint else 0
         losses, user_g, news_g, overflow = [], [], [], 0
         for st, cand, hist, lab in zip(states, cands, hists, labels):
-            m = st.model
-            params = st.user_params() + st.news_params()
-            cand_vecs, his_vecs = _batch_news_vecs(m, token_states, cand, hist, cap, fused)
-            scores = m(cand_vecs, his_vecs, None, train=True, generator=st.generator)
-            loss = score_loss(scores, lab, sigmoid_ce)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            nu = len(st.user_params())
+            if joint:
+                loss, ug, ng = joint_grads(st, cand, hist, lab, table, cap)
+                overflow += unique_overflow(cand, hist, cap, table.shape[0]) if cap else 0
+            else:
+                loss, ug, ng = decoupled_grads(st, cand, hist, lab, table)
             losses.append(loss.detach())
-            user_g.append(grads[:nu])
-            news_g.append(grads[nu:])
-            overflow += unique_overflow(cand, hist, cap, n_news) if cap else 0
+            user_g.append(ug)
+            news_g.append(ng)
         user_g = strategy.sync_grads(user_g)
-        news_g = strategy.sync_grads(news_g)
+        if joint:
+            news_g = strategy.sync_grads(news_g)
         for st, ug, ng in zip(states, user_g, news_g):
-            for tx, which, grads in ((opt_user, "opt_user", ug), (opt_news, "opt_news", ng)):
-                params = st.user_params() if which == "opt_user" else st.news_params()
-                updates, new_opt = tx.update(grads, getattr(st, which), params)
-                setattr(st, which, new_opt)
-                with torch.no_grad():
-                    for p, u in zip(params, updates):
-                        p.add_(u)
+            _optimizer_step(opt_user, st, "opt_user", st.user_params(), ug)
+            if joint:
+                _optimizer_step(opt_news, st, "opt_news", st.news_params(), ng)
             st.step += 1
         loss_vec = torch.stack(losses)
         return states, {
@@ -275,6 +396,81 @@ def build_fed_train_step(
         }
 
     return step
+
+
+def _head_grads(model: NewsRecommender, token_states: torch.Tensor, cotangent: torch.Tensor,
+                chunk: int, dev: torch.device) -> list[torch.Tensor]:
+    """The vector-Jacobian product of the corpus encode with ``cotangent``
+    (N, news_dim): the text head's gradients, ``chunk`` rows at a time.
+    Each chunk runs the head forward (kernel A under ``use_pallas``) and its
+    backward at once, so one chunk's activations live at a time, and the
+    chunks' gradients are summed in chunk order (``encode_all_news`` runs
+    without a graph)."""
+    params = list(model.text_head.parameters())
+    total = [torch.zeros_like(p) for p in params]
+    for start in range(0, token_states.shape[0], chunk):
+        with torch.enable_grad():
+            vecs = model.encode_news(token_states[start:start + chunk].to(dev))
+            grads = torch.autograd.grad(
+                vecs, params, cotangent[start:start + vecs.shape[0]].to(vecs.dtype),
+                allow_unused=True)
+        for t, g in zip(total, grads):
+            if g is not None:
+                t.add_(g)
+    return total
+
+
+def build_news_update_step(
+    model: NewsRecommender,
+    cfg: ExperimentConfig,
+    strategy: FedStrategy | None = None,
+    chunk: int = 2048,
+    device: str | torch.device | None = None,
+) -> Callable:
+    """Epoch-end news-head update for ``decoupled`` mode.
+
+    Returns ``update(states, token_states) -> (states, tables)``. For every
+    client it replays the accumulated per-nid embedding gradients through
+    the text head — the vector-Jacobian product of the corpus encode with
+    ``news_grad_accum`` as cotangent, semantically the reference's
+    ``update_news_grad`` (``model.py:72-90``: forward touched news, then
+    ``news_vecs.backward(news_grad)``, then an Adam step) — takes one step of
+    the news Adam chain, re-encodes the corpus into that client's new
+    (N, news_dim) table and zeroes its accumulator. All news rows take part
+    (an untouched row's zero cotangent adds nothing), so no touched-rows
+    gather is needed; the head gradient is summed over ``chunk``-row chunks
+    in chunk order (``_head_grads``).
+
+    Under ``GradAvg`` the head gradients are averaged over clients
+    (``sync_grads``) before the Adam step: the accumulator and the product
+    are linear, so averaging once here equals averaging the per-step
+    embedding gradients. ``tables`` holds every client's new table; the
+    trainer keeps client 0's for every client's next epoch, as the JAX
+    trainer does. ``device`` defaults to ``cuda`` and raises without a GPU
+    unless ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    _, opt_news = make_optimizers(cfg)
+    strategy = strategy or FedStrategy()
+    d = model.cfg.news_dim
+
+    def update(states: list[ClientState], token_states: torch.Tensor):
+        n = token_states.shape[0]
+        head_g = []
+        for st in states:
+            accum = st.news_grad_accum
+            if accum is None:
+                accum = st.news_grad_accum = torch.zeros((n, d), dtype=torch.float32, device=dev)
+            head_g.append(_head_grads(st.model, token_states, accum, chunk, dev))
+        head_g = strategy.sync_grads(head_g)
+        tables = []
+        for st, grads in zip(states, head_g):
+            _optimizer_step(opt_news, st, "opt_news", st.news_params(), grads)
+            tables.append(encode_all_news(st.model, token_states, chunk, device=dev))
+            st.news_grad_accum.zero_()
+        return states, tables
+
+    return update
 
 
 def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None) -> Callable:

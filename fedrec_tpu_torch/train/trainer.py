@@ -1,18 +1,31 @@
 """The federated round loop, the port of ``fedrec_tpu/train/trainer.py``'s
-flat path: a fixed world of ``fed.num_clients`` clients on one card, joint
-("head") mode over the frozen trunk's cached token states, no cohorts,
-chaos, codecs or server optimizer.
+flat path: a fixed world of ``fed.num_clients`` clients on one card, in
+joint ("head") or decoupled ("table", the default) mode over the frozen
+trunk's cached token states, no cohorts, chaos, codecs or server optimizer.
 
 A run is ``fed.rounds`` rounds. A round draws its participation weights,
-runs ``fed.local_epochs`` epochs of the joint train step (kernels C, D, B
-and E under ``model.fuse_hot_path``) over the batcher's per-client shards,
-takes the strategy's round-end mean, and every ``train.eval_every`` rounds
-evaluates: the corpus encode (kernel A under ``model.use_pallas``), then the
-validation impressions under ``train.eval_protocol`` (user vectors from
-kernel B). ``run`` snapshots every ``train.save_every`` rounds and at the
-last, keeps the best-AUC round under ``train.keep_best``, and resumes from
-the newest snapshot bitwise. ``export_for_serving`` hands client 0's user
-tower and news table to ``serving.store`` / ``serve.build_recommend_fn``.
+runs ``fed.local_epochs`` epochs of the train step over the batcher's
+per-client shards, takes the strategy's round-end mean, and every
+``train.eval_every`` rounds evaluates: the corpus encode (kernel A under
+``model.use_pallas``), then the validation impressions under
+``train.eval_protocol`` (user vectors from kernel B). ``run`` snapshots
+every ``train.save_every`` rounds and at the last, keeps the best-AUC round
+under ``train.keep_best``, and resumes from the newest snapshot bitwise.
+``export_for_serving`` hands client 0's user tower and news table to
+``serving.store`` / ``serve.build_recommend_fn``.
+
+Joint mode: each step runs kernels C, D, B and E under
+``model.fuse_hot_path``. Decoupled mode: each step trains the user tower
+on an (N, news_dim) news-vector table (kernels B and E), and each epoch
+ends with the news update (``train.step.build_news_update_step``: kernel
+A), after which every client trains its next epoch on client 0's new
+table, as in the JAX trainer, also under ``local``. The table is cached:
+built at the first epoch from client 0's text head, replaced after each
+news update, re-encoded after the round-end mean of a strategy that syncs
+parameters and by ``set_global_params``. Evaluation and the export reuse
+it; a client other than 0 evaluated on its own (the clients out of sync)
+gets a fresh encode of its own head. A restore happens only in
+``__init__``, before the first table is built.
 
 The levers this trainer does not run are refused by name at construction
 (``train.step._refuse_unported``). Observability is a print per round.
@@ -39,7 +52,9 @@ from fedrec_tpu_torch.train.state import init_client_state, replicate_state
 from fedrec_tpu_torch.train.step import (
     build_eval_step,
     build_fed_train_step,
+    MODES,
     build_full_eval_step,
+    build_news_update_step,
     build_param_sync,
     encode_all_news,
 )
@@ -99,7 +114,13 @@ class Trainer:
         model = init_params(NewsRecommender(cfg.model), seed=cfg.train.seed).to(self.dev)
         self.states = replicate_state(init_client_state(model, cfg, cfg.train.seed),
                                       cfg.fed.num_clients, cfg.train.seed + 1)
-        self.train_step = build_fed_train_step(model, cfg, self.strategy, device=self.dev)
+        self.mode = MODES.get(cfg.model.text_encoder_mode, "joint")
+        self.train_step = build_fed_train_step(model, cfg, self.strategy, mode=self.mode,
+                                               device=self.dev)
+        self.news_update = (build_news_update_step(model, cfg, self.strategy, device=self.dev)
+                            if self.mode == "decoupled" else None)
+        # decoupled mode's news-vector table (client 0's head), built lazily
+        self._table: torch.Tensor | None = None
         self.param_sync = build_param_sync(cfg, self.strategy)
         self.eval_step = build_eval_step(cfg, device=self.dev)
         self.full_eval_step = build_full_eval_step(device=self.dev)
@@ -188,6 +209,8 @@ class Trainer:
         for st in self.states:
             from_flax(st.model.user_encoder, user_params)
             from_flax(st.model.text_head, news_params)
+        if self.mode == "decoupled":
+            self._refresh_table()
 
     def _clients_in_sync(self) -> bool:
         """True when every client holds bitwise-identical parameters (after
@@ -199,9 +222,37 @@ class Trainer:
                 for st in self.states[1:] for p, q in zip(ref, st.model.parameters())]
         return bool(torch.stack(same).all())
 
-    def _encode_corpus(self, client: int) -> torch.Tensor:
+    def _encode_states(self, client: int) -> torch.Tensor:
         """The (N, D) news table through ``client``'s text head."""
         return encode_all_news(self.states[client].model, self.token_states, device=self.dev)
+
+    def _refresh_table(self) -> torch.Tensor:
+        self._table = self._encode_states(0)
+        return self._table
+
+    def _encode_corpus(self, client: int = 0) -> torch.Tensor:
+        """The (N, D) news table of ``client``'s head; in decoupled mode the
+        cached table, which the round loop just rebuilt from client 0's
+        head (a second corpus encode an eval round would double its cost)."""
+        if self.mode == "decoupled" and self._table is not None:
+            return self._table
+        return self._encode_states(client)
+
+    def _corpus_for(self, client: int) -> torch.Tensor:
+        # only decoupled mode caches a (client-0) table that another client
+        # must bypass
+        if client != 0 and self.mode == "decoupled":
+            return self._encode_states(client)
+        return self._encode_corpus(client)
+
+    def _feature_table(self) -> torch.Tensor:
+        """What the train step reads: the token states in joint mode, the
+        cached news-vector table in decoupled mode."""
+        if self.mode == "joint":
+            return self.token_states
+        if self._table is None:
+            self._refresh_table()
+        return self._table
 
     def _aggregate_eval(self, eval_one: Callable[[int], dict]) -> dict[str, float]:
         """Client 0's metrics when the clients are in sync; otherwise the
@@ -264,13 +315,19 @@ class Trainer:
         means, losses, overflow = [], [], 0
         for local_epoch in range(cfg.fed.local_epochs):
             epoch_idx = round_idx * cfg.fed.local_epochs + local_epoch
+            table = self._feature_table()
             for b in self.batcher.epoch_batches_sharded(cfg.fed.num_clients, epoch_idx):
                 batch = {"candidates": b.candidates, "history": b.history, "labels": b.labels}
-                self.states, metrics = self.train_step(self.states, batch, self.token_states)
+                self.states, metrics = self.train_step(self.states, batch, table)
                 means.append(metrics["mean_loss"])
                 losses.append(metrics["loss"])
                 overflow += metrics["unique_overflow"]
+            if self.mode == "decoupled":
+                self.states, tables = self.news_update(self.states, self.token_states)
+                self._table = tables[0]
         self.states = self.param_sync(self.states, weights)
+        if self.mode == "decoupled" and self.strategy.sync_params_every_round:
+            self._refresh_table()
         # one host read of the round's losses
         train_loss = self._round_loss_mean(torch.stack(means).cpu().numpy(),
                                            torch.stack(losses).cpu().numpy())
@@ -303,7 +360,7 @@ class Trainer:
         if client is None:
             return self._aggregate_eval(lambda c: self.evaluate(client=c))
         user = self.states[client].model.user_encoder
-        table = self._encode_corpus(client)
+        table = self._corpus_for(client)
         n = len(self.valid_ix)
         bsz = min(n, _EVAL_BATCH)
         vb = TrainBatcher(self.valid_ix, batch_size=bsz, npratio=self.cfg.data.npratio,
@@ -335,7 +392,7 @@ class Trainer:
             return self._aggregate_eval(
                 lambda c: self.evaluate_full(last_k=last_k, client=c))
         user = self.states[client].model.user_encoder
-        table = self._encode_corpus(client)
+        table = self._corpus_for(client)
 
         ix = self.valid_ix
         n = len(ix)

@@ -1,0 +1,124 @@
+"""The port's run CLI (``python -m fedrec_tpu_torch.cli.run``) against the JAX
+package's (``fedrec_tpu.cli.run``): for the same argv, both CLIs hand their
+``Trainer`` the same configuration, data and token states (each ``Trainer``
+stubbed; nothing trains), and the port's runs a tiny decoupled run on the
+CPU to its ``final:`` line. Data: tiny reference-layout artifacts the test
+writes, or ``--synthetic``."""
+
+import dataclasses
+import pickle
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import fedrec_tpu.train.trainer as jax_trainer_module
+import fedrec_tpu_torch.train.trainer as trainer_module
+from fedrec_tpu.cli import run as jax_run
+from fedrec_tpu_torch.cli import run
+from fedrec_tpu_torch.data import make_synthetic_mind
+from fedrec_tpu_torch.device import NoGPUError
+
+_SMALL = ["--set", "model.news_dim=32", "--set", "model.num_heads=4", "--set",
+          "model.head_dim=8", "--set", "model.query_dim=16", "--set", "model.bert_hidden=48",
+          "--set", "data.max_his_len=10", "--set", "data.max_title_len=12"]
+# the port defaults the sentry off: it has none to run (config.py)
+_DIFFER_BY_DESIGN = {"obs.health.sentry"}
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    d = tmp_path_factory.mktemp("UserData")
+    data = make_synthetic_mind(num_news=40, num_train=48, num_valid=8, title_len=6,
+                               his_len_range=(1, 10), seed=1)
+    np.save(d / "bert_news_index.npy", data.news_tokens)
+    for name, obj in (("bert_nid2index.pkl", data.nid2index),
+                      ("train_sam_uid.pkl", data.train_samples),
+                      ("valid_sam_uid.pkl", data.valid_samples)):
+        with open(d / name, "wb") as f:
+            pickle.dump(obj, f)
+    return d
+
+
+def _stub(sink: dict, key: str):
+    class Stub:
+        def __init__(self, cfg, data, token_states, **kw):
+            sink[key] = (cfg, data, token_states)
+
+        def run(self):
+            return []
+
+    return Stub
+
+
+def _assert_same_config(port, ref, path: str = "") -> None:
+    """Every field of the port's config equals the JAX config's field of
+    the same name."""
+    for f in dataclasses.fields(port):
+        where = f"{path}.{f.name}" if path else f.name
+        mine, theirs = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(mine):
+            _assert_same_config(mine, theirs, where)
+        elif where not in _DIFFER_BY_DESIGN:
+            assert mine == theirs, f"{where}: port {mine!r}, JAX {theirs!r}"
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--mode", "joint", "--clients", "4"],
+    ["--dp-epsilon", "8", "--clients", "4"],
+    ["--local-epochs", "2", "--participation", "0.5", "--clients", "2"],
+    ["--strategy", "coordinator", "--clients", "4"],
+    ["--synthetic", "--synthetic-news", "64", "--synthetic-train", "96", "--clients", "3",
+     "--set", "fed.rounds=5", "--set", "data.npratio=3", *_SMALL],
+], ids=["default", "joint", "dp_epsilon", "epochs_participation", "coordinator", "set"])
+def test_cli_hands_its_trainer_what_the_jax_cli_hands_its_own(monkeypatch, capsys, artifacts,
+                                                             extra):
+    got: dict = {}
+    monkeypatch.setattr(jax_trainer_module, "Trainer", _stub(got, "jax"))
+    monkeypatch.setattr(trainer_module, "Trainer", _stub(got, "port"))
+    argv = ["2", "8", "1", "--data-dir", str(artifacts), *extra]
+    assert jax_run.main(argv) == 0
+    assert run.main([*argv, "--device", "cpu"]) == 0
+    (pcfg, pdata, ptoks), (jcfg, jdata, jtoks) = got["port"], got["jax"]
+    if "--clients" not in extra:  # the device count: JAX's fake CPU mesh, one CPU here
+        assert (pcfg.fed.num_clients, jcfg.fed.num_clients) == (1, len(jax.local_devices()))
+        pcfg.fed.num_clients = jcfg.fed.num_clients
+    _assert_same_config(pcfg, jcfg)
+    np.testing.assert_array_equal(pdata.news_tokens, jdata.news_tokens)
+    assert pdata.nid2index == jdata.nid2index
+    assert pdata.train_samples == jdata.train_samples
+    assert pdata.valid_samples == jdata.valid_samples
+    assert ptoks.dtype == jtoks.dtype and np.array_equal(ptoks, jtoks)
+    if "--dp-epsilon" in extra:
+        assert pcfg.privacy.enabled and pcfg.privacy.mechanism == "ldp_news"
+        assert pcfg.privacy.sigma > 0
+    assert "final:" not in capsys.readouterr().out  # the stubs ran no round
+
+
+def test_cli_runs_a_decoupled_run_on_the_cpu(tmp_path, capsys):
+    argv = ["2", "8", "1", "--synthetic", "--synthetic-news", "64", "--synthetic-train", "64",
+            "--clients", "2", "--device", "cpu", "--dp-epsilon", "8", *_SMALL,
+            "--set", f"train.snapshot_dir={tmp_path}"]
+    assert run.main(argv) == 0
+    out = capsys.readouterr().out
+    final = [ln for ln in out.splitlines() if ln.startswith("final: ")]
+    assert len(final) == 1, out
+    fields = dict(kv.split("=") for kv in final[0].removeprefix("final: ").split())
+    assert np.isfinite(float(fields["loss"])) and 0.0 <= float(fields["auc"]) <= 1.0
+    assert sorted(p.name for p in tmp_path.glob("round_*")) == ["round_0", "round_1"]
+
+
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--mode", "joint", "--dp-epsilon", "8", "--device", "cpu"], NotImplementedError,
+     "mechanism='dpsgd'.*Queue A item 6"),
+    (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu"],
+     NotImplementedError, "--agg-server.*Queue A item 9"),
+    (["--obs-dir", "obs", "--device", "cpu"], NotImplementedError, "Queue A item 10"),
+    ([], NoGPUError, "no CUDA device"),
+])
+def test_cli_refuses_what_the_port_cannot_run(monkeypatch, artifacts, argv, exc, match):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(exc, match=match):
+        run.main(["2", "8", "1", "--data-dir", str(artifacts), *argv])

@@ -168,7 +168,7 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
     for lever in ("privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-                  "obs.health.sentry=1", "data.gather_chunk=64", "model.text_encoder_mode=table"):
+                  "obs.health.sentry=1", "data.gather_chunk=64"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head", lever])
         name = lever.split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):

@@ -271,7 +271,7 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
     "obs.health.sentry=1", "data.gather_chunk=64", "model.text_head_arch=cnn",
-    "model.text_encoder_mode=table", "model.text_encoder_mode=finetune",
+    "model.text_encoder_mode=finetune",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
     cfg = _tiny().apply_overrides([lever])
@@ -279,8 +279,8 @@ def test_trainer_refuses_unported_levers_by_name(lever):
     name = lever.split("=")[0].split(".")[-1]
     with pytest.raises(NotImplementedError, match=name) as e:
         Trainer(cfg, data, toks, device="cpu")
-    if lever == "model.text_encoder_mode=table":
-        assert "Queue A item 3" in str(e.value)
+    if lever == "privacy.enabled=1":  # the default mechanism, per-example DP-SGD
+        assert "mechanism='dpsgd'" in str(e.value) and "Queue A item 6" in str(e.value)
 
 
 def test_trainer_rejects_an_unknown_eval_protocol():
