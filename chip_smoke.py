@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives five paths at full width through the entry points a user calls:
+then drives six paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -38,7 +38,19 @@ then drives five paths at full width through the entry points a user calls:
   route, a 2-round run resumed to 3, a repeat (both bitwise), the export
   served; one ldp_news round against the same round without noise (the
   user tower bitwise equal); and ``fedrec_tpu_torch.cli.run`` in this
-  process, decoupled, ``--mode joint`` and ``--dp-epsilon 8``.
+  process, decoupled, ``--mode joint`` and ``--dp-epsilon 8``;
+* ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
+  ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
+  the token states written once as a 10.07 GB ``.npy``, the snapshot
+  published through ``publish_from_checkpoint`` (kernel A), the TCP server
+  driven by a ``ServingClientPool`` in waves of 1-128 requests (kernel B)
+  while ``{"cmd": "refresh"}`` swaps in the next round's snapshot; k-means
+  two-stage retrieval over the 65,536 news (256 clusters, 16 probed)
+  against a plain per-row rerank, recall by ``n_probe``; the serve CLI's
+  million-item mode (``--synthetic 1000000 --clusters 1024 --n-probe 64``)
+  in process; ``fedrec_tpu_torch.cli.recommend`` over a synthetic artifact
+  directory of 8,192 users; and the client against a server restart and
+  a server that never answers.
 
 Every phase prints one JSON line; any failure exits non-zero without the
 final result line. The last line is
@@ -52,12 +64,15 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,long_path
   python3 chip_smoke.py --phases build,kernels,trainer_path
   python3 chip_smoke.py --phases build,kernels,decoupled_path
+  python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -69,8 +84,8 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
-          "decoupled_path")
-PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path")
+          "decoupled_path", "serving_path")
+PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "serving_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
@@ -2247,11 +2262,578 @@ def phase_decoupled_path(state: dict, args) -> dict:
     }
 
 
+# ------------------------------------------------------------ serving_path
+class _PathLaunches:
+    """Kernel launches summed over the segments of a path: each segment
+    starts from counts of 0 and adds what it launched. The checks between
+    segments (a kernel against its plain version, the plain routes) are
+    outside every segment, so they count nothing."""
+
+    def __init__(self):
+        self.total: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def segment(self):
+        import torch
+        from fedrec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+        reset_launch_counts()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            for name, n in launch_counts().items():
+                self.total[name] = self.total.get(name, 0) + n
+
+
+def _write_token_states(tokens, path: Path, chunk: int) -> float:
+    """The token states as one ``.npy`` on disk (10.07 GB at full size),
+    written chunk by chunk from the card; fails loudly when the disk cannot
+    hold it. Returns the seconds it took."""
+    import shutil
+
+    need = tokens.numel() * tokens.element_size()
+    free = shutil.disk_usage(path.parent).free
+    check(free > need + (1 << 30), f"{path.parent} has {free / 1e9:.2f} GB free; the token "
+                                   f"states need {need / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    out = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=tuple(tokens.shape))
+    for s in range(0, tokens.shape[0], chunk):
+        out[s:s + chunk] = tokens[s:s + chunk].cpu().numpy()
+    out.flush()
+    del out
+    return time.perf_counter() - t0
+
+
+def _write_artifacts(data, directory: Path) -> None:
+    """The reference UserData layout of ``data`` (``data/mind.py``'s loader)."""
+    import pickle
+
+    directory.mkdir()
+    np.save(directory / "bert_news_index.npy", data.news_tokens)
+    for name, obj in (("bert_nid2index.pkl", data.nid2index),
+                      ("train_sam_uid.pkl", data.train_samples),
+                      ("valid_sam_uid.pkl", data.valid_samples)):
+        with open(directory / name, "wb") as f:
+            pickle.dump(obj, f)
+
+
+def _plain_scores(tower, table, hist, top_k: int):
+    """``_plain_recommend`` for a bare user tower: plain versions only."""
+    import torch
+    from fedrec_tpu_torch.ops import fused_history_score_plain
+
+    n = table.shape[0]
+    his = table[hist.clamp(0, n - 1)]
+    _, user = fused_history_score_plain(his, None, None, tower.fused_weights(his.dtype),
+                                        tower.num_heads)
+    scores = user.float() @ table.float().T
+    invalid = torch.zeros_like(scores, dtype=torch.bool)
+    invalid[:, 0] = True
+    rows = torch.arange(hist.shape[0], device=hist.device)[:, None]
+    invalid[rows, hist.clamp(0, n - 1)] = True
+    scores = scores.masked_fill(invalid, torch.finfo(torch.float32).min)
+    return torch.topk(scores, top_k + 1, dim=1)
+
+
+def _plain_rerank(index, user_vec, hist, top_k: int):
+    """The two-stage route again, one row at a time: the probe, the
+    member gather, a product and sum per candidate, the history and padding
+    masks from Python sets, the top k."""
+    import torch
+
+    neg = torch.finfo(torch.float32).min
+    n = index.news_vecs.shape[0]
+    ids_out, scores_out = [], []
+    for b in range(user_vec.shape[0]):
+        u = user_vec[b]
+        probe = torch.topk(index.centroids @ u, index.n_probe).indices
+        cand = index.members[probe].reshape(-1)
+        scores = (index.news_vecs[cand.clamp(0, n - 1)].float() * u).sum(-1)
+        clicked = set(hist[b].tolist())
+        bad = torch.tensor([c < 0 or c in clicked for c in cand.tolist()], device=u.device)
+        top = torch.topk(scores.masked_fill(bad, neg), top_k)
+        ids = torch.where(top.values <= neg, -1, cand[top.indices])
+        ids_out.append(ids)
+        scores_out.append(top.values)
+    return torch.stack(ids_out).to(torch.int32), torch.stack(scores_out)
+
+
+def _bucket_ms(call, make_hist, buckets, reps: int) -> dict:
+    """Median host milliseconds of ``call(hist)`` to results on the host,
+    per bucket size."""
+    out = {}
+    for b in buckets:
+        hist = make_hist(b)
+        call(hist)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call(hist)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[b] = float(np.median(times))
+    return out
+
+
+def _timeline(pairs, t_start: float, t_end: float, step_s: float) -> list:
+    """``[seconds from t_start, largest value]`` of the ``(time, value)``
+    pairs in each ``step_s`` window of ``[t_start, t_end)``."""
+    worst: dict[int, float] = {}
+    for t, v in pairs:
+        if t_start <= t < t_end:
+            k = int((t - t_start) // step_s)
+            worst[k] = max(worst.get(k, 0.0), v)
+    return [[k * step_s, worst[k]] for k in sorted(worst)]
+
+
+class _StallProbe:
+    """Where serving waits while a refresh runs: the host time of each
+    scorer call (the batcher makes it on the event loop) and the oversleep
+    of a bare Python thread that sleeps 5 ms at a time. A stall the thread
+    shares is the interpreter lock or the whole process standing still; one
+    it does not share is the loop's thread blocked in native code."""
+
+    def __init__(self, service):
+        import threading
+
+        self.calls: list[tuple[float, float]] = []
+        self.ticks: list[tuple[float, float]] = []
+        score = service.batcher._score
+
+        def timed(hist):
+            t0 = time.monotonic()
+            out = score(hist)
+            self.calls.append((t0, (time.monotonic() - t0) * 1e3))
+            return out
+
+        service.batcher._score = timed
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._tick, daemon=True)
+        self._thread.start()
+
+    def _tick(self):
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            time.sleep(0.005)
+            self.ticks.append((t0, (time.monotonic() - t0 - 0.005) * 1e3))
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(5)
+
+
+def _percentiles(values) -> dict:
+    v = np.asarray(values, np.float64)
+    if not v.size:
+        return {"n": 0, "p50": None, "p99": None}
+    return {"n": int(v.size), "p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99))}
+
+
+async def _serve_and_refresh(service, refresh: dict, waves, num_news: int, rng,
+                             his_len: int) -> dict:
+    """Waves of concurrent requests through a ``ServingClientPool``; a
+    refresh sent on a connection of its own after two rounds of waves, waves
+    going on until it answers, then a request on the refresh's connection
+    and two more rounds of waves. Every request's send time (before the
+    pool's checkout), receive time, history and response."""
+    from fedrec_tpu_torch.serving import ServingClient, ServingClientPool, start_server
+
+    server = await start_server(service, "127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    pool = ServingClientPool("127.0.0.1", port, size=max(waves), request_timeout_ms=60_000)
+    admin = ServingClient("127.0.0.1", port, request_timeout_ms=60_000, seed=99)
+    records = []
+
+    def history():
+        k = int(rng.integers(1, his_len + 1))
+        return rng.integers(1, num_news, size=k).tolist()
+
+    async def one(hist):
+        t_send = time.monotonic()
+        resp = await pool.handle({"id": len(records), "history": hist})
+        records.append({"t_send": t_send, "t_recv": time.monotonic(), "hist": hist,
+                        "resp": resp})
+
+    async def wave(size):
+        await asyncio.gather(*(one(history()) for _ in range(size)))
+
+    try:
+        for _ in range(2):
+            for size in waves:
+                await wave(size)
+        t_refresh = time.monotonic()
+        task = asyncio.ensure_future(admin.admin("refresh", deadline_ms=900_000, **refresh))
+        during_waves = 0
+        while not task.done():
+            await wave(waves[during_waves % len(waves)])
+            during_waves += 1
+        reply = task.result()
+        t_reply = time.monotonic()
+        same_conn = await admin.request({"id": -1, "history": history()}, deadline_ms=60_000)
+        for _ in range(2):
+            for size in waves:
+                await wave(size)
+        metrics = (await admin.admin("metrics", deadline_ms=60_000))["metrics"]
+    finally:
+        await pool.close()
+        await admin.close()
+        server.close()
+        await service.stop()
+        await server.wait_closed()
+    return {"records": records, "reply": reply, "t_refresh": t_refresh, "t_reply": t_reply,
+            "same_conn": same_conn, "during_waves": during_waves, "metrics": metrics}
+
+
+async def _client_behaviour(store, cfg) -> dict:
+    """A server restart under a ``ServingClientPool`` (unavailable or
+    retried successes, never an exception), then a black-hole server
+    against the client's deadline; the black hole's handlers are cancelled
+    and its writers closed before ``wait_closed``."""
+    from fedrec_tpu_torch.serving import (
+        ServingClient,
+        ServingClientPool,
+        ServingService,
+        start_server,
+    )
+
+    def service():
+        svc = ServingService(store, history_len=cfg.data.max_his_len, top_k=10, device=DEV)
+        svc.warmup()
+        return svc
+
+    async def fire(pool, n):
+        return [await pool.handle({"id": i, "history": [1 + i, 2, 3]}) for i in range(n)]
+
+    svc = service()
+    server = await start_server(svc, "127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    pool = ServingClientPool("127.0.0.1", port, size=4, request_timeout_ms=5000,
+                             backoff_base_ms=20, backoff_max_ms=200)
+    try:
+        before = await fire(pool, 16)
+        server.close()
+        await svc.stop()
+        await server.wait_closed()
+        probe = ServingClient("127.0.0.1", port, request_timeout_ms=300, backoff_base_ms=10,
+                              backoff_max_ms=50, seed=5)
+        down = await probe.request({"history": [1]})
+        await probe.close()
+        svc = service()
+        server = await start_server(svc, "127.0.0.1", port)
+        after = await fire(pool, 16)
+        retries = pool.retry_metrics()
+    finally:
+        await pool.close()
+        server.close()
+        await svc.stop()
+        await server.wait_closed()
+
+    handlers, writers = set(), []
+
+    async def black_hole(reader, writer):
+        handlers.add(asyncio.current_task())
+        writers.append(writer)
+        await asyncio.sleep(3600)
+
+    hole = await asyncio.start_server(black_hole, "127.0.0.1", 0)
+    client = ServingClient("127.0.0.1", hole.sockets[0].getsockname()[1],
+                           request_timeout_ms=200, seed=6)
+    t0 = time.monotonic()
+    silent = await client.request({"history": [1]})
+    silent_s = time.monotonic() - t0
+    await client.close()
+    hole.close()
+    for t in handlers:
+        t.cancel()
+    for w in writers:
+        w.close()
+    await asyncio.gather(*handlers, return_exceptions=True)
+    await asyncio.wait_for(hole.wait_closed(), 10)
+    return {"before": before, "down": down, "after": after, "retries": retries,
+            "black_hole": silent, "black_hole_s": silent_s}
+
+
+def phase_serving_path(state: dict, args) -> dict:
+    """Train, snapshot, serve the snapshot, refresh it under load; two-stage
+    retrieval at the catalog's size and at the CLI's million-item mode; the
+    recommend CLI; the client's failure modes."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.cli import recommend
+    from fedrec_tpu_torch.cli import serve as serve_cli
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.serve import build_recommend_fn
+    from fedrec_tpu_torch.serving import (
+        EmbeddingStore,
+        ServingService,
+        build_index,
+        build_two_stage_fn,
+        load_checkpoint_params,
+        publish_from_checkpoint,
+        recall_at_k,
+    )
+    from fedrec_tpu_torch.train import Trainer, encode_all_news
+
+    dev = torch.device(DEV)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="serving_path_", dir=build)
+    root = Path(work.name)
+    snaps = root / "snapshots"
+    # decoupled mode (the config's default), snapshots every round, no eval
+    cfg = _decoupled_cfg(args, str(snaps), "fed.rounds=1", "fed.local_epochs=1",
+                         "train.eval_every=1000", "train.keep_best=false")
+    mc, dc = cfg.model, cfg.data
+    N, T, H, top_k = args.num_news, dc.max_title_len, dc.max_his_len, 10
+    tokens = _tokens(state, args, T, mc.bert_hidden)
+    data = _mind_data(state, args, T)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    launches = _PathLaunches()
+    rng = np.random.default_rng(args.seed + 31)
+    out: dict = {"config": {"num_news": N, "clients": args.clients, "batch_size": args.batch_size,
+                            "rounds": 2, "mode": mc.text_encoder_mode, "top_k": top_k,
+                            "waves": args.serving_waves, "clusters": args.serving_clusters,
+                            "n_probe": args.serving_probe, "million_news": args.million_news,
+                            "million_clusters": 1024, "million_n_probe": 64}}
+
+    # ---- 1. train round 0, write the token states, publish the snapshot
+    npy = root / "token_states.npy"
+    out["token_states_gb"] = tokens.numel() * 4 / 1e9
+    out["token_states_write_s"] = _write_token_states(tokens, npy, args.chunk)
+    with launches.segment(), quiet:
+        trainer = Trainer(cfg, data, tokens, device=dev)
+        trainer.run()
+    m0 = trainer.states[0].model
+    store = EmbeddingStore()
+    t0 = time.perf_counter()
+    with launches.segment():
+        gen0 = publish_from_checkpoint(store, mc, snaps, np.load(npy, mmap_mode="c"), device=dev)
+    out["publish_ms"] = (time.perf_counter() - t0) * 1e3
+    user_state, news_state, _, _ = load_checkpoint_params(snaps)
+    restored_equal = all(
+        torch.equal(state_[k], p.detach().cpu())
+        for state_, module in ((user_state, m0.user_encoder), (news_state, m0.text_head))
+        for k, p in module.named_parameters())
+    check(restored_equal, "the restored client-0 parameters differ from the trainer's")
+    table_equal = torch.equal(gen0.news_vecs, encode_all_news(m0, tokens, device=dev))
+    check(table_equal, "the published table differs from encode_all_news of the trainer's head")
+    check((gen0.round, gen0.source) == (0, "checkpoint:torch"), f"generation 0: {gen0}")
+    del trainer
+    # round 1 into the same directory (the run resumes from round 0)
+    with launches.segment(), quiet:
+        Trainer(_decoupled_cfg(args, str(snaps), "fed.rounds=2", "fed.local_epochs=1",
+                               "train.eval_every=1000", "train.keep_best=false"),
+                data, tokens, device=dev).run()
+
+    # ---- 2. serve generation 0 and refresh to round 1 under load
+    service = ServingService(store, history_len=H, top_k=top_k, model_cfg=mc, device=dev)
+    stalls = _StallProbe(service)
+    try:
+        with launches.segment():
+            service.warmup()
+            run = asyncio.run(asyncio.wait_for(_serve_and_refresh(
+                service, {"snapshot_dir": str(snaps), "token_states": str(npy)},
+                args.serving_waves, N, rng, H), 1800))
+    finally:
+        stalls.close()
+    records, reply = run["records"], run["reply"]
+    errors = [r["resp"] for r in records if "error" in r["resp"]]
+    check(not errors, f"{len(errors)} requests failed, first: {errors[:2]}")
+    check(reply == {"refreshed": True, "generation": 1, "round": 1,
+                    "source": "checkpoint:torch"}, f"refresh reply {reply}")
+    gens = [r["resp"]["generation"] for r in records]
+    check(set(gens) <= {0, 1}, f"generations {sorted(set(gens))}")
+    late0 = [r for r in records if r["t_send"] > run["t_reply"] and r["resp"]["generation"] != 1]
+    check(not late0, f"{len(late0)} requests sent after the refresh reply scored on generation 0")
+    check(run["same_conn"].get("generation") == 1,
+          f"the refresh's connection after the reply: {run['same_conn']}")
+    check(run["metrics"]["source"] == "checkpoint:torch" and run["metrics"]["swap_count"] == 1,
+          f"metrics after the refresh {run['metrics']}")
+    gen1 = store.current()
+    g1 = [r for r in records if r["resp"]["generation"] == 1][-128:]
+    hist = torch.tensor([r["hist"] + [0] * (H - len(r["hist"])) for r in g1], device=dev)
+    ref_scores, ref_ids = _plain_scores(gen1.user_params, gen1.news_vecs, hist, top_k)
+    served_ids = torch.tensor([r["resp"]["ids"] for r in g1], device=dev)
+    served_scores = torch.tensor([r["resp"]["scores"] for r in g1], device=dev)
+    # the wire carries scores to 5 places
+    err_served = max_err(served_scores, ref_scores[:, :top_k])
+    check(err_served <= F32_ATOL + 5e-6, f"served scores vs plain: {err_served}")
+    mismatch = _topk_disagreements(served_ids, ref_scores, ref_ids, top_k)
+    check(mismatch == 0, f"{mismatch} served ids differ from the plain scorer's where apart")
+    windows = {"before": lambda r: r["t_send"] < run["t_refresh"],
+               "during": lambda r: run["t_refresh"] <= r["t_send"] < run["t_reply"],
+               "after": lambda r: r["t_send"] >= run["t_reply"]}
+    out["serve_refresh"] = {
+        "requests": len(records), "generation_1_requests": gens.count(1),
+        "waves_during_refresh": run["during_waves"],
+        "refresh_wall_ms": (run["t_reply"] - run["t_refresh"]) * 1e3,
+        "refresh_ms": service.last_refresh_ms,
+        "client_rtt_ms": {k: _percentiles([r["resp"]["latency_ms"] for r in records if f(r)])
+                          for k, f in windows.items()},
+        # from the refresh to the last answer, in 250 ms windows: the slowest
+        # round trip of the requests sent, scorer call and thread oversleep,
+        # beside the refresh's parts (restore, load, host-to-device, ...)
+        "during_timeline_ms": {
+            name: _timeline(pairs, run["t_refresh"], max(r["t_recv"] for r in records), 0.25)
+            for name, pairs in (
+                ("max_rtt", [(r["t_send"], r["resp"]["latency_ms"]) for r in records]),
+                ("max_scorer_call", stalls.calls), ("max_thread_oversleep", stalls.ticks))},
+        "scorer_call_ms": {k: _percentiles([ms for t, ms in stalls.calls if f({"t_send": t})])
+                           for k, f in windows.items()},
+        "served_vs_plain": {"max_abs_score_err": err_served, "id_mismatches": mismatch,
+                            "rows": len(g1)},
+        "restored_bitwise": restored_equal, "table_bitwise": table_equal,
+    }
+
+    # ---- 3. two-stage retrieval over the refreshed 65,536-news table
+    table, tower = gen1.news_vecs, gen1.user_params
+    kw = dict(num_clusters=args.serving_clusters, n_probe=args.serving_probe, device=dev)
+    t0 = time.perf_counter()
+    with launches.segment():
+        index = build_index(table, **kw)
+    index_ms = (time.perf_counter() - t0) * 1e3
+    check(not index.exact, "the 65,536-news index fell back to exact scoring")
+    t0 = time.perf_counter()
+    again = build_index(table, **kw)
+    index_again_ms = (time.perf_counter() - t0) * 1e3
+    kmeans_bitwise = (torch.equal(index.centroids, again.centroids)
+                      and torch.equal(index.members, again.members))
+    check(kmeans_bitwise, "a repeated k-means build differs")
+    del again
+    hist = torch.from_numpy(rng.integers(1, N, size=(128, H))).to(dev)
+    with launches.segment():
+        ids2, sc2 = build_two_stage_fn(index, top_k=top_k, device=dev)(tower, hist)
+    with torch.no_grad():
+        user_vec = tower(table[hist]).float()
+    ids_p, sc_p = _plain_rerank(index, user_vec, hist, top_k)
+    rerank_err = max_err(sc2, sc_p)
+    rerank_bitwise = torch.equal(ids2, ids_p) and torch.equal(sc2, sc_p)
+    gaps = (sc_p[:, :-1] - sc_p[:, 1:]).abs()
+    inf = torch.full_like(gaps[:, :1], float("inf"))
+    decided = (torch.cat([inf, gaps], 1) > 1e-5) & (torch.cat([gaps, inf], 1) > 1e-5)
+    rerank_mismatch = int((decided & (ids2 != ids_p)).sum())
+    check(rerank_err <= 1e-5 and rerank_mismatch == 0,
+          f"two-stage vs the plain per-row rerank: scores {rerank_err}, ids {rerank_mismatch}")
+    recalls = {}
+    with launches.segment():
+        for p in (4, 16, args.serving_clusters):
+            recalls[p] = recall_at_k(dataclasses.replace(index, n_probe=p), tower, hist,
+                                     k=top_k, device=dev)
+    rs = [recalls[p] for p in sorted(recalls)]
+    check(all(a <= b for a, b in zip(rs, rs[1:])), f"recall falls as n_probe grows: {recalls}")
+    check(recalls[args.serving_clusters] == 1.0, f"recall with every cluster probed {recalls}")
+    two_stage = build_two_stage_fn(index, top_k=top_k, device=dev)
+    exact = build_recommend_fn(top_k=top_k, device=dev)
+    make_hist = lambda b: torch.from_numpy(rng.integers(1, N, size=(b, H)))  # noqa: E731
+    out["two_stage"] = {
+        "index_build_ms": index_ms, "index_build_again_ms": index_again_ms,
+        "stats": index.stats(), "kmeans_bitwise": kmeans_bitwise,
+        "vs_plain_rerank": {"max_abs_score_err": rerank_err, "id_mismatches": rerank_mismatch,
+                            "bitwise": rerank_bitwise},
+        "recall_at_10": recalls,
+        "scorer_ms_by_bucket": {
+            "two_stage": _bucket_ms(lambda h: two_stage(tower, h)[0].cpu(), make_hist,
+                                    (1, 8, 32, 128), args.scorer_reps),
+            "exact": _bucket_ms(lambda h: exact(tower, table, h)[0].cpu(), make_hist,
+                                (1, 8, 32, 128), args.scorer_reps)},
+    }
+    del index, two_stage
+
+    # ---- 4. the CLI's million-item mode, through its service, in process
+    argv = ["--synthetic", str(args.million_news), "--clusters", "1024", "--n-probe", "64",
+            "--seed", str(args.seed), "--device", DEV, "--set", "model.fuse_hot_path=true",
+            "--set", "model.use_pallas=true"]
+    margs = serve_cli.build_parser().parse_args(argv)
+    mcfg = ExperimentConfig().apply_overrides(margs.overrides)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with launches.segment():
+        msvc = serve_cli.build_service(margs, mcfg)
+        msvc.warmup()
+    million_ms = (time.perf_counter() - t0) * 1e3
+    check(not msvc.last_build_ms["exact"], f"million-item index {msvc.last_build_ms}")
+    mgen = msvc.store.current()
+    mfn = msvc._fn_for(mgen)
+    mexact = build_recommend_fn(top_k=top_k, device=dev)
+    mhist = lambda b: torch.from_numpy(rng.integers(1, args.million_news, size=(b, H)))  # noqa: E731
+    m_ms = {"two_stage": _bucket_ms(lambda h: mfn(mgen.user_params, h)[0].cpu(), mhist,
+                                    (1, 8, 32, 128), max(3, args.scorer_reps // 4)),
+            "exact": _bucket_ms(lambda h: mexact(mgen.user_params, mgen.news_vecs, h)[0].cpu(),
+                                mhist, (1, 8, 32, 128), max(3, args.scorer_reps // 4))}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # recall against brute force, no bar: the synthetic table is unclustered
+    mh = mhist(128)
+    approx = mfn(mgen.user_params, mh)[0].cpu().numpy()
+    truth = mexact(mgen.user_params, mgen.news_vecs, mh)[0].cpu().numpy()
+    hits = sum(len(set(a[a >= 0].tolist()) & set(e[e >= 0].tolist()))
+               for a, e in zip(approx, truth))
+    out["million"] = {
+        "argv": argv, "recall_at_10": hits / max(int((truth >= 0).sum()), 1),
+        "service_build_ms": million_ms, "build": msvc.last_build_ms,
+        "peak_mem_gb": peak_gb, "mem_before_gb": base_gb, "scorer_ms_by_bucket": m_ms,
+    }
+    del msvc, mgen, mfn
+
+    # ---- 5. the recommend CLI over the snapshots and the token states
+    art = root / "UserData"
+    _write_artifacts(data, art)
+    recs = root / "recs.jsonl"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with launches.segment(), contextlib.redirect_stderr(err):
+        rc = recommend.main(["--data-dir", str(art), "--snapshot-dir", str(snaps),
+                             "--token-states", str(npy), "--out", str(recs), "--device", DEV])
+    rec_s = time.perf_counter() - t0
+    check(rc == 0, f"recommend CLI rc {rc}: {err.getvalue()[-2000:]}")
+    lines = [json.loads(ln) for ln in recs.read_text().splitlines()]
+    users = recommend.collect_histories(data, H)
+    check([ln["uid"] for ln in lines] == sorted(users),
+          f"{len(lines)} lines for {len(users)} known users")
+    sample = lines[:256]
+    hist = torch.tensor([[data.nid2index[n] for n in users[ln["uid"]]]
+                         + [0] * (H - len(users[ln["uid"]])) for ln in sample], device=dev)
+    ref_scores, ref_ids = _plain_scores(tower, table, hist, top_k)
+    got = torch.tensor([[data.nid2index[n] for n in ln["news"]] for ln in sample], device=dev)
+    rec_mismatch = _topk_disagreements(got, ref_scores, ref_ids, top_k)
+    check(rec_mismatch == 0, f"{rec_mismatch} recommended ids differ from the plain route's")
+    out["recommend_cli"] = {"rc": rc, "users": len(lines), "wall_s": rec_s,
+                            "users_per_s": len(lines) / rec_s, "id_mismatches": rec_mismatch,
+                            "checked_users": len(sample)}
+
+    # ---- 6. the client against a restart and a black hole
+    with launches.segment():
+        client = asyncio.run(asyncio.wait_for(_client_behaviour(store, cfg), 120))
+    check(all("error" not in r for r in client["before"]), f"before the restart {client['before'][:2]}")
+    check(client["down"].get("error") in ("unavailable", "deadline"),
+          f"during the restart {client['down']}")
+    check(all("error" not in r or r["error"] in ("unavailable", "deadline")
+              for r in client["after"]), f"after the restart {client['after'][:2]}")
+    check(client["black_hole"] == {"error": "deadline"} and client["black_hole_s"] < 2.0,
+          f"black hole: {client['black_hole']} after {client['black_hole_s']} s")
+    out["client"] = {"after_restart_ok": sum("error" not in r for r in client["after"]),
+                     "retries": client["retries"], "down": client["down"],
+                     "black_hole_s": client["black_hole_s"]}
+
+    counts = launches.total
+    for name in ("additive_pool", "fused_history_score"):
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched on the serving path")
+    state.setdefault("launches", {})["serving_path"] = counts
+    out["launches"] = counts
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    work.cleanup()
+    return out
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (trainer_path runs A through E, decoupled_path
-    A, B and E), times from the kernels phase."""
+    A, B and E, serving_path A and B), times from the kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -2301,14 +2883,23 @@ def main(argv=None) -> int:
                    help="trainer_path, decoupled_path: steps per client a local epoch")
     p.add_argument("--valid", type=int, default=8192,
                    help="trainer_path, decoupled_path: validation impressions (full-pool evaluation)")
+    p.add_argument("--serving-waves", default="1,8,32,128",
+                   help="serving_path: concurrent requests a wave, round after round")
+    p.add_argument("--serving-clusters", type=int, default=256,
+                   help="serving_path: k-means clusters over the catalog")
+    p.add_argument("--serving-probe", type=int, default=16,
+                   help="serving_path: clusters reranked a request")
+    p.add_argument("--million-news", type=int, default=1_000_000,
+                   help="serving_path: the serve CLI's million-item mode's catalog")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
+    args.serving_waves = [int(w) for w in args.serving_waves.split(",")]
     args.long_waves = [int(w) for w in args.long_waves.split(",")]
     phases = [ph for ph in args.phases.split(",") if ph]
     unknown = set(phases) - set(PHASES)
     if unknown:
         p.error(f"unknown phases {sorted(unknown)}")
-    for path in PATHS:
+    for path in PATHS[:-1]:  # serving_path reports no kernel's own time
         if path in phases and "kernels" not in phases:
             p.error(f"{path} needs the kernels phase (it reports the kernels' times)")
 
@@ -2333,6 +2924,7 @@ def main(argv=None) -> int:
         "long_path": lambda: phase_long_path(state, args),
         "trainer_path": lambda: phase_trainer_path(state, args),
         "decoupled_path": lambda: phase_decoupled_path(state, args),
+        "serving_path": lambda: phase_serving_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
         t0 = time.perf_counter()

@@ -1,13 +1,22 @@
-"""Long-lived serving entry point of the port.
+"""Long-lived serving entry point of the port (``fedrec-serve``).
 
-Starts the TCP/JSON-lines service (:mod:`fedrec_tpu_torch.serving`) over a
+Starts the TCP/JSON-lines service (:mod:`fedrec_tpu_torch.serving`) whose
+embedding store can be hot-swapped from new training snapshots while
+requests are in flight (``{"cmd": "refresh", ...}`` on any connection).
+It serves either a training run's snapshot (``fedrec_tpu_torch.train``'s
+``round_<r>/state.pt``) over the reference artifacts' catalog, or a
 synthetic catalog: a seeded random (N, news_dim) table and freshly
 initialised user-tower weights, so every serving code path runs without a
-training artifact (scores are meaningless). Serving from a checkpoint and
-the refresh command come with a later slice.
+training artifact (scores are meaningless).
 
 Usage:
+  # a training snapshot over the reference UserData layout:
+  python -m fedrec_tpu_torch.cli.serve --data-dir UserData --snapshot-dir snapshots
+  # synthetic catalog, no artifacts needed:
   python -m fedrec_tpu_torch.cli.serve --synthetic 65536 --port 7607
+  # million-item mode: two-stage retrieval past --exact-threshold
+  python -m fedrec_tpu_torch.cli.serve --synthetic 1000000 --clusters 1024 --n-probe 64
+  # on the CPU, at small widths:
   python -m fedrec_tpu_torch.cli.serve --synthetic 3000 --device cpu \\
       --set model.news_dim=32 --set model.num_heads=4 --set model.head_dim=8
 """
@@ -17,7 +26,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import sys
+from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -35,11 +46,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-queue", type=int, default=1024,
                    help="queue-depth backpressure threshold")
     p.add_argument("--clusters", type=int, default=0,
-                   help="k-means coarse clusters (0 = exact; k-means is not ported yet)")
+                   help="k-means coarse clusters (0 = exact full-catalog scoring)")
+    p.add_argument("--n-probe", type=int, default=8, help="clusters reranked per request")
     p.add_argument("--exact-threshold", type=int, default=4096,
                    help="catalogs at/below this size always use exact scoring")
+    p.add_argument("--shard-store", action="store_true",
+                   help="not ported (the sharded store is ROADMAP Queue A item 9); refused")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="serve a random N-item catalog with fresh-init weights")
+    p.add_argument("--data-dir", default="UserData",
+                   help="reference UserData artifact layout (the catalog and its id map)")
+    p.add_argument("--snapshot-dir", default=None,
+                   help="training snapshots (default: train.snapshot_dir)")
+    p.add_argument("--token-states", default=None,
+                   help="(N, L, bert_hidden) .npy of cached trunk states "
+                        "(default <data-dir>/token_states.npy)")
+    p.add_argument("--obs-dir", default=None,
+                   help="not ported (observability artifacts are ROADMAP Queue A item 10); "
+                        "refused")
     p.add_argument("--seed", type=int, default=0, help="seed of the synthetic table and weights")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; raises without a GPU unless 'cpu')")
@@ -68,7 +92,31 @@ def synthetic_service(args, cfg):
     return make_service(args, cfg, store)
 
 
-def make_service(args, cfg, store):
+def checkpoint_service(args, cfg):
+    """The newest training snapshot, encoded over the artifacts' catalog
+    (kernel A), as generation 0; None (after an error line) when the token
+    states are missing."""
+    from fedrec_tpu_torch.data import load_mind_artifacts
+    from fedrec_tpu_torch.serving import EmbeddingStore, publish_from_checkpoint
+
+    snap_dir = args.snapshot_dir or cfg.train.snapshot_dir
+    data = load_mind_artifacts(args.data_dir)
+    token_path = args.token_states or str(Path(args.data_dir) / "token_states.npy")
+    if not Path(token_path).exists():
+        print(f"[serve] ERROR: no token states at {token_path}; export them or pass "
+              "--token-states (or use --synthetic for a smoke catalog)", file=sys.stderr)
+        return None
+    index2nid = {i: n for n, i in data.nid2index.items()}
+    valid = np.zeros(data.num_news, bool)
+    valid[[i for i in index2nid if 0 <= i < data.num_news]] = True
+    store = EmbeddingStore()
+    gen = publish_from_checkpoint(store, cfg.model, snap_dir, np.load(token_path),
+                                  valid_mask=valid, device=args.device)
+    print(f"[serve] generation 0 from {gen.source} round {gen.round}", file=sys.stderr)
+    return make_service(args, cfg, store, id_map=index2nid)
+
+
+def make_service(args, cfg, store, id_map=None):
     from fedrec_tpu_torch.serving import ServingService
 
     return ServingService(
@@ -80,9 +128,33 @@ def make_service(args, cfg, store):
         flush_ms=args.flush_ms,
         max_queue=args.max_queue,
         num_clusters=args.clusters,
+        n_probe=args.n_probe,
         exact_threshold=args.exact_threshold,
+        id_map=id_map,
+        model_cfg=cfg.model,
         device=args.device,
     )
+
+
+def build_service(args, cfg):
+    """The service ``main`` serves (the synthetic or the checkpoint one),
+    with the drift probe armed under ``obs.quality``; None after an error
+    line when it cannot be built."""
+    for flag, item in (("shard_store", "the sharded store is ROADMAP Queue A item 9"),
+                       ("obs_dir", "observability artifacts are ROADMAP Queue A item 10")):
+        if getattr(args, flag):
+            print(f"[serve] ERROR: --{flag.replace('_', '-')} is not ported to "
+                  f"fedrec_tpu_torch ({item})", file=sys.stderr)
+            return None
+    service = synthetic_service(args, cfg) if args.synthetic else checkpoint_service(args, cfg)
+    if service is not None and cfg.obs.quality.enabled and cfg.obs.quality.probe_users > 0:
+        # every refresh scores the pinned probe set against both generations
+        # first, so a bad table push surfaces in serve.drift_* before it
+        # serves traffic
+        service.store.enable_drift_probe(num_probes=cfg.obs.quality.probe_users,
+                                         topk=cfg.obs.quality.probe_topk,
+                                         seed=cfg.obs.quality.seed)
+    return service
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -96,11 +168,9 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = ExperimentConfig()
     cfg.apply_overrides(args.overrides)
-    if not args.synthetic:
-        print("[serve] ERROR: only --synthetic N is ported; checkpoint serving "
-              "comes with a later slice", file=sys.stderr)
+    service = build_service(args, cfg)
+    if service is None:
         return 2
-    service = synthetic_service(args, cfg)
     service.warmup()  # every bucket once before accepting traffic
     try:
         asyncio.run(serve_forever(

@@ -10,7 +10,8 @@ Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
 ``train.trainer.Trainer``):
 ``data.gather_chunk``, ``fed.seq_shards``, ``privacy.mechanism='dpsgd'``,
-``shard.table``, ``chaos.enabled`` and ``obs.health.sentry``. The JAX
+``shard.table``, ``chaos.enabled``, ``obs.health.sentry`` and
+``obs.quality.enabled``. The JAX
 package turns the sentry on by default; the port defaults it off, since
 it has no sentry to run.
 """
@@ -138,8 +139,22 @@ class HealthConfig:
 
 
 @dataclass
+class QualityConfig:
+    """The fields of the JAX package's ``obs.quality`` that the port reads.
+    The serving CLI arms the store's pre-swap drift probe when ``enabled``
+    and ``probe_users > 0`` (``probe_topk``, ``seed``); the trainer refuses
+    ``enabled``, since sliced-evaluation telemetry is not ported."""
+
+    enabled: bool = False
+    seed: int = 0
+    probe_users: int = 32              # drift-probe user vectors; 0 = off
+    probe_topk: int = 10
+
+
+@dataclass
 class ObsConfig:
     health: HealthConfig = field(default_factory=HealthConfig)
+    quality: QualityConfig = field(default_factory=QualityConfig)
 
 
 EVAL_PROTOCOLS = ("sampled", "full", "last4")
@@ -179,6 +194,14 @@ class ExperimentConfig:
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ExperimentConfig":
+        """The inverse of ``to_json``'s dict (a training run's persisted
+        ``config.json``); unknown sections and keys raise ``KeyError``."""
+        cfg = cls()
+        _merge_dataclass(cfg, d, "")
+        return cfg
+
     def apply_overrides(self, overrides: list[str]) -> "ExperimentConfig":
         """Apply ``section.key=value`` strings (e.g. ``model.news_dim=32``,
         ``obs.health.sentry=0``); unknown sections and keys raise ``KeyError``."""
@@ -201,6 +224,20 @@ class ExperimentConfig:
                 raise KeyError(f"config path {path!r} names a section, not a key")
             setattr(section, parts[-1], _coerce(raw, type(current)))
         return self
+
+
+def _merge_dataclass(section: Any, values: dict[str, Any], path: str) -> None:
+    for key, value in values.items():
+        where = f"{path}.{key}" if path else key
+        if not hasattr(section, key):
+            raise KeyError(f"unknown config key: {where!r}")
+        current = getattr(section, key)
+        if dataclasses.is_dataclass(current):
+            if not isinstance(value, dict):
+                raise ValueError(f"config section {where!r} must be a mapping, got {value!r}")
+            _merge_dataclass(current, value, where)
+        else:
+            setattr(section, key, value)
 
 
 def _coerce(raw: str, ty: type) -> Any:

@@ -234,6 +234,7 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
         ("shard.table", cfg.shard.table),
         ("chaos.enabled", cfg.chaos.enabled),
         ("obs.health.sentry", cfg.obs.health.sentry),
+        ("obs.quality.enabled (sliced-evaluation telemetry)", cfg.obs.quality.enabled),
         ("data.gather_chunk>0", cfg.data.gather_chunk > 0),
         (f"model.text_head_arch={cfg.model.text_head_arch!r}",
          cfg.model.text_head_arch != "additive"),

@@ -835,3 +835,91 @@ def test_news_update_on_the_card_matches_the_cpu(cuda, rng):
         for p, q in zip(sa.model.parameters(), sb.model.parameters()):
             assert torch.equal(p, q)
     assert all(torch.equal(a, b) for a, b in zip(card_tables, out["again"][1]))
+
+
+def _clustered_table(rng, n: int, d: int, centers: int) -> np.ndarray:
+    c = rng.standard_normal((centers, d)) * 2.0
+    return (c[rng.integers(0, centers, n)] + 0.25 * rng.standard_normal((n, d))).astype(np.float32)
+
+
+def test_kmeans_repeats_bitwise_on_the_card(cuda, rng):
+    """Two k-means builds on the card give the same bits (sorted segment
+    sums, no atomics); every row goes to its nearest centroid by float64
+    distances (up to f32 rounding, 1e-4 relative); and the CPU route from
+    the same init agrees but at near-ties. A point between two centroids
+    may fall either way under another summation order (1 in 20,000 did on
+    the H100), which moves those two centroids by about its distance over
+    the cluster's size: the centroids compare at 1e-2."""
+    from fedrec_tpu_torch.serving.retrieval import _lloyd, kmeans
+
+    vecs = _t(_clustered_table(rng, 20000, 48, 64), cuda)
+    first = kmeans(vecs, 64, iters=10, seed=3, device=cuda)
+    again = kmeans(vecs, 64, iters=10, seed=3, device=cuda)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    x, c = vecs.cpu().double(), first[0].cpu().double()
+    d = (x * x).sum(1, keepdim=True) - 2 * x @ c.T + (c * c).sum(1)[None, :]
+    chosen = d.gather(1, first[1].cpu().long()[:, None])[:, 0]
+    nearest = d.min(1).values
+    assert bool((chosen <= nearest + 1e-4 * (1 + nearest.abs())).all())
+    init = vecs.cpu()[torch.randperm(20000, generator=torch.Generator().manual_seed(3))[:64]]
+    with _one_cpu_thread():
+        cents, assign = _lloyd(vecs.cpu(), init, 10)
+    assert float((first[1].cpu() == assign).float().mean()) >= 0.999
+    np.testing.assert_allclose(first[0].cpu().numpy(), cents.numpy(), atol=1e-2)
+
+
+@pytest.mark.parametrize("n_probe", [4, 64])
+def test_two_stage_on_the_card_matches_the_cpu_route(cuda, rng, n_probe, monkeypatch):
+    """The probe -> gather -> rerank route with kernel B's user vectors on
+    the card against the same index on the CPU route; the rerank's column
+    blocks leave every bit as it was."""
+    from fedrec_tpu_torch.config import ModelConfig
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.serving import TwoStageIndex, build_index, build_two_stage_fn
+    from fedrec_tpu_torch.serving import retrieval
+
+    cfg = ModelConfig(news_dim=48, num_heads=4, head_dim=12, query_dim=16, bert_hidden=32,
+                      fuse_hot_path=True, use_pallas=True)
+    tower = init_params(NewsRecommender(cfg), seed=2).eval().user_encoder
+    table = torch.from_numpy(_clustered_table(rng, 20000, 48, 64))
+    valid = rng.random(20000) > 0.05
+    hist = torch.from_numpy(rng.integers(1, 20000, (37, 50)))
+    cpu_index = build_index(table, num_clusters=64, n_probe=n_probe, valid_mask=valid,
+                            exact_threshold=1024, device="cpu")
+    card_index = TwoStageIndex(news_vecs=table.to(cuda), valid_mask=valid, exact=False,
+                               centroids=cpu_index.centroids.to(cuda),
+                               members=cpu_index.members.to(cuda), n_probe=n_probe)
+    with _one_cpu_thread():
+        want_ids, want_scores = build_two_stage_fn(cpu_index, device="cpu")(tower, hist)
+    card_tower = init_params(NewsRecommender(cfg), seed=2).eval().user_encoder.to(cuda)
+    reset_launch_counts()
+    ids, scores = build_two_stage_fn(card_index, device=cuda)(card_tower, hist)
+    assert launch_counts()["fused_history_score"] == 1
+    np.testing.assert_allclose(scores.cpu().numpy(), want_scores.numpy(), atol=1e-5, rtol=1e-5)
+    ws = want_scores.numpy()
+    gaps = np.abs(np.diff(ws, axis=1))
+    inf = np.full((ws.shape[0], 1), np.inf)
+    decided = (np.concatenate([inf, gaps], 1) > 1e-4) & (np.concatenate([gaps, inf], 1) > 1e-4)
+    np.testing.assert_array_equal(ids.cpu().numpy()[decided], want_ids.numpy()[decided])
+    monkeypatch.setattr(retrieval, "_RERANK_BYTES", 4 * 48 * 37 * 100)  # 100 columns a block
+    blocked = build_two_stage_fn(card_index, device=cuda)(card_tower, hist)
+    assert torch.equal(blocked[0], ids) and torch.equal(blocked[1], scores)
+
+
+def test_refresh_token_states_reach_the_card_unchanged(cuda, rng, tmp_path):
+    """A refresh's token-state load (memory map, two pinned buffers taking
+    turns, asynchronous copies on a side stream) gives the file's bits."""
+    from fedrec_tpu_torch.serving import server
+
+    want = rng.standard_normal((5000, 6, 16)).astype(np.float32)
+    np.save(tmp_path / "states.npy", want)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        got, load_ms, h2d_ms = server._load_token_states(str(tmp_path / "states.npy"), cuda,
+                                                         torch.float32)
+    side.synchronize()
+    assert got.device.type == "cuda" and load_ms >= 0 and h2d_ms >= 0
+    assert np.array_equal(got.cpu().numpy(), want)
+    half, _, _ = server._load_token_states(str(tmp_path / "states.npy"), cuda, torch.bfloat16)
+    assert torch.equal(half.cpu(), torch.from_numpy(want).to(torch.bfloat16))

@@ -26,7 +26,14 @@ from fedrec_tpu_torch.ops import (
 )
 from fedrec_tpu_torch.params import init_params
 from fedrec_tpu_torch.serve import build_recommend_fn
-from fedrec_tpu_torch.serving import EmbeddingStore, ServingService
+from fedrec_tpu_torch.serving import (
+    EmbeddingStore,
+    ServingService,
+    build_index,
+    build_two_stage_fn,
+    kmeans,
+    restore_model,
+)
 from fedrec_tpu_torch.train import Trainer, build_eval_step, build_full_eval_step
 from fedrec_tpu_torch.train.step import encode_all_news
 
@@ -100,6 +107,12 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu):
         lambda **kw: Trainer(cfg, data, np.zeros((6, 5, 8), np.float32), **kw),
         lambda **kw: build_eval_step(cfg, **kw),
         lambda **kw: build_full_eval_step(**kw),
+        lambda **kw: kmeans(torch.randn((9, 8)), 3, **kw),
+        lambda **kw: build_index(torch.randn((9, 8)), num_clusters=3, exact_threshold=4, **kw),
+        lambda **kw: build_two_stage_fn(build_index(torch.randn((9, 8))), **kw),
+        lambda **kw: restore_model(
+            model.cfg, dict(model.user_encoder.named_parameters()),
+            dict(model.text_head.named_parameters()), **kw),
     ]
     for call in calls:
         with pytest.raises(NoGPUError):

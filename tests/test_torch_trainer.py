@@ -271,7 +271,7 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
     "obs.health.sentry=1", "data.gather_chunk=64", "model.text_head_arch=cnn",
-    "model.text_encoder_mode=finetune",
+    "model.text_encoder_mode=finetune", "obs.quality.enabled=1",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
     cfg = _tiny().apply_overrides([lever])
