@@ -12,9 +12,10 @@ Usage:
       --set model.query_dim=16 --set model.bert_hidden=48 --set train.snapshot_dir=
 
 Without ``--mode`` the run is decoupled (``model.text_encoder_mode``'s
-default). ``--dp-epsilon`` turns on ``ldp_news`` in decoupled mode, with
-sigma calibrated by the accountant; in joint mode it means per-example
-DP-SGD, which is not ported yet. ``--device`` defaults to ``cuda`` and
+default). ``--dp-epsilon`` turns on ``ldp_news`` in decoupled mode; in
+joint mode it means per-example DP-SGD (``privacy.mechanism='dpsgd'``), the
+route with a real (epsilon, delta); either way sigma comes from the
+accountant. ``--device`` defaults to ``cuda`` and
 raises without a GPU unless it is ``cpu``; ``--clients`` defaults to the
 number of devices of that kind (the JAX CLI's ``len(jax.local_devices())``).
 The multi-process options (``--agg-server``, ``--worker-id``) and
@@ -61,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-news", type=int, default=512,
                    help="synthetic corpus size (distinct news)")
     p.add_argument("--obs-dir", default=None,
-                   help="not ported: observability artifacts (ROADMAP.md Queue A item 10)")
+                   help="not ported: observability artifacts (ROADMAP.md Queue A item 10b)")
     p.add_argument("--agg-server", default=None, metavar="HOST:PORT",
                    help="not ported: async federation (ROADMAP.md Queue A item 9)")
     p.add_argument("--worker-id", default=None,
@@ -88,7 +89,7 @@ def make_synthetic_from_args(args, cfg):
 def _refuse_unported_args(args) -> None:
     for flag, value, item in (("--agg-server", args.agg_server, 9),
                               ("--worker-id", args.worker_id, 9),
-                              ("--obs-dir", args.obs_dir, 10)):
+                              ("--obs-dir", args.obs_dir, "10b")):
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A "
@@ -140,8 +141,7 @@ def main(argv: list[str] | None = None) -> int:
             # 271-281 — carries no rigorous epsilon)
             cfg.privacy.mechanism = "ldp_news"
             print("[run] decoupled mode: using ldp_news (reference-parity, no rigorous "
-                  "epsilon); --mode joint means DP-SGD, which is not ported yet",
-                  file=sys.stderr)
+                  "epsilon); use --mode joint for real DP-SGD", file=sys.stderr)
     # what the Trainer would refuse, before the data loads
     refuse_unported(cfg)
 

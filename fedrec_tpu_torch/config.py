@@ -8,12 +8,11 @@ section.key=value`` overrides work as they do there
 
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
-``train.trainer.Trainer``):
-``data.gather_chunk``, ``fed.seq_shards``, ``privacy.mechanism='dpsgd'``,
-``shard.table``, ``chaos.enabled``, ``obs.health.sentry`` and
-``obs.quality.enabled``. The JAX
-package turns the sentry on by default; the port defaults it off, since
-it has no sentry to run.
+``train.trainer.Trainer``): ``data.gather_chunk``, ``fed.seq_shards``,
+``shard.table``, ``obs.dir``, ``obs.quality.enabled`` and the chaos keys
+``fed.chaos.refuse_unported_chaos`` names. ``obs.health``'s flight-recorder
+fields are accepted and inert, as they are in the JAX package without
+``obs.dir``.
 """
 
 from __future__ import annotations
@@ -93,6 +92,36 @@ class OptimConfig:
 
 
 @dataclass
+class RobustConfig:
+    """Byzantine-robust aggregation and quarantine-and-rollback recovery.
+
+    ``method`` picks the round-end aggregator (``fed.robust``): "mean"
+    (participation-weighted FedAvg, the default, bitwise the plain mean),
+    "clip" (each client's deviation from the coordinate-wise cohort median
+    clipped to ``clip_norm`` in one global L2 over both towers, then
+    weighted-mean'd; non-finite contributions clip to zero),
+    "trimmed_mean" (coordinate-wise, the ``trim_k`` highest and lowest
+    finite participant values dropped) or "median" (coordinate-wise).
+
+    ``recover`` turns the health sentry's detection into reaction: on a
+    non-finite update or an outlier client (round-mean update norm >
+    ``obs.health.outlier_k`` x the cohort median) the trainer quarantines
+    the client (weight 0 for ``quarantine_rounds`` rounds), rolls the
+    cohort back to the round-entry state and replays the round — up to
+    ``max_retries`` distinct quarantines a round, then the abort. A
+    quarantined client rejoins healed: params reset to the global,
+    optimizer state zeroed.
+    """
+
+    method: str = "mean"               # "mean" | "clip" | "trimmed_mean" | "median"
+    trim_k: int = 1                    # coords trimmed from EACH end (trimmed_mean)
+    clip_norm: float = 10.0            # global-L2 clip for method="clip"
+    recover: bool = False              # quarantine + rollback instead of abort
+    quarantine_rounds: int = 3         # rounds a flagged client sits out
+    max_retries: int = 2               # rollback/replay attempts per round
+
+
+@dataclass
 class FedConfig:
     strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg" | "coordinator"
     num_clients: int = 8
@@ -100,6 +129,8 @@ class FedConfig:
     rounds: int = 10                   # global rounds (reference server.py global_epochs)
     participation: float = 1.0         # fraction of clients aggregated per round
     seq_shards: int = 1                # not ported: > 1 raises
+    # Byzantine-robust aggregation + quarantine/rollback recovery (RobustConfig)
+    robust: RobustConfig = field(default_factory=RobustConfig)
 
 
 @dataclass
@@ -114,8 +145,8 @@ class PrivacyConfig:
     # if sigma > 0 it overrides the accountant-calibrated value
     sigma: float = 0.0
     accountant_epochs: int = 50        # EPOCHS used for calibration
-    # "dpsgd"    - per-example clip + noise on all trainable grads (not
-    #              ported: refused by name)
+    # "dpsgd"    - per-example clip + noise on all trainable grads (joint
+    #              mode)
     # "ldp_news" - reference parity: noise only on news-embedding grads, no
     #              clipping
     mechanism: str = "dpsgd"
@@ -130,12 +161,63 @@ class ShardConfig:
 
 @dataclass
 class ChaosConfig:
-    enabled: bool = False              # not ported: True raises
+    """Deterministic fault injection (``fed.chaos``): a seeded plan of
+    per-round, per-client faults. ``faults`` is a comma list of
+    ``kind@round:client[xscale]`` (``round`` may be ``*``): ``nan@2:3``,
+    ``scale@*:5x100``, ``flip@4:2``. The wire, host-kill and population
+    keys are the JAX package's and refused by name when set."""
+
+    enabled: bool = False
+    seed: int = 0
+    drop_rate: float = 0.0             # per-(round, client) Bernoulli dropout
+    straggle_rate: float = 0.0         # ditto; weight 0 + optional host delay
+    straggle_ms: float = 0.0           # host sleep a round with a straggler
+    faults: str = ""                   # "kind@round:client[xscale]" comma list
+    # not ported (fed.chaos.refuse_unported_chaos): population, host and
+    # wire faults
+    pop_drop_rate: float = 0.0
+    pop_flaky_fraction: float = 0.0
+    pop_flaky_drop_rate: float = 0.5
+    pop_straggle_ms: float = 0.0
+    pop_straggle_sigma: float = 1.0
+    kill_round: int = -1
+    kill_process: int = -1
+    torn_snapshot_round: int = -1
+    rejoin_delay_s: float = 0.0
+    wire_faults: str = ""
+    wire_seed: int = 0
 
 
 @dataclass
 class HealthConfig:
-    sentry: bool = False               # not ported: True raises
+    """The numeric sentry (``train.step``) and its monitor (``obs.health``).
+
+    ``sentry`` makes every train step return a per-client health vector
+    (grad, update and param global norms, a non-finite flag, the DP
+    clip-rate under dpsgd), read once a round. ``abort_on_nonfinite``
+    raises ``TrainingHealthError`` on a non-finite cell. The flight-recorder
+    fields (``flight_recorder``, ``ring_size``, ``dump_policy``,
+    ``snapshot_state``, ``dump_table_max_mb``) need ``obs.dir``; without it
+    they are inert, as in the JAX package.
+    """
+
+    sentry: bool = True                # per-client health vector in step metrics
+    abort_on_nonfinite: bool = True    # raise TrainingHealthError
+    flight_recorder: bool = True
+    ring_size: int = 16
+    dump_policy: str = "first"
+    snapshot_state: bool = True
+    # loss-spike predicate: a warning when a round's mean loss exceeds
+    # spike_factor x the mean of the trailing spike_window rounds; 0 = off
+    spike_factor: float = 0.0
+    spike_window: int = 8
+    # outlier flag: a client whose round-mean update norm exceeds
+    # outlier_k x the cohort median; 0 = off
+    outlier_k: float = 3.0
+    dump_table_max_mb: int = 512
+    # the XLA recompile watchdog's (obs/device.py, Queue A item 10b): inert
+    storm_threshold: int = 5
+    storm_window_s: float = 60.0
 
 
 @dataclass
@@ -153,6 +235,7 @@ class QualityConfig:
 
 @dataclass
 class ObsConfig:
+    dir: str = ""                      # not ported: artifacts (non-empty raises)
     health: HealthConfig = field(default_factory=HealthConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
 

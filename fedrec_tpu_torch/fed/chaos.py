@@ -1,0 +1,187 @@
+"""Deterministic fault injection: the client faults of ``fedrec_tpu/fed/chaos.py``.
+
+A :class:`FaultPlan` is a pure function of ``(chaos config, round index)``:
+the same plan gives the same faults on every run and on every rollback
+replay, so a chaos run repeats to the bit and the trainer's replay meets
+the fault it rolled back from. The random drop and straggle draws come from
+numpy ``default_rng([seed, round])``, as in the JAX package, so both
+packages plan the same faults.
+
+* participation faults (``drop``, ``straggle``): the client's round weight
+  is 0; it trains, but its contribution is left out. A straggler also costs
+  ``chaos.straggle_ms`` of host sleep a round.
+* update faults (``nan``, ``scale``, ``flip``): applied at the optimizer
+  update boundary of the train step (``apply_update_fault``), through the
+  per-client ``chaos.code`` / ``chaos.scale`` vectors the batch carries.
+
+Not ported: the wire faults (``chaos.wire_faults``, ``ChaosProxy``), the
+host-level kills (``kill_round``, ``kill_process``, ``torn_snapshot_round``,
+``rejoin_delay_s``) and the population faults (``population_report``, the
+``pop_*`` keys); ``refuse_unported_chaos`` names them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+# update-fault codes carried in the batch's chaos.code vector; 0 = none
+FAULT_CODES = {"nan": 1, "scale": 2, "flip": 3}
+
+
+@dataclass(frozen=True)
+class RoundFaults:
+    """One round's resolved faults (pure function of plan + round)."""
+
+    weight_mask: np.ndarray            # (C,) float32 0/1 — drop+straggle
+    codes: np.ndarray                  # (C,) int32 update-fault codes
+    scales: np.ndarray                 # (C,) float32 (code==scale multiplier)
+    dropped: tuple = ()
+    straggled: tuple = ()
+    injected: tuple = ()               # ((kind, client), ...) update faults
+
+    @property
+    def any(self) -> bool:
+        return bool(self.dropped or self.straggled or self.injected)
+
+
+def parse_faults(spec: str, num_clients: int) -> list[tuple[str, int | None, int, float]]:
+    """Parse the ``faults`` DSL: comma list of ``kind@round:client[xscale]``
+    (``round`` may be ``*`` = every round). Raises on malformed entries so a
+    typo'd plan fails at build time, not silently fault-free."""
+    out: list[tuple[str, int | None, int, float]] = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        try:
+            kind, rest = item.split("@", 1)
+            round_s, client_s = rest.split(":", 1)
+            scale = 1.0
+            if "x" in client_s:
+                client_s, scale_s = client_s.split("x", 1)
+                scale = float(scale_s)
+            rnd = None if round_s == "*" else int(round_s)
+            client = int(client_s)
+        except ValueError:
+            raise ValueError(
+                f"chaos.faults entry {item!r} is not "
+                "'kind@round:client[xscale]' (e.g. 'nan@2:3,scale@*:5x100')"
+            ) from None
+        if kind not in FAULT_CODES:
+            raise ValueError(
+                f"chaos.faults entry {item!r}: unknown kind {kind!r}; "
+                f"expected one of {sorted(FAULT_CODES)}"
+            )
+        if not 0 <= client < num_clients:
+            raise ValueError(
+                f"chaos.faults entry {item!r}: client {client} out of range "
+                f"[0, {num_clients})"
+            )
+        out.append((kind, rnd, client, scale))
+    return out
+
+
+class FaultPlan:
+    """Seeded, deterministic per-round fault schedule.
+
+    ``round_faults(r)`` is idempotent: the random drop/straggle draws are
+    derived from ``default_rng([seed, r])``, never from mutable state, so
+    rollback replays and re-runs see identical faults.
+    """
+
+    def __init__(self, chaos_cfg: Any, num_clients: int):
+        self.cfg = chaos_cfg
+        self.num_clients = int(num_clients)
+        self.seed = int(chaos_cfg.seed)
+        self.drop_rate = float(chaos_cfg.drop_rate)
+        self.straggle_rate = float(chaos_cfg.straggle_rate)
+        self.specs = parse_faults(chaos_cfg.faults, self.num_clients)
+
+    def round_faults(self, round_idx: int) -> RoundFaults:
+        c = self.num_clients
+        mask = np.ones((c,), np.float32)
+        dropped: list[int] = []
+        straggled: list[int] = []
+        if self.drop_rate > 0 or self.straggle_rate > 0:
+            rng = np.random.default_rng([self.seed, int(round_idx)])
+            u = rng.random(c)
+            # one draw decides both: [0, drop) drops, [drop, drop+straggle)
+            # straggles — so the rates compose without double-failing
+            for i in range(c):
+                if u[i] < self.drop_rate:
+                    dropped.append(i)
+                    mask[i] = 0.0
+                elif u[i] < self.drop_rate + self.straggle_rate:
+                    straggled.append(i)
+                    mask[i] = 0.0
+        codes = np.zeros((c,), np.int32)
+        scales = np.ones((c,), np.float32)
+        injected: list[tuple[str, int]] = []
+        for kind, rnd, client, scale in self.specs:
+            if rnd is not None and rnd != round_idx:
+                continue
+            codes[client] = FAULT_CODES[kind]
+            scales[client] = np.float32(scale)
+            injected.append((kind, client))
+        return RoundFaults(
+            weight_mask=mask,
+            codes=codes,
+            scales=scales,
+            dropped=tuple(dropped),
+            straggled=tuple(straggled),
+            injected=tuple(injected),
+        )
+
+    def batch_keys(self, round_idx: int) -> dict[str, np.ndarray]:
+        """The per-client fault vectors a chaos-enabled step expects in
+        every batch dict (``train.step`` applies them at the update
+        boundary)."""
+        rf = self.round_faults(round_idx)
+        return {"chaos.code": rf.codes, "chaos.scale": rf.scales}
+
+
+def apply_update_fault(updates: Sequence[torch.Tensor], code: int,
+                       scale: float) -> list[torch.Tensor]:
+    """One client's chaos update fault at the optimizer-update boundary:
+    code 0 leaves the updates untouched (exact, not ``u * 1``), 1 makes them
+    NaN, 2 multiplies them by ``scale`` (f32), 3 flips their sign. The codes
+    are host values, so the branch costs no device read."""
+    code = int(code)
+    if code == 0:
+        return list(updates)
+    if code == FAULT_CODES["nan"]:
+        return [torch.full_like(u, float("nan")) for u in updates]
+    factor = -1.0 if code == FAULT_CODES["flip"] else float(np.float32(scale))
+    return [u * factor for u in updates]
+
+
+# the ChaosConfig keys the port does not run, each with its default and the
+# ROADMAP.md Queue A item that ports it
+_UNPORTED = (
+    ("wire_faults", "", "9 (the wire: ChaosProxy)"),
+    ("kill_round", -1, "9 (the coordinator deployment's host faults)"),
+    ("kill_process", -1, "9 (the coordinator deployment's host faults)"),
+    ("torn_snapshot_round", -1, "9 (the coordinator deployment's host faults)"),
+    ("rejoin_delay_s", 0.0, "9 (elastic membership)"),
+    ("pop_drop_rate", 0.0, "9 (population_report, with fed.population)"),
+    ("pop_flaky_fraction", 0.0, "9 (population_report, with fed.population)"),
+    ("pop_straggle_ms", 0.0, "9 (population_report, with fed.population)"),
+)
+
+
+def refuse_unported_chaos(chaos_cfg: Any) -> None:
+    """Raise, naming the key and its Queue A item, for a chaos fault the
+    port does not inject."""
+    if not chaos_cfg.enabled:
+        return
+    for key, default, item in _UNPORTED:
+        if getattr(chaos_cfg, key) != default:
+            raise NotImplementedError(
+                f"chaos.{key} is not ported to fedrec_tpu_torch yet (ROADMAP.md's "
+                f"Queue A item {item}); the port injects chaos.faults, drop_rate and "
+                "straggle_rate"
+            )

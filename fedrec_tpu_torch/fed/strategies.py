@@ -80,18 +80,58 @@ def get_strategy(name: str) -> FedStrategy:
     return _STRATEGIES[key]()
 
 
-def participation_mask(rng: np.random.Generator, num_clients: int, fraction: float) -> np.ndarray:
+_U32 = np.uint32
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The Threefry-2x32 block cipher (20 rounds) of ``jax.random``'s default
+    generator, in numpy: ``key`` two 32-bit words, ``x0``/``x1`` the counter
+    words, uint32 arrays of one shape."""
+    k0, k1 = _U32(key[0]), _U32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ _U32(0x1BD11BDA))
+    x0, x1 = x0.astype(_U32) + ks[0], x1.astype(_U32) + ks[1]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _THREEFRY_ROTATIONS[i % 2]:
+                x0 = x0 + x1
+                x1 = _rotl(x1, r) ^ x0
+            # key injection every 4 rounds
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + _U32(i + 1)
+    return x0, x1
+
+
+def jax_uniform(seed: int, n: int) -> np.ndarray:
+    """``jax.random.uniform(jax.random.PRNGKey(seed), (n,))`` bitwise, for a
+    seed in [0, 2**32) under JAX's partitionable threefry: key ``(0, seed)``,
+    counters ``(0, arange(n))``, bits ``out0 ^ out1``, the top 23 bits as an
+    f32 mantissa in [1, 2), minus 1."""
+    if not 0 <= seed < 1 << 32:
+        raise ValueError(f"jax_uniform: seed {seed} is outside [0, 2**32)")
+    hi, lo = threefry2x32((0, seed), np.zeros(n, _U32), np.arange(n, dtype=_U32))
+    bits = (hi ^ lo) >> _U32(9) | _U32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)
+
+
+def participation_mask(seed: int, num_clients: int, fraction: float) -> np.ndarray:
     """(num_clients,) float32 round weights with at least one participant:
     all ones at ``fraction >= 1``; otherwise uniform scores and the
     ``k = max(1, round(fraction * num_clients))`` lowest kept.
 
-    The algorithm of the JAX package's mask, drawn from a numpy
-    ``Generator`` instead of ``jax.random`` (which the port cannot
-    reproduce): for the same seed the two packages pick different clients.
+    The JAX package's mask bitwise: its scores are
+    ``jax.random.uniform(PRNGKey(seed), (num_clients,))``, drawn here by
+    ``jax_uniform``, so for the same seed both packages pick the same
+    clients. The trainer keys the mask ``hash((train.seed, round)) &
+    0x7FFFFFFF``, as the JAX trainer does.
     """
     if fraction >= 1.0:
         return np.ones((num_clients,), dtype=np.float32)
-    scores = rng.random(num_clients, dtype=np.float32)
+    scores = jax_uniform(seed, num_clients)
     k = max(1, int(round(fraction * num_clients)))
     threshold = np.sort(scores)[k - 1]
     return (scores <= threshold).astype(np.float32)

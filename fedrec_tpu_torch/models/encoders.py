@@ -31,8 +31,14 @@ def dropout(
     stream), so each federated client draws from its own."""
     if not train or rate == 0.0:
         return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return apply_dropout_mask(x, keep, rate)
+
+
+def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """``dropout``'s arithmetic with a keep mask drawn beforehand (the
+    per-example DP-SGD step draws its masks outside the transform)."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -47,12 +47,13 @@ class NewsRecommender(nn.Module):
         dtype = torch_dtype(cfg.dtype)
         if cfg.text_head_arch != "additive":
             raise NotImplementedError(
-                f"model.text_head_arch={cfg.text_head_arch!r} is not ported yet; "
-                "the port has 'additive'"
+                f"model.text_head_arch={cfg.text_head_arch!r} is not ported yet "
+                "(ROADMAP.md's Queue A item 8); the port has 'additive'"
             )
         if cfg.user_tower != "mha":
             raise NotImplementedError(
-                f"model.user_tower={cfg.user_tower!r} is not ported yet; the port has 'mha'"
+                f"model.user_tower={cfg.user_tower!r} is not ported yet (ROADMAP.md's "
+                "Queue A item 8); the port has 'mha'"
             )
         if cfg.fuse_hot_path and not cfg.stable_softmax:
             raise ValueError(

@@ -20,7 +20,11 @@ launched. D, E, F2 and F3
 are backward kernels: the forward wrappers (``fused_gather_encode``,
 ``fused_history_score``, ``flash_attention``) run inside an autograd function
 that calls them when a gradient is needed. Kernel A's (and A2's) backward is
-autograd of its plain version, as the JAX one is a dense recompute.
+the vector-Jacobian product of its plain version, as the JAX one is a dense
+recompute. A's and F1-F3's autograd functions carry ``vmap`` rules, so that
+``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) folds the
+examples into the kernels' rows and launches each kernel once a batch; B-E
+have none (``fuse_hot_path`` with DP-SGD is refused, as in JAX).
 ``chunked_attention`` is a blockwise PyTorch loop, not a kernel (the JAX one
 is a ``lax.scan``). The sources build at first use (``_build``).
 """

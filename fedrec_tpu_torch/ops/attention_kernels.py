@@ -13,8 +13,9 @@ block's shared memory would hold, kernel A2, the same logits pass with each
 row's pool split over blocks: the wrapper picks from the shape before the
 launch. When autograd needs a
 gradient, the launch runs inside a ``torch.autograd.Function`` whose
-backward is autograd of ``additive_pool_plain`` on the saved inputs: a
-recompute, as the JAX backward is a dense ``jax.vjp``, not a kernel.
+backward is the vector-Jacobian product of ``additive_pool_plain`` on the
+saved inputs: a recompute, as the JAX backward is a dense ``jax.vjp``, not
+a kernel.
 
 Flash attention. ``flash_attention`` is multi-head attention in the JAX
 ``(..., L, H, d)`` layout with an optional key mask, computed blockwise
@@ -25,6 +26,15 @@ tensors its forward is kernel F1 and its backward kernels F2 (dq) and F3
 does.
 ``flash_forward_plain`` and ``flash_backward_plain`` repeat the kernels'
 math and rounding points with dense PyTorch ops.
+
+Per-example gradients. The autograd functions are written in the
+``forward`` / ``setup_context`` style with a ``vmap`` rule each, so
+``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) runs through
+the kernels: a mapped activation's axis folds into the kernel's row axis
+(A's pooled rows, F1-F3's B·H), and each kernel launches once for the whole
+batch, never once per example. A mapped weight of A raises, naming its
+shape (F1-F3 have no weights: q, k, v, the key bias and the backward's
+operands are all per row, and all fold).
 
 On a CPU tensor every wrapper runs its plain version and counts nothing; on
 a CUDA tensor it launches its kernel or raises.
@@ -148,24 +158,81 @@ def _launch_pool(x, w1, b1, w2, mask, long: bool | None) -> torch.Tensor:
     return out
 
 
+def _lead(t: torch.Tensor | None, dim: int | None, batch: int) -> torch.Tensor | None:
+    """A mapped operand with its mapped axis moved to the front, ``(B,
+    ...)``; an unmapped one broadcast to every example. Contiguous and on a
+    16-byte boundary, as the kernels check."""
+    if t is None:
+        return None
+    t = (t.unsqueeze(0).expand(batch, *t.shape) if dim is None else t.movedim(dim, 0)).contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _fold(t: torch.Tensor | None, dim: int | None, batch: int) -> torch.Tensor | None:
+    """``_lead``, then the mapped axis folded into the leading (row) axis:
+    ``(B, n, ...) -> (B*n, ...)``."""
+    t = _lead(t, dim, batch)
+    return None if t is None else t.reshape(-1, *t.shape[2:])
+
+
+def _unfold(t: torch.Tensor, batch: int) -> torch.Tensor:
+    """``(B*n, ...) -> (B, n, ...)``: the kernel's rows back per example."""
+    return t.reshape(batch, -1, *t.shape[1:])
+
+
+def _refuse_mapped_weights(name: str, in_dims, args) -> None:
+    """A kernel folds a mapped activation into its rows, which keeps one
+    set of weights for every row. A weight mapped too (one set an example)
+    cannot fold: raise, naming it, rather than run a plain version."""
+    for i, (d, t) in enumerate(zip(in_dims[1:], args[1:]), 1):
+        if d is not None:
+            raise ValueError(
+                f"{name}: operand {i} of shape {tuple(t.shape)} is mapped (vmap in_dim "
+                f"{d}); the kernel takes one set of weights for every row, so only the "
+                "activations may be mapped")
+
+
 class _Pool(torch.autograd.Function):
-    """Kernel A or A2 forward; backward = autograd of the plain version."""
+    """Kernel A or A2 forward; backward = the plain version's vector-Jacobian
+    product (``torch.func.vjp`` of ``additive_pool_plain``, which the
+    per-example transform can itself map). Under ``torch.func.vmap`` the
+    ``vmap`` rule makes the mapped axis of ``x`` (and of ``mask``) one more
+    leading axis of the kernel's rows and launches once for the whole
+    batch; a mapped weight raises."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, mask, long=False):
-        ctx.save_for_backward(x, w1, b1, w2, mask)
+    def forward(x, w1, b1, w2, mask, long=False):
         return (_launch_long if long else _launch)(x, w1, b1, w2, mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w1, b1, w2, mask = inputs[:5]
+        ctx.save_for_backward(x, w1, b1, w2, mask)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, mask = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip((x, w1, b1, w2), ctx.needs_input_grad)]
-            out = additive_pool_plain(*leaves, mask)
-            wanted = [t for t in leaves if t.requires_grad]
-            got = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(got) if t.requires_grad else None for t in leaves), None, None)
+        args = [x, w1, b1, w2]
+        need = [i for i in range(4) if ctx.needs_input_grad[i]]
+
+        def plain(*wanted):  # the pool of the inputs that want a gradient
+            full = list(args)
+            for i, t in zip(need, wanted):
+                full[i] = t
+            return additive_pool_plain(*full, mask)
+
+        # only those: the frozen token rows' dx would be the largest product
+        _, vjp = torch.func.vjp(plain, *(args[i] for i in need))
+        got = dict(zip(need, vjp(g)))
+        return (*(got.get(i) for i in range(4)), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w1, b1, w2, mask, long=False):
+        # the kernel takes any leading axes: the examples are one more
+        _refuse_mapped_weights("additive_pool", in_dims, (x, w1, b1, w2))
+        b = info.batch_size
+        out = _Pool.apply(_lead(x, in_dims[0], b), w1, b1, w2, _lead(mask, in_dims[4], b), long)
+        return out, 0
 
 
 def additive_pool(
@@ -202,9 +269,7 @@ def additive_pool_long(
 
 def _pool(x, w1, b1, w2, mask, long: bool):
     if x.device.type == "cuda":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2)):
-            return _Pool.apply(x, w1, b1, w2, mask, long)
-        return (_launch_long if long else _launch)(x, w1, b1, w2, mask)
+        return _Pool.apply(x, w1, b1, w2, mask, long)
     if x.device.type == "cpu":
         return additive_pool_plain(x, w1, b1, w2, mask)
     raise ValueError(f"additive_pool: unsupported device {x.device}")
@@ -406,34 +471,71 @@ flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
 
+class _FlashBwd(torch.autograd.Function):
+    """Kernels F2 (dq) and F3 (dk, dv, dbias) from the forward's ``lse`` and
+    ``delta = rowsum(g * out)``. F2 and F3 compute every row's gradients
+    from that row alone, so under ``torch.func.vmap`` the ``vmap`` rule
+    folds the mapped axis into the rows (an unmapped operand broadcast to
+    every example) and launches each kernel once. Not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, bias, g, lse, delta, need_q, need_kvb):
+        dq = _launch_flash_dq(q, k, v, bias, g, lse, delta) if need_q else None
+        dk = dv = dbias = None
+        if need_kvb:
+            dk, dv, dbias = _launch_flash_dkv(q, k, v, bias, g, lse, delta)
+        return dq, dk, dv, dbias
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias, g, lse, delta, need_q, need_kvb):
+        b = info.batch_size
+        folded = [_fold(t, d, b) for t, d in zip((q, k, v, bias, g, lse, delta), in_dims)]
+        outs = _FlashBwd.apply(*folded, need_q, need_kvb)
+        return (tuple(None if t is None else _unfold(t, b) for t in outs),
+                tuple(None if t is None else 0 for t in outs))
+
+
 class _Flash(torch.autograd.Function):
-    """Kernel F1 forward; kernels F2 and F3 backward, with delta taken in f32
-    between the two launches, as ``_flash_bwd`` does in JAX."""
+    """Kernel F1 forward, returning ``(out, lse)``; the backward takes delta
+    in f32 and launches kernels F2 and F3 (``_FlashBwd``), as ``_flash_bwd``
+    does in JAX. Under ``torch.func.vmap`` the ``vmap`` rule folds the
+    mapped axis into F1's B·H rows and launches once for the whole batch."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias):
-        out, lse = _launch_flash_fwd(q, k, v, bias)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        return out
+    def forward(q, k, v, bias):
+        return _launch_flash_fwd(q, k, v, bias)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(*inputs, out, lse)
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
         q, k, v, bias, out, lse = ctx.saved_tensors
         g = g.contiguous()
         delta = (g.float() * out.float()).sum(-1)
         need_q, need_k, need_v, need_b = ctx.needs_input_grad
-        dq = _launch_flash_dq(q, k, v, bias, g, lse, delta) if need_q else None
-        dk = dv = dbias = None
-        if need_k or need_v or need_b:
-            dk, dv, dbias = _launch_flash_dkv(q, k, v, bias, g, lse, delta)
+        dq, dk, dv, dbias = _FlashBwd.apply(q, k, v, bias, g, lse, delta, need_q,
+                                            need_k or need_v or need_b)
         return dq, dk if need_k else None, dv if need_v else None, dbias if need_b else None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, bias):
+        # every operand is per row (F1 has no weights): all of them fold
+        b = info.batch_size
+        out, lse = _Flash.apply(*(_fold(t, d, b) for t, d in zip((q, k, v, bias), in_dims)))
+        return (_unfold(out, b), _unfold(lse, b)), (0, 0)
 
 
 def _flash(q, k, v, bias) -> torch.Tensor:
     if _on_device("flash_attention", q):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-            return _Flash.apply(q, k, v, bias)
-        return _launch_flash_fwd(q, k, v, bias)[0]
+        return _Flash.apply(q, k, v, bias)[0]
     return flash_forward_plain(q, k, v, bias)[0]
 
 

@@ -31,12 +31,22 @@ the table (reference ``model.py:66-90``).
 With ``privacy.enabled`` and ``mechanism='ldp_news'`` the news parts of
 each client's gradients get ``N(0, sigma^2)`` noise before any sync: the
 text head's gradients in joint mode, the candidate and history vectors'
-in decoupled mode (``privacy.dpsgd``).
+in decoupled mode (``privacy.dpsgd``). With ``mechanism='dpsgd'`` (joint
+mode) each client's gradient is the mean of per-example gradients clipped
+to C, plus ``N(0, (sigma C / B)^2)`` (``per_example_dp_grads``): each
+example encodes its own news, and under ``model.use_pallas`` kernels A and
+F1-F3 run inside ``torch.func.vmap``, folding the examples into their rows.
 
-K clients run in a Python loop on one device. ``build_param_sync`` is the
-round-end weighted mean. The levers the port does not run yet raise
-``NotImplementedError`` at build time and name the lever, as the JAX
-package fails fast on unsupported combinations.
+Every step returns the health sentry's per-client vector
+(``obs.health.sentry``, on by default; device tensors, no host read), and
+applies the chaos plan's update faults (``chaos.enabled``) between an
+update's computation and its application. K clients run in a Python loop
+on one device. ``build_param_sync`` is the round-end aggregate: the
+weighted mean, or ``fed.robust``'s clip, trimmed mean or median over both
+towers. The levers the port does not run yet raise
+``NotImplementedError`` at build time and name the lever and its
+``ROADMAP.md`` Queue A item; the combinations the JAX package refuses
+raise with its wording.
 
 The eval steps (``build_eval_step``, ``build_full_eval_step``) score
 validation impressions against a news-vector table from
@@ -50,7 +60,7 @@ is not ported: on one card it is the unsharded step.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -62,10 +72,13 @@ from fedrec_tpu_torch.eval.metrics import (
     quality_stats_batch,
     ranking_metrics_batch,
 )
+from fedrec_tpu_torch.fed.chaos import apply_update_fault, refuse_unported_chaos
+from fedrec_tpu_torch.fed.robust import robust_aggregate, validate_robust_method
 from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg
 from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
+from fedrec_tpu_torch.models.encoders import apply_dropout_mask
 from fedrec_tpu_torch.ops import fused_gather_encode
-from fedrec_tpu_torch.privacy import make_noise_fn
+from fedrec_tpu_torch.privacy import make_noise_fn, per_example_clipped_grads
 from fedrec_tpu_torch.train.state import ClientState, make_optimizers
 
 MODES = {"table": "decoupled", "head": "joint", "finetune": "finetune"}
@@ -210,9 +223,10 @@ def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
 
 
 def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
-    """Fail at build time, naming the lever, for what the port cannot run:
-    the one list of refusals, which the train step, ``Trainer`` and the run
-    CLI share."""
+    """Fail at build time, naming the lever, for what the port cannot run
+    and for the combinations the JAX ``build_fed_train_step`` refuses (with its
+    wording): the one list of refusals, which the train step, ``Trainer``
+    and the run CLI share."""
     if mode not in ("joint", "decoupled"):
         item = {"finetune": 8}.get(mode)
         raise NotImplementedError(
@@ -221,33 +235,52 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
             "model.text_encoder_mode='head' (joint) and 'table' (decoupled)"
             + (f"; {mode} mode is ROADMAP.md's Queue A item {item}" if item else "")
         )
-    if cfg.privacy.enabled and cfg.privacy.mechanism == "dpsgd" and mode == "joint":
-        # decoupled mode refuses dpsgd with the JAX package's ValueError
-        # (_noise_hook)
-        raise NotImplementedError(
-            "privacy.enabled with privacy.mechanism='dpsgd' (per-example DP-SGD) is not "
-            "ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A item 6); use "
-            "mechanism='ldp_news' in decoupled mode, or unset privacy.enabled"
-        )
+    if _uses_dpsgd(cfg):
+        # the JAX build_fed_train_step's refusals (fedrec_tpu/train/step.py), in its
+        # order; decoupled mode's dpsgd ValueError is _noise_hook's
+        if cfg.fed.seq_shards > 1:
+            raise NotImplementedError(
+                "per-example DP-SGD with sequence parallelism is not supported; "
+                "use seq_shards=1 with mechanism='dpsgd'"
+            )
+        if mode == "joint" and cfg.model.fuse_hot_path:
+            raise NotImplementedError(
+                "model.fuse_hot_path with privacy.mechanism='dpsgd' is not "
+                "supported (per-example clipping would pay the kernel "
+                "launch per example, exactly the overhead regime where "
+                "fusion loses); unset one of the two"
+            )
+        if mode == "joint" and cfg.shard.table:
+            raise NotImplementedError(
+                "shard.table with privacy.mechanism='dpsgd' is not "
+                "supported (per-example clipping gathers each example's "
+                "rows directly, bypassing the owner-bucketed exchange); "
+                "unset one of the two"
+            )
     levers = [
-        ("fed.seq_shards>1", cfg.fed.seq_shards > 1),
-        ("shard.table", cfg.shard.table),
-        ("chaos.enabled", cfg.chaos.enabled),
-        ("obs.health.sentry", cfg.obs.health.sentry),
-        ("obs.quality.enabled (sliced-evaluation telemetry)", cfg.obs.quality.enabled),
-        ("data.gather_chunk>0", cfg.data.gather_chunk > 0),
-        (f"model.text_head_arch={cfg.model.text_head_arch!r}",
+        ("fed.seq_shards>1 (ROADMAP.md's Queue A item 9)", cfg.fed.seq_shards > 1),
+        ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
+        ("obs.dir (observability artifacts, ROADMAP.md's Queue A item 10b)", bool(cfg.obs.dir)),
+        ("obs.quality.enabled (sliced-evaluation telemetry, ROADMAP.md's Queue A item 10b)",
+         cfg.obs.quality.enabled),
+        ("data.gather_chunk>0 (ROADMAP.md's Queue A item 4)", cfg.data.gather_chunk > 0),
+        (f"model.text_head_arch={cfg.model.text_head_arch!r} (ROADMAP.md's Queue A item 8)",
          cfg.model.text_head_arch != "additive"),
     ]
     for name, on in levers:
         if on:
             raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")
+    refuse_unported_chaos(cfg.chaos)
 
 
 def refuse_unported(cfg: ExperimentConfig) -> None:
     """``_refuse_unported`` for the mode ``cfg`` names: the run CLI's check
     before it loads data."""
     _refuse_unported(cfg, MODES.get(cfg.model.text_encoder_mode, "joint"))
+
+
+def _uses_dpsgd(cfg: ExperimentConfig) -> bool:
+    return cfg.privacy.enabled and cfg.privacy.mechanism == "dpsgd"
 
 
 def _noise_hook(cfg: ExperimentConfig, mode: str) -> Callable | None:
@@ -275,18 +308,121 @@ def _noise_hook(cfg: ExperimentConfig, mode: str) -> Callable | None:
     return make_noise_fn(p, cfg.data.batch_size)
 
 
-def _optimizer_step(tx, st: ClientState, which: str, params, grads) -> None:
-    """One step of chain ``tx`` on ``params`` with ``grads``; the new state
-    goes to ``st.<which>`` (``opt_user`` or ``opt_news``)."""
+def _leaves(*trees) -> list[torch.Tensor]:
+    """The tensors of ``trees`` (tensors, sequences of tensors or None),
+    Nones skipped."""
+    out = []
+    for t in trees:
+        if t is None:
+            continue
+        if torch.is_tensor(t):
+            out.append(t)
+        else:
+            out.extend(x for x in t if x is not None)
+    return out
+
+
+@torch.no_grad()
+def _group_norms(groups: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+    """The f32 global L2 norm of each group of tensors, (len(groups),): the
+    health sentry's one norm definition (grad, update and param norms all
+    use it, so their scales compare). A step's worth at once, in two
+    multi-tensor passes (each tensor's norm, then each group's norm of
+    those), since a call per norm costs the host more than the device; a
+    device tensor, no host read."""
+    per_tensor = torch.stack(torch._foreach_norm([x.float() for g in groups for x in g]))
+    return torch.stack(torch._foreach_norm(list(per_tensor.split([len(g) for g in groups]))))
+
+
+def _optimizer_updates(tx, st: ClientState, which: str, params, grads) -> list[torch.Tensor]:
+    """One step of chain ``tx``: the updates to add to ``params``; the new
+    optimizer state goes to ``st.<which>`` (``opt_user`` or ``opt_news``).
+    The updates are applied separately (``_apply_updates``), so that a
+    chaos fault and the sentry see them first."""
     updates, new_opt = tx.update(grads, getattr(st, which), params)
     setattr(st, which, new_opt)
-    with torch.no_grad():
-        for p, u in zip(params, updates):
-            p.add_(u)
+    return updates
+
+
+@torch.no_grad()
+def _apply_updates(params, updates) -> None:
+    for p, u in zip(params, updates):
+        p.add_(u)
+
+
+def _optimizer_step(tx, st: ClientState, which: str, params, grads) -> None:
+    """One step of chain ``tx`` on ``params`` with ``grads``, applied."""
+    _apply_updates(params, _optimizer_updates(tx, st, which, params, grads))
 
 
 def _as_device(a: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device)
+
+
+def _dropout_keep(shape, rate: float, generator: torch.Generator,
+                  device: torch.device) -> torch.Tensor | None:
+    """The keep mask ``models.encoders.dropout`` would draw for ``shape``
+    from ``generator``; None when dropout is off."""
+    if rate == 0.0:
+        return None
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def per_example_dp_grads(
+    model: NewsRecommender,
+    token_states: torch.Tensor,
+    candidates: torch.Tensor,
+    history: torch.Tensor,
+    labels: torch.Tensor,
+    clip_norm: float,
+    generator: torch.Generator | None = None,
+    user_only: bool = False,
+    sigmoid_ce: bool = True,
+) -> tuple:
+    """One client's DP-SGD gradient estimate before the noise: the mean over
+    the batch of each example's gradient clipped to global norm
+    ``clip_norm`` (the JAX step's ``per_example_loss`` under
+    ``privacy.per_example_clipped_grads``).
+
+    Each example gathers its own 1+C candidate and H history token-state
+    rows and encodes them (no cross-example dedup, which would couple
+    examples and break the per-example bound). The loss is mapped over the
+    examples with ``torch.func``, so under ``model.use_pallas`` kernels A
+    (both pools) and F1-F3 (the user tower's attention) run inside the
+    transform, each launching once for the whole batch. The dropout keep
+    masks are drawn from ``generator`` before the transform, one per
+    example. ``user_only`` (``dp_scope='user'``) differentiates the user
+    tower alone, the text head held fixed.
+
+    Returns ``(mean loss, user grads, news grads or None, {"clip_rate",
+    "max_norm"})``, the gradients as lists in ``parameters()`` order.
+    """
+    c = candidates.shape[1]
+    rate = model.cfg.dropout_rate
+    toks = token_states.detach()[torch.cat([candidates, history], 1).long()]
+    keep = _dropout_keep((history.shape[0], 1, history.shape[1], model.cfg.news_dim), rate,
+                         generator, token_states.device)
+    # the transform differentiates detached copies: the live parameters
+    # take no part in an outer autograd graph
+    user_p = {k: v.detach() for k, v in model.user_encoder.named_parameters()}
+    news_p = {k: v.detach() for k, v in model.text_head.named_parameters()}
+
+    def per_example_loss(params, toks_row, label, *keep_row):
+        user_params, news_params = (params, news_p) if user_only else params
+        vecs = torch.func.functional_call(model.text_head, news_params, (toks_row,))
+        his = vecs[c:][None]
+        if keep_row:  # this example's mask, drawn outside the transform
+            his = apply_dropout_mask(his, keep_row[0], rate)
+        user = torch.func.functional_call(model.user_encoder, user_params, (his,))
+        return score_loss(score_candidates(vecs[:c][None], user), label[None], sigmoid_ce)
+
+    args = (toks, labels) + (() if keep is None else (keep,))
+    loss, grads, stats = per_example_clipped_grads(
+        per_example_loss, user_p if user_only else (user_p, news_p), args, clip_norm,
+        with_stats=True)
+    if user_only:
+        return loss, list(grads.values()), None, stats
+    return loss, list(grads[0].values()), list(grads[1].values()), stats
 
 
 def build_fed_train_step(
@@ -306,7 +442,28 @@ def build_fed_train_step(
     (N, news_dim) news-vector table in decoupled mode. ``metrics`` holds
     each client's ``loss`` (K,), their ``mean_loss`` and ``unique_overflow``
     (how many clients' batches held more distinct ids than the cap; 0 in
-    decoupled mode, which encodes nothing).
+    decoupled mode, which encodes nothing, and under DP-SGD, which does not
+    deduplicate).
+
+    With ``obs.health.sentry`` (the default) ``metrics`` also holds each
+    client's ``health.grad_norm`` (after any noise, before the sync),
+    ``health.update_norm`` (after any chaos fault), ``health.param_norm``
+    (after the update) and ``health.nonfinite`` (int32, 1 when the loss or
+    a norm is not finite), and under dpsgd ``health.clip_rate`` and
+    ``health.clip_max_norm``: (K,) device tensors, read by nobody here.
+    They only observe: the trajectory is bitwise the one without them.
+    With ``chaos.enabled`` the batch carries ``chaos.code`` / ``chaos.scale``
+    (K,) host vectors (``fed.chaos.FaultPlan.batch_keys``), applied to each
+    client's updates before they are added.
+
+    Joint mode with ``privacy.mechanism='dpsgd'`` runs per-example DP-SGD:
+    each example gathers and encodes its own 1+C candidates and H history
+    ids (no cross-example dedup), ``privacy.per_example_clipped_grads``
+    maps the loss over the examples (kernels A and F1-F3 under
+    ``model.use_pallas`` fold the examples into their rows), and
+    ``N(0, (sigma C / B)^2)`` noise follows. The dropout masks are drawn
+    from the client's generator before the transform. ``dp_scope='user'``
+    freezes the text head: no gradient, no noise, no Adam step.
 
     ``mode`` defaults to the one ``model.text_encoder_mode`` names ("head"
     -> "joint", "table" -> "decoupled"). In decoupled mode each client's
@@ -326,6 +483,10 @@ def build_fed_train_step(
     fused = model.cfg.fuse_hot_path and model.cfg.text_head_arch == "additive"
     sigmoid_ce = cfg.model.sigmoid_before_ce
     joint = mode == "joint"
+    use_dpsgd = joint and _uses_dpsgd(cfg)
+    dp_user_only = use_dpsgd and cfg.privacy.dp_scope == "user"
+    sentry = cfg.obs.health.sentry
+    chaos = cfg.chaos.enabled
 
     def joint_grads(st: ClientState, cand, hist, lab, token_states, cap: int):
         m = st.model
@@ -340,6 +501,17 @@ def build_fed_train_step(
             news_g = [torch.zeros_like(p) if g is None else g for g, p in zip(news_g, news_p)]
             user_g, news_g = noise_fn((user_g, news_g), st.noise_generator)
         return loss, user_g, news_g
+
+    def dpsgd_grads(st: ClientState, cand, hist, lab, token_states):
+        loss, user_g, news_g, stats = per_example_dp_grads(
+            st.model, token_states, cand, hist, lab, cfg.privacy.clip_norm, st.generator,
+            user_only=dp_user_only, sigmoid_ce=sigmoid_ce)
+        if noise_fn is not None:
+            if news_g is None:
+                (user_g,) = noise_fn((user_g,), st.noise_generator)
+            else:
+                user_g, news_g = noise_fn((user_g, news_g), st.noise_generator)
+        return loss, user_g, news_g, stats
 
     def decoupled_grads(st: ClientState, cand, hist, lab, table):
         # the gathered vectors are the gradient's leaves; the table is not
@@ -362,39 +534,81 @@ def build_fed_train_step(
         ids = torch.cat([cand.reshape(-1), hist.reshape(-1)]).long()
         rows = torch.cat([cand_g.reshape(-1, d), his_g.reshape(-1, d)])
         scatter_add_rows(st.news_grad_accum, ids, rows)
-        return loss, user_g, None
+        return loss, user_g, (cand_g, his_g)
 
     def step(states: list[ClientState], batch: dict, table: torch.Tensor):
         cands = _as_device(batch["candidates"], dev)
         hists = _as_device(batch["history"], dev)
         labels = _as_device(batch["labels"], dev)
-        if cands.shape[0] != len(states):
-            raise ValueError(f"batch holds {cands.shape[0]} clients, states {len(states)}")
-        cap = resolve_unique_cap(cfg, labels.shape[1]) if joint else 0
+        k = len(states)
+        if cands.shape[0] != k:
+            raise ValueError(f"batch holds {cands.shape[0]} clients, states {k}")
+        codes = scales = None
+        if chaos:
+            # host vectors: the fault branch costs no device read
+            codes = np.asarray(batch["chaos.code"]).reshape(k)
+            scales = np.asarray(batch["chaos.scale"]).reshape(k)
+        cap = resolve_unique_cap(cfg, labels.shape[1]) if joint and not use_dpsgd else 0
         losses, user_g, news_g, overflow = [], [], [], 0
+        health: dict[str, list] = {}  # DP-SGD's clip statistics
+        # the sentry's norm groups: each client's grads, updates, params
+        groups: list[list] = [[], [], []]
         for st, cand, hist, lab in zip(states, cands, hists, labels):
-            if joint:
+            extra = None  # decoupled mode: the gathered vectors' gradients
+            if use_dpsgd:
+                loss, ug, ng, stats = dpsgd_grads(st, cand, hist, lab, table)
+                if sentry:
+                    health.setdefault("health.clip_rate", []).append(stats["clip_rate"])
+                    health.setdefault("health.clip_max_norm", []).append(stats["max_norm"])
+            elif joint:
                 loss, ug, ng = joint_grads(st, cand, hist, lab, table, cap)
                 overflow += unique_overflow(cand, hist, cap, table.shape[0]) if cap else 0
             else:
-                loss, ug, ng = decoupled_grads(st, cand, hist, lab, table)
+                loss, ug, extra = decoupled_grads(st, cand, hist, lab, table)
+                ng = None
+            if sentry:
+                # each client's own gradients, after the noise and before
+                # the sync blends them into the cohort's
+                groups[0].append(_leaves(ug, ng, *(extra or ())))
             losses.append(loss.detach())
             user_g.append(ug)
             news_g.append(ng)
         user_g = strategy.sync_grads(user_g)
-        if joint:
+        if news_g[0] is not None:
             news_g = strategy.sync_grads(news_g)
-        for st, ug, ng in zip(states, user_g, news_g):
-            _optimizer_step(opt_user, st, "opt_user", st.user_params(), ug)
-            if joint:
-                _optimizer_step(opt_news, st, "opt_news", st.news_params(), ng)
+        for c, (st, ug, ng) in enumerate(zip(states, user_g, news_g)):
+            user_p = st.user_params()
+            u_up = _optimizer_updates(opt_user, st, "opt_user", user_p, ug)
+            n_up = None
+            if ng is not None:
+                n_up = _optimizer_updates(opt_news, st, "opt_news", st.news_params(), ng)
+            if chaos:
+                # at the update boundary: the sentry below sees the faulted
+                # update, as it would a real bad client's
+                u_up = apply_update_fault(u_up, codes[c], scales[c])
+                if n_up is not None:
+                    n_up = apply_update_fault(n_up, codes[c], scales[c])
+            _apply_updates(user_p, u_up)
+            if n_up is not None:
+                _apply_updates(st.news_params(), n_up)
             st.step += 1
+            if sentry:
+                groups[1].append(_leaves(u_up, n_up))
+                groups[2].append(_leaves(user_p, st.news_params()))
         loss_vec = torch.stack(losses)
-        return states, {
+        metrics = {
             "loss": loss_vec,
             "mean_loss": loss_vec.mean(),
             "unique_overflow": overflow,
         }
+        if sentry:
+            metrics.update({key: torch.stack(v) for key, v in health.items()})
+            norms = _group_norms(groups[0] + groups[1] + groups[2]).reshape(3, k)
+            for i, key in enumerate(("grad_norm", "update_norm", "param_norm")):
+                metrics[f"health.{key}"] = norms[i]
+            finite = torch.isfinite(loss_vec) & torch.isfinite(norms).all(0)
+            metrics["health.nonfinite"] = 1 - finite.to(torch.int32)
+        return states, metrics
 
     return step
 
@@ -478,24 +692,41 @@ def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None)
     """Round-end parameter aggregation through the strategy.
 
     ``sync(states, weights) -> states``, ``weights`` one round weight per
-    client (equal weights = FedAvg, zeros = clients that did not report).
-    ``ParamAvg`` writes the weighted mean of both towers into every client;
-    ``Local``/``GradAvg`` leave parameters alone. Optimizer states stay
-    local, as in the reference.
+    client (equal weights = FedAvg, zeros = clients that did not report or
+    sit in quarantine). ``ParamAvg`` writes the aggregate of both towers
+    into every client; ``Local``/``GradAvg`` leave parameters alone.
+    Optimizer states stay local, as in the reference.
+
+    ``fed.robust.method`` picks the aggregate: "mean" is the strategy's
+    weighted mean, one tower at a time (bitwise ``weighted_param_avg``);
+    "clip", "trimmed_mean" and "median" run ``fed.robust.robust_aggregate``
+    over both towers at once, so that ``clip``'s deviation norm spans the
+    whole client update.
     """
     strategy = strategy or ParamAvg()
+    rb = cfg.fed.robust
+    method = validate_robust_method(rb.method)
+
+    @torch.no_grad()
+    def write(params, new) -> None:
+        pairs = [(p, q) for old, fresh in zip(params, new) for p, q in zip(old, fresh)
+                 if p is not q]
+        if pairs:
+            torch._foreach_copy_([p for p, _ in pairs], [q for _, q in pairs])
 
     def sync(states: list[ClientState], weights) -> list[ClientState]:
         if not strategy.sync_params_every_round:
             return states
-        for part in ("user_params", "news_params"):
-            params = [getattr(st, part)() for st in states]
-            new = strategy.sync_params(params, weights)
-            with torch.no_grad():
-                for old, fresh in zip(params, new):
-                    for p, q in zip(old, fresh):
-                        if p is not q:
-                            p.copy_(q)
+        if method == "mean":
+            for part in ("user_params", "news_params"):
+                params = [getattr(st, part)() for st in states]
+                write(params, strategy.sync_params(params, weights))
+            return states
+        params = [st.user_params() + st.news_params() for st in states]
+        with torch.no_grad():
+            new = robust_aggregate(params, weights, method, trim_k=rb.trim_k,
+                                   clip_norm=rb.clip_norm)
+        write(params, new)
         return states
 
     return sync

@@ -1,7 +1,9 @@
 """The federated round loop, the port of ``fedrec_tpu/train/trainer.py``'s
 flat path: a fixed world of ``fed.num_clients`` clients on one card, in
 joint ("head") or decoupled ("table", the default) mode over the frozen
-trunk's cached token states, no cohorts, chaos, codecs or server optimizer.
+trunk's cached token states, with the health sentry, robust aggregation,
+chaos client faults and quarantine-and-rollback; no cohorts, codecs or
+server optimizer.
 
 A run is ``fed.rounds`` rounds. A round draws its participation weights,
 runs ``fed.local_epochs`` epochs of the train step over the batcher's
@@ -27,14 +29,31 @@ it; a client other than 0 evaluated on its own (the clients out of sync)
 gets a fresh encode of its own head. A restore happens only in
 ``__init__``, before the first table is built.
 
+Health. The train step returns each client's health vector every step
+(``obs.health.sentry``, on by default) as device tensors; the round reads
+them once, with its losses, and ``obs.health.HealthMonitor`` digests them.
+A non-finite cell raises ``TrainingHealthError`` under
+``obs.health.abort_on_nonfinite``; a loss spike or an outlier client is a
+warning. With ``fed.robust.recover`` a non-finite or outlier client is a
+recoverable trigger instead: the client is quarantined (weight 0 for
+``fed.robust.quarantine_rounds`` rounds), every client is rolled back to
+the round-entry state (a device copy of params, optimizer states, step
+counts, accumulators and generator states) and the round replays, up to
+``fed.robust.max_retries`` times; an expired client rejoins healed. The
+round weights are the participation mask (``hash((train.seed, round))``,
+bitwise JAX's) times the chaos plan's drop/straggle mask times the
+quarantine exclusion.
+
 The levers this trainer does not run are refused by name at construction
-(``train.step._refuse_unported``). Observability is a print per round.
+(``train.step._refuse_unported``). Metrics go to the ``obs`` registry and
+a print per round; the round and rollback spans to the ``obs`` tracer.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -44,11 +63,14 @@ import torch
 from fedrec_tpu_torch.config import EVAL_PROTOCOLS, ExperimentConfig
 from fedrec_tpu_torch.data import IndexedSamples, MindData, TrainBatcher, index_samples
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
+from fedrec_tpu_torch.fed.chaos import FaultPlan
+from fedrec_tpu_torch.fed.robust import validate_robust_method
 from fedrec_tpu_torch.fed.strategies import get_strategy, participation_mask
 from fedrec_tpu_torch.models import NewsRecommender
+from fedrec_tpu_torch.obs import HealthMonitor, TrainingHealthError, get_registry, get_tracer
 from fedrec_tpu_torch.params import from_flax, init_params
 from fedrec_tpu_torch.train.checkpoint import SnapshotManager, atomic_write_bytes
-from fedrec_tpu_torch.train.state import init_client_state, replicate_state
+from fedrec_tpu_torch.train.state import OptState, init_client_state, replicate_state
 from fedrec_tpu_torch.train.step import (
     build_eval_step,
     build_fed_train_step,
@@ -71,6 +93,20 @@ class RoundResult:
     round_idx: int
     train_loss: float
     val_metrics: dict[str, float] = field(default_factory=dict)
+
+
+class RoundRecovery(Exception):
+    """Internal control flow of quarantine-and-rollback
+    (``fed.robust.recover``): raised by the round-end health check instead
+    of the abort, caught by the round loop, which quarantines the client,
+    restores the round-entry state and replays."""
+
+    def __init__(self, trigger: dict):
+        super().__init__(
+            f"recoverable health trigger [{trigger.get('kind')}] "
+            f"client {trigger.get('client')} round {trigger.get('round')}"
+        )
+        self.trigger = trigger
 
 
 class Trainer:
@@ -98,6 +134,29 @@ class Trainer:
                 f"expected one of {EVAL_PROTOCOLS}"
             )
         self.strategy = get_strategy(cfg.fed.strategy)
+        # robust aggregation and recovery, validated up front: a method or a
+        # recovery that would silently never apply is a misconfiguration
+        rb = cfg.fed.robust
+        validate_robust_method(rb.method)
+        if rb.method != "mean" and not self.strategy.sync_params_every_round:
+            raise ValueError(
+                f"fed.robust.method={rb.method!r} requires a strategy that "
+                "syncs params every round (param_avg or coordinator); "
+                f"fed.strategy={cfg.fed.strategy!r} never aggregates params, "
+                "so the robust aggregator would silently never run"
+            )
+        if rb.recover:
+            if not self.strategy.sync_params_every_round:
+                raise ValueError(
+                    "fed.robust.recover=true requires a param-syncing "
+                    "strategy (param_avg or coordinator): quarantine works "
+                    "by zeroing the client's aggregation weight"
+                )
+            if not cfg.obs.health.sentry:
+                raise ValueError(
+                    "fed.robust.recover=true requires obs.health.sentry: "
+                    "recovery is driven by the in-graph health vectors"
+                )
         self.token_states = torch.as_tensor(token_states).to(
             self.dev, torch_dtype(cfg.model.dtype))
 
@@ -125,6 +184,31 @@ class Trainer:
         self.eval_step = build_eval_step(cfg, device=self.dev)
         self.full_eval_step = build_full_eval_step(device=self.dev)
         self.last_per_client_metrics: list[dict[str, float]] | None = None
+
+        self.registry = get_registry()
+        self.tracer = get_tracer()
+        self.health = HealthMonitor(cfg.obs.health, registry=self.registry)
+        self.chaos = FaultPlan(cfg.chaos, cfg.fed.num_clients) if cfg.chaos.enabled else None
+        # quarantine ledger: client -> rounds left excluded; retries count the
+        # rollbacks of the current round
+        self._quarantine: dict[int, int] = {}
+        self._round_retries = 0
+        self._recovery_state: dict | None = None
+        self._m_robust_rounds = self.registry.counter(
+            "fed.robust_rounds_total",
+            "round-end aggregations performed, labeled by robust method", labels=("method",))
+        self._m_quarantines = self.registry.counter(
+            "fed.quarantines_total",
+            "clients quarantined by the recovery path (weight 0 for "
+            "fed.robust.quarantine_rounds rounds)")
+        self._m_rollbacks = self.registry.counter(
+            "fed.rollbacks_total", "round rollback/replay cycles performed by the recovery path")
+        self._g_quarantined = self.registry.gauge(
+            "fed.quarantine_active", "clients currently quarantined")
+        self._m_chaos = self.registry.counter(
+            "chaos.faults_total",
+            "faults injected by the chaos FaultPlan, labeled by kind "
+            "(drop/straggle/nan/scale/flip); rollback replays re-count", labels=("kind",))
 
         self.start_round = 0
         self.snapshots: SnapshotManager | None = None
@@ -281,10 +365,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _round_weights(self, round_idx: int) -> np.ndarray:
-        """The round's aggregation weights: the participation mask, drawn
-        from ``hash((train.seed, round))`` as the JAX trainer keys its mask."""
-        rng = np.random.default_rng(hash((self.cfg.train.seed, round_idx)) & 0x7FFFFFFF)
-        return participation_mask(rng, self.cfg.fed.num_clients, self.cfg.fed.participation)
+        """The round's aggregation weights: the participation mask, keyed
+        ``hash((train.seed, round)) & 0x7FFFFFFF`` as the JAX trainer keys
+        its own (the same clients for the same seed), times the chaos plan's
+        drop/straggle mask, with the quarantined clients at 0. A straggler
+        round sleeps ``chaos.straggle_ms`` on the host."""
+        cfg = self.cfg
+        w = participation_mask(hash((cfg.train.seed, round_idx)) & 0x7FFFFFFF,
+                               cfg.fed.num_clients, cfg.fed.participation)
+        if self.chaos is not None:
+            rf = self.chaos.round_faults(round_idx)
+            w = w * rf.weight_mask
+            for kind, count in (("drop", len(rf.dropped)), ("straggle", len(rf.straggled))):
+                if count:
+                    self._m_chaos.inc(count, kind=kind)
+            for kind, _client in rf.injected:
+                self._m_chaos.inc(kind=kind)
+            if rf.straggled and cfg.chaos.straggle_ms > 0:
+                time.sleep(cfg.chaos.straggle_ms / 1e3)
+        for c in self._quarantine:
+            if 0 <= c < w.shape[0]:
+                w[c] = 0.0
+        return w
 
     @staticmethod
     def _round_loss_mean(mean_cells: np.ndarray, loss_cells: np.ndarray) -> float:
@@ -308,33 +410,244 @@ class Trainer:
                 "cap (or set it to 0 for the exact worst-case bound).")
 
     def train_round(self, round_idx: int) -> RoundResult:
-        """One round: the local epochs, the round-end mean, then the
-        evaluation when due."""
+        """One round: the local epochs, the round-end aggregate, one host
+        read of the round's losses and health vectors, the health check,
+        then the evaluation when due."""
+        with self.tracer.span("fed_round", step_num=round_idx, **self._round_span_args()):
+            return self._train_round_inner(round_idx)
+
+    def _train_round_inner(self, round_idx: int) -> RoundResult:
         cfg = self.cfg
         weights = self._round_weights(round_idx)
+        faults = self.chaos.batch_keys(round_idx) if self.chaos is not None else {}
         means, losses, overflow = [], [], 0
+        health: dict[str, list] = {}
         for local_epoch in range(cfg.fed.local_epochs):
             epoch_idx = round_idx * cfg.fed.local_epochs + local_epoch
             table = self._feature_table()
             for b in self.batcher.epoch_batches_sharded(cfg.fed.num_clients, epoch_idx):
-                batch = {"candidates": b.candidates, "history": b.history, "labels": b.labels}
+                batch = {"candidates": b.candidates, "history": b.history, "labels": b.labels,
+                         **faults}
                 self.states, metrics = self.train_step(self.states, batch, table)
                 means.append(metrics["mean_loss"])
                 losses.append(metrics["loss"])
                 overflow += metrics["unique_overflow"]
+                for k, v in metrics.items():
+                    if k.startswith("health."):
+                        health.setdefault(k, []).append(v)
             if self.mode == "decoupled":
                 self.states, tables = self.news_update(self.states, self.token_states)
                 self._table = tables[0]
-        self.states = self.param_sync(self.states, weights)
-        if self.mode == "decoupled" and self.strategy.sync_params_every_round:
-            self._refresh_table()
-        # one host read of the round's losses
-        train_loss = self._round_loss_mean(torch.stack(means).cpu().numpy(),
-                                           torch.stack(losses).cpu().numpy())
+        if self.strategy.sync_params_every_round:
+            with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method):
+                self.states = self.param_sync(self.states, weights)
+            self._m_robust_rounds.inc(method=cfg.fed.robust.method)
+            if self.mode == "decoupled":
+                self._refresh_table()
+        # one host read of the round's losses and health vectors
+        mean_cells, loss_cells, arrays = self._read_round(means, losses, health)
+        train_loss = self._round_loss_mean(mean_cells, loss_cells)
+        # the sentry first: a non-finite cell is the root cause to report
+        # before any other abort describes the same round
+        self._check_health(round_idx, arrays, [train_loss])
         if overflow > 0:
             raise RuntimeError(self._overflow_message(overflow))
         result = RoundResult(round_idx, train_loss)
         self._eval_if_due(result)
+        return result
+
+    @staticmethod
+    def _read_round(means: list, losses: list, health: dict[str, list]):
+        """The round's per-step mean losses (S,), per-client losses (S, K)
+        and health vectors as (1, S, K) numpy arrays, from one device-to-host
+        copy."""
+        s = len(means)
+        keys = sorted(health)
+        flat = torch.cat([torch.stack(means).reshape(-1), torch.stack(losses).reshape(-1),
+                          *(torch.stack(health[k]).reshape(-1).float() for k in keys)])
+        host = flat.cpu().numpy()
+        k = (host.size - s) // (s * (1 + len(keys))) if s else 0
+        cells = host[s:].reshape(1 + len(keys), 1, s, k)
+        arrays = {key: cells[1 + i] for i, key in enumerate(keys)}
+        if "health.nonfinite" in arrays:
+            arrays["health.nonfinite"] = arrays["health.nonfinite"].astype(np.int32)
+        return host[:s], cells[0, 0], arrays
+
+    # ------------------------------------------------------ health, recovery
+    def _check_health(self, round_idx: int, arrays: dict, round_losses: list) -> None:
+        """Digest the round's health arrays through the ``HealthMonitor``.
+        Under ``fed.robust.recover`` a non-finite or outlier client raises
+        ``RoundRecovery`` while retries remain; otherwise a non-finite cell
+        raises ``TrainingHealthError`` under ``abort_on_nonfinite``, and any
+        other trigger is a warning. The JAX trainer's semantics, without its
+        flight recorder (``obs.dir``)."""
+        if not self.cfg.obs.health.sentry or not arrays:
+            return
+        trigger = self.health.check(round_idx, arrays, list(round_losses),
+                                    ignore_clients=set(self._quarantine))
+        rb = self.cfg.fed.robust
+        if rb.recover:
+            cand = trigger if trigger is not None and trigger.get("kind") == "nonfinite" else None
+            if cand is None and self.health.last_outliers:
+                cand = {"kind": "outlier",
+                        **max(self.health.last_outliers, key=lambda o: o["update_norm"])}
+            if (cand is not None and cand.get("client") is not None
+                    and self._round_retries < rb.max_retries):
+                raise RoundRecovery(cand)
+        if trigger is None:
+            return
+        kind = trigger["kind"]
+        where = f"round {trigger.get('round')}"
+        if trigger.get("step") is not None:
+            where += f" step {trigger['step']} client {trigger.get('client')}"
+        detail = trigger.get("detail") or {
+            k: trigger[k] for k in ("round_loss", "trailing_mean") if k in trigger}
+        hint = " Set obs.dir (+ obs.health.flight_recorder) for a replayable dump."
+        msg = f"training-health trigger [{kind}] at {where}: {detail}.{hint}"
+        if kind == "nonfinite" and self.cfg.obs.health.abort_on_nonfinite:
+            raise TrainingHealthError(msg)
+        print(f"[trainer] WARNING: {msg}")
+
+    def _round_span_args(self) -> dict:
+        args: dict = {}
+        if self._quarantine:
+            args["quarantined"] = sorted(self._quarantine)
+        if self._round_retries:
+            args["replay_retry"] = self._round_retries
+        return args
+
+    @staticmethod
+    def _opt_tensors(st) -> list[torch.Tensor]:
+        return [t for o in (st.opt_user, st.opt_news) for t in (o.mu or []) + (o.nu or [])]
+
+    @torch.no_grad()
+    def _capture_recovery_state(self) -> None:
+        """The rollback target at round entry (``fed.robust.recover`` only):
+        a device copy of every client's parameters and optimizer moments
+        (one flat buffer a client, one launch), its optimizer counts, step
+        count, news-gradient accumulator and generator states, and the
+        cached decoupled table (replaced, never written in place, so a
+        reference is its copy)."""
+        if not self.cfg.fed.robust.recover:
+            return
+        self._recovery_state = {
+            "clients": [{
+                "flat": torch.cat([t.detach().reshape(-1) for t in
+                                   [*st.model.parameters(), *self._opt_tensors(st)]]),
+                "counts": (st.opt_user.count, st.opt_news.count),
+                "step": st.step,
+                "generator": st.generator.get_state(),
+                "noise_generator": (None if st.noise_generator is None
+                                    else st.noise_generator.get_state()),
+                "news_grad_accum": (None if st.news_grad_accum is None
+                                    else st.news_grad_accum.clone()),
+            } for st in self.states],
+            "table": self._table,
+        }
+
+    @torch.no_grad()
+    def _restore_recovery_state(self) -> None:
+        for st, saved in zip(self.states, self._recovery_state["clients"]):
+            params = list(st.model.parameters())
+            like = params + self._opt_tensors(st)
+            # a fresh copy: a second rollback of the round restores again
+            parts = saved["flat"].clone().split([t.numel() for t in like])
+            parts = [v.view(t.shape) for v, t in zip(parts, like)]
+            torch._foreach_copy_(params, parts[:len(params)])
+            moments = iter(parts[len(params):])
+            for which, count in zip(("opt_user", "opt_news"), saved["counts"]):
+                o = getattr(st, which)
+                mu = None if o.mu is None else [next(moments) for _ in o.mu]
+                nu = None if o.nu is None else [next(moments) for _ in o.nu]
+                setattr(st, which, OptState(count, mu, nu))
+            st.step = saved["step"]
+            st.generator.set_state(saved["generator"])
+            if saved["noise_generator"] is not None:
+                st.noise_generator.set_state(saved["noise_generator"])
+            accum = saved["news_grad_accum"]
+            st.news_grad_accum = None if accum is None else accum.clone()
+        self._table = self._recovery_state["table"]
+
+    def _rollback_and_quarantine(self, trigger: dict, round_idx: int) -> None:
+        """One recovery cycle: quarantine the offending client, restore the
+        round-entry state; the caller replays the round. Counted in the
+        registry and stamped into the trace as a ``rollback`` span."""
+        rb = self.cfg.fed.robust
+        client = int(trigger["client"])
+        kind = str(trigger.get("kind"))
+        self._round_retries += 1
+        self._quarantine[client] = max(self._quarantine.get(client, 0), rb.quarantine_rounds)
+        self._g_quarantined.set(float(len(self._quarantine)))
+        self._m_quarantines.inc()
+        self._m_rollbacks.inc()
+        t0 = time.perf_counter()
+        self._restore_recovery_state()
+        self.tracer.add_span("rollback", dur_s=time.perf_counter() - t0,
+                             round=int(trigger.get("round") or round_idx), client=client,
+                             kind=kind, retry=self._round_retries)
+        print(f"[trainer] WARNING: health trigger [{kind}] on client {client} at round "
+              f"{trigger.get('round')} — quarantining it for {rb.quarantine_rounds} round(s), "
+              f"rolling back to the round-{round_idx} entry state and replaying (retry "
+              f"{self._round_retries}/{rb.max_retries})")
+
+    def _tick_quarantine(self) -> None:
+        """Advance the quarantine ledger by one completed round; an expired
+        client rejoins healed (params reset to the global, optimizer state
+        zeroed): its own state may still hold NaN, and un-healed Adam
+        moments would trip the same quarantine again."""
+        if not self._quarantine:
+            return
+        expired = []
+        for c in list(self._quarantine):
+            self._quarantine[c] -= 1
+            if self._quarantine[c] <= 0:
+                expired.append(c)
+                del self._quarantine[c]
+        self._g_quarantined.set(float(len(self._quarantine)))
+        for c in expired:
+            self._heal_client(c)
+
+    @torch.no_grad()
+    def _heal_client(self, client: int) -> None:
+        donor = next((c for c in range(self.cfg.fed.num_clients)
+                      if c != client and c not in self._quarantine), None)
+        if donor is None:
+            return
+        st = self.states[client]
+        for p, q in zip(st.model.parameters(), self.states[donor].model.parameters()):
+            p.copy_(q)
+        for which in ("opt_user", "opt_news"):
+            o = getattr(st, which)
+            setattr(st, which, OptState(
+                0, None if o.mu is None else [torch.zeros_like(m) for m in o.mu],
+                None if o.nu is None else [torch.zeros_like(v) for v in o.nu]))
+        if st.news_grad_accum is not None:
+            st.news_grad_accum.zero_()
+        if self.mode == "decoupled":
+            self._table = None  # the parameters changed: rebuild lazily
+        print(f"[trainer] quarantine expired for client {client}: rejoined with global "
+              "params and fresh optimizer state")
+
+    def _train_round_with_recovery(self, round_idx: int) -> RoundResult:
+        """``train_round`` under the quarantine-and-rollback policy: the
+        round-entry capture, and a replay after each recoverable trigger.
+        Without ``fed.robust.recover`` exactly ``train_round``."""
+        while True:
+            self._capture_recovery_state()
+            try:
+                result = self.train_round(round_idx)
+            except RoundRecovery as e:
+                self._rollback_and_quarantine(e.trigger, round_idx)
+                continue
+            self._round_retries = 0
+            return result
+
+    def train_round_recovering(self, round_idx: int) -> RoundResult:
+        """One round under the quarantine-and-rollback policy, then the
+        quarantine ledger's tick (the JAX trainer's per-round entry point of
+        the same name)."""
+        result = self._train_round_with_recovery(round_idx)
+        self._tick_quarantine()
         return result
 
     def _eval_if_due(self, result: RoundResult) -> None:
@@ -438,13 +751,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def run(self) -> list[RoundResult]:
-        """Rounds ``start_round`` .. ``fed.rounds - 1``, each followed by
-        its snapshot bookkeeping; returns the rounds' results."""
+        """Rounds ``start_round`` .. ``fed.rounds - 1`` under the
+        quarantine-and-rollback policy, each followed by its snapshot
+        bookkeeping and the quarantine tick; returns the rounds' results."""
         history = []
         for round_idx in range(self.start_round, self.cfg.fed.rounds):
-            result = self.train_round(round_idx)
+            result = self._train_round_with_recovery(round_idx)
             history.append(result)
             self._after_round(result)
+            self._tick_quarantine()
         if self.snapshots is not None:
             self.snapshots.wait()  # settle the writes before handing back
         return history

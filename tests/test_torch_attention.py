@@ -143,7 +143,7 @@ def test_flash_autograd_function_routes_gradients(monkeypatch, rng):
     bias = _bias(_mask(rng, B, L), h)
     g = rng.standard_normal(q.shape).astype(np.float32)
     leaves = [t(a).requires_grad_() for a in (q, k, v, bias)]
-    out = attention_kernels._Flash.apply(*leaves)
+    out, _ = attention_kernels._Flash.apply(*leaves)
     got = torch.autograd.grad(out, leaves, t(g))
     ref_out, lse = flash_forward_plain(*(t(a) for a in (q, k, v, bias)))
     np.testing.assert_allclose(out.detach().numpy(), ref_out.numpy(), atol=1e-7)
@@ -152,7 +152,7 @@ def test_flash_autograd_function_routes_gradients(monkeypatch, rng):
         assert torch.equal(a, b)
     # only what is asked for: no dbias, no F3 work for a q-only gradient
     leaves = [t(q).requires_grad_(), t(k), t(v), t(bias)]
-    (dq,) = torch.autograd.grad(attention_kernels._Flash.apply(*leaves), leaves[:1], t(g))
+    (dq,) = torch.autograd.grad(attention_kernels._Flash.apply(*leaves)[0], leaves[:1], t(g))
     assert torch.equal(dq, got[0])
 
 

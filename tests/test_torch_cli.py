@@ -23,8 +23,8 @@ from fedrec_tpu_torch.device import NoGPUError
 _SMALL = ["--set", "model.news_dim=32", "--set", "model.num_heads=4", "--set",
           "model.head_dim=8", "--set", "model.query_dim=16", "--set", "model.bert_hidden=48",
           "--set", "data.max_his_len=10", "--set", "data.max_title_len=12"]
-# the port defaults the sentry off: it has none to run (config.py)
-_DIFFER_BY_DESIGN = {"obs.health.sentry"}
+# every field the port's config shares with the JAX config holds the same value
+_DIFFER_BY_DESIGN: set[str] = set()
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +72,9 @@ def _assert_same_config(port, ref, path: str = "") -> None:
     ["--strategy", "coordinator", "--clients", "4"],
     ["--synthetic", "--synthetic-news", "64", "--synthetic-train", "96", "--clients", "3",
      "--set", "fed.rounds=5", "--set", "data.npratio=3", *_SMALL],
-], ids=["default", "joint", "dp_epsilon", "epochs_participation", "coordinator", "set"])
+    ["--mode", "joint", "--dp-epsilon", "10", "--clients", "4"],
+], ids=["default", "joint", "dp_epsilon", "epochs_participation", "coordinator", "set",
+        "joint_dpsgd"])
 def test_cli_hands_its_trainer_what_the_jax_cli_hands_its_own(monkeypatch, capsys, artifacts,
                                                              extra):
     got: dict = {}
@@ -92,7 +94,8 @@ def test_cli_hands_its_trainer_what_the_jax_cli_hands_its_own(monkeypatch, capsy
     assert pdata.valid_samples == jdata.valid_samples
     assert ptoks.dtype == jtoks.dtype and np.array_equal(ptoks, jtoks)
     if "--dp-epsilon" in extra:
-        assert pcfg.privacy.enabled and pcfg.privacy.mechanism == "ldp_news"
+        mechanism = "dpsgd" if "joint" in extra else "ldp_news"
+        assert pcfg.privacy.enabled and pcfg.privacy.mechanism == mechanism
         assert pcfg.privacy.sigma > 0
     assert "final:" not in capsys.readouterr().out  # the stubs ran no round
 
@@ -111,8 +114,8 @@ def test_cli_runs_a_decoupled_run_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--mode", "joint", "--dp-epsilon", "8", "--device", "cpu"], NotImplementedError,
-     "mechanism='dpsgd'.*Queue A item 6"),
+    (["--mode", "joint", "--dp-epsilon", "8", "--set", "model.fuse_hot_path=1", "--device",
+      "cpu"], NotImplementedError, "model.fuse_hot_path with privacy.mechanism='dpsgd'"),
     (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu"],
      NotImplementedError, "--agg-server.*Queue A item 9"),
     (["--obs-dir", "obs", "--device", "cpu"], NotImplementedError, "Queue A item 10"),

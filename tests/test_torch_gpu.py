@@ -923,3 +923,172 @@ def test_refresh_token_states_reach_the_card_unchanged(cuda, rng, tmp_path):
     assert np.array_equal(got.cpu().numpy(), want)
     half, _, _ = server._load_token_states(str(tmp_path / "states.npy"), cuda, torch.bfloat16)
     assert torch.equal(half.cpu(), torch.from_numpy(want).to(torch.bfloat16))
+
+
+# ------------------------------------ per-example gradients (vmap rules)
+def _per_example_pool_grads(pool, x, w, mask):
+    """vmap(grad) of a squared pool over the examples of ``x``: each
+    example's gradient of the weights and of its own rows."""
+    def loss(w1, b1, w2, xe, me):
+        return pool(xe, w1, b1, w2, me).square().sum()
+
+    return torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3)),
+                           in_dims=(None, None, None, 0, None if mask is None else 0))(
+        *w, x, mask)
+
+
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_pool_per_example_grads_fold_into_one_launch(cuda, rng, long, masked):
+    """Kernels A and A2 under vmap(grad): the per-example gradients equal
+    the plain route's at A's gradient bar, and the forward launches once
+    for all the examples, whatever their number."""
+    pool = additive_pool_long if long else additive_pool
+    name = "additive_pool_long" if long else "additive_pool"
+    D, hd = 48, 24
+    w = [_t(rng.standard_normal(s) / np.sqrt(s[0]), cuda) for s in [(D, hd), (hd,), (hd,)]]
+    for b in (2, 8):
+        x = _t(rng.standard_normal((b, 5, 7, D)), cuda)
+        m = _t((rng.random((b, 5, 7)) > 0.3).astype(np.float32), cuda) if masked else None
+        reset_launch_counts()
+        got = _per_example_pool_grads(pool, x, w, m)
+        assert launch_counts()[name] == 1, b
+        with _one_cpu_thread():
+            want = _per_example_pool_grads(additive_pool_plain, x.cpu(), [t.cpu() for t in w],
+                                           None if m is None else m.cpu())
+        for what, a, r in zip(("dw1", "db1", "dw2", "dx"), got, want):
+            _close_grad(a, r, torch.float32, what)
+
+
+def test_flash_per_example_grads_fold_into_one_launch_each(cuda, rng):
+    """F1 forward, F2 and F3 backward under vmap(grad) of a projected
+    attention: the per-example weight gradients equal the plain route's,
+    and each kernel launches once whatever B."""
+    L, h, d = 33, 4, 20
+    wq = _t(rng.standard_normal((h * d, h * d)) / np.sqrt(h * d), cuda)
+
+    def loss(w, x):
+        q = (x @ w).reshape(1, L, h, d)
+        kv = x.reshape(1, L, h, d)
+        return flash_attention(q, kv, kv).square().sum()
+
+    for b in (2, 8):
+        x = _t(rng.standard_normal((b, L, h * d)), cuda)
+        reset_launch_counts()
+        got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(None, 0))(wq, x)
+        counts = launch_counts()
+        assert counts["flash_forward"] == counts["flash_backward_dq"] == 1, b
+        assert counts["flash_backward_dkv"] == 1, b
+        with _one_cpu_thread():
+            want = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(None, 0))(
+                wq.cpu(), x.cpu())
+        for what, a, r in zip(("dw", "dx"), got, want):
+            _close_grad(a, r, torch.float32, what)
+
+
+def test_a_mapped_pool_weight_raises_on_the_card(cuda, rng):
+    x = _t(rng.standard_normal((3, 5, 7, 48)), cuda)
+    w1 = _t(rng.standard_normal((3, 48, 24)), cuda)
+    b1, w2 = _t(rng.standard_normal(24), cuda), _t(rng.standard_normal(24), cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match=r"operand 1 of shape \(3, 48, 24\) is mapped"):
+        torch.func.vmap(lambda xe, we: additive_pool(xe, we, b1, w2))(x, w1)
+    assert launch_counts()["additive_pool"] == 0
+
+
+def _dp_cfg(*over):
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.news_dim=40", "model.num_heads=5", "model.head_dim=8", "model.query_dim=12",
+        "model.bert_hidden=48", "data.max_his_len=7", "data.max_title_len=7",
+        "data.batch_size=6", "fed.num_clients=2", "model.text_encoder_mode=head",
+        "model.dropout_rate=0.0", "privacy.enabled=1", "privacy.sigma=0.5", *over])
+
+
+def test_dp_grads_on_the_card_kernel_route_match_the_plain_route(cuda, rng):
+    """``per_example_dp_grads`` on the kernel route (A both pools, F1-F3)
+    against the dense route on the CPU: clipped mean gradients at the
+    gradient bar; A launches twice and F1-F3 once, for B = 3 and 12."""
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train.step import per_example_dp_grads
+
+    toks = rng.standard_normal((300, 7, 48)).astype(np.float32)
+    for b in (3, 12):
+        cand, hist = rng.integers(1, 300, (b, 5)), rng.integers(0, 300, (b, 7))
+        outs = {}
+        for route, dev, over in (("kernel", cuda, "model.use_pallas=1"),
+                                 ("dense", torch.device("cpu"), "model.attn_impl=dense")):
+            cfg = _dp_cfg(over)
+            model = init_params(NewsRecommender(cfg.model), seed=1).to(dev)
+            reset_launch_counts()
+            with _one_cpu_thread():
+                outs[route] = per_example_dp_grads(
+                    model, _t(toks, dev), _t(cand, dev, torch.int64), _t(hist, dev, torch.int64),
+                    torch.zeros(b, dtype=torch.int64, device=dev), 2.0)
+            if route == "kernel":
+                counts = launch_counts()
+                assert counts["additive_pool"] == 2 and counts["flash_forward"] == 1, counts
+                assert counts["flash_backward_dq"] == counts["flash_backward_dkv"] == 1, counts
+        k, d = outs["kernel"], outs["dense"]
+        np.testing.assert_allclose(float(k[0]), float(d[0]), rtol=1e-5, atol=1e-6)
+        for a, r in zip(k[1] + k[2], d[1] + d[2]):
+            _close_grad(a, r, torch.float32, "dp grad")
+
+
+def test_robust_sync_repeats_bitwise_on_the_card(cuda):
+    from fedrec_tpu_torch.fed.robust import robust_aggregate
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = [[torch.randn((400, 400), generator=gen, device=cuda),
+               torch.randn((200,), generator=gen, device=cuda)] for _ in range(16)]
+    params[3] = [p * 1000 for p in params[3]]
+    params[5][0][7, 9] = float("nan")
+    w = np.ones(16, np.float32)
+    w[11] = 0.0
+    for method in ("clip", "trimmed_mean", "median"):
+        first = robust_aggregate(params, w, method, trim_k=2, clip_norm=5.0)
+        again = robust_aggregate(params, w, method, trim_k=2, clip_norm=5.0)
+        for a, b in zip(first, again):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), method
+        with _one_cpu_thread():
+            cpu = robust_aggregate([[p.cpu() for p in c] for c in params], w, method, trim_k=2,
+                                   clip_norm=5.0)
+        for x, y in zip(first[0], cpu[0]):
+            np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_sentry_trajectory_is_bitwise_on_and_off_on_the_card(cuda, rng):
+    """Three steps of the fused joint route and of the decoupled route with
+    dropout on: parameters, moments and generators to the bit with the
+    sentry on and off."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import (build_fed_train_step, encode_all_news,
+                                        init_client_state, replicate_state)
+
+    toks = _t(rng.standard_normal((300, 7, 48)), cuda)
+    batches = [_decoupled_batch(rng) for _ in range(3)]
+    for mode in ("joint", "decoupled"):
+        runs = []
+        for sentry in (1, 0):
+            cfg = ExperimentConfig().apply_overrides([
+                "model.news_dim=40", "model.num_heads=5", "model.head_dim=8",
+                "model.query_dim=12", "model.bert_hidden=48", "data.max_his_len=7",
+                "data.max_title_len=7", "data.batch_size=6", "fed.num_clients=2",
+                "model.fuse_hot_path=true", "model.use_pallas=true", "model.dropout_rate=0.2",
+                f"obs.health.sentry={sentry}",
+                f"model.text_encoder_mode={'head' if mode == 'joint' else 'table'}"])
+            model = init_params(NewsRecommender(cfg.model), seed=1).to(cuda)
+            states = replicate_state(init_client_state(model, cfg), 2)
+            table = toks if mode == "joint" else encode_all_news(model, toks, device=cuda)
+            step = build_fed_train_step(model, cfg, get_strategy("param_avg"), device=cuda)
+            for b in batches:
+                states, m = step(states, b, table)
+            assert ("health.grad_norm" in m) == bool(sentry)
+            runs.append([t for st in states for t in (*st.model.parameters(), *st.opt_user.mu,
+                                                       st.generator.get_state())])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), mode

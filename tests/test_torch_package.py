@@ -180,9 +180,10 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
     with pytest.raises(NoGPUError):
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
-    for lever in ("privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-                  "obs.health.sentry=1", "data.gather_chunk=64"):
-        bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head", lever])
-        name = lever.split("=")[0]
+    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.dir=obs", "data.gather_chunk=64",
+                  "chaos.enabled=1,chaos.kill_round=2", "obs.quality.enabled=1"):
+        bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
+                                                  *lever.split(",")])
+        name = lever.split(",")[-1].split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
             build_fed_train_step(model, bad, get_strategy("param_avg"), device="cpu")

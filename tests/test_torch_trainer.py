@@ -115,11 +115,12 @@ def _jax_round(jt: JaxTrainer, r: int, protocol: str):
     return res
 
 
-def test_trainer_matches_jax_over_evaluated_rounds(monkeypatch):
+def test_trainer_matches_jax_over_evaluated_rounds():
     """Three rounds with full-pool eval, then one round each of the last4
-    and sampled protocols and one at participation 0.5 (the JAX trainer's
-    masks fed to the port). The port evaluates through its own round loop
-    (``train.eval_every=1``); the JAX side explicitly after each round."""
+    and sampled protocols and one at participation 0.5, where each package
+    draws its own mask (equal: ``fed.strategies.jax_uniform``). The port
+    evaluates through its own round loop (``train.eval_every=1``); the JAX
+    side explicitly after each round."""
     jcfg = tiny_cfg(None, **_PARITY)
     data, toks = tiny_data(jcfg)
     pt = Trainer(_port_cfg(jcfg), data, toks, device="cpu")
@@ -146,19 +147,18 @@ def test_trainer_matches_jax_over_evaluated_rounds(monkeypatch):
     jt.cfg.fed.participation = 0.5
     weights = jt._round_weights(5)
     assert weights.sum() == 4 and weights.shape == (8,)
-    monkeypatch.setattr(pt, "_round_weights", jt._round_weights)
+    pt.cfg.fed.participation = 0.5
+    np.testing.assert_array_equal(pt._round_weights(5), weights)
     _assert_round(_jax_round(jt, 5, "full"), pt.train_round(5), "participation 0.5")
     for c in (0, 5):
         _assert_tree_close(_to_flax(pt.states[c].model), _client_tree(jt.state, c))
 
 
 def test_participation_mask_keeps_the_k_lowest_scores():
-    rng = np.random.default_rng(0)
-    np.testing.assert_array_equal(participation_mask(rng, 5, 1.0), np.ones(5, np.float32))
+    np.testing.assert_array_equal(participation_mask(0, 5, 1.0), np.ones(5, np.float32))
     for k_clients, fraction, want in ((8, 0.5, 4), (8, 0.3, 2), (8, 0.01, 1), (3, 0.5, 2)):
-        rng = np.random.default_rng(k_clients)
-        scores = np.random.default_rng(k_clients).random(k_clients, dtype=np.float32)
-        mask = participation_mask(rng, k_clients, fraction)
+        scores = np.asarray(jax.random.uniform(jax.random.PRNGKey(k_clients), (k_clients,)))
+        mask = participation_mask(k_clients, k_clients, fraction)
         assert mask.dtype == np.float32 and mask.sum() == want
         np.testing.assert_array_equal(mask, (scores <= np.sort(scores)[want - 1]).astype(np.float32))
 
@@ -270,17 +270,24 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-    "obs.health.sentry=1", "data.gather_chunk=64", "model.text_head_arch=cnn",
+    "obs.dir=obs", "data.gather_chunk=64", "model.text_head_arch=cnn",
     "model.text_encoder_mode=finetune", "obs.quality.enabled=1",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
-    cfg = _tiny().apply_overrides([lever])
+    """Each lever the port does not run raises, naming it and its Queue A
+    item. Per-example DP-SGD runs now: on ``_tiny``'s fused route it meets
+    the JAX package's own refusal; chaos runs, its wire faults do not."""
+    over = {"privacy.enabled=1": [lever, "privacy.sigma=1"],
+            "chaos.enabled=1": [lever, "chaos.wire_faults=drop@*"]}.get(lever, [lever])
+    cfg = _tiny().apply_overrides(over)
     data, toks = _data_and_tokens(cfg)
-    name = lever.split("=")[0].split(".")[-1]
+    name = over[-1].split("=")[0].split(".")[-1]
+    if lever == "privacy.enabled=1":
+        name = "model.fuse_hot_path with privacy.mechanism='dpsgd' is not supported"
     with pytest.raises(NotImplementedError, match=name) as e:
         Trainer(cfg, data, toks, device="cpu")
-    if lever == "privacy.enabled=1":  # the default mechanism, per-example DP-SGD
-        assert "mechanism='dpsgd'" in str(e.value) and "Queue A item 6" in str(e.value)
+    if lever != "privacy.enabled=1":  # the JAX package's refusal names no item
+        assert "Queue A item" in str(e.value)
 
 
 def test_trainer_rejects_an_unknown_eval_protocol():
