@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives seven paths at full width through the entry points a user calls:
+then drives eight paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -50,6 +50,19 @@ then drives seven paths at full width through the entry points a user calls:
   kernel route's clipped gradients against the plain route's, and the run
   CLI's ``--mode joint --dp-epsilon 10``; robust aggregation: the round-end
   sync by method at K = 4 and 16, and three rounds under a x1000 poison;
+* ``cohort_path`` (a sampled cross-device run through ``Trainer``): 256
+  logical clients of 128 training rows each, drawn onto 4 slots a round
+  (skew sampler, over-selection 1.25) under population dropout 0.2 and
+  lognormal stragglers (median 40 ms) cut at an 80 ms deadline with a
+  quorum of 2, their optimizer sidecars persisted (8 resident, the rest
+  spilled to disk), FedAvgM at round end and the batches prefetched: 10
+  rounds of 2 steps at B=64 (kernels B, C, D and E on every step), then a
+  full-pool evaluation of 8,192 impressions (A, B); a bitwise repeat, 4
+  rounds resumed to 10 bitwise (sidecars included), prefetch off bitwise,
+  the dense route over 4 rounds, population == slots bitwise the fixed
+  world, a quorum replay, the logical-client quarantine, FedAdam, and a
+  decoupled leg (16 clients, 2 rounds); install, spill, FedOpt and sampler
+  costs;
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -76,6 +89,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,trainer_path
   python3 chip_smoke.py --phases build,kernels,decoupled_path
   python3 chip_smoke.py --phases build,kernels,safety_path
+  python3 chip_smoke.py --phases build,kernels,cohort_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -96,9 +110,9 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
-          "decoupled_path", "safety_path", "serving_path")
+          "decoupled_path", "safety_path", "cohort_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
-         "serving_path")
+         "cohort_path", "serving_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
@@ -2655,6 +2669,548 @@ def phase_safety_path(state: dict, args) -> dict:
     return out
 
 
+# cohort_path: rounds of the main run; the resume point, which is also the
+# length of the dense-route and prefetch-off legs
+COHORT_ROUNDS = 10
+COHORT_CHECK_ROUNDS = 4
+
+
+def _cohort_cfg(args, *overrides: str):
+    """The cohort path's configuration: ExperimentConfig's widths, joint mode
+    on the kernel route, K slots at B, a sampled population of
+    ``--cohort-population`` logical clients (skew sampler, over-selection
+    1.25), population dropout and stragglers against a deadline with a
+    quorum of 2, persisted sidecars with ``--cohort-resident`` resident,
+    FedAvgM, prefetch 2, and a full-pool evaluation after the last round
+    only."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.fuse_hot_path=true", "model.use_pallas=true", "model.text_encoder_mode=head",
+        f"data.batch_size={args.batch_size}", f"fed.num_clients={args.clients}",
+        "fed.strategy=param_avg", f"fed.rounds={COHORT_ROUNDS}", f"train.seed={args.seed}",
+        f"train.eval_every={COHORT_ROUNDS}", "train.eval_protocol=full", "train.snapshot_dir=",
+        "train.save_every=1000",
+        f"fed.population.num_clients={args.cohort_population}", "fed.population.sampler=skew",
+        "fed.population.over_select=1.25", "fed.population.round_deadline_ms=80",
+        "fed.population.min_reports=2", "fed.population.client_state=persist",
+        f"fed.population.resident_cap={args.cohort_resident}",
+        "chaos.enabled=true", "chaos.pop_drop_rate=0.2", "chaos.pop_straggle_ms=40",
+        "fed.server_opt=sgd", "fed.server_momentum=0.9", "data.prefetch_batches=2",
+        *overrides,
+    ])
+
+
+class _Clock:
+    """Wall times (ms, synchronised on both ends) of wrapped calls, by name."""
+
+    def __init__(self):
+        self.ms: dict[str, list] = {}
+
+    def wrap(self, obj, name: str, key: str | None = None, on_call=None) -> None:
+        import torch
+
+        fn = getattr(obj, name)
+        sink = self.ms.setdefault(key or name, [])
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+            if on_call is not None:
+                on_call(a, out)
+            return out
+
+        setattr(obj, name, timed)
+
+
+def _median(values) -> float | None:
+    return float(np.median(values)) if len(values) else None
+
+
+def _rss_mb() -> dict:
+    """The process's resident set now and at its peak, MiB (host)."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 1024
+    return {"now_mb": now, "peak_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024}
+
+
+def _store_equal(a, b) -> bool:
+    """Two populations hold the same sidecars, bitwise."""
+    if a.stored_ids() != b.stored_ids():
+        return False
+    for cid in a.stored_ids():
+        sa, sb = a.get_sidecar(cid), b.get_sidecar(cid)
+        for key in sa:
+            xs = sa[key] if isinstance(sa[key], list) else [sa[key]]
+            ys = sb[key] if isinstance(sb[key], list) else [sb[key]]
+            if len(xs) != len(ys) or not all(np.array_equal(x, y) for x, y in zip(xs, ys)):
+                return False
+    return True
+
+
+def _engine_state(trainer) -> dict:
+    """What a bitwise repeat must reproduce besides the parameters."""
+    led = trainer.population.ledger.state_dict()
+    smp = trainer.cohort_sampler.state_dict()
+    return {"history": trainer.cohort_history,
+            "ledger": {k: np.asarray(v).tolist() for k, v in led.items()},
+            "sampler": {k: (v if isinstance(v, str) else np.asarray(v).tolist())
+                        for k, v in smp.items()}}
+
+
+def _server_state_equal(a, b) -> bool:
+    sa, sb = a.server_opt._state, b.server_opt._state
+    return sa["t"] == sb["t"] and all(
+        np.array_equal(x, y) for name in ("buf", "m", "v") for x, y in
+        zip(sa.get(name, ()), sb.get(name, ())))
+
+
+def _server_opt_ms(trainer, reps: int = 5) -> dict:
+    """The FedOpt step's parts on the trainer's parameters, by kind: the
+    copy of client 0's parameters down, the numpy step, the broadcast into
+    every slot (ms, medians)."""
+    import torch
+    from fedrec_tpu_torch.fed import ServerOptimizer
+
+    out = {}
+    base = trainer._params_host(0)
+    for label, kind, momentum in (("sgd", "sgd", 0.0), ("fedavgm", "sgd", 0.9),
+                                  ("adam", "adam", 0.9)):
+        opt = ServerOptimizer(kind, 1.0 if kind == "sgd" else 1e-3, momentum)
+        parts: dict[str, list] = {"down": [], "step": [], "broadcast": []}
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean = trainer._params_host(0)
+            t1 = time.perf_counter()
+            new = opt.step(base, mean)
+            t2 = time.perf_counter()
+            trainer._adopt_global(new)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for key, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[key].append(v * 1e3)
+        out[label] = {k: _median(v) for k, v in parts.items()}
+    out["param_mb"] = sum(x.nbytes for x in base) / 2**20
+    return out
+
+
+def phase_cohort_path(state: dict, args) -> dict:
+    """A sampled cross-device federated run through ``Trainer``: the cohort
+    engine, FedAvgM and the prefetched data path (module docstring)."""
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.fed import CohortSampler
+    from fedrec_tpu_torch.fed.population import ClientPopulation, QuorumFailure
+    from fedrec_tpu_torch.models.attention import dense
+    from fedrec_tpu_torch.obs import (
+        MetricsRegistry,
+        Tracer,
+        TrainingHealthError,
+        set_registry,
+        set_tracer,
+    )
+    from fedrec_tpu_torch.ops import (
+        additive_pool_plain,
+        fused_history_score,
+        fused_history_score_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.train import Trainer
+
+    K, B, R, P = args.clients, args.batch_size, COHORT_ROUNDS, args.cohort_population
+    dev = torch.device(DEV)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="cohort_path_", dir=build)
+    root = Path(work.name)
+    cfg = _cohort_cfg(args)
+    mc, dc = cfg.model, cfg.data
+    T = dc.max_title_len
+    tokens = _tokens(state, args, T, mc.bert_hidden)
+    steps = args.cohort_shard // B
+    t0 = time.perf_counter()
+    data = make_synthetic_mind(num_news=args.num_news, num_train=P * args.cohort_shard,
+                               num_valid=args.valid, title_len=T, seed=args.seed)
+    # the fixed world at the same K and steps: K x B x steps rows
+    fixed_data = make_synthetic_mind(num_news=args.num_news, num_train=K * B * steps,
+                                     num_valid=args.valid, title_len=T, seed=args.seed)
+    data_s = time.perf_counter() - t0
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    spill_n = [0]
+
+    def trainer(overrides=(), name="run", d=None, snapshot=None):
+        # a fresh registry and tracer a run: the counters are the run's own
+        set_registry(MetricsRegistry())
+        set_tracer(Tracer())
+        c = _cohort_cfg(args, *overrides)
+        spill_n[0] += 1
+        if c.fed.population.num_clients and not c.fed.population.spill_dir:
+            c.fed.population.spill_dir = str(root / f"spill_{name}_{spill_n[0]}")
+        with quiet:
+            return Trainer(c, d or data, tokens, snapshot_dir=snapshot, device=dev)
+
+    # ---------------- the cohort path, with every launch count from 0
+    main = trainer(name="main")
+    check(main.population.shard_size == args.cohort_shard
+          and main.population.steps_per_epoch(B) == steps,
+          f"shards of {args.cohort_shard} rows, {steps} steps a local epoch expected")
+    clock = _Clock()
+    for obj, name, key in ((main, "train_round", "round"), (main, "_install_cohort", "install"),
+                           (main, "_read_sidecar", "writeback"),
+                           (main.population, "put_sidecar", "store"),
+                           (main.population, "get_sidecar", "load_get"),
+                           (main, "_write_sidecar", "load_write")):
+        clock.wrap(obj, name, key)
+    # each step's and each evaluation's launches (the timing wrapper below
+    # goes around these, so the counts bracket just the call)
+    step_launches: list[dict] = []
+    eval_launches: list[dict] = []
+    overflow = [0]
+
+    def counted(fn, sink, on_out=None):
+        def call(*a, **kw):
+            before = launch_counts()
+            out = fn(*a, **kw)
+            sink.append({k: v - before[k] for k, v in launch_counts().items()})
+            if on_out is not None:
+                on_out(out)
+            return out
+        return call
+
+    def add_overflow(out):
+        overflow[0] += int(out[1]["unique_overflow"])
+
+    main.train_step = counted(main.train_step, step_launches, add_overflow)
+    main._eval_if_due = counted(main._eval_if_due, eval_launches)
+    clock.wrap(main, "train_step", "step_prefetch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with quiet:
+        history = main.run()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    # ---------------- end of the cohort path
+    run_parts = {k: list(v) for k, v in clock.ms.items()}  # the later checks call them too
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss = _rss_mb()
+    state.setdefault("launches", {})["cohort_path"] = launches
+    reg = main.registry
+    losses = [h.train_loss for h in history]
+    metrics = history[-1].val_metrics
+    check([h.round_idx for h in history] == list(range(R)), f"rounds {[h.round_idx for h in history]}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite round loss: {losses}")
+    check(set(metrics) == {"auc", "mrr", "ndcg5", "ndcg10"}
+          and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()),
+          f"final evaluation {metrics}")
+    check(overflow[0] == 0, f"unique_overflow on {overflow[0]} client steps")
+    check(len(step_launches) == R * steps, f"{len(step_launches)} steps, {R * steps} expected")
+    for i, d in enumerate(step_launches):
+        for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                     "fused_history_score_bwd"):
+            check(d[name] >= K, f"step {i}: kernel {name} launched {d[name]} times, K={K}")
+    check(len(eval_launches) == R, f"{len(eval_launches)} evaluation checks")
+    ev = eval_launches[-1]
+    check(ev["additive_pool"] > 0 and ev["fused_history_score"] >= -(-args.valid // 256),
+          f"the evaluation launched A {ev['additive_pool']} and B {ev['fused_history_score']}")
+    check(reg.counter("fed.cohort_slot_swaps_total").value() > 0, "no cohort swap")
+    check(main.population.spill_count > 0, "no sidecar spilled at resident_cap "
+          f"{args.cohort_resident}")
+    coverage = reg.gauge("fed.population_coverage").value()
+    counters = {name: reg.counter(name).value() for name in (
+        "fed.cohort_slot_swaps_total", "fed.pop_dropouts_total", "fed.deadline_cuts_total",
+        "fed.quorum_replays_total", "data.prefetch.items_total",
+        "data.prefetch.producer_stall_total", "data.prefetch.consumer_stall_total")}
+
+    # ---- the path's kernels against their plain versions on its inputs
+    m0 = main.states[0].model
+    with torch.no_grad():
+        table = main._encode_corpus(0)
+        th = m0.text_head
+        pooled = additive_pool_plain(tokens[: args.chunk], th.pool.att_fc1.weight.t().contiguous(),
+                                     th.pool.att_fc1.bias, th.pool.att_fc2.weight[0].contiguous())
+        err_a = max_err(table[: args.chunk], dense(th.fc, pooled, torch.float32))
+        his = table[torch.as_tensor(main.valid_ix.history[:256], device=dev).long()]
+        w = m0.user_encoder.fused_weights(his.dtype)
+        err_b = max_err(fused_history_score(his, None, None, w, mc.num_heads)[1],
+                        fused_history_score_plain(his, None, None, w, mc.num_heads)[1])
+    check(err_a <= F32_ATOL and err_b <= F32_ATOL,
+          f"cohort path kernels vs plain: A {err_a}, B {err_b} (atol {F32_ATOL})")
+    del table
+
+    # ---- a bitwise repeat
+    again = trainer(name="repeat")
+    with quiet:
+        again.run()
+    check(_engine_state(again) == _engine_state(main), "the repeat's cohorts, ledger or sampler differ")
+    check(all(torch.equal(a, b) for a, b in zip(_trainer_params(main), _trainer_params(again))),
+          "the repeat's parameters differ")
+    check(_server_state_equal(main, again), "the repeat's FedOpt buffers differ")
+    del again
+
+    # ---- 4 rounds, then a resume to R: the straight run bitwise
+    snaps = str(root / "snapshots")
+    first = trainer([f"fed.rounds={COHORT_CHECK_ROUNDS}"], name="first", snapshot=snaps)
+    clock.wrap(first, "train_step", "step_prefetch_4")
+    with quiet:
+        first_hist = first.run()
+    resumed = trainer(name="resumed", snapshot=snaps)
+    check(resumed.start_round == COHORT_CHECK_ROUNDS, f"resumed at {resumed.start_round}")
+    with quiet:
+        resumed.run()
+    resume_ok = {
+        "params": all(torch.equal(a, b) for a, b in zip(_trainer_params(main),
+                                                        _trainer_params(resumed))),
+        "server_opt": _server_state_equal(main, resumed),
+        "engine": _engine_state(resumed)["ledger"] == _engine_state(main)["ledger"]
+        and _engine_state(resumed)["sampler"] == _engine_state(main)["sampler"]
+        and first.cohort_history + resumed.cohort_history == main.cohort_history,
+        "sidecars": _store_equal(main.population, resumed.population),
+        "stored": len(main.population.stored_ids()),
+        "spilled_in_first": first.population.spill_count,
+    }
+    check(all(v for k, v in resume_ok.items() if k not in ("stored", "spilled_in_first")),
+          f"4 rounds + resume vs the straight run: {resume_ok}")
+    del resumed
+
+    # ---- prefetch off: the same 4 rounds bitwise; the step medians
+    off = trainer([f"fed.rounds={COHORT_CHECK_ROUNDS}", "data.prefetch_batches=0"], name="off")
+    clock.wrap(off, "train_step", "step_no_prefetch")
+    with quiet:
+        off_hist = off.run()
+    check([h.train_loss for h in off_hist] == [h.train_loss for h in first_hist]
+          and all(torch.equal(a, b) for a, b in zip(_trainer_params(first), _trainer_params(off))),
+          "prefetch on and off differ")
+    del off
+
+    # ---- the kernel route against the dense route over 4 rounds
+    reset_launch_counts()
+    dense_t = trainer([f"fed.rounds={COHORT_CHECK_ROUNDS}", "model.fuse_hot_path=false",
+                       "model.use_pallas=false"], name="dense")
+    with quiet:
+        dense_hist = dense_t.run()
+    check(not any(launch_counts().values()), "the dense route launched a kernel")
+    check(dense_t.cohort_history == first.cohort_history, "the dense route drew other cohorts")
+    traj = [(a.train_loss, b.train_loss) for a, b in zip(first_hist, dense_hist)]
+    for r, (lk, ld) in enumerate(traj):
+        check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+              f"round {r}: kernel-route loss {lk!r} vs dense {ld!r}")
+    param_worst, param_worst_noise = 0.0, 0.0
+    for c, (sk, sd) in enumerate(zip(first.states, dense_t.states)):
+        bad, worst, worst_noise = _param_diffs(sk.model, sd.model)
+        check(not bad, f"slot {c}: kernel vs dense route after {COHORT_CHECK_ROUNDS} rounds: {bad}")
+        param_worst, param_worst_noise = max(param_worst, worst), max(param_worst_noise,
+                                                                      worst_noise)
+    del dense_t, first
+
+    # ---- the degenerate world (population == slots) against no population,
+    # and the fixed world's round time at the same K and steps
+    fixed_over = ["fed.rounds=3", "chaos.enabled=false", "fed.population.min_reports=0"]
+    fixed = trainer([*fixed_over, "fed.population.num_clients=0"], name="fixed", d=fixed_data)
+    clock.wrap(fixed, "train_round", "round_fixed")
+    degenerate = trainer([*fixed_over, f"fed.population.num_clients={K}"], name="degenerate",
+                         d=fixed_data)
+    with quiet:
+        fixed_hist, degen_hist = fixed.run(), degenerate.run()
+    check(fixed.batcher.num_batches(len(fixed.train_ix) // K) == steps,
+          f"the fixed world runs {steps} steps a round")
+    check([h.train_loss for h in fixed_hist] == [h.train_loss for h in degen_hist]
+          and all(torch.equal(a, b) for a, b in zip(_trainer_params(fixed),
+                                                    _trainer_params(degenerate)))
+          and degenerate.cohort_history == [(r, tuple(range(K))) for r in range(3)],
+          "the degenerate population differs from no population")
+    server_ms = _server_opt_ms(fixed)
+    del degenerate, fixed
+
+    # ---- the quorum policy: min_reports 4 at pop_drop_rate 0.5
+    quorum = trainer(["fed.rounds=3", "fed.population.min_reports=4", "chaos.pop_drop_rate=0.5"],
+                     name="quorum")
+    attempts: list = []
+    round_fn = quorum.train_round
+
+    def timed_round(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = round_fn(r)
+        except QuorumFailure:
+            attempts.append(("replayed", (time.perf_counter() - t0) * 1e3))
+            raise
+        torch.cuda.synchronize()
+        attempts.append(("trained", (time.perf_counter() - t0) * 1e3))
+        return out
+
+    quorum.train_round = timed_round
+    quorum_end = "finished"
+    try:
+        with quiet:
+            quorum.run()
+    except RuntimeError as e:
+        check("failed quorum" in str(e) and "sizing a cohort" in str(e), f"quorum abort: {e}")
+        quorum_end = "aborted"
+    replays = quorum.registry.counter("fed.quorum_replays_total").value()
+    check(replays > 0, "no quorum replay at min_reports 4, pop_drop_rate 0.5")
+    replay_ms = [ms for kind, ms in attempts if kind == "replayed"]
+    del quorum
+
+    # ---- recovery: a NaN in slot 1 at round 2 quarantines the slot's
+    # logical client and resets its sidecar; the fault is keyed on the slot,
+    # as in the JAX package, so each replay's new occupant meets it too,
+    # until the retries are spent and the run aborts
+    rec = trainer(["fed.rounds=4", "fed.robust.recover=true", "chaos.faults=nan@2:1",
+                   "fed.population.min_reports=0"], name="recover")
+    drawn: list = []
+    install = rec._install_cohort
+    rec._install_cohort = lambda plan: (drawn.append(plan.slot_clients.copy()), install(plan))[1]
+    rec_end = "finished"
+    try:
+        with quiet:
+            rec.run()
+    except TrainingHealthError:
+        rec_end = "aborted"
+    victims = [e["args"]["client"] for e in rec.tracer._events if e["name"] == "rollback"]
+    retries = rec.cfg.fed.robust.max_retries
+    check(len(victims) == retries and [int(d[1]) for d in drawn[2:2 + retries]] == victims,
+          f"quarantined {victims}, slot 1 of the round-2 draws {[int(d[1]) for d in drawn[2:]]}")
+    check(all(v not in d for i, v in enumerate(victims) for d in drawn[3 + i:]),
+          "a quarantined client was drawn again before its expiry")
+    check(all(rec.population.get_sidecar(v) is None for v in victims)
+          and set(rec.population.ledger.quarantined) == set(victims),
+          "a quarantined client kept its sidecar or left the ledger's quarantine")
+    check(rec_end == "aborted", "the slot-keyed fault was not met again on a replay")
+    del rec
+
+    # ---- FedAdam, 3 rounds
+    adam = trainer(["fed.rounds=3", "fed.server_opt=adam", "fed.server_lr=0.001"], name="adam")
+    with quiet:
+        adam_hist = adam.run()
+    check(all(math.isfinite(h.train_loss) for h in adam_hist) and adam.server_opt._state["t"] == 3,
+          f"FedAdam: {[h.train_loss for h in adam_hist]}")
+    del adam
+
+    # ---- decoupled mode: population 16 over K slots, 2 rounds
+    dec_data = make_synthetic_mind(num_news=args.num_news, num_train=16 * args.cohort_shard,
+                                   num_valid=args.valid, title_len=T, seed=args.seed)
+    dec = trainer(["model.text_encoder_mode=table", "fed.rounds=2", "fed.population.num_clients=16",
+                   "train.eval_every=1000"], name="decoupled", d=dec_data)
+    dclock = _Clock()
+    markers: list = []
+    dclock.wrap(dec, "_install_cohort", "install")
+    dclock.wrap(dec, "_read_sidecar", "writeback",
+                on_call=lambda a, out: markers.append(out["news_grad_accum"].size))
+    dclock.wrap(dec, "_write_sidecar", "load_write")
+    with quiet:
+        dec_hist = dec.run()
+    check(all(math.isfinite(h.train_loss) for h in dec_hist), f"decoupled: {dec_hist}")
+    check(markers and not any(markers), f"a round-boundary accumulator was not zero: {markers}")
+    check(all(st.news_grad_accum is None or not bool(st.news_grad_accum.any())
+              for st in dec.states), "a slot's accumulator is not zero after its install")
+    dec_accum_mb = args.num_news * mc.news_dim * 4 / 2**20
+    del dec
+
+    # ---- the sidecar store: spill and reload of one client's sidecar
+    sidecar = main._read_sidecar(0)
+    store = ClientPopulation(4, 64, resident_cap=1, spill_dir=root / "spill_probe")
+    spill_ms, reload_ms = [], []
+    for i in range(4):
+        store.put_sidecar(0, sidecar)
+        t0 = time.perf_counter()
+        store.put_sidecar(1, sidecar)  # spills client 0
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        store.get_sidecar(0)
+        reload_ms.append((time.perf_counter() - t0) * 1e3)
+    spill_mb = store._spill_path(0).stat().st_size / 2**20
+
+    # ---- the sampler's draw at a real cross-device population (host only)
+    draw_ms = {}
+    for n in (P, 1 << 20):
+        s = CohortSampler(n, "skew", seed=args.seed)
+        s.record(s.draw(0, math.ceil(K * 1.25)))
+        times = []
+        for r in range(5):
+            t0 = time.perf_counter()
+            s.draw(r + 1, math.ceil(K * 1.25), exclude={1, 2})
+            times.append((time.perf_counter() - t0) * 1e3)
+        draw_ms[str(n)] = _median(times)
+    work.cleanup()
+
+    ms = clock.ms
+    installs = len(run_parts["install"])
+    per_install = lambda key: sum(run_parts.get(key, [])) / max(installs, 1)  # noqa: E731
+    return {
+        "config": {"num_news": args.num_news, "slots": K, "batch_size": B, "rounds": R,
+                   "population": P, "shard_rows": args.cohort_shard, "steps_per_epoch": steps,
+                   "num_train": P * args.cohort_shard, "num_valid": args.valid,
+                   "sampler": cfg.fed.population.sampler,
+                   "over_select": cfg.fed.population.over_select,
+                   "pop_drop_rate": cfg.chaos.pop_drop_rate,
+                   "pop_straggle_ms": cfg.chaos.pop_straggle_ms,
+                   "round_deadline_ms": cfg.fed.population.round_deadline_ms,
+                   "min_reports": cfg.fed.population.min_reports,
+                   "resident_cap": cfg.fed.population.resident_cap,
+                   "server_opt": "fedavgm", "server_momentum": cfg.fed.server_momentum,
+                   "prefetch_batches": dc.prefetch_batches, "title_len": T,
+                   "history": dc.max_his_len, "bert_hidden": mc.bert_hidden,
+                   "news_dim": mc.news_dim, "num_heads": mc.num_heads, "dtype": mc.dtype,
+                   "fuse_hot_path": mc.fuse_hot_path, "use_pallas": mc.use_pallas},
+        "data_s": data_s,
+        "run_ms": run_ms,
+        "round_ms": ms["round"],
+        "round_ms_fixed_world": ms["round_fixed"],
+        "round_ms_median_sampled_without_eval": _median(ms["round"][:-1]),
+        "round_ms_median_fixed_world": _median(ms["round_fixed"]),
+        "install_ms_per_round": {"total": per_install("install"),
+                                 "writeback": per_install("writeback"),
+                                 "store": per_install("store"),
+                                 "load": per_install("load_get") + per_install("load_write")},
+        "installs": installs,
+        "install_ms": run_parts["install"],
+        "sidecar_mb": spill_mb,
+        "spill_ms": _median(spill_ms), "reload_ms": _median(reload_ms),
+        "server_opt_ms": server_ms,
+        "quorum": {"end": quorum_end, "replays": replays, "replay_ms": replay_ms,
+                   "trained_round_ms": [m for k, m in attempts if k == "trained"]},
+        "recovery": {"end": rec_end, "quarantined": victims},
+        "sampler_draw_ms": draw_ms,
+        "step_ms_median": {"prefetch_2": _median(ms["step_prefetch"]),
+                           "prefetch_2_first_4_rounds": _median(ms["step_prefetch_4"]),
+                           "prefetch_0_first_4_rounds": _median(ms["step_no_prefetch"])},
+        "coverage": coverage,
+        "counters": counters,
+        "losses": losses,
+        "val_metrics": metrics,
+        "launches": launches,
+        "max_abs_err_vs_plain": {"additive_pool": err_a, "fused_history_score": err_b},
+        "kernel_vs_dense": {"losses": traj, "max_param_diff": param_worst,
+                            "max_zero_grad_leaf_diff": param_worst_noise},
+        "resume": resume_ok,
+        "fedadam_losses": [h.train_loss for h in adam_hist],
+        "decoupled": {"losses": [h.train_loss for h in dec_hist],
+                      "install_ms": dclock.ms["install"],
+                      "writeback_ms": dclock.ms.get("writeback", []),
+                      "load_ms": dclock.ms.get("load_write", []),
+                      "accum_marker_writebacks": len(markers),
+                      "accum_full_mb_avoided_per_writeback": dec_accum_mb},
+        "peak_mem_gb": peak_gb,
+        "host_rss": rss,
+    }
+
+
 def _write_token_states(tokens, path: Path, chunk: int) -> float:
     """The token states as one ``.npy`` on disk (10.07 GB at full size),
     written chunk by chunk from the card; fails loudly when the disk cannot
@@ -3202,8 +3758,9 @@ def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
-    under the per-example transform; trainer_path runs A through E, decoupled_path
-    A, B and E, serving_path A and B), times from the kernels phase."""
+    under the per-example transform; trainer_path and cohort_path run A through E,
+    decoupled_path A, B and E, serving_path A and B), times from the kernels
+    phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -3261,6 +3818,12 @@ def main(argv=None) -> int:
                    help="serving_path: clusters reranked a request")
     p.add_argument("--million-news", type=int, default=1_000_000,
                    help="serving_path: the serve CLI's million-item mode's catalog")
+    p.add_argument("--cohort-population", type=int, default=256,
+                   help="cohort_path: logical clients sampled onto the --clients slots")
+    p.add_argument("--cohort-shard", type=int, default=128,
+                   help="cohort_path: training rows a logical client owns")
+    p.add_argument("--cohort-resident", type=int, default=8,
+                   help="cohort_path: sidecars kept in host memory; the rest spill to disk")
     p.add_argument("--robust-clients", type=int, default=16,
                    help="safety_path: the clients of the second round-end sync timing")
     args = p.parse_args(argv)
@@ -3297,6 +3860,7 @@ def main(argv=None) -> int:
         "trainer_path": lambda: phase_trainer_path(state, args),
         "decoupled_path": lambda: phase_decoupled_path(state, args),
         "safety_path": lambda: phase_safety_path(state, args),
+        "cohort_path": lambda: phase_cohort_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:

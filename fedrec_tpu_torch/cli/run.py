@@ -22,7 +22,11 @@ The multi-process options (``--agg-server``, ``--worker-id``) and
 ``--obs-dir`` are accepted and refused by name. Snapshots go to
 ``train.snapshot_dir`` (``snapshots`` in the working directory; empty for
 none). Ends with ``final: loss=... auc=... ndcg10=...`` when the last
-round was evaluated.
+round was evaluated. The cohort engine, FedOpt and the data path's knobs
+have no flags of their own, as in the JAX CLI: ``--set
+fed.population.num_clients=256 --set fed.server_opt=adam --set
+chaos.enabled=1 --set chaos.pop_drop_rate=0.2 --set
+data.prefetch_batches=2``.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ section.key=value`` overrides work as they do there
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
 ``train.trainer.Trainer``): ``data.gather_chunk``, ``fed.seq_shards``,
-``shard.table``, ``obs.dir``, ``obs.quality.enabled`` and the chaos keys
+``fed.elastic.enabled``, ``shard.table``, ``obs.dir``,
+``obs.quality.enabled`` and the chaos keys
 ``fed.chaos.refuse_unported_chaos`` names. ``obs.health``'s flight-recorder
 fields are accepted and inert, as they are in the JAX package without
 ``obs.dir``.
@@ -33,6 +34,14 @@ class DataConfig:
     max_his_len: int = 50              # click-history cap (pad id 0 = <unk>)
     max_title_len: int = 50            # tokens per news title
     batch_size: int = 64
+    shuffle: bool = True
+    seed: int = 0                      # the batcher's and the population's seed
+    drop_remainder: bool = True
+    # this process's disjoint slice of the training set: shard shard_index of
+    # num_shards, dealt from a data.seed-seeded permutation
+    # (data.batcher.process_shard_indices); 0 or 1 = the whole set
+    num_shards: int = 0
+    shard_index: int = 0
     # static bound on the unique news encoded per joint-mode step; 0 = the
     # exact worst case B*(C+H). Exact while a batch's distinct ids stay
     # <= cap; the step reports `unique_overflow` otherwise
@@ -40,6 +49,9 @@ class DataConfig:
     # per-B cap policy "64:2560,256:4096"; empty = the global cap
     unique_news_cap_buckets: str = ""
     gather_chunk: int = 0              # not ported: any value > 0 raises
+    # batches built ahead on a producer thread (data.prefetch.Prefetcher);
+    # the queue depth, 0 = off. Same batches in the same order either way
+    prefetch_batches: int = 0
 
 
 @dataclass
@@ -122,6 +134,51 @@ class RobustConfig:
 
 
 @dataclass
+class PopulationConfig:
+    """The cross-device cohort engine (``fed.population``): ``num_clients``
+    logical clients sampled onto the ``fed.num_clients`` device slots each
+    round. A round draws ``ceil(slots * over_select)`` candidates
+    (``fed.sampling.CohortSampler``), packs the survivors of the chaos
+    plan's population dropout into the slots, and gives weight 0 to those
+    whose simulated report latency passes ``round_deadline_ms``. Below
+    ``min_reports`` reporters the round is discarded and replayed with a
+    fresh draw, at most ``quorum_retries`` times.
+
+    ``num_clients == fed.num_clients`` is the degenerate (cross-silo) world,
+    bitwise the run without a population. Above it, each logical client owns
+    a seeded, equal shard of the training set, and its optimizer sidecar
+    persists across selections (``client_state="persist"``) or restarts
+    from the template (``"reset"``). Sidecars above ``resident_cap`` spill
+    to ``spill_dir`` (default ``<snapshot_dir>/popspill``); 0 = unbounded.
+    """
+
+    num_clients: int = 0               # 0 = off; == slots = degenerate; > slots = sampled
+    sampler: str = "uniform"           # "uniform" | "weighted" | "skew"
+    seed: int = 0                      # the cohort draws' seed
+    over_select: float = 1.0           # draw ceil(slots * over_select) candidates
+    round_deadline_ms: float = 0.0     # report-latency cut; 0 = no deadline
+    min_reports: int = 0               # quorum: fewer reporters discard the round
+    quorum_retries: int = 3            # re-draws a round before the abort
+    client_state: str = "persist"      # "persist" | "reset"
+    resident_cap: int = 0
+    spill_dir: str = ""
+
+
+@dataclass
+class ElasticConfig:
+    """Elastic membership (the JAX package's coordinator lease service). Not
+    ported: ``enabled`` raises, naming ROADMAP.md's Queue A item 9; the other
+    fields are inert."""
+
+    enabled: bool = False
+    lease_ms: float = 15000.0
+    heartbeat_ms: float = 5000.0
+    formation_grace_ms: float = 10000.0
+    min_world: int = 1
+    join_timeout_s: float = 180.0
+
+
+@dataclass
 class FedConfig:
     strategy: str = "param_avg"        # "local" | "grad_avg" | "param_avg" | "coordinator"
     num_clients: int = 8
@@ -129,8 +186,18 @@ class FedConfig:
     rounds: int = 10                   # global rounds (reference server.py global_epochs)
     participation: float = 1.0         # fraction of clients aggregated per round
     seq_shards: int = 1                # not ported: > 1 raises
+    # FedOpt over round deltas (fed.strategies.ServerOptimizer): "none"
+    # adopts the client mean (FedAvg); "sgd" with server_momentum > 0 is
+    # FedAvgM; "adam" is FedAdam. Needs a strategy that syncs params
+    server_opt: str = "none"           # "none" | "sgd" | "adam"
+    server_lr: float = 1.0
+    server_momentum: float = 0.9
     # Byzantine-robust aggregation + quarantine/rollback recovery (RobustConfig)
     robust: RobustConfig = field(default_factory=RobustConfig)
+    # the cross-device cohort engine (PopulationConfig)
+    population: PopulationConfig = field(default_factory=PopulationConfig)
+    # elastic membership (ElasticConfig; not ported)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
 
 @dataclass
@@ -164,8 +231,8 @@ class ChaosConfig:
     """Deterministic fault injection (``fed.chaos``): a seeded plan of
     per-round, per-client faults. ``faults`` is a comma list of
     ``kind@round:client[xscale]`` (``round`` may be ``*``): ``nan@2:3``,
-    ``scale@*:5x100``, ``flip@4:2``. The wire, host-kill and population
-    keys are the JAX package's and refused by name when set."""
+    ``scale@*:5x100``, ``flip@4:2``. The wire and host-kill keys are the
+    JAX package's and refused by name when set."""
 
     enabled: bool = False
     seed: int = 0
@@ -173,13 +240,17 @@ class ChaosConfig:
     straggle_rate: float = 0.0         # ditto; weight 0 + optional host delay
     straggle_ms: float = 0.0           # host sleep a round with a straggler
     faults: str = ""                   # "kind@round:client[xscale]" comma list
-    # not ported (fed.chaos.refuse_unported_chaos): population, host and
-    # wire faults
+    # population faults (fed.chaos.population_report), on LOGICAL clients at
+    # the cohort draw: each sampled client drops with pop_drop_rate, a seeded
+    # pop_flaky_fraction of the population with pop_flaky_drop_rate instead;
+    # pop_straggle_ms > 0 draws a lognormal(median pop_straggle_ms, sigma
+    # pop_straggle_sigma) report latency, cut at fed.population's deadline
     pop_drop_rate: float = 0.0
     pop_flaky_fraction: float = 0.0
     pop_flaky_drop_rate: float = 0.5
     pop_straggle_ms: float = 0.0
     pop_straggle_sigma: float = 1.0
+    # not ported (fed.chaos.refuse_unported_chaos): host and wire faults
     kill_round: int = -1
     kill_process: int = -1
     torn_snapshot_round: int = -1

@@ -1,6 +1,7 @@
 """Static-shape batch construction, a numpy copy of
 ``fedrec_tpu/data/batcher.py`` (``Batch``, ``IndexedSamples``,
-``index_samples``, ``shard_indices``, ``TrainBatcher``): the same seeds give
+``index_samples``, ``shard_indices``, ``process_shard_indices``,
+``TrainBatcher``): the same seeds give
 the same arrays as the JAX package's batcher (``tests/test_torch_train.py``).
 
   * candidates: (B, 1 + npratio) int32 news indices, positive at slot 0 and
@@ -101,6 +102,17 @@ def shard_indices(
         # tiled wrap-around pad: fills even when num_shards > 2n
         idx = np.concatenate([idx, np.resize(idx, total - n)])
     return idx[shard_id::num_shards]
+
+
+def process_shard_indices(n: int, num_shards: int, shard_index: int, seed: int = 0) -> np.ndarray:
+    """This process's disjoint shard of ``range(n)`` (``data.num_shards`` /
+    ``data.shard_index``): a ``(seed, 0xD15C)``-seeded permutation dealt
+    round-robin and sorted. Unlike ``shard_indices`` nothing is padded, so
+    the shards partition the set exactly (sizes differ by at most 1)."""
+    if not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+    perm = np.random.default_rng((seed, 0xD15C)).permutation(n)
+    return np.sort(perm[shard_index::num_shards])
 
 
 class TrainBatcher:

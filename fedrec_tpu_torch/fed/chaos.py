@@ -13,11 +13,14 @@ packages plan the same faults.
 * update faults (``nan``, ``scale``, ``flip``): applied at the optimizer
   update boundary of the train step (``apply_update_fault``), through the
   per-client ``chaos.code`` / ``chaos.scale`` vectors the batch carries.
+* population faults (the ``pop_*`` keys, ``population_report``): each
+  sampled LOGICAL client's dropout and simulated report latency for the
+  cohort engine (``fed.population``), from numpy ``default_rng([seed,
+  round, attempt, client, 0x90B])`` draws, bitwise the JAX package's.
 
-Not ported: the wire faults (``chaos.wire_faults``, ``ChaosProxy``), the
+Not ported: the wire faults (``chaos.wire_faults``, ``ChaosProxy``) and the
 host-level kills (``kill_round``, ``kill_process``, ``torn_snapshot_round``,
-``rejoin_delay_s``) and the population faults (``population_report``, the
-``pop_*`` keys); ``refuse_unported_chaos`` names them.
+``rejoin_delay_s``); ``refuse_unported_chaos`` names them.
 """
 
 from __future__ import annotations
@@ -143,6 +146,55 @@ class FaultPlan:
         rf = self.round_faults(round_idx)
         return {"chaos.code": rf.codes, "chaos.scale": rf.scales}
 
+    def is_flaky(self, client_id: int) -> bool:
+        """Whether a logical client is in the seeded flaky cohort: a fixed
+        ``pop_flaky_fraction`` of the population that drops at
+        ``pop_flaky_drop_rate`` instead of ``pop_drop_rate``. Pure in
+        ``(seed, client_id)``, so stable across rounds and replays."""
+        frac = float(getattr(self.cfg, "pop_flaky_fraction", 0.0))
+        if frac <= 0:
+            return False
+        u = np.random.default_rng([self.seed, int(client_id), 0xF1A]).random()
+        return bool(u < frac)
+
+    def population_report(self, round_idx: int, client_ids,
+                          attempt: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """One round's report for sampled logical clients: ``(dropped,
+        latency_ms)``, ``dropped[i]`` when ``client_ids[i]`` never starts,
+        ``latency_ms[i]`` its simulated report latency (0 without
+        ``pop_straggle_ms``). Deterministic in ``(seed, round_idx, attempt,
+        client)``: the packing and the weights see the same fate, and a
+        quorum re-draw (``attempt`` + 1) rolls fresh dice."""
+        return population_report(self, round_idx, client_ids, attempt)
+
+
+def population_report(plan: FaultPlan | None, round_idx: int, client_ids,
+                      attempt: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """``FaultPlan.population_report`` that tolerates ``plan=None`` (chaos
+    off): nobody drops, everybody reports at once."""
+    ids = np.asarray(client_ids, np.int64)
+    dropped = np.zeros(ids.shape, bool)
+    latency = np.zeros(ids.shape, np.float64)
+    if plan is None:
+        return dropped, latency
+    cfg = plan.cfg
+    drop_rate = float(getattr(cfg, "pop_drop_rate", 0.0))
+    flaky_rate = float(getattr(cfg, "pop_flaky_drop_rate", 0.5))
+    straggle_ms = float(getattr(cfg, "pop_straggle_ms", 0.0))
+    straggle_sigma = float(getattr(cfg, "pop_straggle_sigma", 1.0))
+    any_flaky = float(getattr(cfg, "pop_flaky_fraction", 0.0)) > 0
+    if drop_rate <= 0 and not any_flaky and straggle_ms <= 0:
+        return dropped, latency
+    for i, cid in enumerate(ids):
+        rng = np.random.default_rng([plan.seed, int(round_idx), int(attempt), int(cid), 0x90B])
+        p = flaky_rate if (any_flaky and plan.is_flaky(int(cid))) else drop_rate
+        dropped[i] = rng.random() < p
+        if straggle_ms > 0:
+            # lognormal with median pop_straggle_ms: the heavy tail is what
+            # a deadline cuts
+            latency[i] = straggle_ms * rng.lognormal(0.0, straggle_sigma)
+    return dropped, latency
+
 
 def apply_update_fault(updates: Sequence[torch.Tensor], code: int,
                        scale: float) -> list[torch.Tensor]:
@@ -167,9 +219,6 @@ _UNPORTED = (
     ("kill_process", -1, "9 (the coordinator deployment's host faults)"),
     ("torn_snapshot_round", -1, "9 (the coordinator deployment's host faults)"),
     ("rejoin_delay_s", 0.0, "9 (elastic membership)"),
-    ("pop_drop_rate", 0.0, "9 (population_report, with fed.population)"),
-    ("pop_flaky_fraction", 0.0, "9 (population_report, with fed.population)"),
-    ("pop_straggle_ms", 0.0, "9 (population_report, with fed.population)"),
 )
 
 
@@ -182,6 +231,6 @@ def refuse_unported_chaos(chaos_cfg: Any) -> None:
         if getattr(chaos_cfg, key) != default:
             raise NotImplementedError(
                 f"chaos.{key} is not ported to fedrec_tpu_torch yet (ROADMAP.md's "
-                f"Queue A item {item}); the port injects chaos.faults, drop_rate and "
-                "straggle_rate"
+                f"Queue A item {item}); the port injects chaos.faults, drop_rate, "
+                "straggle_rate and the pop_* population faults"
             )

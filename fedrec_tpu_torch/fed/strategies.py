@@ -9,10 +9,16 @@ a hook takes the K clients' tensors and returns K results:
   * ``ParamAvg`` — ``sync_params``: every client adopts the participation-
     weighted mean of the K clients' parameters at round end (FedAvg)
   * ``Local``    — no communication
+
+``ServerOptimizer`` is FedOpt over round deltas (sgd, FedAvgM, FedAdam), a
+numpy step on the host over the parameters as one ordered list of arrays,
+with the JAX package's expressions and dtypes, so that on the same inputs
+its step is bitwise the JAX one.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Sequence
 
 import numpy as np
@@ -161,3 +167,99 @@ def weighted_param_avg(params: Sequence[Leaves], weights) -> list[Leaves]:
                 acc = p * float(wc) if acc is None else acc + p * float(wc)
         mean.append(acc / float(total))
     return [list(mean) for _ in params]
+
+
+class ServerOptimizer:
+    """Server-side optimization over round deltas (FedOpt, Reddi et al.
+    2021). FedAvg adopts the client mean; FedOpt treats ``global - mean`` as
+    a pseudo-gradient and steps the global with it::
+
+        delta  = global - mean
+        global = global + server_opt(delta)
+
+    ``kind='sgd'`` with ``lr=1, momentum=0`` is FedAvg exactly,
+    ``momentum > 0`` FedAvgM, ``kind='adam'`` FedAdam (optax's bias
+    correction). The parameters are an ordered list of f32 numpy arrays (the
+    trainer's user-tower then text-head parameters); the buffers stay on the
+    host, as in the JAX package, and ``state_bytes`` / ``load_state``
+    persist them round-tagged in the port's own format (an ``.npz``).
+    """
+
+    def __init__(self, kind: str = "sgd", lr: float = 1.0, momentum: float = 0.0):
+        if kind not in ("sgd", "adam"):
+            raise ValueError(f"unknown server optimizer {kind!r}; 'sgd' | 'adam'")
+        self.kind, self.lr, self.momentum = kind, float(lr), float(momentum)
+        self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8  # optax.adam defaults
+        self._state: dict | None = None
+
+    def _init_state(self, params: Sequence[np.ndarray]) -> dict:
+        zeros = [np.zeros_like(np.asarray(p)) for p in params]
+        if self.kind == "sgd":
+            return {"buf": zeros, "t": 0}
+        return {"m": zeros, "v": [np.zeros_like(np.asarray(p)) for p in params], "t": 0}
+
+    def step(self, global_params: Sequence[np.ndarray],
+             mean_params: Sequence[np.ndarray]) -> list[np.ndarray]:
+        """One server update on host arrays: the new global parameters.
+        ``mean_params`` is the round's aggregate, ``global_params`` the
+        global it was built from."""
+        g = [np.asarray(x) for x in global_params]
+        delta = [a - np.asarray(b) for a, b in zip(g, mean_params)]
+        if self._state is None:
+            self._state = self._init_state(g)
+        st = self._state
+        st["t"] += 1
+        if self.kind == "sgd":
+            if self.momentum:
+                st["buf"] = [self.momentum * b + d for b, d in zip(st["buf"], delta)]
+                upd = st["buf"]
+            else:
+                upd = delta
+            return [p - self.lr * u for p, u in zip(g, upd)]
+        st["m"] = [self.b1 * m + (1 - self.b1) * d for m, d in zip(st["m"], delta)]
+        st["v"] = [self.b2 * v + (1 - self.b2) * d * d for v, d in zip(st["v"], delta)]
+        t = st["t"]
+        c1, c2 = 1 - self.b1**t, 1 - self.b2**t
+        return [p - self.lr * (m / c1) / (np.sqrt(v / c2) + self.eps)
+                for p, m, v in zip(g, st["m"], st["v"])]
+
+    def state_bytes(self, round_idx: int = -1) -> bytes:
+        """The buffers as ``.npz`` bytes, tagged with ``round_idx`` (the
+        snapshot round they pair with)."""
+        arrays = {"round": np.int64(round_idx), "kind": np.str_(self.kind)}
+        if self._state is not None:
+            arrays["t"] = np.int64(self._state["t"])
+            for name in ("buf", "m", "v"):
+                for i, x in enumerate(self._state.get(name, ())):
+                    arrays[f"{name}_{i}"] = x
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    def load_state(self, blob: bytes, params_template: Sequence | None = None) -> int:
+        """Restore the buffers from ``state_bytes``; returns the round they
+        were written at. The saved buffers must match ``params_template``'s
+        shapes (arrays or shape tuples) when one is given."""
+        with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+            files = set(z.files)
+            if str(z["kind"]) != self.kind:
+                raise ValueError(f"server optimizer state is {str(z['kind'])!r}, "
+                                 f"this run's fed.server_opt is {self.kind!r}")
+            round_idx = int(z["round"])
+            if "t" not in files:
+                self._state = None
+                return round_idx
+            names = ("buf",) if self.kind == "sgd" else ("m", "v")
+            state: dict = {"t": int(z["t"])}
+            for name in names:
+                n = sum(1 for f in files if f.startswith(f"{name}_"))
+                state[name] = [z[f"{name}_{i}"] for i in range(n)]
+        if params_template is not None:
+            want = [tuple(getattr(p, "shape", p)) for p in params_template]
+            for name in names:
+                got = [x.shape for x in state[name]]
+                if got != want:
+                    raise ValueError(f"server optimizer buffers {name}: saved shapes {got} "
+                                     f"vs this run's parameters {want}")
+        self._state = state
+        return round_idx

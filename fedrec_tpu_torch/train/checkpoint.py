@@ -15,7 +15,12 @@ holds the generators.)
 Layout: one directory per round, ``round_<r>/state.pt``, written by
 ``torch.save`` to a temporary name and moved into place with
 ``os.replace``, so a torn write is never visible; the newest ``max_to_keep``
-rounds are retained. Loading uses ``torch.load(..., weights_only=True)``:
+rounds are retained. A save may put files of its own beside ``state.pt``
+first (``extras``): the trainer's FedOpt buffers (``SERVER_OPT_SIDECAR``),
+the cohort engine's state (``POPULATION_SIDECAR``,
+``population_state_bytes``) and its per-client sidecars
+(``POPULATION_STORE``), each tagged with its round, so a snapshot that is
+visible has them. Loading uses ``torch.load(..., weights_only=True)``:
 tensors, numbers, lists and dicts only. There is no multi-host layout, so
 no gather on save.
 """
@@ -25,16 +30,23 @@ from __future__ import annotations
 import io
 import os
 import shutil
+import json
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from fedrec_tpu_torch.train.state import ClientState, OptState
 
 _STATE_FILE = "state.pt"
 _ROUND_PREFIX = "round_"
+# the files a round's snapshot holds beside state.pt when the trainer runs
+# FedOpt or the cohort engine
+SERVER_OPT_SIDECAR = "server_opt_state.npz"
+POPULATION_SIDECAR = "population_state.npz"
+POPULATION_STORE = "popstore"
 
 
 class SnapshotIntegrityError(RuntimeError):
@@ -70,6 +82,69 @@ def atomic_write_bytes(path: Path, blob: bytes) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def _pack(tree: dict) -> bytes:
+    """A nested dict of numpy arrays and JSON values as ``.npz`` bytes: the
+    arrays under their dotted paths, the rest in one JSON entry."""
+    arrays: dict[str, np.ndarray] = {}
+    plain: dict[str, Any] = {}
+
+    def walk(node: dict, prefix: str) -> None:
+        for key, value in node.items():
+            path = f"{prefix}{key}"
+            if isinstance(value, dict):
+                walk(value, path + ".")
+            elif isinstance(value, (np.ndarray, np.generic)):
+                arrays[path] = np.asarray(value)
+            else:
+                plain[path] = value
+
+    walk(tree, "")
+    arrays["__json__"] = np.str_(json.dumps(plain))
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _unpack(blob: bytes) -> dict:
+    with np.load(io.BytesIO(blob), allow_pickle=False) as z:
+        flat: dict[str, Any] = {k: z[k] for k in z.files if k != "__json__"}
+        flat.update(json.loads(str(z["__json__"])))
+    out: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return out
+
+
+def population_state_bytes(sampler_state: dict, ledger_state: dict, slot_occupants,
+                           slot_writeback, round_idx: int, store: dict | None = None) -> bytes:
+    """The cohort engine's state as bytes (the port's format, an ``.npz``):
+    the sampler's fairness counters, the participation ledger with its
+    quarantine expiries, the slot occupancy, the write-back mask, the round
+    it describes and, when given, the sidecar store's manifest
+    (``ClientPopulation.save_store``). Restoring it makes the resumed cohort
+    schedule the uninterrupted run's."""
+    return _pack({
+        "sampler": dict(sampler_state),
+        "ledger": dict(ledger_state),
+        "slot_occupants": np.asarray(slot_occupants, np.int64),
+        "slot_writeback": np.asarray(slot_writeback, bool),
+        "round": np.int64(round_idx),
+        **({"store": store} if store is not None else {}),
+    })
+
+
+def load_population_state(blob: bytes) -> dict:
+    """Inverse of :func:`population_state_bytes`; ``round`` as an int."""
+    state = _unpack(blob)
+    state["round"] = int(state["round"])
+    state["sampler"]["mode"] = str(state["sampler"]["mode"])
+    return state
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -183,20 +258,32 @@ class SnapshotManager:
         rounds = self.all_rounds()
         return rounds[-1] if rounds else None
 
-    def _write(self, round_idx: int, snap: dict) -> None:
+    def round_dir(self, round_idx: int) -> Path:
+        """The directory of ``round_idx``'s snapshot (state.pt and extras)."""
+        return self._path(round_idx).parent
+
+    def _write(self, round_idx: int, snap: dict,
+               extras: Callable[[Path], None] | None = None) -> None:
         buf = io.BytesIO()
         torch.save(snap, buf)
         path = self._path(round_idx)
         path.parent.mkdir(parents=True, exist_ok=True)
+        if extras is not None:
+            # before state.pt: a snapshot is visible only once its extras are
+            extras(path.parent)
         atomic_write_bytes(path, buf.getvalue())
         for old in self.all_rounds()[: -self.max_to_keep]:
             shutil.rmtree(self._path(old).parent, ignore_errors=True)
 
-    def save(self, round_idx: int, states: list[ClientState], wait: bool = False) -> None:
+    def save(self, round_idx: int, states: list[ClientState], wait: bool = False,
+             extras: Callable[[Path], None] | None = None) -> None:
         """Persist every client's state for ``round_idx``; ``wait=True``
-        returns only once the file is in place."""
+        returns only once the file is in place. ``extras(round_dir)``
+        writes the caller's own files into the round's directory first, on
+        the writer thread (a caller whose extras read live state passes
+        ``wait=True``)."""
         snap = {"round": int(round_idx), "clients": [_client_snapshot(st) for st in states]}
-        self._pending.append(self._pool.submit(self._write, int(round_idx), snap))
+        self._pending.append(self._pool.submit(self._write, int(round_idx), snap, extras))
         if wait:
             self.wait()
 

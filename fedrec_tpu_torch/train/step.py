@@ -259,6 +259,8 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
             )
     levers = [
         ("fed.seq_shards>1 (ROADMAP.md's Queue A item 9)", cfg.fed.seq_shards > 1),
+        ("fed.elastic.enabled (elastic membership, the coordinator's lease service: "
+         "ROADMAP.md's Queue A item 9)", cfg.fed.elastic.enabled),
         ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
         ("obs.dir (observability artifacts, ROADMAP.md's Queue A item 10b)", bool(cfg.obs.dir)),
         ("obs.quality.enabled (sliced-evaluation telemetry, ROADMAP.md's Queue A item 10b)",

@@ -1,13 +1,16 @@
 """The federated round loop, the port of ``fedrec_tpu/train/trainer.py``'s
-flat path: a fixed world of ``fed.num_clients`` clients on one card, in
-joint ("head") or decoupled ("table", the default) mode over the frozen
-trunk's cached token states, with the health sentry, robust aggregation,
-chaos client faults and quarantine-and-rollback; no cohorts, codecs or
-server optimizer.
+flat path: ``fed.num_clients`` device slots on one card, in joint ("head")
+or decoupled ("table", the default) mode over the frozen trunk's cached
+token states, with the health sentry, robust aggregation, chaos faults,
+quarantine-and-rollback, the cross-device cohort engine
+(``fed.population``), FedOpt server optimizers (``fed.server_opt``) and the
+prefetched data path (``data.prefetch_batches``); no codecs, scan chains or
+rounds-in-jit.
 
-A run is ``fed.rounds`` rounds. A round draws its participation weights,
-runs ``fed.local_epochs`` epochs of the train step over the batcher's
-per-client shards, takes the strategy's round-end mean, and every
+A run is ``fed.rounds`` rounds. A round draws its cohort (with a
+population), computes its participation weights, runs ``fed.local_epochs``
+epochs of the train step over the slots' batches, takes the strategy's
+round-end mean (then the server optimizer's step, with FedOpt), and every
 ``train.eval_every`` rounds evaluates: the corpus encode (kernel A under
 ``model.use_pallas``), then the validation impressions under
 ``train.eval_protocol`` (user vectors from kernel B). ``run`` snapshots
@@ -24,10 +27,42 @@ A), after which every client trains its next epoch on client 0's new
 table, as in the JAX trainer, also under ``local``. The table is cached:
 built at the first epoch from client 0's text head, replaced after each
 news update, re-encoded after the round-end mean of a strategy that syncs
-parameters and by ``set_global_params``. Evaluation and the export reuse
-it; a client other than 0 evaluated on its own (the clients out of sync)
-gets a fresh encode of its own head. A restore happens only in
-``__init__``, before the first table is built.
+parameters and when the clients adopt new global parameters. Evaluation
+and the export reuse it; a client other than 0 evaluated on its own (the
+clients out of sync) gets a fresh encode of its own head. A restore
+happens only in ``__init__``, before the first table is built.
+
+Data. The training set is this process's shard (``data.num_shards`` /
+``data.shard_index``, ``data.batcher.process_shard_indices``). In the
+fixed world each epoch deals it over the slots (``TrainBatcher``); with a
+sampled population slot *j* iterates its logical client's own shard
+(``ClientPopulation.cohort_epoch_batches``). Either way the batches come
+through ``data.prefetch.maybe_prefetch``: built on a producer thread when
+``data.prefetch_batches`` > 0, the same batches either way.
+
+Cohorts. With ``fed.population.num_clients`` above the slot count, a round
+draws ``ceil(slots * over_select)`` logical clients (``fed.sampling``),
+packs the survivors of the chaos plan's population dropout into the slots
+and installs them: every persisted occupant's sidecar (step count,
+optimizer states, generator states, the news-gradient accumulator) is
+written back to the population's store, then each changed slot loads its
+new client's sidecar, or the template on a first selection (zero moments,
+step 0, generators seeded from ``(train.seed, client)``). Parameters are
+not touched: after the round-end mean every slot holds the global. The
+accumulator is zero at every round boundary, so a sidecar carries it as an
+empty marker (the full array only if it is not zero). Clients past
+``round_deadline_ms`` get weight 0; below ``min_reports`` reporters the
+round raises ``QuorumFailure`` before any step and replays with a fresh
+draw. A population equal to the slot count is the degenerate world:
+identity cohorts, the fixed world's batches, bitwise the run without a
+population. The sampler, the ledger, the occupancy and the whole sidecar
+store are saved with each snapshot, so a resumed run is the uninterrupted
+one bitwise.
+
+FedOpt. The server optimizer steps at round end on the host: client 0's
+aggregated parameters come down in one copy, ``ServerOptimizer.step``
+moves the round-entry global toward them, and the result goes up in one
+copy into every slot. Its buffers are saved with each snapshot.
 
 Health. The train step returns each client's health vector every step
 (``obs.health.sentry``, on by default) as device tensors; the round reads
@@ -36,17 +71,20 @@ A non-finite cell raises ``TrainingHealthError`` under
 ``obs.health.abort_on_nonfinite``; a loss spike or an outlier client is a
 warning. With ``fed.robust.recover`` a non-finite or outlier client is a
 recoverable trigger instead: the client is quarantined (weight 0 for
-``fed.robust.quarantine_rounds`` rounds), every client is rolled back to
-the round-entry state (a device copy of params, optimizer states, step
-counts, accumulators and generator states) and the round replays, up to
+``fed.robust.quarantine_rounds`` rounds; under sampling the slot's logical
+client, excluded from the draws and its sidecar reset), every client is
+rolled back to the round-entry state (a device copy of params, optimizer
+states, step counts, accumulators and generator states, with the slot
+occupancy and the FedOpt buffers) and the round replays, up to
 ``fed.robust.max_retries`` times; an expired client rejoins healed. The
-round weights are the participation mask (``hash((train.seed, round))``,
-bitwise JAX's) times the chaos plan's drop/straggle mask times the
-quarantine exclusion.
+fixed world's round weights are the participation mask
+(``hash((train.seed, round))``, bitwise JAX's) times the chaos plan's
+drop/straggle mask times the quarantine exclusion.
 
 The levers this trainer does not run are refused by name at construction
 (``train.step._refuse_unported``). Metrics go to the ``obs`` registry and
-a print per round; the round and rollback spans to the ``obs`` tracer.
+a print per round; the round, rollback and quorum-replay spans to the
+``obs`` tracer.
 """
 
 from __future__ import annotations
@@ -55,22 +93,51 @@ import copy
 import json
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from fedrec_tpu_torch.config import EVAL_PROTOCOLS, ExperimentConfig
-from fedrec_tpu_torch.data import IndexedSamples, MindData, TrainBatcher, index_samples
+from fedrec_tpu_torch.data import (
+    IndexedSamples,
+    MindData,
+    TrainBatcher,
+    index_samples,
+    maybe_prefetch,
+    process_shard_indices,
+)
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.fed.chaos import FaultPlan
+from fedrec_tpu_torch.fed.population import (
+    SIDECAR_FIELDS,
+    ClientPopulation,
+    QuorumFailure,
+    build_cohort_plan,
+    plan_round_weights,
+)
 from fedrec_tpu_torch.fed.robust import validate_robust_method
-from fedrec_tpu_torch.fed.strategies import get_strategy, participation_mask
+from fedrec_tpu_torch.fed.sampling import CohortSampler, validate_sampler_mode
+from fedrec_tpu_torch.fed.strategies import ServerOptimizer, get_strategy, participation_mask
 from fedrec_tpu_torch.models import NewsRecommender
 from fedrec_tpu_torch.obs import HealthMonitor, TrainingHealthError, get_registry, get_tracer
 from fedrec_tpu_torch.params import from_flax, init_params
-from fedrec_tpu_torch.train.checkpoint import SnapshotManager, atomic_write_bytes
-from fedrec_tpu_torch.train.state import OptState, init_client_state, replicate_state
+from fedrec_tpu_torch.train.checkpoint import (
+    POPULATION_SIDECAR,
+    POPULATION_STORE,
+    SERVER_OPT_SIDECAR,
+    SnapshotManager,
+    atomic_write_bytes,
+    load_population_state,
+    population_state_bytes,
+)
+from fedrec_tpu_torch.train.state import (
+    _NOISE_SEED_OFFSET,
+    OptState,
+    init_client_state,
+    replicate_state,
+)
 from fedrec_tpu_torch.train.step import (
     build_eval_step,
     build_fed_train_step,
@@ -157,18 +224,36 @@ class Trainer:
                     "fed.robust.recover=true requires obs.health.sentry: "
                     "recovery is driven by the in-graph health vectors"
                 )
+        self.server_opt: ServerOptimizer | None = None
+        if cfg.fed.server_opt != "none":
+            if not self.strategy.sync_params_every_round:
+                # the server optimizer steps round deltas at the param sync:
+                # under local/grad_avg it would silently never run
+                raise ValueError(
+                    f"fed.server_opt={cfg.fed.server_opt!r} requires a "
+                    "strategy that syncs params every round (param_avg or "
+                    f"coordinator); fed.strategy={cfg.fed.strategy!r} never "
+                    "would apply it"
+                )
+            self.server_opt = ServerOptimizer(cfg.fed.server_opt, cfg.fed.server_lr,
+                                              cfg.fed.server_momentum)
         self.token_states = torch.as_tensor(token_states).to(
             self.dev, torch_dtype(cfg.model.dtype))
 
-        # the JAX package's data.shuffle / drop_remainder / seed defaults
-        self.batcher = TrainBatcher(
-            index_samples(data.train_samples, data.nid2index, cfg.data.max_his_len),
-            cfg.data.batch_size, cfg.data.npratio,
-        )
+        train_ix = index_samples(data.train_samples, data.nid2index, cfg.data.max_his_len)
+        if cfg.data.num_shards > 1:
+            # this process's disjoint shard of the training set
+            train_ix = train_ix.take(process_shard_indices(
+                len(train_ix), cfg.data.num_shards, cfg.data.shard_index, cfg.data.seed))
+        self.batcher = TrainBatcher(train_ix, cfg.data.batch_size, cfg.data.npratio,
+                                    shuffle=cfg.data.shuffle,
+                                    drop_remainder=cfg.data.drop_remainder, seed=cfg.data.seed)
         self.valid_ix: IndexedSamples | None = None
         if data.valid_samples:
             self.valid_ix = index_samples(data.valid_samples, data.nid2index,
                                           cfg.data.max_his_len)
+        self.train_ix = train_ix  # the population's shard substrate
+        self._setup_population(snapshot_dir)
 
         model = init_params(NewsRecommender(cfg.model), seed=cfg.train.seed).to(self.dev)
         self.states = replicate_state(init_client_state(model, cfg, cfg.train.seed),
@@ -209,6 +294,29 @@ class Trainer:
             "chaos.faults_total",
             "faults injected by the chaos FaultPlan, labeled by kind "
             "(drop/straggle/nan/scale/flip); rollback replays re-count", labels=("kind",))
+        # the cohort engine's instruments, zero without a population
+        self._g_pop_size = self.registry.gauge(
+            "fed.population_clients", "configured logical-client population (0 = cross-silo)")
+        self._g_pop_size.set(float(cfg.fed.population.num_clients))
+        self._g_cohort_sampled = self.registry.gauge(
+            "fed.cohort_sampled", "clients drawn for the current round, over-selection included")
+        self._g_cohort_reporting = self.registry.gauge(
+            "fed.cohort_reporting", "clients whose round weight survived dropout and the deadline")
+        self._m_pop_drops = self.registry.counter(
+            "fed.pop_dropouts_total", "sampled clients that dropped out of their round")
+        self._m_deadline_cuts = self.registry.counter(
+            "fed.deadline_cuts_total", "clients cut at the round deadline (weight 0, work discarded)")
+        self._m_quorum_replays = self.registry.counter(
+            "fed.quorum_replays_total",
+            "rounds discarded below min_reports and replayed with a fresh cohort draw")
+        self._m_cohort_swaps = self.registry.counter(
+            "fed.cohort_slot_swaps_total",
+            "device-slot sidecar load/unload operations (cohort churn)")
+        self._g_pop_coverage = self.registry.gauge(
+            "fed.population_coverage", "fraction of the population selected at least once")
+        # FedOpt: the round-entry global on the host, the last one broadcast
+        # (None: read client 0 at the next round entry)
+        self._global_host: list[np.ndarray] | None = None
 
         self.start_round = 0
         self.snapshots: SnapshotManager | None = None
@@ -233,6 +341,7 @@ class Trainer:
                 # snapshot falls back to the previous retained one
                 self.start_round = self.snapshots.last_restored_round + 1
                 print(f"[trainer] resumed from snapshot at round {self.start_round - 1}")
+                self._restore_sidecars(self.snapshots.round_dir(self.start_round - 1))
             try:
                 atomic_write_bytes(self.snapshots.directory / "config.json",
                                    cfg.to_json().encode())
@@ -264,6 +373,153 @@ class Trainer:
                           "tracking restarts this run")
 
     # ------------------------------------------------------------------
+    def _setup_population(self, snapshot_dir: str | None) -> None:
+        """The cohort engine (``fed.population``), validated with the JAX
+        trainer's messages. ``_pop_engine``: any population (bookkeeping,
+        quorum, deadline); ``_pop_sampling``: a population above the slot
+        count (per-client shards, sidecar installs)."""
+        cfg = self.cfg
+        pcfg = cfg.fed.population
+        slots = cfg.fed.num_clients
+        self._pop_engine = pcfg.num_clients > 0
+        self._pop_sampling = pcfg.num_clients > slots
+        self.population: ClientPopulation | None = None
+        self.cohort_sampler: CohortSampler | None = None
+        self._current_plan = None
+        self._pop_pending: dict[int, tuple] = {}
+        self._pop_attempts: dict[int, int] = {}
+        self.cohort_history: list[tuple[int, tuple]] = []
+        self._slot_occupants = np.arange(slots, dtype=np.int64)
+        self._slot_writeback = np.ones(slots, bool)
+        if not self._pop_engine:
+            return
+        validate_sampler_mode(pcfg.sampler)
+        if pcfg.num_clients < slots:
+            raise ValueError(
+                f"fed.population.num_clients={pcfg.num_clients} is below "
+                f"the device-slot count fed.num_clients={slots}; the population "
+                "must cover every slot (== slots is the degenerate cross-silo config)"
+            )
+        if pcfg.over_select < 1.0:
+            raise ValueError(
+                f"fed.population.over_select={pcfg.over_select} must be "
+                ">= 1.0 (1.0 = no over-selection)"
+            )
+        if pcfg.client_state not in ("persist", "reset"):
+            raise ValueError(
+                f"fed.population.client_state={pcfg.client_state!r}; "
+                "expected 'persist' or 'reset'"
+            )
+        if pcfg.min_reports > slots:
+            raise ValueError(
+                f"fed.population.min_reports={pcfg.min_reports} exceeds "
+                f"the slot count {slots}: the quorum could never be met"
+            )
+        if self._pop_sampling:
+            if not self.strategy.sync_params_every_round:
+                raise ValueError(
+                    "fed.population sampling (num_clients above the slot "
+                    "count) requires a param-syncing strategy (param_avg "
+                    "or coordinator): sampled-in clients adopt the "
+                    f"global at round end; fed.strategy={cfg.fed.strategy!r} "
+                    "never distributes one"
+                )
+            if cfg.fed.participation < 1.0:
+                raise ValueError(
+                    "fed.participation < 1.0 composes with the FIXED "
+                    "cohort only; under fed.population sampling the "
+                    "cohort draw IS the participation policy — leave "
+                    "fed.participation at 1.0"
+                )
+        spill = pcfg.spill_dir or None
+        if not spill:
+            snap = snapshot_dir or cfg.train.snapshot_dir
+            spill = str(Path(snap) / "popspill") if snap else None
+        self.population = ClientPopulation(
+            pcfg.num_clients, len(self.train_ix), data_seed=cfg.data.seed,
+            batch_size=cfg.data.batch_size if self._pop_sampling else 0,
+            resident_cap=pcfg.resident_cap, spill_dir=spill)
+        self.cohort_sampler = CohortSampler(pcfg.num_clients, pcfg.sampler, pcfg.seed,
+                                            sample_counts=self.population.sample_counts)
+
+    def _restore_sidecars(self, round_dir: Path) -> None:
+        """A resume's FedOpt buffers and cohort-engine state, from the
+        restored round's snapshot directory; warns, as the JAX trainer does,
+        when one is missing or tagged with another round."""
+        restored = self.start_round - 1
+        if self.server_opt is not None:
+            path = round_dir / SERVER_OPT_SIDECAR
+            if not path.exists():
+                print("[trainer] WARNING: resuming a fed.server_opt run without "
+                      f"{path.name} — momentum/adaptivity buffers restart from zero, so the "
+                      "resumed trajectory will differ from an uninterrupted one")
+            else:
+                shapes = [tuple(p.shape) for p in self._slot_params(0)]
+                loaded = self.server_opt.load_state(path.read_bytes(), shapes)
+                if loaded != restored:
+                    print(f"[trainer] server_opt sidecar from round {loaded} != snapshot round "
+                          f"{restored}; momentum may be skewed for the first resumed round")
+        if not self._pop_engine:
+            return
+        path = round_dir / POPULATION_SIDECAR
+        if not path.exists():
+            if self._pop_sampling:
+                print("[trainer] WARNING: resuming a fed.population run without "
+                      f"{path.name} — the sampler/ledger restart fresh, so the resumed "
+                      "cohort schedule will differ from an uninterrupted run")
+            return
+        blob = path.read_bytes()
+        loaded = self.adopt_population_sidecar(blob)
+        store = load_population_state(blob).get("store")
+        if store is not None:
+            self.population.load_store(round_dir / POPULATION_STORE, store)
+        if loaded != restored:
+            print(f"[trainer] population sidecar from round {loaded} != snapshot round "
+                  f"{restored}; the cohort schedule may be skewed for the first resumed rounds")
+
+    def population_sidecar_bytes(self, round_idx: int, store: dict | None = None) -> bytes | None:
+        """The cohort engine's schedule-defining state (the sampler's
+        fairness counters, the participation ledger, the slot occupancy and
+        write-back mask, and ``store``, the sidecar store's manifest, when
+        given) as bytes, or None without a population."""
+        if not self._pop_engine:
+            return None
+        return population_state_bytes(
+            self.cohort_sampler.state_dict(), self.population.ledger.state_dict(),
+            self._slot_occupants, self._slot_writeback, round_idx, store)
+
+    def adopt_population_sidecar(self, blob: bytes, resize: bool = False) -> int:
+        """Restore the sampler, the ledger and the slot occupancy from
+        :meth:`population_sidecar_bytes`; returns its round tag.
+        ``resize=True`` adopts a ledger saved under another population
+        (prefix copy) and keeps the sampler and the occupancy only where
+        their shapes still fit."""
+        if not self._pop_engine:
+            raise ValueError(
+                "adopt_population_sidecar needs an active fed.population "
+                "engine (fed.population.num_clients > 0)"
+            )
+        pst = load_population_state(blob)
+        try:
+            self.cohort_sampler.load_state_dict(pst["sampler"])
+        except ValueError:
+            if not resize:
+                raise
+            print("[trainer] population sampler state does not fit the re-formed world; "
+                  "fairness counters restart fresh (ledger continuity is preserved)")
+        self.population.ledger.load_state_dict(pst["ledger"], resize=resize)
+        occ = np.asarray(pst["slot_occupants"], np.int64)
+        wb = np.asarray(pst["slot_writeback"], bool)
+        if occ.shape == self._slot_occupants.shape:
+            self._slot_occupants = occ.copy()
+            self._slot_writeback = wb.copy()
+        elif not resize:
+            raise ValueError(
+                f"population sidecar slot count {occ.shape} does not match "
+                f"the configured {self._slot_occupants.shape} slots"
+            )
+        return int(pst["round"])
+
     def _check_snapshot_config(self, cfg: ExperimentConfig) -> None:
         """A guided error when resuming under a model config whose parameter
         tree cannot match the snapshot's (the raw error names tensor shapes,
@@ -293,6 +549,35 @@ class Trainer:
         for st in self.states:
             from_flax(st.model.user_encoder, user_params)
             from_flax(st.model.text_head, news_params)
+        self._global_host = None
+        if self.mode == "decoupled":
+            self._refresh_table()
+
+    def _slot_params(self, client: int) -> list[torch.Tensor]:
+        """A client's parameters in the server optimizer's order: the user
+        tower's, then the text head's."""
+        st = self.states[client]
+        return st.user_params() + st.news_params()
+
+    @torch.no_grad()
+    def _params_host(self, client: int) -> list[np.ndarray]:
+        """A client's parameters on the host, in one device-to-host copy."""
+        params = self._slot_params(client)
+        flat = torch.cat([p.detach().reshape(-1) for p in params]).cpu().numpy()
+        return [v.reshape(p.shape) for v, p in
+                zip(np.split(flat, np.cumsum([p.numel() for p in params])[:-1]), params)]
+
+    @torch.no_grad()
+    def _adopt_global(self, params: list[np.ndarray]) -> None:
+        """Every client adopts ``params`` (host arrays in ``_slot_params``
+        order): one host-to-device copy, then a copy into each client. The
+        decoupled table is re-encoded, as ``set_global_params`` does."""
+        flat = torch.from_numpy(np.concatenate([x.reshape(-1) for x in params])).to(self.dev)
+        like = self._slot_params(0)
+        parts = [v.view(p.shape) for v, p in zip(flat.split([p.numel() for p in like]), like)]
+        for c in range(len(self.states)):
+            torch._foreach_copy_(self._slot_params(c), parts)
+        self._global_host = params
         if self.mode == "decoupled":
             self._refresh_table()
 
@@ -364,15 +649,44 @@ class Trainer:
         return tower, self._encode_corpus(0)
 
     # ------------------------------------------------------------------
-    def _round_weights(self, round_idx: int) -> np.ndarray:
-        """The round's aggregation weights: the participation mask, keyed
-        ``hash((train.seed, round)) & 0x7FFFFFFF`` as the JAX trainer keys
-        its own (the same clients for the same seed), times the chaos plan's
-        drop/straggle mask, with the quarantined clients at 0. A straggler
-        round sleeps ``chaos.straggle_ms`` on the host."""
+    def _participation(self, round_idx: int) -> np.ndarray:
+        """The participation mask, keyed ``hash((train.seed, round)) &
+        0x7FFFFFFF`` as the JAX trainer keys its own (the same clients for
+        the same seed)."""
         cfg = self.cfg
-        w = participation_mask(hash((cfg.train.seed, round_idx)) & 0x7FFFFFFF,
-                               cfg.fed.num_clients, cfg.fed.participation)
+        return participation_mask(hash((cfg.train.seed, round_idx)) & 0x7FFFFFFF,
+                                  cfg.fed.num_clients, cfg.fed.participation)
+
+    def _round_weights(self, round_idx: int) -> np.ndarray:
+        """The round's aggregation weights, the JAX trainer's composition:
+
+        * fixed world: the participation mask times the chaos plan's
+          drop/straggle mask, with the quarantined clients at 0;
+        * cohort engine: the plan's weights (pads, population dropouts and
+          deadline cuts at 0, ``plan_round_weights``), times the
+          participation mask in the degenerate world, then the same chaos
+          mask; the slot quarantine only outside sampling (sampling
+          excludes quarantined logical clients at the draw). The ledger's
+          events follow the final weights, and a reporting count below
+          ``min_reports`` raises :class:`QuorumFailure` here, before any
+          step.
+
+        A straggler round sleeps ``chaos.straggle_ms`` on the host."""
+        cfg = self.cfg
+        plan = self._current_plan if self._pop_engine else None
+        events = None
+        if plan is not None:
+            w, events = plan_round_weights(plan, round_idx, cfg.fed.population.round_deadline_ms,
+                                           chaos=self.chaos)
+            if round_idx == plan.round_idx and plan.start_dropped.size:
+                # the start-drops never reached a slot; the ledger still owes
+                # them a dropped round
+                events["dropped"] = np.unique(np.concatenate([events["dropped"],
+                                                              plan.start_dropped]))
+            if cfg.fed.participation < 1.0:
+                w = w * self._participation(round_idx)
+        else:
+            w = self._participation(round_idx)
         if self.chaos is not None:
             rf = self.chaos.round_faults(round_idx)
             w = w * rf.weight_mask
@@ -383,10 +697,222 @@ class Trainer:
                 self._m_chaos.inc(kind=kind)
             if rf.straggled and cfg.chaos.straggle_ms > 0:
                 time.sleep(cfg.chaos.straggle_ms / 1e3)
-        for c in self._quarantine:
-            if 0 <= c < w.shape[0]:
-                w[c] = 0.0
+        if not self._pop_sampling:
+            for c in self._quarantine:
+                if 0 <= c < w.shape[0]:
+                    w[c] = 0.0
+        if plan is not None:
+            # the ledger's truth is the final weights (slot chaos included)
+            keep = (w > 0) & plan.slot_real
+            events["reported"] = np.unique(plan.slot_clients[keep])
+            # a real client whose weight fell to 0 for a reason the
+            # population's dice did not see (slot chaos, the participation
+            # mask, the slot quarantine) still owes the ledger a dropped round
+            lost = (set(np.unique(plan.slot_clients[plan.slot_real & ~keep]).tolist())
+                    - set(events["reported"].tolist())
+                    - set(np.asarray(events["deadline_cut"]).tolist())
+                    - set(np.asarray(events["dropped"]).tolist()))
+            if lost:
+                events["dropped"] = np.unique(np.concatenate([
+                    np.asarray(events["dropped"], np.int64), np.asarray(sorted(lost), np.int64)]))
+            self._pop_pending[round_idx] = (plan, events)
+            reporting = int(events["reported"].size)
+            self._g_cohort_reporting.set(float(reporting))
+            mr = cfg.fed.population.min_reports
+            if 0 < mr and reporting < mr:
+                raise QuorumFailure(plan.round_idx, round_idx, reporting, mr, plan.attempt)
         return w
+
+    # ------------------------------------------------------ the cohort engine
+    def _ensure_cohort(self, round_idx: int) -> None:
+        """Draw and (under sampling) install the cohort of ``round_idx``.
+        Re-entrant: a rollback or quorum replay re-derives the plan (the
+        same ``(seed, round, attempt)`` less newly quarantined clients), and
+        the install does nothing when the occupancy is unchanged."""
+        if not self._pop_engine:
+            return
+        pcfg = self.cfg.fed.population
+        exclude = (self.population.ledger.active_quarantine(round_idx)
+                   if self._pop_sampling else ())
+        plan = build_cohort_plan(
+            self.cohort_sampler, self.cfg.fed.num_clients, round_idx, pcfg.over_select,
+            chaos=self.chaos, exclude=exclude, attempt=self._pop_attempts.get(round_idx, 0),
+            pack=self._pop_sampling)
+        self._current_plan = plan
+        self._g_cohort_sampled.set(float(len(plan.sampled)))
+        if self._pop_sampling:
+            self._install_cohort(plan)
+
+    def _template_sidecar(self, client_id: int) -> dict:
+        """The sidecar a first-time (or healed) logical client starts from:
+        step 0, zero optimizer moments, generators seeded ``train.seed + 1 +
+        2**24 + client`` (disjoint from the slots' ``train.seed + 1 +
+        slot``), the accumulator's zero marker."""
+        st = self.states[0]
+        seed = self.cfg.train.seed + 1 + (1 << 24) + int(client_id)
+
+        def opt(o: OptState) -> list:
+            return [np.int64(0), *(np.zeros(tuple(t.shape), np.float32)
+                                   for t in (o.mu or []) + (o.nu or []))]
+
+        def gen_state(s: int) -> np.ndarray:
+            return torch.Generator(device=self.dev).manual_seed(s).get_state().numpy()
+
+        return {
+            "step": np.int64(0),
+            "opt_user": opt(st.opt_user),
+            "opt_news": opt(st.opt_news),
+            "generator": gen_state(seed),
+            "noise_generator": (np.zeros(0, np.uint8) if st.noise_generator is None
+                                else gen_state(seed + _NOISE_SEED_OFFSET)),
+            "news_grad_accum": np.zeros(0, np.float32),
+        }
+
+    @torch.no_grad()
+    def _read_sidecar(self, slot: int) -> dict:
+        """Slot ``slot``'s sidecar as host arrays (``SIDECAR_FIELDS``): its
+        optimizer moments in one device-to-host copy. A zero (or never
+        allocated) news-gradient accumulator becomes the empty marker."""
+        st = self.states[slot]
+        moments = self._opt_tensors(st)
+        flat = (torch.cat([t.detach().reshape(-1) for t in moments]).cpu().numpy()
+                if moments else np.zeros(0, np.float32))
+        host = iter(v.reshape(t.shape) for v, t in zip(
+            np.split(flat, np.cumsum([t.numel() for t in moments])[:-1]), moments))
+
+        def opt(o: OptState) -> list:
+            return [np.int64(o.count),
+                    *(next(host) for _ in range(len(o.mu or []) + len(o.nu or [])))]
+
+        accum = st.news_grad_accum
+        keep = accum is not None and bool(accum.any())
+        return {
+            "step": np.int64(st.step),
+            "opt_user": opt(st.opt_user),
+            "opt_news": opt(st.opt_news),
+            "generator": st.generator.get_state().numpy(),
+            "noise_generator": (np.zeros(0, np.uint8) if st.noise_generator is None
+                                else st.noise_generator.get_state().numpy()),
+            "news_grad_accum": (accum.cpu().numpy() if keep else np.zeros(0, np.float32)),
+        }
+
+    @torch.no_grad()
+    def _write_sidecar(self, slot: int, sidecar: dict) -> None:
+        """Load ``sidecar`` into slot ``slot``: the moments in one
+        host-to-device copy, into the slot's own tensors."""
+        st = self.states[slot]
+        moments = self._opt_tensors(st)
+        host = [np.asarray(x) for key in ("opt_user", "opt_news") for x in sidecar[key][1:]]
+        if [tuple(x.shape) for x in host] != [tuple(t.shape) for t in moments]:
+            raise ValueError("the sidecar's optimizer moments do not fit the slot's")
+        if moments:
+            flat = torch.from_numpy(np.concatenate([x.reshape(-1) for x in host])).to(self.dev)
+            torch._foreach_copy_(moments, [v.view(t.shape) for v, t in
+                                           zip(flat.split([t.numel() for t in moments]), moments)])
+        for key in ("opt_user", "opt_news"):
+            o = getattr(st, key)
+            setattr(st, key, OptState(int(sidecar[key][0]), o.mu, o.nu))
+        st.step = int(sidecar["step"])
+        st.generator.set_state(torch.from_numpy(np.array(sidecar["generator"])))
+        if st.noise_generator is not None:
+            st.noise_generator.set_state(torch.from_numpy(np.array(sidecar["noise_generator"])))
+        accum = np.asarray(sidecar["news_grad_accum"])
+        if accum.size:
+            st.news_grad_accum = torch.from_numpy(accum).to(self.dev)
+        elif st.news_grad_accum is not None:
+            st.news_grad_accum.zero_()
+
+    def _install_cohort(self, plan) -> None:
+        """Around the round: write every persisted occupant's sidecar back
+        to the store, then load each changed slot's new client (its stored
+        sidecar, or the template). Parameters are not touched: after the
+        round-end mean every slot holds the global, which is what a
+        sampled-in client adopts. Pads load their duplicate's sidecar but
+        never write back."""
+        slots = self.cfg.fed.num_clients
+        persist = self.cfg.fed.population.client_state == "persist"
+        new_occ = np.asarray(plan.slot_clients, np.int64)
+        new_wb = (plan.slot_real & persist).astype(bool)
+        changed = [j for j in range(slots) if self._slot_occupants[j] != new_occ[j]]
+        if not changed:
+            self._slot_writeback = new_wb
+            return
+        if persist:
+            # every persisted occupant, not only the changed slots: a client
+            # can stay at its old slot as a weight-0 pad while it is repacked
+            # into another, which must load its freshest sidecar
+            for j in range(slots):
+                if self._slot_writeback[j]:
+                    self.population.put_sidecar(int(self._slot_occupants[j]),
+                                                self._read_sidecar(j))
+        for j in changed:
+            cid = int(new_occ[j])
+            sc = self.population.get_sidecar(cid) if persist else None
+            self._write_sidecar(j, self._template_sidecar(cid) if sc is None else sc)
+        self._m_cohort_swaps.inc(len(changed))
+        self._slot_occupants = new_occ.copy()
+        self._slot_writeback = new_wb
+
+    def _commit_population(self, round_idx: int) -> None:
+        """Commit a completed round into the sampler's fairness state and
+        the ledger: only accepted rounds, so rolled-back and
+        quorum-discarded rounds never skew the schedule."""
+        if not self._pop_engine:
+            return
+        pending = self._pop_pending.pop(round_idx, None)
+        if pending is None:
+            return
+        plan, events = pending
+        self.cohort_sampler.record(plan.sampled)
+        self.population.ledger.commit(plan.sampled, events)
+        for key, ctr in (("dropped", self._m_pop_drops),
+                         ("deadline_cut", self._m_deadline_cuts)):
+            n = int(np.asarray(events.get(key, ())).size)
+            if n:
+                ctr.inc(n)
+        self._pop_attempts.pop(round_idx, None)
+        self._g_pop_coverage.set(self.population.ledger.coverage())
+        if self._pop_sampling:
+            self._g_quarantined.set(float(len(self.population.ledger.quarantined)))
+        self.cohort_history.append(
+            (round_idx, tuple(int(c) for c in plan.slot_clients[plan.slot_real])))
+
+    def _handle_quorum_failure(self, e: QuorumFailure, round_idx: int) -> None:
+        """One quorum replay: drop the round's pending ledger events, bump
+        the anchor round's draw attempt (a fresh cohort and fresh dice),
+        abort once the retries are spent. The failure comes before any
+        step, so the round's entry state was never left. A replay that no
+        attempt counter can change (the degenerate world without population
+        dice) aborts at once."""
+        pcfg = self.cfg.fed.population
+        self._pop_pending = {k: v for k, v in self._pop_pending.items() if k < round_idx}
+        attempts = self._pop_attempts.get(e.anchor_round, 0) + 1
+        self._m_quorum_replays.inc()
+        self.tracer.add_span("quorum_replay", dur_s=0.0, round=e.round_idx,
+                             reporting=e.reporting, attempt=attempts)
+        ch = self.cfg.chaos
+        attempt_sensitive = self._pop_sampling or (
+            self.chaos is not None
+            and (ch.pop_drop_rate > 0 or ch.pop_flaky_fraction > 0
+                 or (ch.pop_straggle_ms > 0 and pcfg.round_deadline_ms > 0)))
+        if attempts > pcfg.quorum_retries or not attempt_sensitive:
+            futile = ("" if attempt_sensitive else
+                      " (a fixed-world cohort with no population-level fault "
+                      "dice replays identically — retries skipped)")
+            raise RuntimeError(
+                f"round {e.round_idx} failed quorum "
+                f"({e.reporting} reporting < min_reports="
+                f"{pcfg.min_reports}) on {attempts} consecutive cohort "
+                f"draws{futile} — the population's dropout rate cannot "
+                "sustain this quorum. Lower fed.population.min_reports, "
+                "raise over_select, or relax the deadline "
+                "(docs/OPERATIONS.md, 'sizing a cohort')."
+            ) from e
+        self._pop_attempts[e.anchor_round] = attempts
+        print(f"[trainer] WARNING: quorum failure at round {e.round_idx} "
+              f"({e.reporting} < {pcfg.min_reports}); discarding the round "
+              f"and replaying with a fresh cohort draw (attempt {attempts}/"
+              f"{pcfg.quorum_retries})")
 
     @staticmethod
     def _round_loss_mean(mean_cells: np.ndarray, loss_cells: np.ndarray) -> float:
@@ -410,31 +936,66 @@ class Trainer:
                 "cap (or set it to 0 for the exact worst-case bound).")
 
     def train_round(self, round_idx: int) -> RoundResult:
-        """One round: the local epochs, the round-end aggregate, one host
-        read of the round's losses and health vectors, the health check,
-        then the evaluation when due."""
+        """One round: the cohort (with a population), the local epochs, the
+        round-end aggregate (and the FedOpt step), one host read of the
+        round's losses and health vectors, the health check, then the
+        evaluation when due."""
+        # the cohort first: the draw and the install define who the round is
+        self._ensure_cohort(round_idx)
         with self.tracer.span("fed_round", step_num=round_idx, **self._round_span_args()):
             return self._train_round_inner(round_idx)
 
+    def _epoch_batches_source(self, epoch_idx: int):
+        """One local epoch's stacked (slots, B, ...) batches: the fixed
+        world deals the training set over the slots; under sampling slot
+        *j* iterates the current cohort's client *j*'s own shard."""
+        if self._pop_sampling:
+            return self.population.cohort_epoch_batches(
+                self._current_plan.slot_clients, self.train_ix, self.cfg.data, epoch_idx)
+        return self.batcher.epoch_batches_sharded(self.cfg.fed.num_clients, epoch_idx)
+
+    def _epoch_batch_iter(self, epoch_idx: int, extra: dict | None = None):
+        """The epoch's batches as step-ready dicts (``extra``, the round's
+        chaos fault vectors, merged into each), built ahead on a producer
+        thread when ``data.prefetch_batches`` > 0."""
+        extra = extra or {}
+        return maybe_prefetch(
+            self._epoch_batches_source(epoch_idx), self.cfg.data.prefetch_batches,
+            transform=lambda b: {"candidates": b.candidates, "history": b.history,
+                                 "labels": b.labels, **extra})
+
     def _train_round_inner(self, round_idx: int) -> RoundResult:
         cfg = self.cfg
+        # a QuorumFailure leaves here, before anything of the round is built
         weights = self._round_weights(round_idx)
         faults = self.chaos.batch_keys(round_idx) if self.chaos is not None else {}
+        # FedOpt's round-entry global: the last broadcast, or client 0's
+        # parameters (every client holds the global at round entry)
+        round_start_global = None
+        if self.server_opt is not None:
+            if self._global_host is None:
+                self._global_host = self._params_host(0)
+            round_start_global = self._global_host
         means, losses, overflow = [], [], 0
         health: dict[str, list] = {}
         for local_epoch in range(cfg.fed.local_epochs):
             epoch_idx = round_idx * cfg.fed.local_epochs + local_epoch
             table = self._feature_table()
-            for b in self.batcher.epoch_batches_sharded(cfg.fed.num_clients, epoch_idx):
-                batch = {"candidates": b.candidates, "history": b.history, "labels": b.labels,
-                         **faults}
-                self.states, metrics = self.train_step(self.states, batch, table)
-                means.append(metrics["mean_loss"])
-                losses.append(metrics["loss"])
-                overflow += metrics["unique_overflow"]
-                for k, v in metrics.items():
-                    if k.startswith("health."):
-                        health.setdefault(k, []).append(v)
+            it = self._epoch_batch_iter(epoch_idx, faults)
+            try:
+                for batch in it:
+                    self.states, metrics = self.train_step(self.states, batch, table)
+                    means.append(metrics["mean_loss"])
+                    losses.append(metrics["loss"])
+                    overflow += metrics["unique_overflow"]
+                    for k, v in metrics.items():
+                        if k.startswith("health."):
+                            health.setdefault(k, []).append(v)
+            finally:
+                # a step that raises must not leak the producer thread
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
             if self.mode == "decoupled":
                 self.states, tables = self.news_update(self.states, self.token_states)
                 self._table = tables[0]
@@ -442,7 +1003,13 @@ class Trainer:
             with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method):
                 self.states = self.param_sync(self.states, weights)
             self._m_robust_rounds.inc(method=cfg.fed.robust.method)
-            if self.mode == "decoupled":
+            if self.server_opt is not None:
+                # FedOpt: the mean is a proposal; the server optimizer steps
+                # the global from the round-entry one toward it
+                with self.tracer.span("server_opt", round=round_idx, kind=cfg.fed.server_opt):
+                    new = self.server_opt.step(round_start_global, self._params_host(0))
+                    self._adopt_global(new)
+            elif self.mode == "decoupled":
                 self._refresh_table()
         # one host read of the round's losses and health vectors
         mean_cells, loss_cells, arrays = self._read_round(means, losses, health)
@@ -512,6 +1079,10 @@ class Trainer:
         args: dict = {}
         if self._quarantine:
             args["quarantined"] = sorted(self._quarantine)
+        if self._pop_sampling and self._current_plan is not None:
+            args["cohort"] = int(self._current_plan.slot_real.sum())
+            if self.population.ledger.quarantined:
+                args["quarantined"] = sorted(self.population.ledger.quarantined)
         if self._round_retries:
             args["replay_retry"] = self._round_retries
         return args
@@ -527,7 +1098,10 @@ class Trainer:
         (one flat buffer a client, one launch), its optimizer counts, step
         count, news-gradient accumulator and generator states, and the
         cached decoupled table (replaced, never written in place, so a
-        reference is its copy)."""
+        reference is its copy); with a population the slot occupancy and
+        write-back mask (a replay re-installs against the restored slots),
+        with FedOpt its buffers and round-entry global (a replay must not
+        apply the momentum twice)."""
         if not self.cfg.fed.robust.recover:
             return
         self._recovery_state = {
@@ -543,6 +1117,10 @@ class Trainer:
                                     else st.news_grad_accum.clone()),
             } for st in self.states],
             "table": self._table,
+            "occupancy": (self._slot_occupants.copy(), self._slot_writeback.copy()),
+            "server_opt": (None if self.server_opt is None
+                           else copy.deepcopy(self.server_opt._state)),
+            "global_host": self._global_host,
         }
 
     @torch.no_grad()
@@ -566,7 +1144,12 @@ class Trainer:
                 st.noise_generator.set_state(saved["noise_generator"])
             accum = saved["news_grad_accum"]
             st.news_grad_accum = None if accum is None else accum.clone()
-        self._table = self._recovery_state["table"]
+        saved = self._recovery_state
+        self._table = saved["table"]
+        self._slot_occupants, self._slot_writeback = (x.copy() for x in saved["occupancy"])
+        if self.server_opt is not None:
+            self.server_opt._state = copy.deepcopy(saved["server_opt"])
+        self._global_host = saved["global_host"]
 
     def _rollback_and_quarantine(self, trigger: dict, round_idx: int) -> None:
         """One recovery cycle: quarantine the offending client, restore the
@@ -576,16 +1159,34 @@ class Trainer:
         client = int(trigger["client"])
         kind = str(trigger.get("kind"))
         self._round_retries += 1
-        self._quarantine[client] = max(self._quarantine.get(client, 0), rb.quarantine_rounds)
-        self._g_quarantined.set(float(len(self._quarantine)))
+        logical = None
+        if self._pop_sampling and self._current_plan is not None:
+            # the sentry flags a slot; quarantine the logical client in it:
+            # the sampler skips it until the expiry round, and its (possibly
+            # poisoned) sidecar is reset, so it rejoins from the template
+            logical = int(self._current_plan.slot_clients[client])
+            self.population.ledger.quarantine(logical, round_idx + rb.quarantine_rounds)
+            self.population.reset_sidecar(logical)
+            self._pop_pending = {k: v for k, v in self._pop_pending.items() if k < round_idx}
+            self._g_quarantined.set(float(len(self.population.ledger.quarantined)))
+        else:
+            self._quarantine[client] = max(self._quarantine.get(client, 0),
+                                           rb.quarantine_rounds)
+            self._g_quarantined.set(float(len(self._quarantine)))
         self._m_quarantines.inc()
         self._m_rollbacks.inc()
         t0 = time.perf_counter()
         self._restore_recovery_state()
+        if logical is not None:
+            # its sidecar was reset above: the replay's install must not
+            # write the restored slot copy back
+            self._slot_writeback[self._slot_occupants == logical] = False
         self.tracer.add_span("rollback", dur_s=time.perf_counter() - t0,
-                             round=int(trigger.get("round") or round_idx), client=client,
+                             round=int(trigger.get("round") or round_idx),
+                             client=client if logical is None else logical,
                              kind=kind, retry=self._round_retries)
-        print(f"[trainer] WARNING: health trigger [{kind}] on client {client} at round "
+        who = f"client {client}" if logical is None else f"logical client {logical} (slot {client})"
+        print(f"[trainer] WARNING: health trigger [{kind}] on {who} at round "
               f"{trigger.get('round')} — quarantining it for {rb.quarantine_rounds} round(s), "
               f"rolling back to the round-{round_idx} entry state and replaying (retry "
               f"{self._round_retries}/{rb.max_retries})")
@@ -623,15 +1224,18 @@ class Trainer:
                 None if o.nu is None else [torch.zeros_like(v) for v in o.nu]))
         if st.news_grad_accum is not None:
             st.news_grad_accum.zero_()
+        if client == 0:
+            self._global_host = None  # FedOpt reads client 0 afresh
         if self.mode == "decoupled":
             self._table = None  # the parameters changed: rebuild lazily
         print(f"[trainer] quarantine expired for client {client}: rejoined with global "
               "params and fresh optimizer state")
 
     def _train_round_with_recovery(self, round_idx: int) -> RoundResult:
-        """``train_round`` under the quarantine-and-rollback policy: the
-        round-entry capture, and a replay after each recoverable trigger.
-        Without ``fed.robust.recover`` exactly ``train_round``."""
+        """``train_round`` under the quarantine-and-rollback policy (the
+        round-entry capture, and a replay after each recoverable trigger)
+        and the quorum policy (a replay with a fresh draw after each
+        ``QuorumFailure``). Without either, exactly ``train_round``."""
         while True:
             self._capture_recovery_state()
             try:
@@ -639,14 +1243,18 @@ class Trainer:
             except RoundRecovery as e:
                 self._rollback_and_quarantine(e.trigger, round_idx)
                 continue
+            except QuorumFailure as e:
+                self._handle_quorum_failure(e, round_idx)
+                continue
             self._round_retries = 0
             return result
 
     def train_round_recovering(self, round_idx: int) -> RoundResult:
-        """One round under the quarantine-and-rollback policy, then the
-        quarantine ledger's tick (the JAX trainer's per-round entry point of
-        the same name)."""
+        """One round under the quarantine-and-rollback and quorum policies,
+        then the population's commit and the quarantine ledger's tick (the
+        JAX trainer's per-round entry point of the same name)."""
         result = self._train_round_with_recovery(round_idx)
+        self._commit_population(round_idx)
         self._tick_quarantine()
         return result
 
@@ -758,6 +1366,8 @@ class Trainer:
         for round_idx in range(self.start_round, self.cfg.fed.rounds):
             result = self._train_round_with_recovery(round_idx)
             history.append(result)
+            # before the snapshot: its population state includes this round
+            self._commit_population(round_idx)
             self._after_round(result)
             self._tick_quarantine()
         if self.snapshots is not None:
@@ -792,4 +1402,23 @@ class Trainer:
         if self.snapshots is not None and (
             (r + 1) % cfg.train.save_every == 0 or r == cfg.fed.rounds - 1
         ):
-            self.snapshots.save(r, self.states)
+            # blocking under FedOpt or the cohort engine: their files pair
+            # with this snapshot and read live state
+            extras = (self._snapshot_extras(r)
+                      if self.server_opt is not None or self._pop_engine else None)
+            self.snapshots.save(r, self.states, wait=extras is not None, extras=extras)
+
+    def _snapshot_extras(self, round_idx: int) -> Callable[[Path], None]:
+        """The files a snapshot holds beside its state: the FedOpt buffers,
+        and the cohort engine's state with (under sampling) the whole
+        sidecar store, all tagged with ``round_idx``."""
+        def write(directory: Path) -> None:
+            if self.server_opt is not None:
+                atomic_write_bytes(directory / SERVER_OPT_SIDECAR,
+                                   self.server_opt.state_bytes(round_idx))
+            if self._pop_engine:
+                store = (self.population.save_store(directory / POPULATION_STORE)
+                         if self._pop_sampling else None)
+                atomic_write_bytes(directory / POPULATION_SIDECAR,
+                                   self.population_sidecar_bytes(round_idx, store))
+        return write

@@ -191,7 +191,7 @@ def test_straggler_rounds_sleep_on_the_host(monkeypatch):
 
 @pytest.mark.parametrize("key,value", [("wire_faults", "drop@*"), ("kill_round", "2"),
                                        ("kill_process", "0"), ("torn_snapshot_round", "1"),
-                                       ("rejoin_delay_s", "1.5"), ("pop_drop_rate", "0.1")])
+                                       ("rejoin_delay_s", "1.5")])
 def test_unported_chaos_keys_are_refused_by_name(key, value):
     cfg = _cfg("chaos.enabled=1", f"chaos.{key}={value}")
     data, toks = _data(cfg)

@@ -1092,3 +1092,123 @@ def test_sentry_trajectory_is_bitwise_on_and_off_on_the_card(cuda, rng):
             runs.append([t for st in states for t in (*st.model.parameters(), *st.opt_user.mu,
                                                        st.generator.get_state())])
         assert all(torch.equal(a, b) for a, b in zip(*runs)), mode
+
+
+# ------------------------------------------------ the cohort engine on the card
+def _cohort_trainer(dev, where, rounds=2, **over):
+    """A small sampled-population trainer (16 logical clients over 2 slots,
+    2 resident sidecars, the rest spilled under ``where``) on ``dev``."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.train import Trainer
+
+    cfg = ExperimentConfig().apply_overrides([
+        "model.news_dim=32", "model.num_heads=4", "model.head_dim=8", "model.query_dim=16",
+        "model.bert_hidden=48", "data.max_his_len=10", "data.max_title_len=12",
+        "data.batch_size=8", "fed.num_clients=2", "model.text_encoder_mode=head",
+        "model.fuse_hot_path=true", "model.use_pallas=true", f"fed.rounds={rounds}",
+        "train.snapshot_dir=", "fed.population.num_clients=16",
+        "fed.population.over_select=1.5", "fed.population.resident_cap=2",
+        f"fed.population.spill_dir={where}", "chaos.enabled=true", "chaos.pop_drop_rate=0.2",
+        "model.dropout_rate=0.2", "optim.user_lr=3e-3", "optim.news_lr=3e-3",
+        *[f"{k}={v}" for k, v in over.items()],
+    ])
+    data = make_synthetic_mind(num_news=300, num_train=256, num_valid=32, title_len=12,
+                               his_len_range=(2, 10), seed=1)
+    toks = np.random.default_rng(1).standard_normal((300, 12, 48)).astype(np.float32)
+    return Trainer(cfg, data, toks, device=dev)
+
+
+def test_sidecar_round_trip_on_the_card_is_bitwise(cuda, tmp_path):
+    """A slot's sidecar written back, spilled, reloaded and installed into
+    another slot on the card is the original to the bit: moments, counts,
+    step and both generator states."""
+    from fedrec_tpu_torch.fed.population import ClientPopulation
+
+    t = _cohort_trainer(cuda, tmp_path / "spill")
+    t.run()
+    original = t._read_sidecar(0)
+    assert int(original["step"]) > 0 and original["generator"].size > 0
+    store = ClientPopulation(4, 64, resident_cap=1, spill_dir=tmp_path / "probe")
+    store.put_sidecar(0, original)
+    store.put_sidecar(1, t._read_sidecar(1))  # spills client 0
+    assert store.spill_count == 1
+    t._write_sidecar(1, store.get_sidecar(0))
+    again = t._read_sidecar(1)
+    for key in original:
+        xs = original[key] if isinstance(original[key], list) else [original[key]]
+        ys = again[key] if isinstance(again[key], list) else [again[key]]
+        assert len(xs) == len(ys), key
+        for x, y in zip(xs, ys):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=key)
+    a, b = t.states[0], t.states[1]
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert torch.equal(a.noise_generator.get_state(), b.noise_generator.get_state())
+    assert all(torch.equal(x, y) for x, y in zip(a.opt_user.mu + a.opt_news.nu,
+                                                 b.opt_user.mu + b.opt_news.nu))
+
+
+def test_fedopt_step_on_the_card_equals_the_numpy_step(cuda, tmp_path):
+    """The round-end FedAdam step on card-resident parameters: every slot
+    ends with the numpy step of the round's entry global and client 0's mean,
+    to the bit."""
+    from fedrec_tpu_torch.fed import ServerOptimizer
+
+    t = _cohort_trainer(cuda, tmp_path / "spill", rounds=1, **{"fed.server_opt": "adam",
+                                                                "fed.server_lr": 0.01})
+    seen = []
+    step = t.server_opt.step
+    t.server_opt.step = lambda g, m: (seen.append(([x.copy() for x in g], [x.copy() for x in m])),
+                                      step(g, m))[1]
+    t.run()
+    (g, m), = seen
+    want = ServerOptimizer("adam", 0.01, 0.9).step(g, m)
+    for c in range(len(t.states)):
+        for p, w in zip(t._slot_params(c), want):
+            np.testing.assert_array_equal(p.detach().cpu().numpy(), w)
+
+
+def test_sampled_round_kernel_route_matches_dense_on_the_card(cuda, tmp_path):
+    """Two sampled rounds (dropout 0) on the kernel route and on the dense
+    route: the same cohorts, the round losses at rtol 1e-5 / atol 1e-6, the
+    slots' parameters at the trajectory bars."""
+    runs = []
+    for route in ("true", "false"):
+        t = _cohort_trainer(cuda, tmp_path / route, **{
+            "model.dropout_rate": 0.0, "model.fuse_hot_path": route,
+            "model.use_pallas": route})
+        reset_launch_counts()
+        hist = t.run()
+        runs.append((t, hist, launch_counts()))
+    (tk, hk, ck), (td, hd, cd) = runs
+    assert ck["fused_gather_encode"] > 0 and ck["fused_history_score_bwd"] > 0
+    assert not any(cd.values())
+    assert tk.cohort_history == td.cohort_history
+    np.testing.assert_allclose([h.train_loss for h in hk], [h.train_loss for h in hd],
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(tk.states, td.states):
+        _params_close(a.model, b.model)
+
+
+def test_news_grad_accum_marker_gives_the_same_next_step_on_the_card(cuda, rng):
+    """Decoupled mode: after an epoch's news update the accumulator is all
+    zero; a slot that carries it as the empty marker (None, allocated afresh
+    by the step) takes the same next step, to the bit, as one holding the
+    full zero tensor."""
+    batches = [_decoupled_batch(rng) for _ in range(2)]
+    runs = []
+    for marker in (False, True):
+        _, states, step, update, toks, table = _decoupled(cuda)
+        states, _ = step(states, batches[0], table)
+        states, tables = update(states, toks)
+        assert all(not bool(st.news_grad_accum.any()) for st in states)
+        if marker:
+            for st in states:
+                st.news_grad_accum = None
+        states, metrics = step(states, batches[1], tables[0])
+        runs.append((states, metrics["loss"]))
+    (full, loss_full), (mark, loss_mark) = runs
+    assert torch.equal(loss_full, loss_mark)
+    for a, b in zip(full, mark):
+        assert torch.equal(a.news_grad_accum, b.news_grad_accum)
+        assert all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))

@@ -50,6 +50,9 @@ def _modules():
 
 
 def test_importing_every_module_leaves_jax_out():
+    # the cohort engine's and the data path's modules are among them
+    assert {"fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
+            "fedrec_tpu_torch.data.prefetch"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -164,7 +167,7 @@ def test_overrides_set_the_slice_and_reject_unknown_keys():
             cfg.train.seed) == (2, "/tmp/x", False, 3, "last4", True, 7)
     assert (cfg.fed.rounds, cfg.fed.local_epochs, cfg.fed.participation) == (4, 2, 0.5)
     for unported in ("train.scan_steps=2", "train.rounds_per_scan=2", "train.profile=1",
-                     "fed.weight_by_samples=1", "fed.server_opt=adam"):
+                     "fed.weight_by_samples=1", "fed.dcn_compress=int8"):
         with pytest.raises(KeyError):
             ExperimentConfig().apply_overrides([unported])
     with pytest.raises(ValueError):
@@ -187,3 +190,15 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
         name = lever.split(",")[-1].split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
             build_fed_train_step(model, bad, get_strategy("param_avg"), device="cpu")
+
+
+def test_elastic_membership_is_refused_by_name(no_gpu):
+    """``fed.elastic`` exists with the JAX package's fields; enabling it
+    raises, naming the coordinator's lease service's Queue A item."""
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.train import build_fed_train_step
+
+    cfg = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
+                                              "fed.elastic.enabled=1"])
+    with pytest.raises(NotImplementedError, match=r"fed\.elastic\.enabled .*Queue A item 9"):
+        build_fed_train_step(_tiny_model(), cfg, get_strategy("param_avg"), device="cpu")
