@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives eight paths at full width through the entry points a user calls:
+then drives nine paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -63,6 +63,19 @@ then drives eight paths at full width through the entry points a user calls:
   world, a quorum replay, the logical-client quarantine, FedAdam, and a
   decoupled leg (16 clients, 2 rounds); install, spill, FedOpt and sampler
   costs;
+* ``data_path`` (raw tsv -> trunk -> train -> recommend): a MIND-format
+  ``news.tsv`` / ``behaviors.tsv`` written from the seed at MIND-small scale
+  (65,535 news, 50,000 users, 157,000 training impressions) and run through
+  the port's preprocessing (hashing tokenizer, the full 30,522-id space);
+  the DistilBERT trunk at full width (6 x 768, 12 heads, FFN 3072, random
+  weights from seed 0) over every title on the card
+  (``precompute_token_states``), 64 titles held against it in float64 on
+  the CPU; one joint round on those 10.07 GB of states (2 clients x 4 steps
+  at B=64: kernels C, D, B and E) and its full-pool evaluation (A, B); then
+  finetune mode, the trunk trained in the loop: 2 rounds of 2 clients x 2
+  steps (B and E on every client step), the kernel route against the dense
+  route, and the snapshot through ``fedrec_tpu_torch.cli.recommend`` for
+  8,192 users against the plain route;
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -90,6 +103,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,decoupled_path
   python3 chip_smoke.py --phases build,kernels,safety_path
   python3 chip_smoke.py --phases build,kernels,cohort_path
+  python3 chip_smoke.py --phases build,kernels,data_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -110,9 +124,9 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
-          "decoupled_path", "safety_path", "cohort_path", "serving_path")
+          "decoupled_path", "safety_path", "cohort_path", "data_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
-         "cohort_path", "serving_path")
+         "cohort_path", "data_path", "serving_path")
 DEV = "cuda"
 
 # Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
@@ -155,8 +169,10 @@ DECOUPLED_EPOCHS = 2
 # closer than the routes' difference may swap, which moves one impression's
 # metric; 1e-4 of a mean over thousands of impressions allows a few
 VAL_ATOL = 1e-4
-ZERO_GRAD_LEAVES = ("user_encoder.self_attn.w_k.bias", "user_encoder.pool.att_fc2.bias",
-                    "text_head.pool.att_fc2.bias")
+# leaves whose true gradient is 0 (a softmax-invariant shift): the user
+# tower's key bias, both pools' fc2 bias, and in finetune mode every trunk
+# block's key bias
+ZERO_GRAD_LEAVES = ("w_k.bias", "att_fc2.bias", "k_lin.bias")
 
 KERNEL_META = {
     "additive_pool": {
@@ -1089,7 +1105,7 @@ def _train_cfg(args, *overrides: str):
 
 def _param_diffs(model_a, model_b) -> tuple[list[str], float, float]:
     """Leaves outside the trajectory bars, the largest difference of the
-    others and of the two zero-gradient leaves."""
+    others and of the zero-gradient leaves."""
     import torch
 
     bad, worst, worst_noise = [], 0.0, 0.0
@@ -1098,7 +1114,7 @@ def _param_diffs(model_a, model_b) -> tuple[list[str], float, float]:
         a = a.detach()
         b = pb[name]
         diff = float((a - b).abs().max())
-        if name in ZERO_GRAD_LEAVES:
+        if name.endswith(ZERO_GRAD_LEAVES):
             worst_noise = max(worst_noise, diff)
             if diff >= TRAJ_NOISE:
                 bad.append(name)
@@ -3754,13 +3770,406 @@ def phase_serving_path(state: dict, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- data_path
+# the trunk's work a token (6 layers at 768 wide, FFN 3072, L = 50): Q, K, V
+# and out projections, QK^T and AV, the FFN's two products
+def _trunk_flops_per_token(cfg, L: int) -> float:
+    d, f = cfg.dim, cfg.hidden_dim
+    return cfg.n_layers * (4 * 2 * d * d + 2 * 2 * L * d + 2 * 2 * d * f)
+
+
+def _write_mind_tsv(root: Path, args) -> dict:
+    """A MIND-format ``news.tsv``, ``behaviors.tsv`` (training) and
+    ``behaviors_valid.tsv`` from ``--seed`` at MIND-small scale: ``--num-news``
+    rows with the ``<unk>`` row (so 65,535 news), ``--data-users`` users and
+    ``--data-impressions`` training impressions (MIND-small: 50,000 users,
+    156,965 impressions), plus ``--valid`` validation impressions of one
+    click each. Titles are 6-20 words of a seeded 30,000-word list, 60% of
+    them from the news' category's share (18 categories, as MIND's); a user
+    holds a fixed history of 0-50 clicks and two preferred categories, each
+    impression shows 5-49 news and clicks 1-2 of the preferred ones."""
+    rng = np.random.default_rng(args.seed + 41)
+    n, users = args.num_news - 1, args.data_users
+    topics, n_words = 18, 30_000
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    chars = letters[rng.integers(0, 26, size=(n_words, 9))]
+    words = np.array(["".join(c[:k]) for c, k in zip(chars, rng.integers(3, 10, n_words))],
+                     dtype=object)
+    topic_of = rng.integers(0, topics, size=n)
+    share = n_words // topics
+    tlen = rng.integers(6, 21, size=n)
+    total = int(tlen.sum())
+    owner = np.repeat(np.arange(n), tlen)
+    idx = np.where(rng.random(total) < 0.6,
+                   topic_of[owner] * share + rng.integers(0, share, total),
+                   rng.integers(0, n_words, total))
+    nid = np.array([f"N{i}" for i in range(1, n + 1)], dtype=object)
+    with open(root / "news.tsv", "w", encoding="utf-8") as f:
+        f.writelines(f"{nid[i]}\tcat{t}\tcat{t}-sub\t{' '.join(ws)}\t\t\t[]\t[]\n" for i, (t, ws)
+                     in enumerate(zip(topic_of, np.split(words[idx], np.cumsum(tlen)[:-1]))))
+    order = np.argsort(topic_of, kind="stable")
+    sizes = np.bincount(topic_of, minlength=topics)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    pref = rng.integers(0, topics, size=(users, 2))
+
+    def draws(who, p_own: float):  # one news each, a preferred category's w.p. p_own
+        t = pref[who, rng.integers(0, 2, len(who))]
+        own = order[starts[t] + (rng.random(len(who)) * sizes[t]).astype(np.int64)]
+        return np.where(rng.random(len(who)) < p_own, own, rng.integers(0, n, len(who)))
+
+    hlen = rng.integers(0, 51, size=users)
+    hist = [" ".join(h) for h in np.split(nid[draws(np.repeat(np.arange(users), hlen), 0.8)],
+                                          np.cumsum(hlen)[:-1])]
+    clicked = np.array([s + "-1" for s in nid], dtype=object)
+    shown = np.array([s + "-0" for s in nid], dtype=object)
+
+    def behaviors(path: Path, imps: int, one_click: bool) -> int:
+        us = rng.integers(0, users, size=imps)
+        clicks = np.ones(imps, np.int64) if one_click else 1 + (rng.random(imps) < 0.3)
+        negs = rng.integers(5, 50, size=imps) - clicks
+        pos = np.split(clicked[draws(np.repeat(us, clicks), 1.0)], np.cumsum(clicks)[:-1])
+        neg = np.split(shown[rng.integers(0, n, int(negs.sum()))], np.cumsum(negs)[:-1])
+        with open(path, "w", encoding="utf-8") as f:
+            f.writelines(f"{j + 1}\tU{u}\t11/11/2019 9:00:00 AM\t{hist[u]}\t"
+                         f"{' '.join(p)} {' '.join(q)}\n"
+                         for j, (u, p, q) in enumerate(zip(us, pos, neg)))
+        return int(clicks.sum())
+
+    clicks = behaviors(root / "behaviors.tsv", args.data_impressions, False)
+    behaviors(root / "behaviors_valid.tsv", args.valid, True)
+    return {"news": n, "users": users, "train_impressions": args.data_impressions,
+            "train_clicks": clicks, "valid_impressions": args.valid,
+            "tsv_mb": sum(p.stat().st_size for p in root.glob("*.tsv")) / 2**20}
+
+
+def _data_cfg(args, snapshot_dir: str, *overrides: str):
+    """The data path's runs: ExperimentConfig's widths and trunk, K = 2
+    clients at B = ``--batch-size``, param_avg, the full-pool evaluation."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.fuse_hot_path=true", "model.use_pallas=true", "fed.num_clients=2",
+        f"data.batch_size={args.batch_size}", "fed.strategy=param_avg",
+        "train.eval_protocol=full", f"train.seed={args.seed}",
+        f"train.snapshot_dir={snapshot_dir}", "train.keep_best=false", *overrides,
+    ])
+
+
+def phase_data_path(state: dict, args) -> dict:
+    """Raw MIND tsv -> preprocessing -> the DistilBERT trunk's token states
+    -> a joint round on them -> finetune rounds that train the trunk ->
+    snapshot -> the recommend CLI, at MIND-small scale and full width."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.cli import recommend
+    from fedrec_tpu_torch.data import MindData, load_mind_artifacts, preprocess_mind
+    from fedrec_tpu_torch.models.attention import dense
+    from fedrec_tpu_torch.models.bert import (
+        DistilBert,
+        DistilBertConfig,
+        init_trunk_params,
+        precompute_token_states,
+    )
+    from fedrec_tpu_torch.ops import (
+        additive_pool_plain,
+        fused_history_score,
+        fused_history_score_plain,
+        launch_counts,
+        reset_launch_counts,
+    )
+    from fedrec_tpu_torch.train import Trainer
+
+    dev = torch.device(DEV)
+    K, B = 2, args.batch_size
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="data_path_", dir=build)
+    root = Path(work.name)
+    free = shutil.disk_usage(root).free
+    check(free > 8 << 30, f"{root} has {free / 1e9:.2f} GB free; the data path needs 8 GB")
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    launches = _PathLaunches()
+    out: dict = {}
+
+    # ---- 1. raw MIND tsv, then the port's preprocessing (hashing tokenizer
+    # over the full 30,522-id space)
+    t0 = time.perf_counter()
+    out["tsv"] = _write_mind_tsv(root, args)
+    out["tsv"]["write_s"] = time.perf_counter() - t0
+    art = root / "UserData"
+    t0 = time.perf_counter()
+    data = preprocess_mind(root / "news.tsv", root / "behaviors.tsv",
+                           root / "behaviors_valid.tsv", art, vocab_path=None, max_title_len=50)
+    out["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reread = load_mind_artifacts(art)
+    out["artifacts_load_s"] = time.perf_counter() - t0
+    N, T = data.news_tokens.shape[0], data.news_tokens.shape[2]
+    check(N == args.num_news and T == 50, f"news table {data.news_tokens.shape}")
+    check(np.array_equal(reread.news_tokens, data.news_tokens)
+          and len(reread.train_samples) == out["tsv"]["train_clicks"]
+          and len(reread.valid_samples) == args.valid,
+          f"artifacts: {len(reread.train_samples)} train / {len(reread.valid_samples)} valid")
+    ids = data.news_tokens[:, 0]
+    out["tokens"] = {"ids_max": int(ids.max()), "distinct_ids": int(np.unique(ids).size),
+                     "real_tokens": int(data.news_tokens[:, 1].sum()),
+                     "mean_title_tokens": float(data.news_tokens[1:, 1].sum(1).mean())}
+    del reread
+
+    # ---- 2. the trunk over every title, on the card
+    tcfg = DistilBertConfig()
+    sd = init_trunk_params(0, tcfg)
+    trunk = DistilBert(tcfg)
+    trunk.load_state_dict(sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states = precompute_token_states(trunk, data.news_tokens, tcfg, chunk=256, device=dev)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    flops = _trunk_flops_per_token(tcfg, T) * N * T
+    check(states.shape == (N, T, tcfg.dim) and np.isfinite(states[:: max(1, N // 512)]).all(),
+          f"token states {states.shape}")
+    # 64 real titles against the same trunk in float64 on the CPU; the
+    # <unk> row (every key padded: uniform attention from f32's absorption
+    # of -1e9, as in JAX) against it in float32
+    ref64 = DistilBert(tcfg, dtype=torch.float64)
+    ref64.load_state_dict({k: v.double() for k, v in sd.items()})
+    rows = torch.from_numpy(data.news_tokens[1:65])
+    with torch.no_grad():
+        want = ref64(rows[:, 0], rows[:, 1])
+        unk = torch.from_numpy(data.news_tokens[:1])
+        want0 = trunk.cpu()(unk[:, 0], unk[:, 1])
+    err64 = float((torch.from_numpy(states[1:65]).double() - want).abs().max())
+    err0 = float((torch.from_numpy(states[:1]) - want0).abs().max())
+    check(err64 <= 1e-4 and err0 <= 1e-4,
+          f"trunk on the card vs the CPU: float64 rows {err64}, <unk> row {err0} (atol 1e-4)")
+    out["precompute"] = {
+        "ms": pre_s * 1e3, "tokens": N * T, "tokens_per_s": N * T / pre_s,
+        "flops": flops, "share_of_f32_peak": flops / pre_s / state["peaks"]["f32"],
+        "chunk": 256, "gb": states.nbytes / 1e9,
+        "max_abs_err_vs_f64": err64, "unk_row_err_vs_f32_cpu": err0,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del trunk, ref64, want
+
+    # ---- 3. one joint round on those states, then the full-pool evaluation
+    steps = args.data_joint_steps
+    joint_data = MindData(data.news_tokens, data.nid2index,
+                          data.train_samples[: K * B * steps], data.valid_samples)
+    cfg = _data_cfg(args, "", "model.text_encoder_mode=head", "fed.rounds=1",
+                    "train.eval_every=1")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with launches.segment(), quiet:
+        trainer = Trainer(cfg, joint_data, states, device=dev)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        hist = trainer.run()
+    joint_counts = dict(launches.total)
+    round_s = time.perf_counter() - t1
+    m = hist[0].val_metrics
+    check(math.isfinite(hist[0].train_loss) and all(0.0 <= v <= 1.0 for v in m.values()),
+          f"joint round: loss {hist[0].train_loss}, metrics {m}")
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd", "additive_pool"):
+        check(joint_counts.get(name, 0) > 0, f"kernel {name} never launched on the joint round")
+    check(joint_counts["fused_gather_encode"] >= K * steps
+          and joint_counts["fused_history_score_bwd"] >= K * steps,
+          f"C, E launched {joint_counts} times: fewer than the {K * steps} client steps")
+    m0 = trainer.states[0].model
+    with torch.no_grad():
+        th, tok = m0.text_head, trainer.token_states
+        table = trainer._encode_corpus(0)
+        pooled = additive_pool_plain(tok[: args.chunk], th.pool.att_fc1.weight.t().contiguous(),
+                                     th.pool.att_fc1.bias, th.pool.att_fc2.weight[0].contiguous())
+        err_a = max_err(table[: args.chunk], dense(th.fc, pooled, torch.float32))
+        his = table[torch.as_tensor(trainer.valid_ix.history[:256], device=dev).long()]
+        w = m0.user_encoder.fused_weights(his.dtype)
+        err_b = max_err(fused_history_score(his, None, None, w, cfg.model.num_heads)[1],
+                        fused_history_score_plain(his, None, None, w, cfg.model.num_heads)[1])
+    check(err_a <= F32_ATOL and err_b <= F32_ATOL,
+          f"joint round kernels vs plain: A {err_a}, B {err_b} (atol {F32_ATOL})")
+    out["joint"] = {"clients": K, "batch_size": B, "steps": steps,
+                    "states_to_card_s": up_s, "round_s": round_s, "loss": hist[0].train_loss,
+                    "val_metrics": m, "launches": joint_counts,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "max_abs_err_vs_plain": {"additive_pool": err_a,
+                                             "fused_history_score": err_b}}
+    del trainer, states, tok, table, his, m0
+    torch.cuda.empty_cache()
+
+    # ---- 4. finetune: the trunk trains in the loop, kernel route then dense
+    ft_steps, ft_rounds = args.finetune_steps, 2
+    ft_data = MindData(data.news_tokens, data.nid2index,
+                       data.train_samples[: K * B * ft_steps], data.valid_samples)
+    snaps = root / "snapshots"
+    ft = ["model.text_encoder_mode=finetune", "model.trunk_dropout=0", "model.trunk_remat=true",
+          f"fed.rounds={ft_rounds}", f"train.eval_every={ft_rounds}",
+          f"train.save_every={ft_rounds}"]
+
+    def instrumented(trainer, log: list) -> None:
+        inner = trainer.train_step
+
+        def step(states_, batch, table_):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            before = launch_counts()
+            t0_ = time.perf_counter()
+            res = inner(states_, batch, table_)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0_) * 1e3
+            after = launch_counts()
+            log.append({
+                "ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "resident_gb": resident / 1e9,
+                "unique_news": [int(np.unique(np.concatenate([c.ravel(), h.ravel()])).size)
+                                for c, h in zip(batch["candidates"], batch["history"])],
+                "losses": res[1]["loss"].tolist(),
+                "unique_overflow": int(res[1]["unique_overflow"]),
+                "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
+            return res
+
+        trainer.train_step = step
+
+    runs = {}
+    for route, extra in (("kernel", ()), ("dense", ("model.fuse_hot_path=false",
+                                                     "model.use_pallas=false"))):
+        log: list = []
+        cfg_ft = _data_cfg(args, str(snaps) if route == "kernel" else "", *ft, *extra)
+        # the kernel route counts toward the path; the dense route must count 0
+        seg = launches.segment() if route == "kernel" else contextlib.nullcontext()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with seg, quiet:
+            trainer = Trainer(cfg_ft, ft_data, None, device=dev)
+            instrumented(trainer, log)
+            hist = trainer.run()
+        runs[route] = (trainer, hist, log, time.perf_counter() - t0)
+        if route == "dense":
+            check(not any(launch_counts().values()), "the dense finetune route launched a kernel")
+    trainer, hist, log, run_s = runs["kernel"]
+    dense_trainer, dense_hist, dense_log, dense_s = runs["dense"]
+    check(len(log) == ft_rounds * ft_steps, f"{len(log)} finetune steps logged")
+    for i, s in enumerate(log):
+        check(all(math.isfinite(v) for v in s["losses"]) and s["unique_overflow"] == 0,
+              f"finetune step {i}: losses {s['losses']}, overflow {s['unique_overflow']}")
+        for name in ("fused_history_score", "fused_history_score_bwd"):
+            check(s["launches"].get(name, 0) >= K,
+                  f"finetune step {i}: kernel {name} launched {s['launches'].get(name, 0)} "
+                  f"times for {K} client steps")
+        check("fused_gather_encode" not in s["launches"], "C launched in finetune mode")
+    traj = [(h.train_loss, d.train_loss) for h, d in zip(hist, dense_hist)]
+    for r, (lk, ld) in enumerate(traj):
+        check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+              f"finetune round {r}: kernel-route loss {lk!r} vs dense {ld!r}")
+    for i, (s, d) in enumerate(zip(log, dense_log)):
+        for lk, ld in zip(s["losses"], d["losses"]):
+            check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+                  f"finetune step {i}: kernel-route loss {lk!r} vs dense {ld!r}")
+    val_diff = max(abs(hist[-1].val_metrics[k] - dense_hist[-1].val_metrics[k])
+                   for k in hist[-1].val_metrics)
+    check(val_diff <= VAL_ATOL, f"finetune validation: kernel vs dense route differ by {val_diff}")
+    worst = worst_noise = 0.0
+    for c, (sk, sd_) in enumerate(zip(trainer.states, dense_trainer.states)):
+        bad, w_, wn = _param_diffs(sk.model, sd_.model)
+        check(not bad, f"finetune client {c}: kernel route vs dense: {bad} outside the bars")
+        worst, worst_noise = max(worst, w_), max(worst_noise, wn)
+    del dense_trainer
+    torch.cuda.empty_cache()
+    n_trunk = sum(p.numel() for p in trainer.states[0].model.text_encoder.trunk.parameters())
+    # the trunk's work a step: forward, the remat recompute, backward (2x)
+    step_flops = [4 * sum(s["unique_news"]) * T * _trunk_flops_per_token(tcfg, T) for s in log]
+    out["finetune"] = {
+        "clients": K, "batch_size": B, "steps_per_round": ft_steps, "rounds": ft_rounds,
+        "trunk_params": n_trunk, "run_s": run_s, "dense_run_s": dense_s,
+        "step_ms": [s["ms"] for s in log], "dense_step_ms": [s["ms"] for s in dense_log],
+        "client_step_ms_median": float(np.median([s["ms"] for s in log])) / K,
+        "trunk_flops_per_step": step_flops,
+        "trunk_share_of_f32_peak": [f / (s["ms"] / 1e3) / state["peaks"]["f32"]
+                                    for f, s in zip(step_flops, log)],
+        "peak_mem_gb": [s["peak_mem_gb"] for s in log],
+        "resident_gb_before_step": [s["resident_gb"] for s in log],
+        "dense_peak_mem_gb": [s["peak_mem_gb"] for s in dense_log],
+        "unique_news": [s["unique_news"] for s in log],
+        "step_launches": [s["launches"] for s in log],
+        "round_losses": [h.train_loss for h in hist], "val_metrics": hist[-1].val_metrics,
+        "kernel_vs_dense": {"round_losses": traj, "max_val_metric_diff": val_diff,
+                            "max_param_diff": worst, "max_zero_grad_leaf_diff": worst_noise,
+                            "dense_val_metrics": dense_hist[-1].val_metrics}}
+
+    # ---- 5. the snapshot through the recommend CLI, against the plain route
+    tower, table = trainer.export_for_serving()
+    m0 = trainer.states[0].model
+    with torch.no_grad():
+        his = table[torch.as_tensor(trainer.valid_ix.history[:256], device=dev).long()]
+        w = m0.user_encoder.fused_weights(his.dtype)
+        err_b_ft = max_err(fused_history_score(his, None, None, w, m0.cfg.num_heads)[1],
+                           fused_history_score_plain(his, None, None, w, m0.cfg.num_heads)[1])
+    check(err_b_ft <= F32_ATOL, f"finetune eval B vs plain: {err_b_ft}")
+    out["finetune"]["max_abs_err_vs_plain"] = {"fused_history_score": err_b_ft}
+    users = recommend.collect_histories(data, 50)
+    uids = sorted(users)[: args.data_rec_users]
+    recs = root / "recs.jsonl"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with launches.segment(), contextlib.redirect_stderr(err):
+        rc = recommend.main(["--data-dir", str(art), "--snapshot-dir", str(snaps), "--out",
+                             str(recs), "--device", DEV, "--uids", *uids])
+    rec_s = time.perf_counter() - t0
+    check(rc == 0, f"recommend CLI rc {rc}: {err.getvalue()[-2000:]}")
+    lines = [json.loads(ln) for ln in recs.read_text().splitlines()]
+    check([ln["uid"] for ln in lines] == uids, f"{len(lines)} lines for {len(uids)} users")
+    sample = lines[:: max(1, len(lines) // 256)][:256]
+    H = 50
+    hist_ids = torch.tensor([[data.nid2index[n] for n in users[ln["uid"]]]
+                             + [0] * (H - len(users[ln["uid"]])) for ln in sample], device=dev)
+    ref_scores, ref_ids = _plain_scores(tower, table, hist_ids, 10)
+    got = torch.tensor([[data.nid2index[n] for n in ln["news"]] for ln in sample], device=dev)
+    mismatch = _topk_disagreements(got, ref_scores, ref_ids, 10)
+    check(mismatch == 0, f"{mismatch} recommended ids differ from the plain route's")
+    snap_mb = sum(f.stat().st_size for f in snaps.rglob("state.pt")) / 2**20
+    out["recommend_cli"] = {"rc": rc, "users": len(lines), "wall_s": rec_s,
+                            "users_per_s": len(lines) / rec_s, "id_mismatches": mismatch,
+                            "checked_users": len(sample), "snapshot_mb": snap_mb}
+
+    # ---- 6. where a finetune step's device time goes (one more step of
+    # the first batch, after every check that reads the trained state)
+    batch = next(iter(trainer.batcher.epoch_batches_sharded(K, 0)))
+    batch = {"candidates": batch.candidates, "history": batch.history, "labels": batch.labels}
+    step_fn = trainer.train_step
+    out["finetune"]["step_device_breakdown"] = _device_breakdown(
+        lambda: step_fn(trainer.states, batch, trainer.news_tokens)[1]["loss"].tolist(),
+        reps=2, top=10, sum_of={"cublas_gemm": ["gemm", "Gemm", "sm90_", "cutlass"],
+                                "kernels_B_E": ["rows_gemm_kernel", "attn_head_kernel",
+                                                "pool_fwd_kernel", "pool_bwd_kernel",
+                                                "wgrad_"]})
+
+    counts = launches.total
+    for name in ("fused_history_score", "fused_history_score_bwd", "fused_gather_encode",
+                 "fused_gather_encode_bwd", "additive_pool"):
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched on the data path")
+    state.setdefault("launches", {})["data_path"] = counts
+    out["launches"] = counts
+    out["config"] = {"num_news": N, "title_len": T, "trunk": dataclasses.asdict(tcfg),
+                     "tokenizer": "HashingTokenizer(30522)", "valid": args.valid,
+                     "rec_users": len(uids), "dtype": "float32", "tf32": False}
+    del trainer, tower, table
+    torch.cuda.empty_cache()
+    work.cleanup()
+    return out
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
-    under the per-example transform; trainer_path and cohort_path run A through E,
-    decoupled_path A, B and E, serving_path A and B), times from the kernels
-    phase."""
+    under the per-example transform; trainer_path, cohort_path and data_path run A
+    through E, decoupled_path A, B and E, serving_path A and B), times from the
+    kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -3826,6 +4235,16 @@ def main(argv=None) -> int:
                    help="cohort_path: sidecars kept in host memory; the rest spill to disk")
     p.add_argument("--robust-clients", type=int, default=16,
                    help="safety_path: the clients of the second round-end sync timing")
+    p.add_argument("--data-users", type=int, default=50_000,
+                   help="data_path: users of the raw MIND tsv (MIND-small's 50,000)")
+    p.add_argument("--data-impressions", type=int, default=157_000,
+                   help="data_path: training impressions of the raw tsv (MIND-small's ~157,000)")
+    p.add_argument("--data-joint-steps", type=int, default=4,
+                   help="data_path: steps a client in the joint round on the trunk's states")
+    p.add_argument("--finetune-steps", type=int, default=2,
+                   help="data_path: steps a client a finetune round (2 rounds)")
+    p.add_argument("--data-rec-users", type=int, default=8192,
+                   help="data_path: users the recommend CLI serves from the finetune snapshot")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     args.serving_waves = [int(w) for w in args.serving_waves.split(",")]
@@ -3861,6 +4280,7 @@ def main(argv=None) -> int:
         "decoupled_path": lambda: phase_decoupled_path(state, args),
         "safety_path": lambda: phase_safety_path(state, args),
         "cohort_path": lambda: phase_cohort_path(state, args),
+        "data_path": lambda: phase_data_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:

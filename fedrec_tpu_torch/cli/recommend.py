@@ -3,7 +3,9 @@ per user (``fedrec-recommend``).
 
 Restores the newest training snapshot (``fedrec_tpu_torch.train``'s
 ``round_<r>/state.pt``, client 0), encodes the news corpus once (kernel A
-under ``model.use_pallas``), and emits JSON lines
+under ``model.use_pallas`` over the cached token states; in finetune mode
+the snapshot's whole text encoder over the titles' tokens, which needs no
+token states), and emits JSON lines
 ``{"uid": ..., "news": [nid, ...], "scores": [...]}`` for every known user
 (or a ``--uids`` subset), batched through the exact full-catalog scorer
 (kernel B under ``model.fuse_hot_path``) on one card. Each user's history
@@ -82,7 +84,7 @@ def main(argv: list[str] | None = None) -> int:
         load_checkpoint_params,
         restore_model,
     )
-    from fedrec_tpu_torch.train.step import encode_all_news
+    from fedrec_tpu_torch.train.step import encode_all_news, encode_corpus_tokens
 
     dev = resolve_device(args.device)
     # full-f32 products on the card: TF32 would keep ~3 decimal digits
@@ -106,10 +108,6 @@ def main(argv: list[str] | None = None) -> int:
     else:
         _log("no config.json next to the snapshot: model hyperparameters come from "
              "defaults + --set and are NOT verified against the training run")
-    if cfg.model.text_encoder_mode == "finetune":
-        _log("ERROR: model.text_encoder_mode='finetune' is not ported to fedrec_tpu_torch "
-             "(the BERT trunk is ROADMAP Queue A item 8)")
-        return 2
 
     try:
         user_state, news_state, round_, kind = load_checkpoint_params(snap_dir, log=_log)
@@ -119,24 +117,29 @@ def main(argv: list[str] | None = None) -> int:
     _log(f"serving {kind} snapshot (round {round_})")
 
     data = load_mind_artifacts(args.data_dir)
-    token_path = args.token_states or str(Path(args.data_dir) / "token_states.npy")
-    if Path(token_path).exists():
-        token_states = np.load(token_path)
-    elif args.allow_random_states:
-        _log(f"no token states at {token_path}; using RANDOM states (--allow-random-states) "
-             "— scores are meaningless")
-        token_states = np.random.default_rng(0).standard_normal(
-            (data.num_news, data.title_len, cfg.model.bert_hidden)).astype(np.float32)
+    if cfg.model.text_encoder_mode == "finetune":
+        # the snapshot holds the trained trunk: encode the titles' tokens
+        model = restore_model(cfg.model, user_state, news_state, dev)
+        table = encode_corpus_tokens(model.text_encoder, data.news_tokens, device=dev)
     else:
-        # a hard error: random trunk states would give normal-looking JSONL
-        # an operator could ship
-        _log(f"ERROR: no token states at {token_path}. Export them or pass --token-states; "
-             "use --allow-random-states only for smoke tests.")
-        return 2
-    model = restore_model(cfg.model, user_state, news_state, dev)
-    tokens = torch.from_numpy(token_states).to(dtype=torch_dtype(cfg.model.dtype))
-    table = encode_all_news(model, tokens, device=dev)
-    del tokens, token_states
+        token_path = args.token_states or str(Path(args.data_dir) / "token_states.npy")
+        if Path(token_path).exists():
+            token_states = np.load(token_path)
+        elif args.allow_random_states:
+            _log(f"no token states at {token_path}; using RANDOM states "
+                 "(--allow-random-states) — scores are meaningless")
+            token_states = np.random.default_rng(0).standard_normal(
+                (data.num_news, data.title_len, cfg.model.bert_hidden)).astype(np.float32)
+        else:
+            # a hard error: random trunk states would give normal-looking JSONL
+            # an operator could ship
+            _log(f"ERROR: no token states at {token_path}. Export them or pass "
+                 "--token-states; use --allow-random-states only for smoke tests.")
+            return 2
+        model = restore_model(cfg.model, user_state, news_state, dev)
+        tokens = torch.from_numpy(token_states).to(dtype=torch_dtype(cfg.model.dtype))
+        table = encode_all_news(model, tokens, device=dev)
+        del tokens, token_states
 
     histories = collect_histories(data, cfg.data.max_his_len)
     uids = sorted(histories) if args.uids is None else args.uids

@@ -12,7 +12,9 @@ Usage:
       --set model.query_dim=16 --set model.bert_hidden=48 --set train.snapshot_dir=
 
 Without ``--mode`` the run is decoupled (``model.text_encoder_mode``'s
-default). ``--dp-epsilon`` turns on ``ldp_news`` in decoupled mode; in
+default); ``--set model.text_encoder_mode=finetune`` trains the DistilBERT
+trunk in the loop (the ``model.trunk_*`` widths), reading the titles'
+tokens and no token states. ``--dp-epsilon`` turns on ``ldp_news`` in decoupled mode; in
 joint mode it means per-example DP-SGD (``privacy.mechanism='dpsgd'``), the
 route with a real (epsilon, delta); either way sigma comes from the
 accountant. ``--device`` defaults to ``cuda`` and
@@ -156,7 +158,10 @@ def main(argv: list[str] | None = None) -> int:
         data = load_mind_artifacts(cfg.data.data_dir)
 
     token_path = args.token_states or str(Path(cfg.data.data_dir) / "token_states.npy")
-    if Path(token_path).exists():
+    if cfg.model.text_encoder_mode == "finetune":
+        # the trunk trains in the loop over data.news_tokens: no cached states
+        token_states = None
+    elif Path(token_path).exists():
         token_states = np.load(token_path)
     else:
         print(f"[run] no cached token states at {token_path}; using random states "

@@ -8,7 +8,7 @@ section.key=value`` overrides work as they do there
 
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
-``train.trainer.Trainer``): ``data.gather_chunk``, ``fed.seq_shards``,
+``train.trainer.Trainer``): ``fed.seq_shards``,
 ``fed.elastic.enabled``, ``shard.table``, ``obs.dir``,
 ``obs.quality.enabled`` and the chaos keys
 ``fed.chaos.refuse_unported_chaos`` names. ``obs.health``'s flight-recorder
@@ -48,7 +48,10 @@ class DataConfig:
     unique_news_cap: int = 0
     # per-B cap policy "64:2560,256:4096"; empty = the global cap
     unique_news_cap_buckets: str = ""
-    gather_chunk: int = 0              # not ported: any value > 0 raises
+    # joint mode: gather + encode the unique news in tiles of this many ids,
+    # each tile recomputed in backward (one tile's activations live at a
+    # time); 0 = untiled. Row-wise, so exact
+    gather_chunk: int = 0
     # batches built ahead on a producer thread (data.prefetch.Prefetcher);
     # the queue depth, 0 = off. Same batches in the same order either way
     prefetch_batches: int = 0
@@ -68,8 +71,17 @@ class ModelConfig:
     bert_hidden: int = 768             # frozen-trunk hidden size
     # "table" (decoupled: the user tower trains on a news-vector table, the
     # text head steps once an epoch) | "head" (joint, frozen-trunk token
-    # states) | "finetune" (not ported)
+    # states) | "finetune" (the DistilBERT trunk trained in the loop over
+    # the (N, 2, L) token table, models.bert.TextEncoder)
     text_encoder_mode: str = "table"
+    # the trunk of "finetune" mode (defaults = distilbert-base-uncased; its
+    # width is bert_hidden)
+    trunk_layers: int = 6
+    trunk_heads: int = 12
+    trunk_ffn: int = 3072
+    trunk_vocab: int = 30522
+    trunk_dropout: float = 0.1         # hidden and attention dropout (HF's default)
+    trunk_remat: bool = True           # recompute each block in backward (memory for FLOPs)
     # the reference's CrossEntropyLoss over sigmoid(scores)
     sigmoid_before_ce: bool = True
     # max-subtracted exp-normalization; False is the reference's raw exp

@@ -1,7 +1,9 @@
 """MIND data, a numpy copy of ``fedrec_tpu/data/mind.py``'s loader
-(``load_mind_artifacts``) and two generators (``make_synthetic_mind``,
-``make_synthetic_mind_topics``): the same seed gives the same arrays and
-samples as the JAX package (``tests/test_torch_train.py``).
+(``load_mind_artifacts``), two generators (``make_synthetic_mind``,
+``make_synthetic_mind_topics``) and the frozen-random-trunk surrogate
+(``token_states_from_tokens``): the same seed gives the same arrays and
+samples as the JAX package (``tests/test_torch_train.py``,
+``tests/test_torch_data_pipeline.py``).
 
 ``MindData`` holds the reference artifacts' shapes: ``news_tokens``
 ``(N_news, 2, title_len)`` int64, ``nid2index`` with ``<unk> -> 0``, and
@@ -217,3 +219,31 @@ def make_synthetic_mind_topics(
         news_tokens, nid2index, _make(num_train, 0), _make(num_valid, num_train)
     )
     return data, token_states
+
+
+def token_states_from_tokens(
+    news_tokens: np.ndarray,
+    bert_hidden: int = 96,
+    vocab: int = 30_522,
+    seed: int = 0,
+    dtype=np.float32,
+) -> np.ndarray:
+    """(N, 2, L) token table -> (N, L, bert_hidden) "frozen random trunk".
+
+    A deterministic surrogate for cached DistilBERT states when no
+    pretrained trunk is available offline: every token id maps to a fixed
+    Gaussian embedding, masked positions are zeroed. Lexical structure in
+    the titles (shared topic words) therefore survives into the states, so
+    ``text_encoder_mode='head'`` can learn from corpora produced by the
+    real tokenizer/pipeline. Not a language model — just the weakest trunk
+    that preserves word identity.
+    """
+    ids = news_tokens[:, 0, :]
+    # cover any tokenizer's id space (e.g. Norwegian BERT ~50k > the BERT
+    # default); extending the table leaves ids < vocab with identical rows
+    table = np.random.default_rng(seed).standard_normal(
+        (max(vocab, int(ids.max()) + 1), bert_hidden), dtype=np.float32
+    )
+    mask = news_tokens[:, 1, :, None].astype(np.float32)
+    states = table[ids] * mask
+    return states.astype(dtype) if np.dtype(dtype) != np.float32 else states

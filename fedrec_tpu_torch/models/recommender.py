@@ -9,6 +9,7 @@ from torch import nn
 
 from fedrec_tpu_torch.config import ModelConfig
 from fedrec_tpu_torch.device import torch_dtype
+from fedrec_tpu_torch.models.bert import make_text_encoder
 from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
 
 
@@ -38,8 +39,13 @@ def score_loss(
 
 
 class NewsRecommender(nn.Module):
-    """User encoder + text head; ``encode_news`` and ``encode_user`` are
-    exposed separately, as in the JAX module."""
+    """User encoder + news tower; ``encode_news`` and ``encode_user`` are
+    exposed separately, as in the JAX module.
+
+    The news tower (``news_tower``, whose parameters are a client's
+    ``news_params``) is the ``TextHead`` over cached token states, or in
+    ``text_encoder_mode='finetune'`` the whole ``models.bert.TextEncoder``
+    (``text_encoder``: the trunk and its head) over token ids."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -60,13 +66,16 @@ class NewsRecommender(nn.Module):
                 "model.fuse_hot_path requires stable_softmax=True (the fused "
                 "kernel computes the max-subtracted form)"
             )
-        self.text_head = TextHead(
-            news_dim=cfg.news_dim,
-            bert_hidden=cfg.bert_hidden,
-            stable_softmax=cfg.stable_softmax,
-            dtype=dtype,
-            use_pallas=cfg.use_pallas,
-        )
+        if cfg.text_encoder_mode == "finetune":
+            self.text_encoder = make_text_encoder(cfg)
+        else:
+            self.text_head = TextHead(
+                news_dim=cfg.news_dim,
+                bert_hidden=cfg.bert_hidden,
+                stable_softmax=cfg.stable_softmax,
+                dtype=dtype,
+                use_pallas=cfg.use_pallas,
+            )
         self.user_encoder = UserEncoder(
             news_dim=cfg.news_dim,
             num_heads=cfg.num_heads,
@@ -81,9 +90,22 @@ class NewsRecommender(nn.Module):
             chunk_threshold=cfg.attn_chunk_threshold,
         )
 
+    @property
+    def news_tower(self) -> nn.Module:
+        """The module holding the news tower's parameters."""
+        if self.cfg.text_encoder_mode == "finetune":
+            return self.text_encoder
+        return self.text_head
+
     def encode_news(
         self, token_states: torch.Tensor, mask: torch.Tensor | None = None
     ) -> torch.Tensor:
+        if self.cfg.text_encoder_mode == "finetune":
+            # the serving refresh and encode_all_news read cached states
+            raise ValueError(
+                "a finetune-mode model encodes token ids, not cached token states: "
+                "use train.step.encode_corpus_tokens(model.text_encoder, news_tokens)"
+            )
         return self.text_head(token_states, mask)
 
     def encode_user(

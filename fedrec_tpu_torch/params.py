@@ -8,15 +8,19 @@
      "text_head": {"pool": {"att_fc1": {...}, "att_fc2": {...}},
                    "fc": {"kernel", "bias"}}}
 
-into a module whose submodule names follow the same paths. A Flax Dense
-kernel is (in, out) and ``nn.Linear.weight`` is (out, in), so kernels are
-transposed on the way in (``att_fc2``'s (hidden, 1) kernel becomes a
-(1, hidden) weight).
+or like a finetune-mode ``TextEncoder``'s (``{"trunk": {...}, "head":
+{...}}``, ``models.bert``) into a module whose submodule names follow the
+same paths. Three kinds of leaf: a Dense (``{"kernel", "bias"}``) loads
+into an ``nn.Linear``, its (in, out) kernel transposed to the (out, in)
+weight (``att_fc2``'s (hidden, 1) kernel becomes a (1, hidden) weight); an
+Embed (``{"embedding"}``) into an ``nn.Embedding``; a LayerNorm
+(``{"scale", "bias"}``) into an ``nn.LayerNorm``, ``scale`` as its weight.
 
 ``init_params`` gives a module Flax's default initialisation from a seeded
-``torch.Generator``: LeCun-normal Dense kernels (truncated normal),
-Xavier-uniform Q/K/V kernels, zero biases. The draws differ from JAX's own
-for the same seed; tests that compare the two load one tree into both.
+``torch.Generator``: LeCun-normal Dense kernels and Embed tables (truncated
+normal), Xavier-uniform Q/K/V kernels, zero biases, unit LayerNorm scales.
+The draws differ from JAX's own for the same seed; tests that compare the
+two load one tree into both.
 """
 
 from __future__ import annotations
@@ -33,16 +37,35 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = ""):
-    """Yield ``(dotted_path, {"kernel", "bias"})`` for every Dense in the tree."""
-    if "kernel" in tree:
+    """Yield ``(dotted_path, leaf)`` for every Dense, Embed and LayerNorm in
+    the tree."""
+    if "kernel" in tree or "embedding" in tree or "scale" in tree:
         yield prefix, tree
         return
     for key, sub in tree.items():
         yield from _leaves(sub, f"{prefix}.{key}" if prefix else key)
 
 
+def _leaf_tensors(path: str, leaf: Mapping[str, Any], layer: nn.Module) -> dict[str, np.ndarray]:
+    """The Flax leaf as the layer's ``{"weight", "bias"}`` (or ``{"weight"}``)."""
+    kinds = {"kernel": nn.Linear, "embedding": nn.Embedding, "scale": nn.LayerNorm}
+    kind = next(k for k in kinds if k in leaf)
+    if not isinstance(layer, kinds[kind]):
+        raise KeyError(f"Flax path {path!r} maps to {type(layer).__name__}, "
+                       f"not {kinds[kind].__name__}")
+    if kind == "kernel":
+        weight = np.array(np.asarray(leaf["kernel"], np.float32).T, order="C")
+    else:
+        weight = np.array(leaf[kind], np.float32)
+    out = {"weight": weight}
+    if kind != "embedding":
+        out["bias"] = np.array(leaf["bias"], np.float32)
+    return out
+
+
 def from_flax(module: nn.Module, tree: Mapping[str, Any]) -> list[str]:
-    """Copy the Dense layers of ``tree`` into ``module`` in place.
+    """Copy the Dense, Embed and LayerNorm leaves of ``tree`` into
+    ``module`` in place.
 
     ``tree`` may be the full ``{"params": {...}}`` variables dict, the params
     dict, or a subtree matching ``module`` (e.g. the ``user_encoder`` subtree
@@ -58,35 +81,43 @@ def from_flax(module: nn.Module, tree: Mapping[str, Any]) -> list[str]:
                 layer = module.get_submodule(path)
             except AttributeError as e:
                 raise KeyError(f"module has no layer for Flax path {path!r}") from e
-            if not isinstance(layer, nn.Linear):
-                raise KeyError(f"Flax path {path!r} maps to {type(layer).__name__}, not Linear")
-            kernel = np.array(np.asarray(leaf["kernel"], np.float32).T, order="C")
-            bias = np.array(leaf["bias"], np.float32)
-            if kernel.shape != tuple(layer.weight.shape) or bias.shape != tuple(layer.bias.shape):
-                raise ValueError(
-                    f"{path}: Flax kernel {kernel.shape[::-1]} / bias {bias.shape} do not fit "
-                    f"Linear weight {tuple(layer.weight.shape)} / bias {tuple(layer.bias.shape)}"
-                )
-            layer.weight.copy_(torch.from_numpy(kernel))
-            layer.bias.copy_(torch.from_numpy(bias))
+            for name, value in _leaf_tensors(path, leaf, layer).items():
+                target = getattr(layer, name)
+                if value.shape != tuple(target.shape):
+                    raise ValueError(
+                        f"{path}: Flax {name} {value.shape} does not fit "
+                        f"{type(layer).__name__}.{name} {tuple(target.shape)}"
+                    )
+                target.copy_(torch.from_numpy(value))
             loaded.append(path)
     return loaded
 
 
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
-    """Flax-default initialisation of every ``nn.Linear`` in ``module`` from
-    a ``torch.Generator`` seeded with ``seed``; returns ``module``."""
+    """Flax-default initialisation of every ``nn.Linear``, ``nn.Embedding``
+    and ``nn.LayerNorm`` in ``module`` from a ``torch.Generator`` seeded
+    with ``seed``; returns ``module``."""
     gen = torch.Generator().manual_seed(seed)
+
+    def lecun(shape, fan_in: int) -> torch.Tensor:
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        w = torch.empty(shape, dtype=torch.float32)
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
     with torch.no_grad():
         for name, layer in module.named_modules():
-            if not isinstance(layer, nn.Linear):
-                continue
-            w = torch.empty(layer.weight.shape, dtype=torch.float32)
-            if name.rsplit(".", 1)[-1] in ("w_q", "w_k", "w_v"):
-                nn.init.xavier_uniform_(w, generator=gen)
-            else:
-                std = math.sqrt(1.0 / layer.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
-            layer.weight.copy_(w)
-            layer.bias.zero_()
+            if isinstance(layer, nn.Linear):
+                if name.rsplit(".", 1)[-1] in ("w_q", "w_k", "w_v"):
+                    w = torch.empty(layer.weight.shape, dtype=torch.float32)
+                    nn.init.xavier_uniform_(w, generator=gen)
+                else:
+                    w = lecun(layer.weight.shape, layer.in_features)
+                layer.weight.copy_(w)
+                layer.bias.zero_()
+            elif isinstance(layer, nn.Embedding):
+                # flax's default_embed_init: variance scaling over the features
+                layer.weight.copy_(lecun(layer.weight.shape, layer.embedding_dim))
+            elif isinstance(layer, nn.LayerNorm):
+                layer.weight.fill_(1.0)
+                layer.bias.zero_()
     return module

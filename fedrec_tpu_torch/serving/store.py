@@ -215,7 +215,7 @@ def restore_model(
     model = NewsRecommender(cfg)
     with torch.no_grad():
         for part, module, state in (("user_params", model.user_encoder, user_state),
-                                    ("news_params", model.text_head, news_state)):
+                                    ("news_params", model.news_tower, news_state)):
             want = {k: tuple(v.shape) for k, v in module.named_parameters()}
             got = {k: tuple(v.shape) for k, v in state.items()}
             if got != want:

@@ -18,6 +18,7 @@ from fedrec_tpu_torch.train.step import (
     build_news_update_step,
     build_param_sync,
     encode_all_news,
+    encode_corpus_tokens,
     resolve_unique_cap,
     scatter_add_rows,
     unique_overflow,
@@ -37,6 +38,7 @@ __all__ = [
     "build_news_update_step",
     "build_param_sync",
     "encode_all_news",
+    "encode_corpus_tokens",
     "init_client_state",
     "make_optimizers",
     "replicate_state",

@@ -162,7 +162,7 @@ def _client_snapshot(st: ClientState) -> dict:
     return {
         "step": st.step,
         "user_params": {k: _host(v) for k, v in m.user_encoder.named_parameters()},
-        "news_params": {k: _host(v) for k, v in m.text_head.named_parameters()},
+        "news_params": {k: _host(v) for k, v in m.news_tower.named_parameters()},
         "opt_user": _opt_dict(st.opt_user),
         "opt_news": _opt_dict(st.opt_news),
         "generator": st.generator.get_state(),
@@ -179,7 +179,7 @@ def _check_against(template: list[ClientState], snap: dict) -> None:
         raise ValueError(f"snapshot holds {len(clients)} clients, this run {len(template)}")
     for c, (st, cs) in enumerate(zip(template, clients)):
         for part, module in (("user_params", st.model.user_encoder),
-                             ("news_params", st.model.text_head)):
+                             ("news_params", st.model.news_tower)):
             want = {k: tuple(v.shape) for k, v in module.named_parameters()}
             got = {k: tuple(v.shape) for k, v in cs[part].items()}
             if got != want:
@@ -199,7 +199,7 @@ def _load_into(template: list[ClientState], snap: dict) -> list[ClientState]:
     with torch.no_grad():
         for st, cs in zip(template, snap["clients"]):
             for part, module in (("user_params", st.model.user_encoder),
-                                 ("news_params", st.model.text_head)):
+                                 ("news_params", st.model.news_tower)):
                 for name, p in module.named_parameters():
                     p.copy_(cs[part][name])
             dev = st.generator.device

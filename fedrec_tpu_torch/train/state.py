@@ -1,7 +1,9 @@
 """Training state and optimizers, the port of ``fedrec_tpu/train/state.py``.
 
 A client's state is its own copy of the two towers (a ``NewsRecommender``
-whose parameters are the client's), one optimizer state per tower, a step
+whose parameters are the client's; its news tower is the text head, or in
+finetune mode the whole ``TextEncoder``, trunk and head, with the news Adam
+over all of it), one optimizer state per tower, a step
 count, a ``torch.Generator`` for its dropout and another for its DP noise
 (the JAX step splits one key into the two), and, in decoupled mode, its
 ``(N, news_dim)`` f32 news-gradient accumulator. K federated clients are a
@@ -128,7 +130,7 @@ class ClientState:
         return list(self.model.user_encoder.parameters())
 
     def news_params(self) -> list[torch.Tensor]:
-        return list(self.model.text_head.parameters())
+        return list(self.model.news_tower.parameters())
 
 
 def init_client_state(model: torch.nn.Module, cfg: ExperimentConfig, seed: int = 0) -> ClientState:
@@ -140,7 +142,7 @@ def init_client_state(model: torch.nn.Module, cfg: ExperimentConfig, seed: int =
         step=0,
         model=model,
         opt_user=opt_user.init(list(model.user_encoder.parameters())),
-        opt_news=opt_news.init(list(model.text_head.parameters())),
+        opt_news=opt_news.init(list(model.news_tower.parameters())),
         generator=torch.Generator(device=dev).manual_seed(seed),
         noise_generator=torch.Generator(device=dev).manual_seed(seed + _NOISE_SEED_OFFSET),
     )

@@ -17,6 +17,21 @@ trunk's cached token states, a (N, T, bert_hidden) table on the device:
   4. each tower steps its own optimizer chain (``train.state``), after the
      strategy's gradient sync.
 
+``data.gather_chunk`` tiles step 2 (``_encode_gathered``): the unique ids
+are gathered and encoded a tile at a time, each tile recomputed in backward
+(``torch.utils.checkpoint``), so one tile's (chunk, T, bert_hidden) rows
+live at a time; the encode is row-wise, so the result equals the untiled
+route's.
+
+The finetune step (``model.text_encoder_mode='finetune'``) is the joint
+step over the (N, 2, L) token table instead of cached states: the batch's
+distinct ids go through the whole ``TextEncoder`` (the DistilBERT trunk,
+each block recomputed in backward under ``model.trunk_remat``, and its
+additive head, pooled densely as in JAX), and the news Adam steps trunk and
+head. The user tower still rides the model (kernels B and E under
+``model.fuse_hot_path``); kernels C and D do not apply, since there is no
+token-state table to gather from.
+
 The decoupled ("table") step trains the user tower only, on vectors
 gathered from an (N, news_dim) news-vector table: the gathered candidate
 and history vectors are leaves of the gradient (kernel E's dx and dcand
@@ -64,6 +79,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fedrec_tpu_torch.config import ExperimentConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
@@ -194,19 +210,30 @@ class _TakeRows(torch.autograd.Function):
 
 
 def _encode_gathered(model: NewsRecommender, token_states: torch.Tensor,
-                     uniq: torch.Tensor, fused: bool) -> torch.Tensor:
+                     uniq: torch.Tensor, fused: bool, chunk: int = 0) -> torch.Tensor:
     """The text head over the unique ids' rows of the frozen table (no
     gradient ever reaches the table): kernels C/D when ``fused``, else the
-    gathered rows through ``TextHead``."""
-    if fused:
-        return fused_gather_encode(token_states, uniq, model.text_head,
-                                   torch_dtype(model.cfg.dtype))
-    return model.encode_news(token_states.detach()[uniq])
+    gathered rows through ``TextHead``. ``chunk`` (``data.gather_chunk``)
+    tiles the gather and encode, each tile recomputed in backward, as the
+    JAX ``lax.map`` over ``jax.checkpoint`` tiles does; the last tile is
+    not padded."""
+
+    def encode(ids: torch.Tensor) -> torch.Tensor:
+        if fused:
+            return fused_gather_encode(token_states, ids, model.text_head,
+                                       torch_dtype(model.cfg.dtype))
+        return model.encode_news(token_states.detach()[ids])
+
+    if not chunk or uniq.shape[0] <= chunk:
+        return encode(uniq)
+    return torch.cat([checkpoint(encode, tile, use_reentrant=False, preserve_rng_state=False)
+                      for tile in uniq.split(chunk)])
 
 
 def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
                      candidates: torch.Tensor, history: torch.Tensor,
-                     cap: int = 0, fused: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                     cap: int = 0, fused: bool = False,
+                     chunk: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Encode the batch's unique news once; gather into the (B, C, D)
     candidate and (B, H, D) history slots. ``cap`` bounds the unique slots
     (exact while the distinct ids fit; see ``unique_overflow``)."""
@@ -217,9 +244,69 @@ def _batch_news_vecs(model: NewsRecommender, token_states: torch.Tensor,
     if cap:
         size = min(size, cap)
     uniq, inv = unique_padded(ids, size)
-    vecs = _encode_gathered(model, token_states, uniq, fused)
+    vecs = _encode_gathered(model, token_states, uniq, fused, chunk)
     flat = _TakeRows.apply(vecs, inv)
     return flat[: b * c].reshape(b, c, -1), flat[b * c:].reshape(b, h, -1)
+
+
+def _encode_unique_tokens(text_encoder, tokens_table: torch.Tensor, ids: torch.Tensor,
+                          train: bool, generator: torch.Generator | None = None,
+                          cap: int = 0) -> torch.Tensor:
+    """A flat id vector's news through the whole ``TextEncoder``, each
+    distinct id once: its token rows are gathered from the (N, 2, L) table,
+    run through trunk and head, and the vectors scattered back to
+    (len(ids), D). ``cap`` bounds the distinct ids as in ``_batch_news_vecs``
+    (past it the step reports ``unique_overflow``).
+
+    JAX pads the unique slots to a static size with id 0 and encodes them
+    all. The padded rows feed nothing, so only the distinct ids are encoded
+    here; at trunk dropout 0 the results are equal (with dropout the masks
+    are torch's own draws either way)."""
+    size = min(ids.shape[0], tokens_table.shape[0])
+    if cap:
+        size = min(size, cap)
+    uniq, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    if uniq.shape[0] > size:  # unique_padded's cut: the overflow case
+        uniq, inv = uniq[:size], inv.clamp(max=size - 1)
+    vecs = text_encoder(tokens_table[uniq], train, generator)
+    return _TakeRows.apply(vecs, inv)
+
+
+def _batch_news_vecs_tokens(text_encoder, tokens_table: torch.Tensor,
+                            candidates: torch.Tensor, history: torch.Tensor, train: bool,
+                            generator: torch.Generator | None = None,
+                            cap: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Finetune mode's ``_batch_news_vecs``: one dedup over candidate and
+    history ids, the whole trainable ``TextEncoder`` on the distinct rows."""
+    b, c = candidates.shape
+    h = history.shape[1]
+    ids = torch.cat([candidates.reshape(-1), history.reshape(-1)])
+    flat = _encode_unique_tokens(text_encoder, tokens_table, ids, train, generator, cap)
+    return flat[: b * c].reshape(b, c, -1), flat[b * c:].reshape(b, h, -1)
+
+
+@torch.no_grad()
+def encode_corpus_tokens(
+    text_encoder,
+    news_tokens: Any,
+    chunk: int = 512,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """(N, 2, L) token table -> (N, D) news vectors through the whole
+    ``TextEncoder`` (finetune mode's corpus encode for evaluation, the
+    export and the recommend CLI), ``chunk`` titles at a time, on ``device``
+    (default ``cuda``, which raises without a GPU; ``text_encoder`` must
+    live there). A host table (numpy or a tensor) crosses to the device one
+    chunk at a time."""
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(news_tokens)
+    n = tokens.shape[0]
+    out = torch.empty((n, text_encoder.news_dim), dtype=text_encoder.trunk.dtype,
+                      device=dev)
+    for start in range(0, n, chunk):
+        vecs = text_encoder(tokens[start:start + chunk].to(dev))
+        out[start:start + vecs.shape[0]] = vecs
+    return out
 
 
 def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
@@ -227,14 +314,8 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
     and for the combinations the JAX ``build_fed_train_step`` refuses (with its
     wording): the one list of refusals, which the train step, ``Trainer``
     and the run CLI share."""
-    if mode not in ("joint", "decoupled"):
-        item = {"finetune": 8}.get(mode)
-        raise NotImplementedError(
-            f"train mode {mode!r} (model.text_encoder_mode="
-            f"{cfg.model.text_encoder_mode!r}) is not ported; the port trains "
-            "model.text_encoder_mode='head' (joint) and 'table' (decoupled)"
-            + (f"; {mode} mode is ROADMAP.md's Queue A item {item}" if item else "")
-        )
+    if mode not in ("joint", "decoupled", "finetune"):
+        raise ValueError(f"unknown step mode {mode!r}")
     if _uses_dpsgd(cfg):
         # the JAX build_fed_train_step's refusals (fedrec_tpu/train/step.py), in its
         # order; decoupled mode's dpsgd ValueError is _noise_hook's
@@ -242,6 +323,11 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
             raise NotImplementedError(
                 "per-example DP-SGD with sequence parallelism is not supported; "
                 "use seq_shards=1 with mechanism='dpsgd'"
+            )
+        if mode == "finetune":
+            raise NotImplementedError(
+                "per-example DP-SGD over the full trunk is not supported; use "
+                "mode='joint' (frozen trunk) for DP training"
             )
         if mode == "joint" and cfg.model.fuse_hot_path:
             raise NotImplementedError(
@@ -265,7 +351,6 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
         ("obs.dir (observability artifacts, ROADMAP.md's Queue A item 10b)", bool(cfg.obs.dir)),
         ("obs.quality.enabled (sliced-evaluation telemetry, ROADMAP.md's Queue A item 10b)",
          cfg.obs.quality.enabled),
-        ("data.gather_chunk>0 (ROADMAP.md's Queue A item 4)", cfg.data.gather_chunk > 0),
         (f"model.text_head_arch={cfg.model.text_head_arch!r} (ROADMAP.md's Queue A item 8)",
          cfg.model.text_head_arch != "additive"),
     ]
@@ -441,7 +526,8 @@ def build_fed_train_step(
     ``batch`` a dict of ``(K, B, ...)`` ``candidates`` / ``history`` /
     ``labels`` arrays (numpy or tensors), ``table`` on ``device``: the
     (N, T, bert_hidden) frozen-trunk token states in joint mode, the
-    (N, news_dim) news-vector table in decoupled mode. ``metrics`` holds
+    (N, news_dim) news-vector table in decoupled mode, the (N, 2, L) token
+    table in finetune mode. ``metrics`` holds
     each client's ``loss`` (K,), their ``mean_loss`` and ``unique_overflow``
     (how many clients' batches held more distinct ids than the cap; 0 in
     decoupled mode, which encodes nothing, and under DP-SGD, which does not
@@ -468,7 +554,12 @@ def build_fed_train_step(
     freezes the text head: no gradient, no noise, no Adam step.
 
     ``mode`` defaults to the one ``model.text_encoder_mode`` names ("head"
-    -> "joint", "table" -> "decoupled"). In decoupled mode each client's
+    -> "joint", "table" -> "decoupled", "finetune" -> "finetune"). Finetune
+    mode encodes the batch's distinct ids through the client's whole
+    ``TextEncoder`` (trunk dropout from the client's generator, before the
+    user tower's) and steps trunk and head with the news Adam; under
+    ``data.unique_news_cap`` it reports ``unique_overflow`` as joint mode
+    does. In decoupled mode each client's
     ``news_grad_accum`` is allocated at its first step, (N, news_dim) f32,
     and the text head does not move (``build_news_update_step`` steps it).
 
@@ -482,18 +573,28 @@ def build_fed_train_step(
     _refuse_unported(cfg, mode)
     noise_fn = _noise_hook(cfg, mode)
     opt_user, opt_news = make_optimizers(cfg)
-    fused = model.cfg.fuse_hot_path and model.cfg.text_head_arch == "additive"
+    # kernels B/E ride the model's user tower in every mode
+    # (model.fuse_hot_path); C/D replace the joint step's gather + text head
+    fuse_gather = (mode == "joint" and model.cfg.fuse_hot_path
+                   and model.cfg.text_head_arch == "additive")
+    gather_chunk = cfg.data.gather_chunk
     sigmoid_ce = cfg.model.sigmoid_before_ce
     joint = mode == "joint"
+    encodes = mode in ("joint", "finetune")  # both towers train on this client
     use_dpsgd = joint and _uses_dpsgd(cfg)
     dp_user_only = use_dpsgd and cfg.privacy.dp_scope == "user"
     sentry = cfg.obs.health.sentry
     chaos = cfg.chaos.enabled
 
-    def joint_grads(st: ClientState, cand, hist, lab, token_states, cap: int):
+    def joint_grads(st: ClientState, cand, hist, lab, table, cap: int):
         m = st.model
         user_p, news_p = st.user_params(), st.news_params()
-        cand_vecs, his_vecs = _batch_news_vecs(m, token_states, cand, hist, cap, fused)
+        if joint:
+            cand_vecs, his_vecs = _batch_news_vecs(m, table, cand, hist, cap, fuse_gather,
+                                                   gather_chunk)
+        else:  # finetune: the table holds token ids
+            cand_vecs, his_vecs = _batch_news_vecs_tokens(m.text_encoder, table, cand, hist,
+                                                          True, st.generator, cap)
         scores = m(cand_vecs, his_vecs, None, train=True, generator=st.generator)
         loss = score_loss(scores, lab, sigmoid_ce)
         grads = torch.autograd.grad(loss, user_p + news_p, allow_unused=True)
@@ -550,7 +651,7 @@ def build_fed_train_step(
             # host vectors: the fault branch costs no device read
             codes = np.asarray(batch["chaos.code"]).reshape(k)
             scales = np.asarray(batch["chaos.scale"]).reshape(k)
-        cap = resolve_unique_cap(cfg, labels.shape[1]) if joint and not use_dpsgd else 0
+        cap = resolve_unique_cap(cfg, labels.shape[1]) if encodes and not use_dpsgd else 0
         losses, user_g, news_g, overflow = [], [], [], 0
         health: dict[str, list] = {}  # DP-SGD's clip statistics
         # the sentry's norm groups: each client's grads, updates, params
@@ -562,7 +663,7 @@ def build_fed_train_step(
                 if sentry:
                     health.setdefault("health.clip_rate", []).append(stats["clip_rate"])
                     health.setdefault("health.clip_max_norm", []).append(stats["max_norm"])
-            elif joint:
+            elif encodes:
                 loss, ug, ng = joint_grads(st, cand, hist, lab, table, cap)
                 overflow += unique_overflow(cand, hist, cap, table.shape[0]) if cap else 0
             else:

@@ -1,7 +1,8 @@
 """The federated round loop, the port of ``fedrec_tpu/train/trainer.py``'s
 flat path: ``fed.num_clients`` device slots on one card, in joint ("head")
 or decoupled ("table", the default) mode over the frozen trunk's cached
-token states, with the health sentry, robust aggregation, chaos faults,
+token states, or in finetune mode over the token table with the DistilBERT
+trunk trained in the loop, with the health sentry, robust aggregation, chaos faults,
 quarantine-and-rollback, the cross-device cohort engine
 (``fed.population``), FedOpt server optimizers (``fed.server_opt``) and the
 prefetched data path (``data.prefetch_batches``); no codecs, scan chains or
@@ -20,7 +21,11 @@ under ``train.keep_best``, and resumes from the newest snapshot bitwise.
 ``serving.store`` / ``serve.build_recommend_fn``.
 
 Joint mode: each step runs kernels C, D, B and E under
-``model.fuse_hot_path``. Decoupled mode: each step trains the user tower
+``model.fuse_hot_path``. Finetune mode: each step runs the batch's distinct
+news through every client's ``TextEncoder`` and kernels B and E; the
+corpus encode of the evaluation and the export runs the whole encoder over
+the (N, 2, L) token table (``train.step.encode_corpus_tokens``), and
+snapshots hold the trunk. Decoupled mode: each step trains the user tower
 on an (N, news_dim) news-vector table (kernels B and E), and each epoch
 ends with the news update (``train.step.build_news_update_step``: kernel
 A), after which every client trains its next epoch on client 0's new
@@ -146,12 +151,15 @@ from fedrec_tpu_torch.train.step import (
     build_news_update_step,
     build_param_sync,
     encode_all_news,
+    encode_corpus_tokens,
 )
 
 # the model knobs that change the parameter tree: a snapshot written under
-# other values cannot load
+# other values cannot load; the trunk's shape the tree only in a finetune
+# snapshot, which holds the trunk
 _TREE_KNOBS = ("user_tower", "news_dim", "num_heads", "head_dim", "query_dim",
                "text_encoder_mode", "bert_hidden", "text_head_arch")
+_TRUNK_KNOBS = ("trunk_layers", "trunk_heads", "trunk_ffn", "trunk_vocab")
 _EVAL_BATCH = 256
 
 
@@ -180,7 +188,8 @@ class Trainer:
     """Federated trainer over K clients on one device.
 
     ``token_states``: the (N_news, L, bert_hidden) cached frozen-trunk token
-    states (numpy or a tensor), moved to the device once. ``snapshot_dir``
+    states (numpy or a tensor), moved to the device once; unused in finetune
+    mode (None will do), which moves ``data.news_tokens`` instead. ``snapshot_dir``
     overrides ``train.snapshot_dir``. ``device`` defaults to ``cuda`` and
     raises without a GPU unless ``device="cpu"``.
     """
@@ -237,8 +246,22 @@ class Trainer:
                 )
             self.server_opt = ServerOptimizer(cfg.fed.server_opt, cfg.fed.server_lr,
                                               cfg.fed.server_momentum)
-        self.token_states = torch.as_tensor(token_states).to(
-            self.dev, torch_dtype(cfg.model.dtype))
+        self.mode = MODES.get(cfg.model.text_encoder_mode, "joint")
+        self.token_states: torch.Tensor | None = None
+        self.news_tokens: torch.Tensor | None = None
+        if self.mode == "finetune":
+            # the trunk trains in the loop: it reads token ids, not cached
+            # states (token_states may be None)
+            tokens = np.asarray(data.news_tokens)
+            if tokens.size and int(tokens[:, 0].max()) >= cfg.model.trunk_vocab:
+                raise ValueError(
+                    f"the news tokens hold ids >= model.trunk_vocab={cfg.model.trunk_vocab}: "
+                    "tokenize with the trunk's vocabulary or raise model.trunk_vocab"
+                )
+            self.news_tokens = torch.as_tensor(tokens, dtype=torch.int64).to(self.dev)
+        else:
+            self.token_states = torch.as_tensor(token_states).to(
+                self.dev, torch_dtype(cfg.model.dtype))
 
         train_ix = index_samples(data.train_samples, data.nid2index, cfg.data.max_his_len)
         if cfg.data.num_shards > 1:
@@ -258,7 +281,6 @@ class Trainer:
         model = init_params(NewsRecommender(cfg.model), seed=cfg.train.seed).to(self.dev)
         self.states = replicate_state(init_client_state(model, cfg, cfg.train.seed),
                                       cfg.fed.num_clients, cfg.train.seed + 1)
-        self.mode = MODES.get(cfg.model.text_encoder_mode, "joint")
         self.train_step = build_fed_train_step(model, cfg, self.strategy, mode=self.mode,
                                                device=self.dev)
         self.news_update = (build_news_update_step(model, cfg, self.strategy, device=self.dev)
@@ -530,8 +552,10 @@ class Trainer:
             saved = saved.get("model", {})
         except (OSError, ValueError):
             return
+        knobs = _TREE_KNOBS + (_TRUNK_KNOBS if saved.get("text_encoder_mode") == "finetune"
+                               else ())
         diffs = [(k, saved[k], getattr(cfg.model, k))
-                 for k in _TREE_KNOBS if k in saved and saved[k] != getattr(cfg.model, k)]
+                 for k in knobs if k in saved and saved[k] != getattr(cfg.model, k)]
         if diffs:
             detail = "; ".join(f"model.{k}: snapshot={s!r} vs this run={c!r}"
                                for k, s, c in diffs)
@@ -544,11 +568,12 @@ class Trainer:
 
     def set_global_params(self, user_params: Any, news_params: Any) -> None:
         """Every client adopts the given parameters: Flax-layout numpy trees
-        of the user tower and the text head (``params.from_flax``).
+        of the user tower and the news tower (the text head, or in finetune
+        mode the ``TextEncoder``'s ``{"trunk", "head"}``; ``params.from_flax``).
         Optimizer states and dropout streams stay per client."""
         for st in self.states:
             from_flax(st.model.user_encoder, user_params)
-            from_flax(st.model.text_head, news_params)
+            from_flax(st.model.news_tower, news_params)
         self._global_host = None
         if self.mode == "decoupled":
             self._refresh_table()
@@ -592,8 +617,13 @@ class Trainer:
         return bool(torch.stack(same).all())
 
     def _encode_states(self, client: int) -> torch.Tensor:
-        """The (N, D) news table through ``client``'s text head."""
-        return encode_all_news(self.states[client].model, self.token_states, device=self.dev)
+        """The (N, D) news table through ``client``'s news tower: its text
+        head over the cached states, or in finetune mode its whole
+        ``TextEncoder`` over the token table."""
+        model = self.states[client].model
+        if self.mode == "finetune":
+            return encode_corpus_tokens(model.text_encoder, self.news_tokens, device=self.dev)
+        return encode_all_news(model, self.token_states, device=self.dev)
 
     def _refresh_table(self) -> torch.Tensor:
         self._table = self._encode_states(0)
@@ -616,7 +646,10 @@ class Trainer:
 
     def _feature_table(self) -> torch.Tensor:
         """What the train step reads: the token states in joint mode, the
-        cached news-vector table in decoupled mode."""
+        token table in finetune mode, the cached news-vector table in
+        decoupled mode."""
+        if self.mode == "finetune":
+            return self.news_tokens
         if self.mode == "joint":
             return self.token_states
         if self._table is None:

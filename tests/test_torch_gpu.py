@@ -1212,3 +1212,106 @@ def test_news_grad_accum_marker_gives_the_same_next_step_on_the_card(cuda, rng):
     for a, b in zip(full, mark):
         assert torch.equal(a.news_grad_accum, b.news_grad_accum)
         assert all(torch.equal(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+
+# ------------------------------------------------------------ the trunk (finetune)
+def _trunk_tokens(rng, n: int, L: int, vocab: int) -> np.ndarray:
+    tokens = np.zeros((n, 2, L), np.int64)
+    tokens[:, 0] = rng.integers(0, vocab, size=(n, L))
+    tokens[:, 1] = 1
+    tokens[0] = 0            # news id 0's row: every key padded
+    tokens[2, :, 7:] = 0     # a short title
+    return tokens
+
+
+@pytest.mark.parametrize("width", ["small", "full_two_layers"])
+def test_trunk_on_the_card_matches_the_cpu_in_float64(cuda, rng, width):
+    """``precompute_token_states`` on the card (TF32 off) against the same
+    trunk in float64 on the CPU, every real title within 1e-5 (small) or
+    1e-4 (768 wide, two layers: reductions of 768-3072); the all-padding
+    row against the CPU in float32 (its uniform attention comes from f32
+    absorbing the -1e9 bias, as in JAX)."""
+    from fedrec_tpu_torch.models.bert import (
+        DistilBert,
+        DistilBertConfig,
+        init_trunk_params,
+        precompute_token_states,
+    )
+
+    cfg = (DistilBertConfig(vocab_size=500, dim=48, n_layers=2, n_heads=4, hidden_dim=96)
+           if width == "small" else DistilBertConfig(n_layers=2))
+    tol = 1e-5 if width == "small" else 1e-4
+    sd = init_trunk_params(0, cfg)
+    tokens = _trunk_tokens(rng, 37, 50, cfg.vocab_size)
+    got = precompute_token_states(sd, tokens, cfg, chunk=16, device=cuda)
+    ref = DistilBert(cfg, dtype=torch.float64)
+    ref.load_state_dict({k: v.double() for k, v in sd.items()})
+    cpu32 = DistilBert(cfg)
+    cpu32.load_state_dict(sd)
+    t = torch.from_numpy(tokens)
+    with torch.no_grad(), _one_cpu_thread():
+        want = ref(t[1:, 0], t[1:, 1]).numpy()
+        want0 = cpu32(t[:1, 0], t[:1, 1]).numpy()
+    np.testing.assert_allclose(got[1:], want, atol=tol, rtol=0)
+    np.testing.assert_allclose(got[:1], want0, atol=tol, rtol=0)
+
+
+def _finetune_setup(dev, fuse: bool):
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import TrainBatcher, index_samples, make_synthetic_mind
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import build_fed_train_step, init_client_state, replicate_state
+
+    cfg = ExperimentConfig().apply_overrides([
+        "model.text_encoder_mode=finetune", "model.news_dim=32", "model.num_heads=4",
+        "model.head_dim=8", "model.query_dim=16", "model.bert_hidden=48",
+        "model.trunk_layers=2", "model.trunk_heads=4", "model.trunk_ffn=96",
+        "model.trunk_vocab=2000", "model.trunk_dropout=0", "data.max_his_len=10",
+        "data.max_title_len=12", "data.batch_size=8", "fed.num_clients=2",
+        "optim.user_lr=1e-3", "optim.news_lr=1e-3", f"model.fuse_hot_path={fuse}",
+        f"model.use_pallas={fuse}",
+    ])
+    data = make_synthetic_mind(num_news=80, num_train=64, num_valid=8, title_len=12,
+                               vocab=2000, his_len_range=(2, 10), seed=2)
+    model = init_params(NewsRecommender(cfg.model), seed=4).to(dev)
+    states = replicate_state(init_client_state(model, cfg, seed=0), 2)
+    step = build_fed_train_step(model, cfg, get_strategy("param_avg"), device=dev)
+    ix = index_samples(data.train_samples, data.nid2index, 10)
+    batches = [{"candidates": b.candidates, "history": b.history, "labels": b.labels}
+               for b in TrainBatcher(ix, 8, 4, seed=0).epoch_batches_sharded(2, 0)][:3]
+    return states, step, batches, torch.from_numpy(data.news_tokens).to(dev)
+
+
+def test_finetune_step_launches_b_and_e_and_tracks_the_dense_route(cuda):
+    """Three finetune steps of 2 clients, user dropout on, trunk dropout 0:
+    on the kernel route B and E launch on every client step, C and D never
+    (there is no token-state table); the losses and parameters follow the
+    dense route at the trajectory bars (the zero-gradient leaves, trunk key
+    biases included, within 2 x lr x steps: Adam's walk on rounding noise)."""
+    runs = []
+    for fuse in (True, False):
+        states, step, batches, table = _finetune_setup(cuda, fuse)
+        losses, per_step = [], []
+        for batch in batches:
+            reset_launch_counts()
+            states, m = step(states, batch, table)
+            torch.cuda.synchronize()
+            per_step.append(launch_counts())
+            losses.append(m["loss"].cpu().numpy())
+            assert m["unique_overflow"] == 0
+        runs.append((states, losses, per_step))
+    (sk, lk, ck), (sd, ld, cd) = runs
+    for counts in ck:
+        assert counts["fused_history_score"] == counts["fused_history_score_bwd"] == 2
+        assert counts["fused_gather_encode"] == counts["fused_gather_encode_bwd"] == 0
+    assert not any(v for counts in cd for v in counts.values())
+    np.testing.assert_allclose(np.array(lk), np.array(ld), rtol=1e-5, atol=1e-6)
+    for a, b in zip(sk, sd):
+        for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+            got, want = p.detach().cpu().numpy(), q.detach().cpu().numpy()
+            if name.endswith(("w_k.bias", "att_fc2.bias", "k_lin.bias")):
+                assert np.abs(got - want).max() <= 2 * 1e-3 * 3, name
+            else:
+                np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4, err_msg=name)

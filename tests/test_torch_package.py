@@ -16,7 +16,13 @@ import fedrec_tpu_torch
 from fedrec_tpu_torch.config import ExperimentConfig, ModelConfig
 from fedrec_tpu_torch.data import make_synthetic_mind
 from fedrec_tpu_torch.device import NoGPUError
-from fedrec_tpu_torch.models import NewsRecommender
+from fedrec_tpu_torch.models import (
+    DistilBert,
+    DistilBertConfig,
+    NewsRecommender,
+    TextEncoder,
+    precompute_token_states,
+)
 from fedrec_tpu_torch.ops import (
     UserTowerWeights,
     additive_pool,
@@ -35,7 +41,7 @@ from fedrec_tpu_torch.serving import (
     restore_model,
 )
 from fedrec_tpu_torch.train import Trainer, build_eval_step, build_full_eval_step
-from fedrec_tpu_torch.train.step import encode_all_news
+from fedrec_tpu_torch.train.step import encode_all_news, encode_corpus_tokens
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(fedrec_tpu_torch.__file__).resolve().parent
@@ -50,9 +56,12 @@ def _modules():
 
 
 def test_importing_every_module_leaves_jax_out():
-    # the cohort engine's and the data path's modules are among them
+    # the cohort engine's, the data path's and the real-data path's modules
+    # are among them
     assert {"fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
-            "fedrec_tpu_torch.data.prefetch"} <= set(_modules())
+            "fedrec_tpu_torch.data.prefetch", "fedrec_tpu_torch.data.tokenizer",
+            "fedrec_tpu_torch.data.preprocess", "fedrec_tpu_torch.data.adressa",
+            "fedrec_tpu_torch.models.bert"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -103,6 +112,9 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu):
     ])
     data = make_synthetic_mind(num_news=6, num_train=4, num_valid=2, title_len=5,
                                his_len_range=(1, 4))
+    tiny_trunk = DistilBertConfig(vocab_size=11, dim=8, n_layers=1, n_heads=2, hidden_dim=16)
+    trunk = DistilBert(tiny_trunk)
+    encoder = TextEncoder(tiny_trunk, news_dim=4)
     calls = [
         lambda **kw: encode_all_news(model, toks, **kw),
         lambda **kw: build_recommend_fn(**kw),
@@ -116,6 +128,9 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(no_gpu):
         lambda **kw: restore_model(
             model.cfg, dict(model.user_encoder.named_parameters()),
             dict(model.text_head.named_parameters()), **kw),
+        lambda **kw: precompute_token_states(trunk, np.zeros((2, 2, 5), np.int64), trunk.cfg,
+                                             **kw),
+        lambda **kw: encode_corpus_tokens(encoder, np.zeros((2, 2, 5), np.int64), **kw),
     ]
     for call in calls:
         with pytest.raises(NoGPUError):
@@ -183,7 +198,7 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
     with pytest.raises(NoGPUError):
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
-    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.dir=obs", "data.gather_chunk=64",
+    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.dir=obs", "model.text_head_arch=cnn",
                   "chaos.enabled=1,chaos.kill_round=2", "obs.quality.enabled=1"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])

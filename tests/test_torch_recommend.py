@@ -129,9 +129,10 @@ def test_recommend_cli_refusals(setup, monkeypatch, tmp_path):
     rc, err = _run(recommend.main, [*base, "--device", "cpu", "--token-states",
                                     str(tmp_path / "absent.npy")])
     assert rc == 2 and "no token states" in err
-    rc, err = _run(recommend.main, [*base, "--device", "cpu", "--set",
-                                    "model.text_encoder_mode=finetune"])
-    assert rc == 2 and "finetune" in err and "Queue A item 8" in err
+    # a finetune config over a head-mode snapshot: the trunk is missing
+    with pytest.raises(ValueError, match="news_params .* do not fit"):
+        _run(recommend.main, [*base, "--device", "cpu", "--set",
+                              "model.text_encoder_mode=finetune"])
     with pytest.raises(NoGPUError):
         _run(recommend.main, base)
     monkeypatch.undo()

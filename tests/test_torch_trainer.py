@@ -270,8 +270,8 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-    "obs.dir=obs", "data.gather_chunk=64", "model.text_head_arch=cnn",
-    "model.text_encoder_mode=finetune", "obs.quality.enabled=1",
+    "obs.dir=obs", "fed.elastic.enabled=1", "model.text_head_arch=cnn",
+    "model.user_tower=gru", "obs.quality.enabled=1",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
     """Each lever the port does not run raises, naming it and its Queue A
