@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives nine paths at full width through the entry points a user calls:
+then drives ten paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -76,6 +76,19 @@ then drives nine paths at full width through the entry points a user calls:
   steps (B and E on every client step), the kernel route against the dense
   route, and the snapshot through ``fedrec_tpu_torch.cli.recommend`` for
   8,192 users against the plain route;
+* ``family_path`` (the other model families and the run's observability
+  artifacts): the native C++ batcher's ``g++`` build and its epoch fill
+  against the Python batcher's; a joint ``Trainer`` with the GRU user
+  tower and the CNN text head (kernel A on both pools) fed by the native
+  batcher, 2 rounds of 4 clients x 4 steps, each evaluated on 8,192
+  impressions, with ``obs.dir``, the quality and perf monitors and a
+  ``torch.profiler`` capture of round 1, against the same run without
+  ``obs.dir`` (bitwise equal); ``fedrec-obs report``, ``perf`` and
+  ``quality`` on its artifacts; its snapshot through the recommend CLI;
+  the CNN head under the MHA tower with ``fuse_hot_path`` (B and E, no C
+  or D); one decoupled round (the CNN head's chunked corpus re-encode);
+  and a ``nan`` chaos run on a 2,048-news catalog whose flight-recorder
+  dump ``fedrec-obs replay`` re-runs on the card;
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -104,6 +117,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,safety_path
   python3 chip_smoke.py --phases build,kernels,cohort_path
   python3 chip_smoke.py --phases build,kernels,data_path
+  python3 chip_smoke.py --phases build,kernels,family_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -124,19 +138,12 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
-          "decoupled_path", "safety_path", "cohort_path", "data_path", "serving_path")
+          "decoupled_path", "safety_path", "cohort_path", "data_path", "family_path",
+          "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
-         "cohort_path", "data_path", "serving_path")
+         "cohort_path", "data_path", "family_path", "serving_path")
 DEV = "cuda"
 
-# Published peaks (data sheets): FP32 outside the tensor cores, dense TF32
-# and bf16 tensor-core rates, HBM bandwidth. Bounds use the row of the card
-# in use.
-_PEAKS = {
-    "H100 PCIe": {"f32": 51.2e12, "tf32": 378e12, "bf16": 756e12, "bytes": 2.0e12},
-    "H100": {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "bytes": 3.35e12},   # SXM
-    "H200": {"f32": 67e12, "tf32": 495e12, "bf16": 989e12, "bytes": 4.8e12},
-}
 
 # f32 tolerance: kernel and plain version sum the same f32 products in
 # different orders (reductions of length <= 768 over O(1) values), which
@@ -154,6 +161,13 @@ BF16_ATOL, BF16_RTOL = 0.15, 0.05
 # bf16 at each rounding point where the kernels, like the JAX ones, keep f32,
 # so they agree to a few bf16 ulps (2**-8 each): 5%.
 GRAD_REL = {"float32": 1e-4, "bfloat16": 0.05}
+# kernel E's outputs on the family path, each against float64: within this
+# many times the plain f32 route's own error there, or GRAD_REL of the
+# output's own scale, whichever is larger. The CNN head's news vectors share
+# a large common part, so the user pool's weight gradients cancel to ~1e-7
+# of their terms: a bar relative to each output's scale fails a kernel that
+# loses them (or returns zeros), where an absolute one would not
+E_PLAIN_FACTOR = 10
 # the trajectory bars of the JAX package's fused-vs-dense pin
 # (tests/test_fused_hot_path.py): losses per step, then parameters; the two
 # leaves with a true gradient of zero compare at a noise bound
@@ -237,10 +251,16 @@ def check(cond: bool, what: str) -> None:
 
 
 def peaks_for(name: str) -> dict:
-    for key in ("H100 PCIe", "H200", "H100"):
-        if all(part in name for part in key.split()):
-            return dict(_PEAKS[key], table_row=key)
-    return dict(_PEAKS["H100"], table_row="H100 (card not in table)")
+    """The card's published peaks (data sheets: FP32 outside the tensor
+    cores, dense TF32 and bf16 tensor-core rates, HBM bandwidth), from the
+    one table the port keeps (``fedrec_tpu_torch.obs.perf.CARD_PEAKS``,
+    which the live ``perf.mfu`` gauge reads too)."""
+    from fedrec_tpu_torch.obs.perf import CARD_PEAKS, card_peaks
+
+    found = card_peaks(name)
+    if found is not None:
+        return dict(found[1], table_row=found[0])
+    return dict(CARD_PEAKS["H100"], table_row="H100 (card not in table)")
 
 
 def bound(cost: tuple[float, float, float], dtype: str, peaks: dict) -> tuple[float, str]:
@@ -4026,8 +4046,10 @@ def phase_data_path(state: dict, args) -> dict:
             log.append({
                 "ms": ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "resident_gb": resident / 1e9,
-                "unique_news": [int(np.unique(np.concatenate([c.ravel(), h.ravel()])).size)
-                                for c, h in zip(batch["candidates"], batch["history"])],
+                # the trainer hands the step device tensors
+                "unique_news": [int(torch.unique(torch.cat([c.reshape(-1), h.reshape(-1)])).numel())
+                                for c, h in zip(torch.as_tensor(batch["candidates"]),
+                                                torch.as_tensor(batch["history"]))],
                 "losses": res[1]["loss"].tolist(),
                 "unique_overflow": int(res[1]["unique_overflow"]),
                 "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
@@ -4163,13 +4185,486 @@ def phase_data_path(state: dict, args) -> dict:
     return out
 
 
+# ------------------------------------------------------------- family_path
+def _family_cfg(args, snapshot_dir: str, *overrides: str):
+    """The family path's runs: ExperimentConfig's widths with the GRU user
+    tower and the CNN text head (``cnn_kernel`` 3), kernel A on both pools
+    (``use_pallas``), the native batcher, joint mode, param_avg over
+    ``--clients`` slots at B = ``--batch-size``, the full-pool evaluation."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().apply_overrides([
+        "model.user_tower=gru", "model.text_head_arch=cnn", "model.cnn_kernel=3",
+        "model.use_pallas=true", "model.fuse_hot_path=false", "model.text_encoder_mode=head",
+        "data.native_loader=true", f"data.batch_size={args.batch_size}",
+        f"fed.num_clients={args.clients}", "fed.strategy=param_avg", "train.eval_protocol=full",
+        f"train.seed={args.seed}", f"train.snapshot_dir={snapshot_dir}", "train.keep_best=false",
+        *overrides,
+    ])
+
+
+def _indexed_samples(n: int, pool: int, his: int, num_news: int, seed: int):
+    """``n`` click samples over ``num_news`` news with pools of 5-``pool``
+    negatives and histories of 0-``his`` clicks, made in bulk (numpy)."""
+    from fedrec_tpu_torch.data import IndexedSamples
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(5, pool + 1, n).astype(np.int32)
+    pools = rng.integers(1, num_news, (n, pool)).astype(np.int32)
+    pools[np.arange(pool)[None, :] >= lens[:, None]] = 0
+    his_len = rng.integers(0, his + 1, n).astype(np.int32)
+    history = rng.integers(1, num_news, (n, his)).astype(np.int32)
+    history[np.arange(his)[None, :] >= his_len[:, None]] = 0
+    return IndexedSamples(rng.integers(1, num_news, n).astype(np.int32), pools, lens, history,
+                          his_len)
+
+
+def _tower_bwd_f64(x, cand, w, g_scores, g_user, num_heads: int):
+    """Kernel E's outputs in float64: autograd of the fused user tower's
+    arithmetic (``fused_history_score_plain``'s, no mask) run in float64,
+    the exact answer the f32 kernel and the f32 plain version are held to
+    where an output cancels."""
+    import torch
+    from fedrec_tpu_torch.ops.fused_hot_path import UserTowerWeights, masked_softmax
+
+    with torch.enable_grad():
+        xl = x.detach().double().requires_grad_()
+        cl = cand.detach().double().requires_grad_()
+        wl = UserTowerWeights(*(t.detach().double().requires_grad_() for t in w))
+        n, h, d = xl.shape
+        dh = d // num_heads
+        q, k, v = (xl @ wm + b for wm, b in ((wl.wq, wl.bq), (wl.wk, wl.bk), (wl.wv, wl.bv)))
+        ones = torch.ones((n, h), dtype=torch.float64, device=x.device)
+
+        def heads(t):
+            return t.reshape(n, h, num_heads, dh).transpose(1, 2)
+
+        a = masked_softmax(heads(q) @ heads(k).transpose(-1, -2) / math.sqrt(dh),
+                           ones[:, None, None, :])
+        ctx = (a @ heads(v)).transpose(1, 2).reshape(n, h, d)
+        lg = torch.tanh(ctx @ wl.pw1 + wl.pb1) @ wl.pw2
+        user = torch.einsum("nh,nhd->nd", masked_softmax(lg, ones), ctx)
+        scores = torch.einsum("ncd,nd->nc", cl, user)
+        got = torch.autograd.grad([user, scores], [xl, cl, *wl],
+                                  [g_user.double(), g_scores.double()])
+    return got[0], got[1], UserTowerWeights(*got[2:])
+
+
+def phase_family_path(state: dict, args) -> dict:
+    """The other model families and the run's observability artifacts at
+    full width: the native engine's build and its epoch fill against the
+    Python batcher's; a GRU + CNN joint ``Trainer`` (kernel A on both
+    pools, the native batcher, ``obs.dir`` with the quality and perf
+    monitors and a capture window) against the same run without ``obs.dir``
+    (bitwise equal); a CNN-head + MHA-tower leg under ``fuse_hot_path`` (B
+    and E launch, C and D do not; E held against float64, the leg against
+    the dense route); one decoupled round (the CNN head's
+    chunked corpus re-encode); the snapshot through the recommend CLI;
+    ``fedrec-obs report`` and ``perf`` on the run's artifacts; a ``nan``
+    chaos run on a 2,048-news catalog whose flight-recorder dump is
+    replayed on the card."""
+    import copy
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.cli import obs as obs_cli
+    from fedrec_tpu_torch.cli import recommend
+    from fedrec_tpu_torch.data import MindData, TrainBatcher, make_synthetic_mind
+    from fedrec_tpu_torch.data import native_batcher
+    from fedrec_tpu_torch.models.encoders import gru_scan
+    from fedrec_tpu_torch.obs import MetricsRegistry, Tracer, TrainingHealthError
+    from fedrec_tpu_torch.obs import set_registry, set_tracer
+    from fedrec_tpu_torch.obs.report import load_trace
+    from fedrec_tpu_torch.ops import (
+        additive_pool,
+        additive_pool_plain,
+        fused_history_score,
+        fused_history_score_bwd,
+        fused_history_score_bwd_plain,
+        fused_history_score_plain,
+    )
+    from fedrec_tpu_torch.train import Trainer
+    from fedrec_tpu_torch.train import trainer as trainer_module
+
+    dev = torch.device(DEV)
+    K, B, S = args.clients, args.batch_size, args.trainer_steps
+    base = _family_cfg(args, "")
+    T, H = base.data.max_title_len, base.data.max_his_len
+    D, Dh = base.model.news_dim, base.model.bert_hidden
+    tokens = _tokens(state, args, T, Dh)
+    data = _mind_data(state, args, T)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="family_path_", dir=build)
+    root = Path(work.name)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+    launches = _PathLaunches()
+    out: dict = {}
+    errs: dict[str, float] = {}
+
+    # ---- 1. the native engine: its build, then one epoch's batches at
+    # MIND-small's ~204k click samples against the Python batcher's, each
+    # read through epoch_batches_sharded as the trainer reads them (the
+    # native one fills the epoch in one threaded call)
+    t0 = time.perf_counter()
+    lib = native_batcher.build()
+    out["native_build"] = {"wall_s": time.perf_counter() - t0,
+                           "g++_s": native_batcher.build_seconds, "library": str(lib)}
+    ix = _indexed_samples(args.family_fill_samples, 49, H, args.num_news, args.seed)
+    fill = {}
+    for name, cls in (("native", native_batcher.NativeTrainBatcher), ("python", TrainBatcher)):
+        batcher = cls(ix, B, 4, seed=args.seed)
+        t0 = time.perf_counter()
+        steps = sum(1 for _ in batcher.epoch_batches_sharded(K, 0))
+        fill[name] = {"s": time.perf_counter() - t0, "steps": steps}
+    check(fill["native"]["steps"] == fill["python"]["steps"] > 0, f"epoch fill: {fill}")
+    py_first = next(iter(TrainBatcher(ix, B, 4, shuffle=False, seed=0).epoch_batches_sharded(K, 0)))
+    nat_first = next(iter(native_batcher.NativeTrainBatcher(ix, B, 4, shuffle=False, seed=0)
+                          .epoch_batches_sharded(K, 0)))
+    check(np.array_equal(py_first.history, nat_first.history)
+          and np.array_equal(py_first.candidates[..., 0], nat_first.candidates[..., 0]),
+          "native batcher: positives or histories differ from the Python batcher's")
+    fill["samples"] = len(ix)
+    fill["speedup"] = fill["python"]["s"] / fill["native"]["s"]
+    out["epoch_fill"] = fill
+    del ix
+
+    # ---- 2. the GRU + CNN joint run with obs.dir, then the same run without
+    rounds = 2
+    obs_dir = root / "obs"
+    snaps = root / "snapshots"
+    runs = {}
+    for leg, extra in (("obs", (f"obs.dir={obs_dir}", "obs.quality.enabled=true",
+                                "obs.perf.enabled=true", "obs.perf.capture_rounds=1")),
+                       ("plain", ())):
+        # both legs snapshot every round: obs.dir is their one difference
+        cfg = _family_cfg(args, str(snaps if leg == "obs" else root / "snapshots_plain"),
+                          f"fed.rounds={rounds}", "train.eval_every=1", *extra)
+        step_ms: list = []
+        round_ms: list = []
+        # where obs.dir's cost goes: the evaluation (the quality sums), the
+        # round's bookkeeping (records, registry snapshots; both legs save
+        # the same snapshots), the flight recorder's round-entry host copy
+        parts = {"eval": [], "after_round": [], "flightrec_copy": []}
+        prev = set_registry(MetricsRegistry()), set_tracer(Tracer())
+        copy_fn = trainer_module.host_states
+        seg = launches.segment() if leg == "obs" else contextlib.nullcontext()
+        try:
+            with seg, quiet:
+                trainer = Trainer(cfg, data, tokens, device=dev)
+                check(isinstance(trainer.batcher, native_batcher.NativeTrainBatcher),
+                      "data.native_loader did not select the native batcher")
+                _time_calls(trainer, "train_step", step_ms)
+                _time_calls(trainer, "train_round", round_ms)
+                _time_calls(trainer, "_eval_if_due", parts["eval"])
+                _time_calls(trainer, "_after_round", parts["after_round"])
+                _time_calls(trainer_module, "host_states", parts["flightrec_copy"])
+                hist = trainer.run()
+        finally:
+            trainer_module.host_states = copy_fn
+            set_registry(prev[0])
+            set_tracer(prev[1])
+        runs[leg] = (trainer, hist, step_ms, round_ms, parts)
+    trainer, hist, step_ms, round_ms, _ = runs["obs"]
+    counts = dict(launches.total)
+    for r in hist:
+        check(math.isfinite(r.train_loss) and all(0.0 <= v <= 1.0 for v in r.val_metrics.values()),
+              f"GRU+CNN round {r.round_idx}: loss {r.train_loss}, metrics {r.val_metrics}")
+    check(counts.get("additive_pool", 0) >= 2 * K * S * rounds,
+          f"kernel A launched {counts.get('additive_pool', 0)} times: fewer than both pools "
+          f"of {K * S * rounds} client steps")
+    for name in ("fused_history_score", "fused_gather_encode"):
+        check(counts.get(name, 0) == 0, f"{name} launched on the GRU + CNN run")
+    plain_trainer, plain_hist = runs["plain"][:2]
+    same = ([r.train_loss for r in hist] == [r.train_loss for r in plain_hist]
+            and all(r.val_metrics == q.val_metrics for r, q in zip(hist, plain_hist))
+            and all(torch.equal(p, q) for a, b in zip(trainer.states, plain_trainer.states)
+                    for p, q in zip(a.model.parameters(), b.model.parameters())))
+    check(same, "obs.dir changed the trajectory: losses, metrics or parameters differ")
+
+    # kernel A against its plain version on this path's inputs: the CNN
+    # pool over a chunk of the corpus, the GRU pool over a batch's histories
+    m0 = trainer.states[0].model
+    th, ue = m0.text_head, m0.user_encoder
+    with torch.no_grad():
+        conv = torch.relu(torch.nn.functional.linear(
+            th.windows(tokens[: args.chunk]), th.conv.weight, th.conv.bias))
+        w_t = (th.pool.att_fc1.weight.t().contiguous(), th.pool.att_fc1.bias,
+               th.pool.att_fc2.weight[0].contiguous())
+        err_cnn = max_err(additive_pool(conv, *w_t), additive_pool_plain(conv, *w_t))
+        table = trainer._encode_corpus(0)
+        his = table[torch.as_tensor(trainer.valid_ix.history[:256], device=dev).long()]
+        outs = gru_scan(ue.GRUCell_0, his, torch.float32)
+        w_u = (ue.pool.att_fc1.weight.t().contiguous(), ue.pool.att_fc1.bias,
+               ue.pool.att_fc2.weight[0].contiguous())
+        err_gru = max_err(additive_pool(outs, *w_u), additive_pool_plain(outs, *w_u))
+        # the CNN product against float64 (TF32 off)
+        x64 = th.windows(tokens[:64]).double()
+        ref = torch.relu(x64 @ th.conv.weight.double().t() + th.conv.bias.double())
+        err_conv64 = max_err(conv[:64].double(), ref)
+    check(err_cnn <= F32_ATOL and err_gru <= F32_ATOL and err_conv64 <= 1e-4,
+          f"family kernels vs plain: A on the CNN pool {err_cnn}, on the GRU pool {err_gru}; "
+          f"the CNN product vs float64 {err_conv64}")
+    errs["additive_pool"] = max(err_cnn, err_gru)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        trainer._encode_states(0)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    plain_steps, plain_rounds = runs["plain"][2], runs["plain"][3]
+    out["joint"] = {
+        "clients": K, "batch_size": B, "steps": S, "rounds": rounds,
+        "round_losses": [r.train_loss for r in hist], "val_metrics": hist[-1].val_metrics,
+        # K-client steps; round 1's run inside the obs leg's profiler capture
+        "step_ms_obs": step_ms, "step_ms_plain": plain_steps,
+        "client_step_ms_plain_median": float(np.median(plain_steps[1:])) / K,
+        "round_ms_obs": round_ms, "round_ms_plain": plain_rounds,
+        "obs_cost_ms_by_round": [a - b for a, b in zip(round_ms, plain_rounds)],
+        "obs_parts_ms": {"obs": runs["obs"][4], "plain": runs["plain"][4]},
+        "corpus_encode_ms": encode_ms,
+        "launches": counts, "obs_equals_plain_bitwise": same,
+        "max_abs_err_vs_plain": {"additive_pool_cnn": err_cnn, "additive_pool_gru": err_gru},
+        "conv_err_vs_f64": err_conv64,
+        "a_device_ms": {
+            "cnn_pool": time_ms(lambda: additive_pool(conv, *w_t), reps=10),
+            "gru_pool": time_ms(lambda: additive_pool(outs, *w_u), reps=20)}}
+    del plain_trainer, runs, conv, outs
+    torch.cuda.empty_cache()
+
+    # ---- 3. fedrec-obs report and perf on the run's artifacts
+    events = load_trace(obs_dir / "trace.json")
+    n_rounds = sum(1 for e in events if e.get("name") == "fed_round")
+    check(n_rounds == rounds, f"trace.json holds {n_rounds} fed_round spans")
+    cli_out = {}
+    for verb in ("report", "perf", "quality"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_cli.main([verb, str(obs_dir), "--json"])
+        check(rc == 0, f"fedrec-obs {verb} rc {rc}")
+        cli_out[verb] = json.loads(buf.getvalue())
+    mfu = cli_out["perf"].get("mfu")
+    check(mfu is not None and 0.0 < mfu <= 1.0, f"perf.mfu {mfu} outside (0, 1]")
+    captures = cli_out["perf"].get("capture_records", [])
+    check(len(captures) == 1 and (Path(captures[0]["logdir"]) / "trace.json").exists(),
+          f"capture records {captures}")
+    out["obs"] = {"mfu": mfu, "samples_per_sec": cli_out["perf"].get("samples_per_sec"),
+                  "verdicts": cli_out["perf"].get("verdict_rounds"),
+                  "phases": cli_out["perf"].get("phases"),
+                  "hbm_components_mb": {k: v / 2**20 for k, v in
+                                        cli_out["perf"].get("hbm_components", {}).items()},
+                  "quality_slices": len(cli_out["quality"].get("slices", {})),
+                  "ece": cli_out["quality"].get("ece"),
+                  "report_sections": sorted(cli_out["report"]),
+                  "capture_trace_mb": (Path(captures[0]["logdir"]) / "trace.json").stat().st_size
+                  / 2**20,
+                  "artifact_mb": {p.name: p.stat().st_size / 2**20 for p in obs_dir.iterdir()
+                                  if p.is_file()}}
+
+    # ---- 4. the snapshot through the recommend CLI, against the plain route
+    art = root / "UserData"
+    _write_artifacts(data, art)
+    out["token_states_write_s"] = _write_token_states(tokens, art / "token_states.npy",
+                                                      args.chunk)
+    tower, table = trainer.export_for_serving()
+    users = recommend.collect_histories(data, H)
+    uids = sorted(users)[: args.family_rec_users]
+    recs = root / "recs.jsonl"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with launches.segment(), contextlib.redirect_stderr(err):
+        rc = recommend.main(["--data-dir", str(art), "--snapshot-dir", str(snaps), "--out",
+                             str(recs), "--device", DEV, "--uids", *uids])
+    rec_s = time.perf_counter() - t0
+    check(rc == 0, f"recommend CLI rc {rc}: {err.getvalue()[-2000:]}")
+    lines = [json.loads(ln) for ln in recs.read_text().splitlines()]
+    check([ln["uid"] for ln in lines] == uids, f"{len(lines)} lines for {len(uids)} users")
+    sample = lines[:: max(1, len(lines) // 256)][:256]
+    hist_ids = torch.tensor([[data.nid2index[n] for n in users[ln["uid"]]]
+                             + [0] * (H - len(users[ln["uid"]])) for ln in sample], device=dev)
+    plain_tower = copy.deepcopy(tower)
+    plain_tower.pool.use_pallas = False
+    with torch.no_grad():
+        n = table.shape[0]
+        user = plain_tower(table[hist_ids.clamp(0, n - 1)])
+        scores = user.float() @ table.float().T
+        invalid = torch.zeros_like(scores, dtype=torch.bool)
+        invalid[:, 0] = True
+        invalid[torch.arange(len(sample), device=dev)[:, None], hist_ids] = True
+        ref_scores, ref_ids = torch.topk(scores.masked_fill(invalid, torch.finfo(torch.float32).min),
+                                         11, dim=1)
+    got = torch.tensor([[data.nid2index[n] for n in ln["news"]] for ln in sample], device=dev)
+    mismatch = _topk_disagreements(got, ref_scores, ref_ids, 10)
+    check(mismatch == 0, f"{mismatch} recommended ids differ from the plain route's")
+    out["recommend_cli"] = {"rc": rc, "users": len(lines), "wall_s": rec_s,
+                            "users_per_s": len(lines) / rec_s, "id_mismatches": mismatch,
+                            "checked_users": len(sample)}
+    (art / "token_states.npy").unlink()
+    # where a GRU + CNN 4-client step's device time goes (profiler; one more
+    # step of the first batch, after the checks that read the trained state)
+    b0 = next(iter(trainer.batcher.epoch_batches_sharded(K, 0)))
+    b0 = {k: torch.as_tensor(getattr(b0, k)).to(dev) for k in ("candidates", "history", "labels")}
+    step_fn = trainer.train_step
+    out["joint"]["step_device_breakdown"] = _device_breakdown(
+        lambda: step_fn(trainer.states, b0, tokens)[1]["loss"].tolist(), reps=2, top=10,
+        sum_of={"gemm": ["gemm", "Gemm", "sm90_", "cutlass"],
+                "kernel_A": ["pool_logits_kernel", "pool_rows_kernel"]})
+    del trainer, tower, table, m0, th, ue
+    torch.cuda.empty_cache()
+
+    # ---- 5. the CNN head under an MHA tower with fuse_hot_path: B and E
+    # on the user tower, the CNN head's dense gather + encode (no C, D)
+    cfg = _family_cfg(args, "", "model.user_tower=mha", "model.fuse_hot_path=true",
+                      "fed.rounds=1", "train.eval_every=1")
+    seg_counts = _PathLaunches()
+    with launches.segment(), seg_counts.segment(), quiet:
+        fused = Trainer(cfg, data, tokens, device=dev)
+        fhist = fused.run()
+    fc = seg_counts.total
+    check(math.isfinite(fhist[0].train_loss), f"fused CNN leg loss {fhist[0].train_loss}")
+    check(fc.get("fused_history_score_bwd", 0) >= K * S and fc.get("fused_history_score", 0) > 0
+          and fc.get("additive_pool", 0) > 0, f"fused CNN leg launches {fc}")
+    check(fc.get("fused_gather_encode", 0) == 0 and fc.get("fused_gather_encode_bwd", 0) == 0,
+          f"C or D launched under the CNN head: {fc}")
+    mf = fused.states[0].model
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    with torch.no_grad():
+        ftable = fused._encode_corpus(0)
+        b0 = next(iter(fused.batcher.epoch_batches_sharded(K, 0)))
+        cand_v = ftable[torch.as_tensor(b0.candidates[0], device=dev).long()]
+        his_v = ftable[torch.as_tensor(b0.history[0], device=dev).long()]
+        w = mf.user_encoder.fused_weights(torch.float32)
+        nh = mf.cfg.num_heads
+        sk, uk = fused_history_score(his_v, cand_v, None, w, nh)
+        sp, up = fused_history_score_plain(his_v, cand_v, None, w, nh)
+        err_b = max(max_err(sk, sp), max_err(uk, up))
+    gs = torch.randn(tuple(sk.shape), generator=gen, device=dev)
+    gu = torch.randn(tuple(uk.shape), generator=gen, device=dev)
+    got_e = fused_history_score_bwd(his_v, cand_v, None, w, gs, gu, nh)
+    want_e = fused_history_score_bwd_plain(his_v, cand_v, None, w, gs, gu, nh)
+    # every output against the exact answer (float64), at E_PLAIN_FACTOR x
+    # the plain f32 route's error or GRAD_REL of its own scale; dbk's true
+    # value is zero (a softmax-row shift), so its bar is the plain route's
+    ref_e = _tower_bwd_f64(his_v, cand_v, w, gs, gu, nh)
+    names = ["dx", "dcand", *[f"d{f}" for f in w._fields]]
+    e_rows = {}
+    for name, a, b_, r in zip(names, [got_e[0], got_e[1], *got_e[2]],
+                              [want_e[0], want_e[1], *want_e[2]],
+                              [ref_e[0], ref_e[1], *ref_e[2]]):
+        scale = float(r.abs().max())
+        e_k, e_p = (float((t.double() - r).abs().max()) for t in (a, b_))
+        bar = max(E_PLAIN_FACTOR * e_p, GRAD_REL["float32"] * scale)
+        e_rows[name] = {"scale": scale, "kernel_vs_f64": e_k, "plain_vs_f64": e_p,
+                        "kernel_vs_plain": max_err(a, b_), "bar": bar, "ok": e_k <= bar}
+    err_e = max(r["kernel_vs_plain"] for r in e_rows.values())
+    check(err_b <= F32_ATOL and all(r["ok"] for r in e_rows.values()),
+          f"fused CNN leg vs plain: B {err_b}, E {[(k, r) for k, r in e_rows.items()]}")
+    errs["fused_history_score"], errs["fused_history_score_bwd"] = err_b, err_e
+    # the leg against the dense route (no kernel) from the same seeds: its
+    # round loss, validation means and final parameters at the trajectory
+    # bars, so that what B and E give the user tower reaches training intact
+    dense_cfg = _family_cfg(args, "", "model.user_tower=mha", "model.fuse_hot_path=false",
+                            "model.use_pallas=false", "fed.rounds=1", "train.eval_every=1")
+    dense_counts = _PathLaunches()
+    with dense_counts.segment(), quiet:
+        dense = Trainer(dense_cfg, data, tokens, device=dev)
+        dense_hist = dense.run()
+    check(not any(dense_counts.total.values()),
+          f"the fused CNN leg's dense route launched {dense_counts.total}")
+    lk, ld = fhist[0].train_loss, dense_hist[0].train_loss
+    check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+          f"fused CNN leg: kernel-route loss {lk!r} vs dense {ld!r}")
+    val_diff = max(abs(v - dense_hist[0].val_metrics[k]) for k, v in fhist[0].val_metrics.items())
+    check(val_diff <= VAL_ATOL, f"fused CNN leg: validation means differ by {val_diff}")
+    param_worst, param_worst_noise = 0.0, 0.0
+    for c, (sk, sd) in enumerate(zip(fused.states, dense.states)):
+        bad, worst, worst_noise = _param_diffs(sk.model, sd.model)
+        check(not bad, f"fused CNN leg, client {c}: kernel route vs dense: {bad} outside the bars")
+        param_worst = max(param_worst, worst)
+        param_worst_noise = max(param_worst_noise, worst_noise)
+    del dense
+    out["fused_cnn_leg"] = {"loss": fhist[0].train_loss, "val_metrics": fhist[0].val_metrics,
+                            "kernel_vs_dense": {"losses": [lk, ld], "max_val_metric_diff": val_diff,
+                                                "max_param_diff": param_worst,
+                                                "max_zero_grad_leaf_diff": param_worst_noise},
+                            "launches": fc, "max_abs_err_vs_plain": {
+                                "fused_history_score": err_b, "fused_history_score_bwd": err_e},
+                            "e_vs_f64": e_rows}
+    del fused, mf, ftable
+    torch.cuda.empty_cache()
+
+    # ---- 6. one decoupled round: the CNN head's chunked corpus re-encode
+    cfg = _family_cfg(args, "", "model.text_encoder_mode=table", "fed.rounds=1",
+                      "train.eval_every=1")
+    upd_ms: list = []
+    with launches.segment(), quiet:
+        dec = Trainer(cfg, data, tokens, device=dev)
+        _time_calls(dec, "news_update", upd_ms)
+        dhist = dec.run()
+    check(math.isfinite(dhist[0].train_loss) and dec._table is not None
+          and dec._table.shape == (args.num_news, D) and bool(torch.isfinite(dec._table).all()),
+          f"decoupled GRU + CNN round: loss {dhist[0].train_loss}")
+    out["decoupled"] = {"loss": dhist[0].train_loss, "val_metrics": dhist[0].val_metrics,
+                        "news_update_ms": upd_ms, "chunk": 2048}
+    del dec
+    torch.cuda.empty_cache()
+
+    # ---- 7. a nan chaos run on a small catalog (its table fits the dump's
+    # 512 MB), replayed on the card from the flight recorder's dump
+    small_n = args.family_chaos_news
+    small = make_synthetic_mind(num_news=small_n, num_train=K * B * 2, num_valid=256,
+                                title_len=T, seed=args.seed + 1)
+    nan_dir = root / "obs_nan"
+    cfg = _family_cfg(args, "", "fed.rounds=3", "train.eval_every=10", f"obs.dir={nan_dir}",
+                      "chaos.enabled=true", "chaos.faults=nan@1:1")
+    prev = set_registry(MetricsRegistry()), set_tracer(Tracer())
+    raised = None
+    try:
+        with launches.segment(), quiet:
+            try:
+                Trainer(cfg, small, tokens[:small_n], device=dev).run()
+            except TrainingHealthError as e:
+                raised = str(e)
+    finally:
+        set_registry(prev[0])
+        set_tracer(prev[1])
+    check(raised is not None and "Forensics dumped to" in raised, f"nan run: {raised}")
+    manifest = json.loads((nan_dir / "flightrec" / "manifest.json").read_text())
+    check(manifest["table_file"] == "table.npy" and manifest["trigger"]["round"] == 1,
+          f"dump manifest: {manifest.get('table_file')}, {manifest.get('trigger')}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with launches.segment(), contextlib.redirect_stdout(buf):
+        rc = obs_cli.main(["replay", str(nan_dir), "--device", DEV, "--json"])
+    verdict = json.loads(buf.getvalue())
+    check(rc == 0 and verdict["reproduced_nonfinite"] and verdict["device"].startswith("cuda"),
+          f"replay rc {rc}: {verdict.get('first_nonfinite')}")
+    out["chaos_replay"] = {"catalog": small_n, "dump_mb": sum(
+        f.stat().st_size for f in (nan_dir / "flightrec").iterdir()) / 2**20,
+        "replay_s": time.perf_counter() - t0, "steps_replayed": verdict["steps_replayed"],
+        "first_nonfinite": verdict["first_nonfinite"]}
+
+    counts = launches.total
+    for name in ("additive_pool", "fused_history_score", "fused_history_score_bwd"):
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched on the family path")
+    state.setdefault("launches", {})["family_path"] = counts
+    state.setdefault("family_errs", {}).update(errs)
+    out["launches"] = counts
+    out["max_abs_err_vs_plain"] = errs
+    out["config"] = {"num_news": args.num_news, "news_dim": D, "bert_hidden": Dh,
+                     "his_len": H, "title_len": T, "cnn_kernel": base.model.cnn_kernel,
+                     "dtype": base.model.dtype, "tf32": False, "valid": args.valid}
+    work.cleanup()
+    return out
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
     under the per-example transform; trainer_path, cohort_path and data_path run A
-    through E, decoupled_path A, B and E, serving_path A and B), times from the
-    kernels phase."""
+    through E, decoupled_path and family_path A, B and E, serving_path A and B),
+    times from the kernels phase."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -4245,6 +4740,13 @@ def main(argv=None) -> int:
                    help="data_path: steps a client a finetune round (2 rounds)")
     p.add_argument("--data-rec-users", type=int, default=8192,
                    help="data_path: users the recommend CLI serves from the finetune snapshot")
+    p.add_argument("--family-fill-samples", type=int, default=204_800,
+                   help="family_path: click samples of the native-vs-Python epoch fill "
+                        "(MIND-small's ~204k)")
+    p.add_argument("--family-rec-users", type=int, default=2048,
+                   help="family_path: users the recommend CLI serves from the GRU+CNN snapshot")
+    p.add_argument("--family-chaos-news", type=int, default=2048,
+                   help="family_path: the nan chaos run's catalog (its dump keeps the table)")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     args.serving_waves = [int(w) for w in args.serving_waves.split(",")]
@@ -4281,6 +4783,7 @@ def main(argv=None) -> int:
         "safety_path": lambda: phase_safety_path(state, args),
         "cohort_path": lambda: phase_cohort_path(state, args),
         "data_path": lambda: phase_data_path(state, args),
+        "family_path": lambda: phase_family_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:

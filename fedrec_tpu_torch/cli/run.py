@@ -20,8 +20,13 @@ route with a real (epsilon, delta); either way sigma comes from the
 accountant. ``--device`` defaults to ``cuda`` and
 raises without a GPU unless it is ``cpu``; ``--clients`` defaults to the
 number of devices of that kind (the JAX CLI's ``len(jax.local_devices())``).
-The multi-process options (``--agg-server``, ``--worker-id``) and
-``--obs-dir`` are accepted and refused by name. Snapshots go to
+The multi-process options (``--agg-server``, ``--worker-id``) are
+accepted and refused by name. ``--obs-dir DIR`` (``obs.dir``) writes the
+run's observability artifacts there (``metrics.jsonl``, ``trace.json``,
+``prometheus.txt``, the flight recorder's dump), which ``python -m
+fedrec_tpu_torch.cli.obs report DIR`` reads. The other model families run
+with ``--set model.user_tower=gru --set model.text_head_arch=cnn``, the
+native batcher with ``--set data.native_loader=1``. Snapshots go to
 ``train.snapshot_dir`` (``snapshots`` in the working directory; empty for
 none). Ends with ``final: loss=... auc=... ndcg10=...`` when the last
 round was evaluated. The cohort engine, FedOpt and the data path's knobs
@@ -68,7 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-news", type=int, default=512,
                    help="synthetic corpus size (distinct news)")
     p.add_argument("--obs-dir", default=None,
-                   help="not ported: observability artifacts (ROADMAP.md Queue A item 10b)")
+                   help="observability artifacts (obs.dir): metrics.jsonl, trace.json, "
+                        "prometheus.txt, the flight recorder's dump; read them with "
+                        "python -m fedrec_tpu_torch.cli.obs report DIR")
     p.add_argument("--agg-server", default=None, metavar="HOST:PORT",
                    help="not ported: async federation (ROADMAP.md Queue A item 9)")
     p.add_argument("--worker-id", default=None,
@@ -94,8 +101,7 @@ def make_synthetic_from_args(args, cfg):
 
 def _refuse_unported_args(args) -> None:
     for flag, value, item in (("--agg-server", args.agg_server, 9),
-                              ("--worker-id", args.worker_id, 9),
-                              ("--obs-dir", args.obs_dir, "10b")):
+                              ("--worker-id", args.worker_id, 9)):
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A "
@@ -112,6 +118,14 @@ def _device_count(dev) -> int:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported_args(args)
+
+    import torch
+
+    # full-f32 products on the card, as the serve and recommend CLIs set
+    # them: cuDNN's default is TF32 on, and the CNN head's first cuDNN op
+    # would quietly compute in it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     from fedrec_tpu_torch.config import ExperimentConfig
     from fedrec_tpu_torch.data import load_mind_artifacts
@@ -136,6 +150,8 @@ def main(argv: list[str] | None = None) -> int:
     cfg.data.data_dir = args.data_dir
     if args.synthetic:
         cfg.data.dataset = "synthetic"
+    if args.obs_dir:
+        cfg.obs.dir = args.obs_dir
     cfg.apply_overrides(args.overrides)
 
     if args.dp_epsilon > 0:

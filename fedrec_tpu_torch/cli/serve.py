@@ -62,8 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(N, L, bert_hidden) .npy of cached trunk states "
                         "(default <data-dir>/token_states.npy)")
     p.add_argument("--obs-dir", default=None,
-                   help="not ported (observability artifacts are ROADMAP Queue A item 10); "
-                        "refused")
+                   help="observability artifacts: metrics.jsonl (a record and a registry "
+                        "snapshot every --metrics-every), trace.json and prometheus.txt "
+                        "at shutdown")
     p.add_argument("--seed", type=int, default=0, help="seed of the synthetic table and weights")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; raises without a GPU unless 'cpu')")
@@ -140,12 +141,17 @@ def build_service(args, cfg):
     """The service ``main`` serves (the synthetic or the checkpoint one),
     with the drift probe armed under ``obs.quality``; None after an error
     line when it cannot be built."""
-    for flag, item in (("shard_store", "the sharded store is ROADMAP Queue A item 9"),
-                       ("obs_dir", "observability artifacts are ROADMAP Queue A item 10")):
-        if getattr(args, flag):
-            print(f"[serve] ERROR: --{flag.replace('_', '-')} is not ported to "
-                  f"fedrec_tpu_torch ({item})", file=sys.stderr)
-            return None
+    if args.shard_store:
+        print("[serve] ERROR: --shard-store is not ported to fedrec_tpu_torch (the sharded "
+              "store is ROADMAP Queue A item 9)", file=sys.stderr)
+        return None
+    from fedrec_tpu_torch.config import unported_obs_keys
+
+    for key in unported_obs_keys(cfg.obs):
+        print(f"[serve] ERROR: {key} is not ported to fedrec_tpu_torch (SLOs, alerts, "
+              "fleet telemetry and the wire envelope are ROADMAP Queue A item 10b)",
+              file=sys.stderr)
+        return None
     service = synthetic_service(args, cfg) if args.synthetic else checkpoint_service(args, cfg)
     if service is not None and cfg.obs.quality.enabled and cfg.obs.quality.probe_users > 0:
         # every refresh scores the pinned probe set against both generations
@@ -172,9 +178,14 @@ def main(argv: list[str] | None = None) -> int:
     if service is None:
         return 2
     service.warmup()  # every bucket once before accepting traffic
+    from fedrec_tpu_torch.obs import get_tracer
+
+    # spans are worth their memory only when a trace.json will hold them
+    get_tracer().enabled = bool(args.obs_dir)
     try:
         asyncio.run(serve_forever(
             service, host=args.host, port=args.port, metrics_every_s=args.metrics_every,
+            obs_dir=args.obs_dir, jsonl_max_mb=cfg.obs.jsonl_max_mb,
         ))
     except KeyboardInterrupt:
         print("[serve] interrupted; shutting down", file=sys.stderr)

@@ -9,11 +9,13 @@ section.key=value`` overrides work as they do there
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
 ``train.trainer.Trainer``): ``fed.seq_shards``,
-``fed.elastic.enabled``, ``shard.table``, ``obs.dir``,
-``obs.quality.enabled`` and the chaos keys
-``fed.chaos.refuse_unported_chaos`` names. ``obs.health``'s flight-recorder
-fields are accepted and inert, as they are in the JAX package without
-``obs.dir``.
+``fed.elastic.enabled``, ``shard.table``, ``obs.fleet.collector``,
+``obs.slo.enabled``, the ``obs.watch`` and ``obs.wire`` fields (the
+port speaks no wire that carries the envelope: ROADMAP.md's Queue A item
+10b) and the chaos keys ``fed.chaos.refuse_unported_chaos`` names.
+``obs.health``'s flight-recorder fields are inert
+without ``obs.dir``, as in the JAX package; ``obs.perf.compile_cost`` is
+accepted and inert (the port has no XLA compiles to price).
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ class DataConfig:
     # batches built ahead on a producer thread (data.prefetch.Prefetcher);
     # the queue depth, 0 = off. Same batches in the same order either way
     prefetch_batches: int = 0
+    # host-side batch assembly in the native C++ engine
+    # (data.native_batcher, built with g++ at first use; threaded). The
+    # same batches as the JAX package's engine; raises when it cannot build
+    native_loader: bool = False
 
 
 @dataclass
@@ -66,8 +72,11 @@ class ModelConfig:
     head_dim: int = 20                 # d_k = d_v
     query_dim: int = 200               # additive-attention query hidden
     dropout_rate: float = 0.2
-    user_tower: str = "mha"            # only "mha" is ported
-    text_head_arch: str = "additive"   # only "additive" is ported
+    user_tower: str = "mha"            # "mha" | "gru" (LSTUR-style recurrent tower)
+    # "additive" (the reference's head) | "cnn" (NAML-style Conv1D + ReLU +
+    # additive pooling)
+    text_head_arch: str = "additive"
+    cnn_kernel: int = 3                # CNN head context window
     bert_hidden: int = 768             # frozen-trunk hidden size
     # "table" (decoupled: the user tower trains on a news-vector table, the
     # text head steps once an epoch) | "head" (joint, frozen-trunk token
@@ -298,29 +307,148 @@ class HealthConfig:
     # outlier_k x the cohort median; 0 = off
     outlier_k: float = 3.0
     dump_table_max_mb: int = 512
-    # the XLA recompile watchdog's (obs/device.py, Queue A item 10b): inert
+    # the JAX package's XLA recompile watchdog's; the port compiles no XLA
+    # programs (obs.device.BuildWatch counts the kernels' nvcc builds): inert
     storm_threshold: int = 5
     storm_window_s: float = 60.0
 
 
 @dataclass
 class QualityConfig:
-    """The fields of the JAX package's ``obs.quality`` that the port reads.
-    The serving CLI arms the store's pre-swap drift probe when ``enabled``
-    and ``probe_users > 0`` (``probe_topk``, ``seed``); the trainer refuses
-    ``enabled``, since sliced-evaluation telemetry is not ported."""
+    """Model-quality observability (``obs.quality``), the JAX package's
+    fields and defaults. ``enabled`` turns on the sliced evaluation: the
+    full-pool pass also accumulates per-slice ranking metrics (news-category
+    hash buckets, history-length buckets, client-activity quantile buckets,
+    per-client), score histograms and calibration sums, published as
+    ``eval.*{slice=...}`` gauges (``obs.quality.QualityMonitor``). The
+    serving CLI arms the store's pre-swap drift probe when ``enabled`` and
+    ``probe_users > 0``."""
 
     enabled: bool = False
-    seed: int = 0
+    seed: int = 0                      # seeded slice definitions (category hash)
+    category_buckets: int = 8          # news-category hash buckets
+    hist_len_edges: str = "10,30"      # history-length bucket edges
+    activity_buckets: int = 10         # client-activity quantile buckets; 0 = off
+    per_client: bool = True            # per-client slices + quality-outlier digest
+    ece_bins: int = 10                 # reliability bins over sigmoid(score)
+    score_bins: int = 20               # score histogram over [-range, +range]
+    score_range: float = 10.0
+    outlier_auc_drop: float = 0.05     # quality-outlier AUC drop; 0 = off
     probe_users: int = 32              # drift-probe user vectors; 0 = off
     probe_topk: int = 10
 
 
 @dataclass
+class PerfConfig:
+    """Performance observability (``obs.perf.PerfMonitor``), the JAX
+    package's fields and defaults: per-round ``perf.mfu`` and throughput
+    gauges from the analytic FLOPs model over the H100's peak, a roofline
+    verdict from the round's host spans, device-memory attribution by
+    component (``hbm_components``: the trainer's own tensors), and capture
+    windows (``capture_rounds`` "N" or "N:K", ``capture_drop``) that wrap
+    rounds in ``torch.profiler`` with CUDA activity under
+    ``obs.dir/perf_capture_rNNNN``. ``compile_cost`` is accepted and inert:
+    XLA's ``cost_analysis`` has no counterpart."""
+
+    enabled: bool = False
+    compile_cost: bool = True
+    hbm_components: bool = True
+    capture_rounds: str = ""
+    capture_drop: float = 0.0
+    capture_window: int = 8
+
+
+@dataclass
+class FleetConfig:
+    """Fleet telemetry pushes (not ported: a non-empty ``collector`` raises,
+    naming ROADMAP.md's Queue A item 10b)."""
+
+    collector: str = ""
+    push_every: int = 1
+    push_timeout_s: float = 5.0
+
+
+@dataclass
+class WireConfig:
+    """The wire trace-context envelope (not ported: the port has no wire
+    that carries it, so any field off its default raises, naming
+    ROADMAP.md's Queue A item 10b)."""
+
+    enabled: bool = True
+    window: int = 32
+
+
+@dataclass
+class SloConfig:
+    """Declarative SLOs and burn-rate alerting (not ported: ``enabled``
+    raises, naming ROADMAP.md's Queue A item 10b)."""
+
+    enabled: bool = False
+    objectives: str = ""
+    target: float = 0.99
+    fast_window: int = 12
+    slow_window: int = 60
+    fast_burn: float = 14.4
+    slow_burn: float = 6.0
+
+
+@dataclass
+class WatchConfig:
+    """The alert lifecycle and anomaly detector's knobs (not ported: any
+    field off its default raises, naming ROADMAP.md's Queue A item 10b)."""
+
+    anomaly: bool = True
+    anomaly_z: float = 6.0
+    anomaly_alpha: float = 0.3
+    anomaly_window: int = 32
+    anomaly_warmup: int = 8
+    pending_for: int = 2
+    resolve_after: int = 3
+    flap_max: int = 3
+    flap_window: int = 20
+    history: int = 256
+    drift_churn_max: float = 0.5
+    fleet_straggler_factor: float = 2.0
+    fleet_straggler_evals: int = 3
+    fleet_quorum_factor: float = 3.0
+    fleet_stalled_pushes: int = 3
+
+
+@dataclass
 class ObsConfig:
-    dir: str = ""                      # not ported: artifacts (non-empty raises)
+    """Telemetry: the registry and tracer always record in memory; ``dir``
+    turns on the file artifacts: ``metrics.jsonl`` (per-round records and
+    registry snapshots, rotated past ``jsonl_max_mb``), ``trace.json``
+    (Chrome-trace host spans), ``prometheus.txt``, and the flight
+    recorder's dump under ``flightrec/``. ``fedrec-obs``
+    (``fedrec_tpu_torch.cli.obs``) reads them."""
+
+    dir: str = ""                      # "" = no files written
+    snapshot_every: int = 1            # rounds between registry snapshots
+    trace_capacity: int = 200_000      # host-span ring bound (earliest kept)
+    jsonl_max_mb: float = 0.0          # metrics.jsonl rotation size; 0 = unbounded
     health: HealthConfig = field(default_factory=HealthConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     quality: QualityConfig = field(default_factory=QualityConfig)
+    perf: PerfConfig = field(default_factory=PerfConfig)
+    wire: WireConfig = field(default_factory=WireConfig)
+    slo: SloConfig = field(default_factory=SloConfig)
+    watch: WatchConfig = field(default_factory=WatchConfig)
+
+
+def unported_obs_keys(obs: ObsConfig) -> list[str]:
+    """The ``obs`` keys set to work the port does not run yet (SLOs, alerts,
+    fleet telemetry and the wire envelope: ROADMAP.md's Queue A item 10b):
+    ``fleet.collector``, ``slo.enabled``, and any field of ``watch`` or
+    ``wire`` off its default."""
+    keys = [k for k, on in (("obs.fleet.collector", bool(obs.fleet.collector)),
+                            ("obs.slo.enabled", obs.slo.enabled)) if on]
+    for section in ("watch", "wire"):
+        sub = getattr(obs, section)
+        default = type(sub)()
+        keys += [f"obs.{section}.{f.name}" for f in dataclasses.fields(sub)
+                 if getattr(sub, f.name) != getattr(default, f.name)]
+    return keys
 
 
 EVAL_PROTOCOLS = ("sampled", "full", "last4")
@@ -357,8 +485,13 @@ class ExperimentConfig:
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
 
+    def to_dict(self) -> dict[str, Any]:
+        """The nested dict ``from_dict`` reads (a flight-recorder manifest's
+        ``config``)."""
+        return dataclasses.asdict(self)
+
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "ExperimentConfig":

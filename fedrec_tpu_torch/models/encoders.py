@@ -11,11 +11,28 @@ vectors to a user vector: dropout, then either the dense chain
 kernel E as its backward), which also scores candidates when they are
 passed. Both routes hold the same parameters under the same names, so one
 checkpoint drives either.
+
+The other model families (``model.text_head_arch='cnn'``,
+``model.user_tower='gru'``):
+
+* ``CnnTextHead`` (NAML): a SAME-padded width-``kernel`` convolution over
+  the token states as one ``(L, kernel * bert_hidden) x (kernel *
+  bert_hidden, news_dim)`` product, ReLU, then additive pooling with
+  ``news_dim // 2`` hidden units (kernel A under ``use_pallas``). The
+  product runs in cuBLAS (TF32 follows ``torch.backends.cuda.matmul``), not
+  in cuDNN's convolution.
+* ``GRUUserEncoder`` (LSTUR): dropout, a GRU over the click sequence in
+  Flax's gate layout, then additive pooling over the hidden states (kernel
+  A under ``use_pallas``). The recurrence is plain PyTorch: the input
+  projections of every step as one product, then one ``h W_h`` product a
+  step, so ``torch.func.vmap`` (per-example DP-SGD) maps it; cuDNN's fused
+  RNN has no batching rule.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fedrec_tpu_torch.models.attention import AdditiveAttention, MultiHeadAttention, dense
@@ -152,3 +169,152 @@ class UserEncoder(nn.Module):
             return user if cand_vecs is None else (user, scores)
         x = self.self_attn(x, x, x, mask)
         return self.pool(x, mask)
+
+
+class CnnTextHead(nn.Module):
+    """(..., L, bert_hidden) token states -> (..., news_dim) news vector:
+    Flax ``nn.Conv(news_dim, (kernel,), padding="SAME")``, ReLU, additive
+    pooling. SAME padding puts ``(kernel - 1) // 2`` zero rows before the
+    sequence and ``kernel // 2`` after it (asymmetric for an even kernel).
+
+    ``conv`` is an ``nn.Linear(kernel * bert_hidden, news_dim)`` whose
+    weight column ``j * bert_hidden + c`` is tap ``j`` of input channel
+    ``c``: the Flax ``(kernel, in, out)`` kernel reshaped to ``(kernel *
+    in, out)`` and transposed (``params.from_flax``)."""
+
+    def __init__(
+        self,
+        news_dim: int = 400,
+        bert_hidden: int = 768,
+        kernel: int = 3,
+        stable_softmax: bool = True,
+        dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        if kernel < 1:
+            raise ValueError(f"model.cnn_kernel must be >= 1, got {kernel}")
+        self.kernel = kernel
+        self.conv = nn.Linear(kernel * bert_hidden, news_dim)
+        self.pool = AdditiveAttention(
+            news_dim, news_dim // 2, stable_softmax, dtype, use_pallas
+        )
+        self.dtype = dtype
+
+    def windows(self, token_states: torch.Tensor) -> torch.Tensor:
+        """(..., L, H) -> (..., L, kernel * H): each position's SAME-padded
+        window, taps in order, in the compute dtype."""
+        k = self.kernel
+        x = token_states.to(self.dtype)
+        x = F.pad(x, (0, 0, (k - 1) // 2, k // 2))
+        # (..., L, H, k) -> (..., L, k, H) -> (..., L, k * H)
+        win = x.unfold(-2, k, 1).transpose(-1, -2)
+        return win.reshape(*win.shape[:-2], -1)
+
+    def forward(
+        self, token_states: torch.Tensor, mask: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        x = torch.relu(dense(self.conv, self.windows(token_states), self.dtype))
+        return self.pool(x, mask)
+
+
+class GRUCell(nn.Module):
+    """Flax ``nn.GRUCell``'s parameters: input kernels ``ir``, ``iz``,
+    ``in`` with biases, recurrent kernels ``hr`` and ``hz`` without and
+    ``hn`` with one. One step is::
+
+        r = sigmoid(W_ir x + b_ir + W_hr h)
+        z = sigmoid(W_iz x + b_iz + W_hz h)
+        n = tanh(W_in x + b_in + r * (W_hn h + b_hn))
+        h' = (1 - z) * n + z * h
+    """
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, nn.Linear(in_dim, features))
+        for name in ("hr", "hz"):
+            self.add_module(name, nn.Linear(features, features, bias=False))
+        self.add_module("hn", nn.Linear(features, features))
+        self.features = features
+
+    def input_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(W, b)`` of the three input projections side by side:
+        (3F, in), (3F,), gates in the order r, z, n."""
+        lin = [getattr(self, n) for n in ("ir", "iz", "in")]
+        return torch.cat([m.weight for m in lin]), torch.cat([m.bias for m in lin])
+
+    def recurrent_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(W, b)`` of the three recurrent projections side by side, the
+        bias zero for r and z (Flax's ``hr`` and ``hz`` carry none)."""
+        lin = [getattr(self, n) for n in ("hr", "hz", "hn")]
+        zeros = torch.zeros(2 * self.features, dtype=self.hn.bias.dtype,
+                            device=self.hn.bias.device)
+        return torch.cat([m.weight for m in lin]), torch.cat([zeros, self.hn.bias])
+
+
+def gru_scan(cell: GRUCell, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(N, T, in) -> (N, T, F): the GRU over the time axis from a zero
+    carry, as Flax's ``nn.RNN(GRUCell)`` with ``return_carry=False``. The
+    products compute in ``dtype`` (Flax's ``Dense(dtype=...)``); the carry
+    stays in float32, the parameters' dtype, as Flax's does. Every row runs
+    all T steps: JAX's ``seq_lengths`` does not stop the recurrence at a
+    row's length or zero its pad outputs, and the pool masks them."""
+    w_i, b_i = cell.input_weights()
+    w_h, b_h = cell.recurrent_weights()
+    w_h, b_h = w_h.to(dtype), b_h.to(dtype)
+    # the input projections of all T steps as one product
+    xi = F.linear(x.to(dtype), w_i.to(dtype), b_i.to(dtype))
+    h = torch.zeros((*x.shape[:-2], cell.features), dtype=torch.promote_types(
+        torch.float32, dtype), device=x.device)
+    outs = []
+    for t in range(x.shape[-2]):
+        xr, xz, xn = xi[..., t, :].chunk(3, dim=-1)
+        hr, hz, hn = F.linear(h.to(dtype), w_h, b_h).chunk(3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        outs.append(h)
+    return torch.stack(outs, dim=-2)
+
+
+class GRUUserEncoder(nn.Module):
+    """(..., H, news_dim) clicked-news vectors -> (..., news_dim) user
+    vector: dropout, a GRU over the click sequence (``GRUCell_0``, the Flax
+    tree's name), additive pooling over the hidden states with ``mask``
+    (``None``, every call site's default, pools every position as the MHA
+    tower attends over every position). Has no fused route:
+    ``model.fuse_hot_path`` fuses the MHA tower only."""
+
+    def __init__(
+        self,
+        news_dim: int = 400,
+        query_dim: int = 200,
+        dropout_rate: float = 0.2,
+        stable_softmax: bool = True,
+        dtype: torch.dtype = torch.float32,
+        use_pallas: bool = False,
+    ):
+        super().__init__()
+        self.add_module("GRUCell_0", GRUCell(news_dim, news_dim))
+        self.pool = AdditiveAttention(news_dim, query_dim, stable_softmax, dtype, use_pallas)
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+
+    def forward(
+        self,
+        clicked_vecs: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        train: bool = False,
+        cand_vecs: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        if cand_vecs is not None:
+            raise ValueError(
+                "GRUUserEncoder has no fused-scoring entry (cand_vecs); "
+                "model.fuse_hot_path fuses the MHA user tower only"
+            )
+        x = dropout(clicked_vecs, self.dropout_rate, train, generator)
+        outs = gru_scan(getattr(self, "GRUCell_0"), x, self.dtype)
+        return self.pool(outs, mask)

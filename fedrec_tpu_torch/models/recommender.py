@@ -10,7 +10,7 @@ from torch import nn
 from fedrec_tpu_torch.config import ModelConfig
 from fedrec_tpu_torch.device import torch_dtype
 from fedrec_tpu_torch.models.bert import make_text_encoder
-from fedrec_tpu_torch.models.encoders import TextHead, UserEncoder
+from fedrec_tpu_torch.models.encoders import CnnTextHead, GRUUserEncoder, TextHead, UserEncoder
 
 
 def score_candidates(cand_vecs: torch.Tensor, user_vec: torch.Tensor) -> torch.Tensor:
@@ -43,31 +43,47 @@ class NewsRecommender(nn.Module):
     exposed separately, as in the JAX module.
 
     The news tower (``news_tower``, whose parameters are a client's
-    ``news_params``) is the ``TextHead`` over cached token states, or in
+    ``news_params``) is the text head over cached token states (``TextHead``,
+    or ``CnnTextHead`` under ``text_head_arch='cnn'``), or in
     ``text_encoder_mode='finetune'`` the whole ``models.bert.TextEncoder``
-    (``text_encoder``: the trunk and its head) over token ids."""
+    (``text_encoder``: the trunk and its head) over token ids. The user
+    tower is ``UserEncoder`` (``user_tower='mha'``) or ``GRUUserEncoder``
+    (``'gru'``). Each family's attribute name is shared, as in the Flax
+    tree, and its leaves differ, so snapshots are per family. The JAX
+    module's refusals stand, with its wording."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
-        if cfg.text_head_arch != "additive":
-            raise NotImplementedError(
-                f"model.text_head_arch={cfg.text_head_arch!r} is not ported yet "
-                "(ROADMAP.md's Queue A item 8); the port has 'additive'"
-            )
-        if cfg.user_tower != "mha":
-            raise NotImplementedError(
-                f"model.user_tower={cfg.user_tower!r} is not ported yet (ROADMAP.md's "
-                "Queue A item 8); the port has 'mha'"
-            )
-        if cfg.fuse_hot_path and not cfg.stable_softmax:
-            raise ValueError(
-                "model.fuse_hot_path requires stable_softmax=True (the fused "
-                "kernel computes the max-subtracted form)"
-            )
+        arch = cfg.text_head_arch
+        if arch not in ("additive", "cnn"):
+            raise ValueError(f"unknown model.text_head_arch {arch!r}; have 'additive', 'cnn'")
+        tower = cfg.user_tower
+        if cfg.fuse_hot_path:
+            if tower != "mha":
+                raise ValueError(
+                    "model.fuse_hot_path fuses the MHA user tower; "
+                    f"user_tower={tower!r} has no fused kernel — unset one"
+                )
+            if not cfg.stable_softmax:
+                raise ValueError(
+                    "model.fuse_hot_path requires stable_softmax=True (the "
+                    "fused kernels compute the max-subtracted form; the "
+                    "raw-exp parity mode stays on the dense path)"
+                )
         if cfg.text_encoder_mode == "finetune":
+            # refuses the cnn head, with the JAX package's wording
             self.text_encoder = make_text_encoder(cfg)
+        elif arch == "cnn":
+            self.text_head = CnnTextHead(
+                news_dim=cfg.news_dim,
+                bert_hidden=cfg.bert_hidden,
+                kernel=cfg.cnn_kernel,
+                stable_softmax=cfg.stable_softmax,
+                dtype=dtype,
+                use_pallas=cfg.use_pallas,
+            )
         else:
             self.text_head = TextHead(
                 news_dim=cfg.news_dim,
@@ -76,19 +92,31 @@ class NewsRecommender(nn.Module):
                 dtype=dtype,
                 use_pallas=cfg.use_pallas,
             )
-        self.user_encoder = UserEncoder(
-            news_dim=cfg.news_dim,
-            num_heads=cfg.num_heads,
-            head_dim=cfg.head_dim,
-            query_dim=cfg.query_dim,
-            dropout_rate=cfg.dropout_rate,
-            stable_softmax=cfg.stable_softmax,
-            dtype=dtype,
-            use_pallas=cfg.use_pallas,
-            fuse=cfg.fuse_hot_path,
-            attn_impl=cfg.attn_impl,
-            chunk_threshold=cfg.attn_chunk_threshold,
-        )
+        if tower == "gru":
+            self.user_encoder = GRUUserEncoder(
+                news_dim=cfg.news_dim,
+                query_dim=cfg.query_dim,
+                dropout_rate=cfg.dropout_rate,
+                stable_softmax=cfg.stable_softmax,
+                dtype=dtype,
+                use_pallas=cfg.use_pallas,
+            )
+        elif tower == "mha":
+            self.user_encoder = UserEncoder(
+                news_dim=cfg.news_dim,
+                num_heads=cfg.num_heads,
+                head_dim=cfg.head_dim,
+                query_dim=cfg.query_dim,
+                dropout_rate=cfg.dropout_rate,
+                stable_softmax=cfg.stable_softmax,
+                dtype=dtype,
+                use_pallas=cfg.use_pallas,
+                fuse=cfg.fuse_hot_path,
+                attn_impl=cfg.attn_impl,
+                chunk_threshold=cfg.attn_chunk_threshold,
+            )
+        else:
+            raise ValueError(f"unknown model.user_tower {tower!r}; have 'mha', 'gru'")
 
     @property
     def news_tower(self) -> nn.Module:

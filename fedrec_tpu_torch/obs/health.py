@@ -10,14 +10,22 @@ gauges, flags outlier clients (round-mean update norm above ``outlier_k``
 times the cohort median) and decides whether the round tripped a trigger
 (a non-finite cell, or a loss spike against the trailing-window mean).
 
-The flight recorder (``FlightRecorder``: the batch ring, the dump and its
-replay) needs ``obs.dir`` and is not ported (``ROADMAP.md`` Queue A item
-10b); a JAX run with ``obs.dir`` unset, its default, has none either.
+The flight recorder (``FlightRecorder``, under ``obs.dir`` with
+``obs.health.flight_recorder``) keeps a ring of the last ``ring_size``
+batches and the round-entry state of every client; on a trigger it dumps
+them under ``obs.dir/flightrec/`` with the feature table (up to
+``dump_table_max_mb``), the registry and a ``manifest.json`` with the JAX
+package's keys. ``fedrec-obs replay`` re-runs the dumped steps. The state
+file is the port's own: ``state.pt`` (``torch.save`` of the clients'
+host tensors, as a snapshot's), where JAX writes ``state.msgpack``.
 """
 
 from __future__ import annotations
 
+import json
+import time
 from collections import deque
+from pathlib import Path
 from typing import Any, Mapping
 
 import numpy as np
@@ -105,9 +113,12 @@ class HealthMonitor:
         )
         # outliers found by the most recent check() (post-ignore): the
         # Trainer's quarantine/rollback path reads this — an outlier alone
-        # is not a trigger, but under fed.robust.recover it is a
+        # is not a dump trigger, but under fed.robust.recover it is a
         # quarantine trigger
         self.last_outliers: list[dict] = []
+        # quality-outlier clients from the obs.quality per-client digest:
+        # informational, a quality dip never quarantines
+        self.last_quality_outliers: list[dict] = []
 
     # ------------------------------------------------------------ publish
     def publish_clip_rate(self, clip_rates: np.ndarray) -> None:
@@ -265,3 +276,151 @@ class HealthMonitor:
         if trigger is not None and outliers:
             trigger["outliers"] = outliers
         return trigger
+
+
+class FlightRecorder:
+    """Bounded ring of (batch, rng/step metadata) + chunk-entry state.
+
+    ``start_chunk`` is called at every round entry with a HOST copy of the
+    clients' state (``train.checkpoint.host_states``): replay must start
+    from the state the offending step saw, and the live tensors move on.
+    ``record`` appends one per-step batch record (numpy references, no
+    copies).  ``dump`` writes the whole forensic bundle.
+    """
+
+    def __init__(self, ring_size: int = 16, dump_policy: str = "first",
+                 dump_table_max_mb: int = 512):
+        self.ring_size = max(int(ring_size), 1)
+        self.dump_policy = dump_policy
+        self.dump_table_max_mb = dump_table_max_mb
+        self._ring: deque[dict] = deque(maxlen=self.ring_size)
+        self._state_host: Any = None
+        self._chunk_start_round: int | None = None
+        self._weights: dict[int, list[float]] = {}
+        self._records_seen = 0
+        self._dumped_kinds: set[str] = set()
+        self.dump_count = 0
+        self.last_dump_dir: Path | None = None
+
+    # ------------------------------------------------------------ record
+    def start_chunk(
+        self,
+        round_idx: int,
+        state_host: Any,
+        weights_by_round: Mapping[int, np.ndarray] | None = None,
+    ) -> None:
+        self._ring.clear()
+        self._records_seen = 0
+        self._chunk_start_round = int(round_idx)
+        self._state_host = state_host
+        self._weights = {
+            int(r): np.asarray(w, np.float64).tolist()
+            for r, w in (weights_by_round or {}).items()
+        }
+
+    def record(self, batch: Mapping[str, Any], round_idx: int,
+               epoch_idx: int, step_idx: int) -> None:
+        self._records_seen += 1
+        self._ring.append({
+            "round": int(round_idx),
+            "epoch": int(epoch_idx),
+            "step": int(step_idx),
+            "batch": {k: np.asarray(v) for k, v in batch.items()},
+        })
+
+    # -------------------------------------------------------------- dump
+    def dump(
+        self,
+        out_dir: str | Path,
+        trigger: Mapping[str, Any],
+        cfg: Any = None,
+        registry: MetricsRegistry | None = None,
+        table: Any = None,
+        meta: Mapping[str, Any] | None = None,
+    ) -> Path | None:
+        """Write the forensic bundle; returns the dump directory (None when
+        the dump policy suppressed a repeat dump).
+
+        ``dump_policy='first'`` suppresses repeats PER TRIGGER KIND: an
+        early loss-spike dump must never swallow the later non-finite
+        dump — the NaN's forensics are the ones the operator actually
+        needs, and the spike-round state cannot replay the NaN round."""
+        kind = str(trigger.get("kind", ""))
+        if self.dump_policy == "first" and kind in self._dumped_kinds:
+            return None
+        self._dumped_kinds.add(kind)
+        self.dump_count += 1
+        base = Path(out_dir)
+        dump_dir = base if self.dump_count == 1 else base.with_name(
+            f"{base.name}_{self.dump_count}"
+        )
+        dump_dir.mkdir(parents=True, exist_ok=True)
+
+        manifest: dict[str, Any] = {
+            "kind": "flight_recorder_dump",
+            "created_unix": time.time(),
+            "trigger": dict(trigger),
+            "chunk_start_round": self._chunk_start_round,
+            "weights": self._weights,
+            "ring_size": self.ring_size,
+            # False when the ring dropped the round's early steps: replay
+            # then starts mid-round from the round-entry state (approximate)
+            "ring_complete": self._records_seen <= self.ring_size,
+            "records": [],
+        }
+        if meta:
+            manifest.update(dict(meta))
+        if cfg is not None:
+            manifest["config"] = cfg.to_dict()
+
+        for i, rec in enumerate(self._ring):
+            fname = f"batch_{i:03d}.npz"
+            np.savez(dump_dir / fname, **rec["batch"])
+            manifest["records"].append({
+                "round": rec["round"], "epoch": rec["epoch"],
+                "step": rec["step"], "file": fname,
+            })
+
+        manifest["state_file"] = None
+        if self._state_host is not None:
+            import torch
+
+            torch.save(self._state_host, dump_dir / "state.pt")
+            manifest["state_file"] = "state.pt"
+
+        manifest["table_file"] = None
+        if table is not None:
+            # the size first: a table past the bound never leaves the device
+            nbytes = int(table.nbytes)
+            if nbytes <= self.dump_table_max_mb * 1e6:
+                if hasattr(table, "detach"):  # a tensor, possibly on the card
+                    t = table.detach()
+                    # numpy has no bfloat16: such a table is saved as f32
+                    table = (t.float() if str(t.dtype) == "torch.bfloat16" else t).cpu().numpy()
+                np.save(dump_dir / "table.npy", np.asarray(table))
+                manifest["table_file"] = "table.npy"
+            else:
+                manifest["table_skipped_mb"] = round(nbytes / 1e6, 1)
+
+        manifest["registry_file"] = None
+        if registry is not None:
+            (dump_dir / "registry.json").write_text(
+                json.dumps(registry.snapshot())
+            )
+            manifest["registry_file"] = "registry.json"
+
+        # offending record, if the ring still holds it
+        off = None
+        tr_round, tr_step = trigger.get("round"), trigger.get("step")
+        for rec in manifest["records"]:
+            if rec["round"] == tr_round and (
+                tr_step is None or rec["step"] == tr_step
+            ):
+                off = rec
+                break
+        manifest["offending"] = off
+
+        # manifest last: its presence marks the dump complete
+        (dump_dir / "manifest.json").write_text(json.dumps(manifest, indent=2))
+        self.last_dump_dir = dump_dir
+        return dump_dir

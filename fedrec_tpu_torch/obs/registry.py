@@ -1,10 +1,13 @@
 """Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
 
 A copy of ``fedrec_tpu/obs/registry.py`` (the port imports nothing of the
-JAX package), without its Prometheus exposition, which comes with the rest
-of the observability artifacts (``ROADMAP.md`` Queue A item 10b).
+JAX package) without its fleet labels, with its Prometheus text exposition
+(``snapshot_to_prometheus``: ``prometheus.txt``, the ``prometheus`` admin
+command and ``fedrec-obs prom``) and its JSONL snapshot writer.
 
-* Names are dotted (``serve.p50_ms``, ``health.grad_norm``).
+* Names are dotted (``serve.p50_ms``, ``health.grad_norm``); the
+  exposition sanitizes them (``serve_p50_ms``) and keeps the dotted
+  original in the ``# HELP`` line.
 * Get-or-create is idempotent: ``registry.counter("x")`` from two modules
   returns the same instrument; re-registering a name as another kind, with
   other label names or other buckets raises.
@@ -12,6 +15,8 @@ of the observability artifacts (``ROADMAP.md`` Queue A item 10b).
   semantics (inclusive); ``merge_counts`` adds a whole array's bucket
   counts under one lock (``obs.health`` publishes a round's cells at once).
 * Collectors run just before a snapshot, to refresh derived gauges.
+* ``quantile_from_counts`` is the one percentile estimator of a
+  histogram's buckets (``obs.report``).
 
 ``get_registry`` is the process's default registry; tests swap in a fresh
 one with ``set_registry``.
@@ -19,7 +24,9 @@ one with ``set_registry``.
 
 from __future__ import annotations
 
+import json
 import math
+import re
 import threading
 import time
 from bisect import bisect_left
@@ -29,6 +36,20 @@ from typing import Any, Callable, Mapping, Sequence
 DEFAULT_BUCKETS = (
     0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0
 )
+
+_PROM_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize_prom_name(name: str) -> str:
+    """Dotted internal name -> valid Prometheus metric name."""
+    out = _PROM_NAME_BAD.sub("_", name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _escape_label_value(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
 
 class _Metric:
@@ -249,6 +270,96 @@ class MetricsRegistry:
                 for name, m in sorted(metrics)
             },
         }
+
+    def write_snapshot(self, path) -> dict:
+        """Append one snapshot line to a JSONL event log; returns the snapshot."""
+        snap = self.snapshot()
+        with open(path, "a") as f:
+            f.write(json.dumps(snap) + "\n")
+            f.flush()
+        return snap
+
+    # -------------------------------------------------------- prometheus
+    def to_prometheus(self) -> str:
+        """Text exposition format (version 0.0.4) — the shared
+        :func:`snapshot_to_prometheus` over a fresh snapshot, so the live
+        endpoint and the offline ``fedrec-obs prom`` twin can never
+        drift."""
+        return snapshot_to_prometheus(self.snapshot())
+
+
+def _fmt_labels(labels: Mapping[str, Any]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{sanitize_prom_name(str(k))}="{_escape_label_value(str(v))}"'
+        for k, v in sorted(labels.items())
+    )
+    return "{" + inner + "}"
+
+
+def _fmt_num(v: float) -> str:
+    f = float(v)
+    if not math.isfinite(f):  # the text format's spellings (a run that went NaN)
+        return "NaN" if f != f else ("+Inf" if f > 0 else "-Inf")
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def quantile_from_counts(
+    q: float, bounds: Sequence[float], counts: Sequence[float]
+) -> float | None:
+    """Linear-interpolation quantile over histogram buckets.
+
+    ``bounds``: ascending finite upper bounds; ``counts``: per-bucket
+    counts with the +Inf bucket LAST (``len(counts) == len(bounds) + 1``).
+    ``obs.report.histogram_quantile`` runs it over an exported row.
+    """
+    total = sum(counts)
+    if total == 0 or not bounds:
+        return None
+    rank = q * total
+    cum = 0.0
+    for i, c in enumerate(counts):
+        prev = cum
+        cum += c
+        if cum >= rank and c > 0:
+            if i >= len(bounds):
+                return bounds[-1]  # +Inf bucket: clamp to the last finite bound
+            lo = bounds[i - 1] if i > 0 else 0.0
+            frac = (rank - prev) / c
+            return lo + (bounds[i] - lo) * min(max(frac, 0.0), 1.0)
+    return bounds[-1]
+
+
+def snapshot_to_prometheus(snap: dict) -> str:
+    """Render an (exported or live) registry snapshot dict as Prometheus
+    text.  Dotted internal names are sanitized; the HELP line carries the
+    dotted original so both spellings are greppable.  The one renderer:
+    ``MetricsRegistry.to_prometheus`` and ``fedrec-obs prom`` both call it."""
+    lines: list[str] = []
+    for name, m in sorted(snap.get("metrics", {}).items()):
+        pname = sanitize_prom_name(name)
+        help_text = name + (f" — {m['help']}" if m.get("help") else "")
+        lines.append(f"# HELP {pname} {help_text}")
+        lines.append(f"# TYPE {pname} {m.get('kind', 'untyped')}")
+        for row in m.get("values", []):
+            labels = row.get("labels", {})
+            label_str = _fmt_labels(labels)
+            if "buckets" in row:
+                cum = 0
+                for le, n in row["buckets"].items():
+                    cum += n
+                    le_val = le if le == "+Inf" else repr(float(le))
+                    bl = _fmt_labels({**labels, "le": le_val})
+                    lines.append(f"{pname}_bucket{bl} {cum}")
+                lines.append(f"{pname}_sum{label_str} {_fmt_num(row['sum'])}")
+                lines.append(f"{pname}_count{label_str} {int(row['count'])}")
+            else:
+                lines.append(f"{pname}{label_str} {_fmt_num(row['value'])}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
 
 
 _default_registry = MetricsRegistry()

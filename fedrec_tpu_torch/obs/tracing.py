@@ -1,55 +1,185 @@
-"""Host spans kept in a bounded in-memory list: the part of
-``fedrec_tpu/obs/tracing.py`` the port's serving and training loops call
-(its Chrome-trace export is ``ROADMAP.md`` Queue A item 10b)."""
+"""Host-side span tracer emitting Chrome-trace / Perfetto JSON, a copy of
+``fedrec_tpu/obs/tracing.py``.
+
+The profiler answers "what did the DEVICE do"; it says nothing about the
+host-side round structure (batch build, dispatch, aggregation, eval) or the
+serving request lifecycle. This tracer records those as wall-clock spans
+and writes them in the Chrome trace event format (``{"traceEvents":
+[...]}``), which ``chrome://tracing`` and https://ui.perfetto.dev load.
+
+Correlating host and device: the trainer wraps every round in both a host
+span here and a ``torch.profiler.record_function("fed_round#N")``, so a
+CUDA trace captured around it (``obs.perf.capture_rounds``) carries the same
+round numbers as the host spans.
+
+* Cheap when idle: a span is a clock read and a list append under a lock;
+  no I/O until ``save()``.
+* Bounded: at most ``capacity`` events are kept (earliest win); the rest
+  count in ``dropped``, stamped into the saved file's ``otherData``.
+* Timestamps are monotonic (``time.perf_counter`` from the tracer's epoch,
+  in microseconds) and ``save()`` sorts events.
+
+Spans measured on another clock use :meth:`Tracer.add_span` with an
+explicit duration; only the end is placed on the tracer clock.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import threading
 import time
-from contextlib import contextmanager
 from typing import Any, Iterator
 
 
 class Tracer:
-    """Host spans kept in a bounded list; ``enabled=False`` records nothing."""
+    """Bounded in-memory recorder of Chrome-trace events."""
 
     def __init__(self, capacity: int = 200_000, clock=time.perf_counter):
-        self.capacity = capacity
+        self.capacity = int(capacity)
+        # enabled=False makes every record a no-op that also skips the drop
+        # counter — the switch for processes that will never save a trace
+        # (e.g. fedrec-serve without --obs-dir), so per-request spans cost
+        # neither memory nor lock traffic there
         self.enabled = True
         self._clock = clock
-        self._events: list[dict] = []
+        self._t0 = clock()
+        self._epoch_unix = time.time()
         self._lock = threading.Lock()
+        self._events: list[dict] = []
+        self.dropped = 0
+        self._pid = os.getpid()
 
+    # ------------------------------------------------------------- clock
+    def now(self) -> float:
+        """Seconds on the tracer clock (pair with :meth:`add_span`)."""
+        return self._clock()
+
+    def _us(self, t: float) -> float:
+        return (t - self._t0) * 1e6
+
+    # ----------------------------------------------------------- record
     def _append(self, ev: dict) -> None:
+        if not self.enabled:
+            return
         with self._lock:
-            if len(self._events) < self.capacity:
-                self._events.append(ev)
+            if len(self._events) >= self.capacity:
+                self.dropped += 1
+                return
+            self._events.append(ev)
 
-    @contextmanager
+    @contextlib.contextmanager
     def span(self, name: str, **args: Any) -> Iterator[None]:
+        """Record the enclosed block as one complete ("X") event."""
         if not self.enabled:
             yield
             return
-        t0 = self._clock()
+        start = self._clock()
         try:
             yield
+        except BaseException as e:
+            args = {**args, "error": type(e).__name__}
+            raise
         finally:
-            self._append({"name": name, "dur_s": self._clock() - t0, "args": args})
+            end = self._clock()
+            self._append({
+                "name": name,
+                "ph": "X",
+                "ts": self._us(start),
+                "dur": (end - start) * 1e6,
+                "pid": self._pid,
+                "tid": threading.get_ident() % 0x7FFFFFFF,
+                **({"args": args} if args else {}),
+            })
 
-    def add_span(self, name: str, dur_s: float, **args: Any) -> None:
-        if self.enabled:
-            self._append({"name": name, "dur_s": float(dur_s), "args": args})
+    def add_span(
+        self, name: str, dur_s: float, end: float | None = None, **args: Any
+    ) -> None:
+        """Record a span of known duration ending at ``end`` (tracer-clock
+        seconds, default now).  For intervals whose start was stamped on a
+        DIFFERENT monotonic clock: only the duration crosses over, so no
+        cross-clock timestamp arithmetic can skew the timeline."""
+        if not self.enabled:
+            return
+        end = self._clock() if end is None else end
+        dur_s = max(float(dur_s), 0.0)
+        self._append({
+            "name": name,
+            "ph": "X",
+            "ts": self._us(end - dur_s),
+            "dur": dur_s * 1e6,
+            "pid": self._pid,
+            "tid": threading.get_ident() % 0x7FFFFFFF,
+            **({"args": args} if args else {}),
+        })
+
+    def instant(self, name: str, **args: Any) -> None:
+        self._append({
+            "name": name,
+            "ph": "i",
+            "s": "t",
+            "ts": self._us(self._clock()),
+            "pid": self._pid,
+            "tid": threading.get_ident() % 0x7FFFFFFF,
+            **({"args": args} if args else {}),
+        })
+
+    # ------------------------------------------------------------ export
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def event_count(self) -> int:
+        """How many events are recorded — pair with :meth:`events_since`
+        for incremental readers (obs.perf digests only the spans of the
+        round that just ended) without copying the whole ring each
+        round."""
+        with self._lock:
+            return len(self._events)
+
+    def events_since(self, start: int) -> list[dict]:
+        """The events recorded at index ``start`` onward (a prior
+        :meth:`event_count` reading)."""
+        with self._lock:
+            return list(self._events[start:])
+
+    def to_chrome(self) -> dict:
+        """Chrome trace event JSON object; events sorted by ``ts`` so the
+        exported timeline is monotonic."""
+        evs = sorted(self.events(), key=lambda e: e["ts"])
+        return {
+            "traceEvents": evs,
+            "displayTimeUnit": "ms",
+            "otherData": {
+                "producer": "fedrec_tpu_torch.obs",
+                "epoch_unix": self._epoch_unix,
+                "dropped_events": self.dropped,
+            },
+        }
+
+    def save(self, path) -> dict:
+        """Write the Perfetto/Chrome-trace JSON; returns what was written."""
+        doc = self.to_chrome()
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        return doc
 
 
-_tracer = Tracer()
+# ------------------------------------------------------------- global default
+_default_tracer = Tracer()
+_default_lock = threading.Lock()
 
 
 def get_tracer() -> Tracer:
-    return _tracer
+    """The process-wide default tracer every subsystem records into."""
+    return _default_tracer
 
 
 def set_tracer(tracer: Tracer) -> Tracer:
     """Swap the default tracer (tests); returns the previous one."""
-    global _tracer
-    prev, _tracer = _tracer, tracer
-    return prev
+    global _default_tracer
+    with _default_lock:
+        prev = _default_tracer
+        _default_tracer = tracer
+        return prev

@@ -34,8 +34,9 @@
 //          instance also stores the unrounded tanh e32 (R, Ah).
 //   ids    one block per id: the nh partial logits added in order, the
 //          softmax, the pool alpha . x (re-reading the id's row), and in D
-//          the walk back dalpha, dlg, dpre = dlg w2 (1 - e32^2) in place of
-//          e32, and the id's dw2 share.
+//          the walk back dalpha, dlg (made to sum to zero over the id's
+//          row), dpre = dlg w2 (1 - e32^2) in place of e32, and the id's
+//          dw2 share.
 //   fc     the projection (U x Dh) . (Dh x D) (C) and dpooled = g fcW^T (D)
 //          as one tiled CUDA-core product over all ids (2.2 GFLOP each, in
 //          full f32): fcW is read once per 64 ids, not once per id.
@@ -374,7 +375,19 @@ __global__ void __launch_bounds__(kIdThreads)
     float s = 0.f;
     for (int t = lane; t < dm.T; t += 32) s = fmaf(alpha[t], dalpha[t], s);
     s = warp_sum(s);
-    for (int t = lane; t < dm.T; t += 32) dlg[t] = alpha[t] * (dalpha[t] - s);
+    float r = 0.f, sa = 0.f;
+    for (int t = lane; t < dm.T; t += 32) {
+      dlg[t] = alpha[t] * (dalpha[t] - s);
+      r += dlg[t];
+      sa += alpha[t];
+    }
+    // the logit cotangents sum to zero, as the exact gradient's do: take
+    // their rounded sum out in proportion to alpha (a title's token states
+    // share a common part, which would carry it into db1 and dw2)
+    r = warp_sum(r);
+    sa = warp_sum(sa);
+    const float c = sa > 0.f ? r / sa : 0.f;
+    for (int t = lane; t < dm.T; t += 32) dlg[t] -= alpha[t] * c;
   }
   __syncthreads();
   // dpre = dlg w2 (1 - e32^2) in place of e32; this id's shares:

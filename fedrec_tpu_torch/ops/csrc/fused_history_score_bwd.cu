@@ -6,7 +6,11 @@
 // returns dx (n, H, D), dcand (n, C, D) and the nine weight cotangents: dWq,
 // dWk, dWv (D, D) and their biases, dpw1 (D, Q), dpb1 and dpw2 (Q). The mask
 // gets none. As in the JAX kernel, the backward treats each softmax's
-// stabilising max as a constant, runs in f32, and reads the forward's
+// stabilising max as a constant and runs in f32; unlike it, each softmax's
+// logit cotangents are made to sum to zero over their row, as the exact
+// gradient's do (autograd's path through the max does the same in the plain
+// version), so that where the softmax's inputs share a large common part the
+// weight gradients that cancel keep their precision. It reads the forward's
 // rounded q/k/v and ctx but its unrounded attention weights, pool hidden
 // e32, pool weights and user vector. The masked softmax is
 // exp(v - max) * mask / (sum + 1e-8).
@@ -28,7 +32,8 @@
 //       on the train path) fill the card;
 //   (c) pool_bwd_kernel, one block per history row: the pool's softmax from
 //       the logits (a), the user vector, the scorer (dcand, du) and the pool
-//       backward (dalpha, dlg, dpre over e32, this row's dpw2 share);
+//       backward (dalpha, dlg made to sum to zero, dpre over e32, this row's
+//       dpw2 share);
 //   (d) the weight sums by wgrad.cuh: x^T [dQ|dK|dV] and ctx^T dpre on the
 //       tensor cores (wgrad_tc), the column sums on CUDA cores (wgrad).
 // Order: (a) q|k|v -> (b) forward -> (a) e32 -> (c) -> (a) dctx -> (b)
@@ -58,7 +63,8 @@ __host__ __device__ inline size_t pool_smem_floats(const Dims& d) {
 // One history row a block: logits (the column tiles' partials in order),
 // alpha = the masked softmax (unrounded), user = round(alpha) . ctx, the
 // scorer's dcand = g_scores user and du = g_user + g_scores cand, then
-// dalpha = du . ctx, dlg = alpha (dalpha - alpha . dalpha), dpre = dlg pw2
+// dalpha = du . ctx, dlg = alpha (dalpha - alpha . dalpha) less alpha times
+// its rounded sum over the row, dpre = dlg pw2
 // (1 - e32^2) over e32, this row's dpw2 share dlg . e32, and alpha and du
 // to scratch for the dctx epilogue.
 template <typename T>
@@ -121,10 +127,21 @@ __global__ void __launch_bounds__(kPoolThreads)
     float s = 0.f;
     for (int t = lane; t < H; t += 32) s = fmaf(alpha[t], dalpha[t], s);
     s = warp_sum(s);
+    float r = 0.f, sa = 0.f;
     for (int t = lane; t < H; t += 32) {
       dlg[t] = alpha[t] * (dalpha[t] - s);
+      r += dlg[t];
+      sa += alpha[t];
       g_alpha[row0 + t] = alpha[t];
     }
+    // the logits' cotangents sum to zero (the softmax is shift-invariant;
+    // autograd's path through the max makes it so): take their rounded sum
+    // out in proportion to alpha, else it meets the pool hidden's common
+    // part in dpw1, dpb1 and dpw2, whose true values cancel
+    r = warp_sum(r);
+    sa = warp_sum(sa);
+    const float c = sa > 0.f ? r / sa : 0.f;
+    for (int t = lane; t < H; t += 32) dlg[t] -= alpha[t] * c;
   }
   __syncthreads();
   for (int j = tid; j < Q; j += blockDim.x) {

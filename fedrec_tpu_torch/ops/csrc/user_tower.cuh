@@ -335,7 +335,8 @@ __host__ __device__ inline size_t attn_smem_floats(const Dims& d, bool bwd) {
 
 // One (history row, head) a block. Forward: ctx[:, head] = round(softmax(
 // q k^T / sqrt(dh)) v) into `out` (R, D). Backward: the softmax recomputed
-// (unrounded), da = dctx v^T, ds = a (da - sum(a da)) / sqrt(dh), then
+// (unrounded), da = dctx v^T, ds = a (da - sum(a da)), less a times its
+// rounded row sum, over sqrt(dh), then
 // dq = ds k, dk = ds^T q, dv = a^T dctx into `out` (R, 3D).
 template <typename T, bool BWD>
 __global__ void __launch_bounds__(kAttThreads)
@@ -385,7 +386,17 @@ __global__ void __launch_bounds__(kAttThreads)
       float s = 0.f;
       for (int u = lane; u < H; u += 32) s = fmaf(a[u], da[t * H + u], s);
       s = warp_sum(s);
-      for (int u = lane; u < H; u += 32) da[t * H + u] = a[u] * (da[t * H + u] - s) / scale;
+      float r = 0.f, sa = 0.f;
+      for (int u = lane; u < H; u += 32) {
+        da[t * H + u] = a[u] * (da[t * H + u] - s);
+        r += da[t * H + u];
+        sa += a[u];
+      }
+      // the row's score cotangents sum to zero, as in pool_bwd_kernel
+      r = warp_sum(r);
+      sa = warp_sum(sa);
+      const float c = sa > 0.f ? r / sa : 0.f;
+      for (int u = lane; u < H; u += 32) da[t * H + u] = (da[t * H + u] - a[u] * c) / scale;
     } else {
       for (int u = lane; u < H; u += 32) a[u] = round_to<T>(a[u]);
     }

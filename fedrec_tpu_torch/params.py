@@ -10,15 +10,22 @@
 
 or like a finetune-mode ``TextEncoder``'s (``{"trunk": {...}, "head":
 {...}}``, ``models.bert``) into a module whose submodule names follow the
-same paths. Three kinds of leaf: a Dense (``{"kernel", "bias"}``) loads
-into an ``nn.Linear``, its (in, out) kernel transposed to the (out, in)
-weight (``att_fc2``'s (hidden, 1) kernel becomes a (1, hidden) weight); an
-Embed (``{"embedding"}``) into an ``nn.Embedding``; a LayerNorm
-(``{"scale", "bias"}``) into an ``nn.LayerNorm``, ``scale`` as its weight.
+same paths. Three kinds of leaf: a Dense (``{"kernel", "bias"}``, or
+``{"kernel"}`` for the GRU's bias-free ``hr`` and ``hz``) loads into an
+``nn.Linear``, its (in, out) kernel transposed to the (out, in) weight
+(``att_fc2``'s (hidden, 1) kernel becomes a (1, hidden) weight), and a 1-D
+Conv's (k, in, out) kernel (the CNN head's ``text_head/conv``) is first
+reshaped to (k * in, out), tap-major, the layout of
+``models.encoders.CnnTextHead.conv``; an Embed (``{"embedding"}``) into an
+``nn.Embedding``; a LayerNorm (``{"scale", "bias"}``) into an
+``nn.LayerNorm``, ``scale`` as its weight. The GRU tower's leaves sit under
+``user_encoder/GRUCell_0/{ir,iz,in,hr,hz,hn}``, as in the Flax tree.
 
 ``init_params`` gives a module Flax's default initialisation from a seeded
-``torch.Generator``: LeCun-normal Dense kernels and Embed tables (truncated
-normal), Xavier-uniform Q/K/V kernels, zero biases, unit LayerNorm scales.
+``torch.Generator``: LeCun-normal Dense and Conv kernels (a Conv's fan-in
+is k * in, its ``nn.Linear``'s ``in_features``) and Embed tables
+(truncated normal), Xavier-uniform Q/K/V kernels, orthogonal GRU recurrent
+kernels (``hr``, ``hz``, ``hn``), zero biases, unit LayerNorm scales.
 The draws differ from JAX's own for the same seed; tests that compare the
 two load one tree into both.
 """
@@ -34,6 +41,8 @@ from torch import nn
 
 # std of a unit normal truncated to [-2, 2] (flax variance_scaling's divisor)
 _TRUNC_STD = 0.87962566103423978
+# the GRU cell's recurrent kernels (flax nn.GRUCell: orthogonal init)
+_RECURRENT = ("hr", "hz", "hn")
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = ""):
@@ -54,11 +63,19 @@ def _leaf_tensors(path: str, leaf: Mapping[str, Any], layer: nn.Module) -> dict[
         raise KeyError(f"Flax path {path!r} maps to {type(layer).__name__}, "
                        f"not {kinds[kind].__name__}")
     if kind == "kernel":
-        weight = np.array(np.asarray(leaf["kernel"], np.float32).T, order="C")
+        kernel = np.asarray(leaf["kernel"], np.float32)
+        if kernel.ndim == 3:  # a 1-D Conv: (k, in, out) -> (k * in, out)
+            kernel = kernel.reshape(-1, kernel.shape[-1])
+        weight = np.array(kernel.T, order="C")
     else:
         weight = np.array(leaf[kind], np.float32)
     out = {"weight": weight}
-    if kind != "embedding":
+    if kind == "embedding":
+        return out
+    if ("bias" in leaf) != (layer.bias is not None):
+        raise ValueError(f"{path}: the Flax leaf {'has' if 'bias' in leaf else 'has no'} bias, "
+                         f"the {type(layer).__name__} {'has none' if 'bias' in leaf else 'has one'}")
+    if "bias" in leaf:
         out["bias"] = np.array(leaf["bias"], np.float32)
     return out
 
@@ -107,13 +124,18 @@ def init_params(module: nn.Module, seed: int = 0) -> nn.Module:
     with torch.no_grad():
         for name, layer in module.named_modules():
             if isinstance(layer, nn.Linear):
-                if name.rsplit(".", 1)[-1] in ("w_q", "w_k", "w_v"):
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf in ("w_q", "w_k", "w_v"):
                     w = torch.empty(layer.weight.shape, dtype=torch.float32)
                     nn.init.xavier_uniform_(w, generator=gen)
+                elif leaf in _RECURRENT and name.rsplit(".", 2)[-2] == "GRUCell_0":
+                    w = torch.empty(layer.weight.shape, dtype=torch.float32)
+                    nn.init.orthogonal_(w, generator=gen)
                 else:
                     w = lecun(layer.weight.shape, layer.in_features)
                 layer.weight.copy_(w)
-                layer.bias.zero_()
+                if layer.bias is not None:
+                    layer.bias.zero_()
             elif isinstance(layer, nn.Embedding):
                 # flax's default_embed_init: variance scaling over the features
                 layer.weight.copy_(lecun(layer.weight.shape, layer.embedding_dim))

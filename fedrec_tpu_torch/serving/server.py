@@ -1,7 +1,7 @@
 """Long-lived TCP/JSON-lines recommendation service, the port of
-``fedrec_tpu/serving/server.py`` (plain JSON lines: the wire trace
-envelope and the ``alerts`` / ``prometheus`` commands are ROADMAP.md's
-Queue A item 10).
+``fedrec_tpu/serving/server.py`` (plain JSON lines: a request carrying the
+wire trace envelope, ``"_wire"``, is refused by name, ROADMAP.md's Queue A
+item 10b).
 
 Wire protocol (one JSON object per line; responses carry the request's
 ``id`` back so clients may pipeline):
@@ -12,6 +12,10 @@ Wire protocol (one JSON object per line; responses carry the request's
   "deadline_met": true, "latency_ms": 4.1}``
   (plus ``"news": [nid, ...]`` when the service holds an id map);
 * admin    ``{"cmd": "metrics"}`` -> ``{"metrics": {...}}``;
+* admin    ``{"cmd": "prometheus"}`` -> ``{"prometheus": "<text exposition>"}``
+  (the whole registry);
+* admin    ``{"cmd": "alerts"}`` -> ``{"alerts": {"active": [], "recent": []}}``
+  (the JAX server's answer when no watch layer runs; the port has none);
 * admin    ``{"cmd": "refresh", "snapshot_dir": "...", "token_states":
   "...npy"}`` (optional ``"valid_mask": "...npy"``, ``"dtype"``) ->
   hot-swap the store from the newest training snapshot and report the new
@@ -31,6 +35,7 @@ import json
 import time
 from collections import deque
 from functools import partial
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -49,6 +54,8 @@ from fedrec_tpu_torch.serving.store import (
 )
 
 _FN_CACHE_GENERATIONS = 2
+# the JAX package's wire trace-envelope key (obs/wire.py), refused here
+WIRE_KEY = "_wire"
 # token-state rows a refresh copies to the card at a time, through two
 # pinned buffers of this size (39 MB each at the defaults' (50, 768) f32 rows)
 _H2D_ROWS = 256
@@ -254,6 +261,9 @@ class ServingService:
         if "cmd" in req:
             return await self._admin(req)
         rid = req.get("id")
+        if WIRE_KEY in req:
+            return {"id": rid, "error": f"unported: the obs.wire trace envelope ({WIRE_KEY!r}) "
+                                        "is ROADMAP.md's Queue A item 10b"}
         try:
             result = await self.batcher.submit(
                 req.get("history") or [], deadline_ms=req.get("deadline_ms")
@@ -290,6 +300,12 @@ class ServingService:
         cmd = req.get("cmd")
         if cmd == "metrics":
             return {"metrics": self.metrics()}
+        if cmd == "alerts":
+            # no watch layer runs in the port: the JAX server's answer for
+            # an unwatched server, the empty shape, not an error
+            return {"alerts": {"active": [], "recent": []}}
+        if cmd == "prometheus":
+            return {"prometheus": self.registry.to_prometheus()}
         if cmd == "refresh":
             try:
                 prepared = await asyncio.get_running_loop().run_in_executor(
@@ -360,6 +376,12 @@ class ServingService:
         return table, model.user_encoder, valid_mask, round_, f"checkpoint:{kind}", fn
 
     # ------------------------------------------------------------ metrics
+    def log_metrics(self, logger, step: int) -> None:
+        """The metric snapshot through ``utils.logging.MetricLogger``
+        (``serve.``-prefixed keys)."""
+        logger.log(step, {f"serve.{k}": v for k, v in self.metrics().items()
+                          if not isinstance(v, dict)})
+
     def metrics(self) -> dict:
         lat = np.asarray(self._latencies, np.float64)
         out = {
@@ -442,11 +464,25 @@ async def serve_forever(
     host: str = "127.0.0.1",
     port: int = 7607,
     metrics_every_s: float = 30.0,
+    obs_dir: str | None = None,
+    jsonl_max_mb: float = 0.0,
 ) -> None:
     """Listen until SIGINT/SIGTERM, printing a metrics JSON line every
     ``metrics_every_s``. The signal only sets an event, so the in-flight
-    batch completes and queued requests fail cleanly."""
+    batch completes and queued requests fail cleanly. With ``obs_dir``
+    each beat also appends the metrics record and a registry snapshot to
+    ``obs_dir/metrics.jsonl`` (rotated past ``jsonl_max_mb``), and the
+    shutdown writes the artifacts (``obs.report.dump_artifacts``)."""
     import signal
+
+    logger = None
+    if obs_dir is not None:
+        from fedrec_tpu_torch.utils.logging import MetricLogger
+
+        Path(obs_dir).mkdir(parents=True, exist_ok=True)
+        logger = MetricLogger(jsonl_path=str(Path(obs_dir) / "metrics.jsonl"),
+                              registry=service.registry, jsonl_max_mb=jsonl_max_mb)
+    step = 0
 
     server = await start_server(service, host, port)
     addr = server.sockets[0].getsockname()
@@ -460,9 +496,19 @@ async def serve_forever(
             pass
 
     async def beat() -> None:
+        nonlocal step
         while True:
             await asyncio.sleep(metrics_every_s)
+            step += 1
             print(json.dumps({"serve_metrics": service.metrics()}), flush=True)
+            if logger is not None:
+                # periodic snapshots keep the event log useful when the
+                # server is killed rather than signalled
+                from fedrec_tpu_torch.obs.report import rotate_jsonl
+
+                service.log_metrics(logger, step)
+                rotate_jsonl(Path(obs_dir) / "metrics.jsonl", jsonl_max_mb)
+                service.registry.write_snapshot(Path(obs_dir) / "metrics.jsonl")
 
     heartbeat = asyncio.ensure_future(beat())
     try:
@@ -473,3 +519,8 @@ async def serve_forever(
         server.close()
         await server.wait_closed()
         await service.stop()
+        if obs_dir is not None:
+            from fedrec_tpu_torch.obs.report import dump_artifacts
+
+            paths = dump_artifacts(obs_dir, registry=service.registry)
+            print(f"[serve] obs artifacts in {obs_dir}: {', '.join(sorted(paths))}", flush=True)

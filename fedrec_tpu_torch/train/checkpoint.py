@@ -215,6 +215,19 @@ def _load_into(template: list[ClientState], snap: dict) -> list[ClientState]:
     return template
 
 
+def host_states(states: list[ClientState], round_idx: int) -> dict:
+    """Every client's state as host tensors, in a snapshot's layout (the
+    flight recorder's round-entry copy)."""
+    return {"round": int(round_idx), "clients": [_client_snapshot(st) for st in states]}
+
+
+def load_host_states(template: list[ClientState], snap: dict) -> list[ClientState]:
+    """``host_states``' dict (or a loaded snapshot) into ``template``'s
+    clients in place, after the same structure check as ``restore``."""
+    _check_against(template, snap)
+    return _load_into(template, snap)
+
+
 class SnapshotManager:
     """``save`` / ``latest_round`` / ``restore`` over a directory of
     per-round snapshots, the interface of the JAX package's orbax manager.

@@ -9,9 +9,10 @@ trunk's cached token states, a (N, T, bert_hidden) table on the device:
      unique, padded with id 0 to a static size, as ``jnp.unique(size=...,
      fill_value=0)``), so a news id that recurs is encoded once;
   2. the unique ids' token-state rows go through the text head — with
-     ``model.fuse_hot_path``, kernels C (forward) and D (backward) gather
-     each row straight from the table; otherwise the rows are gathered and
-     run through ``TextHead`` (kernel A under ``use_pallas``);
+     ``model.fuse_hot_path`` and the additive head, kernels C (forward) and
+     D (backward) gather each row straight from the table; otherwise (the
+     CNN head too, as in JAX) the rows are gathered and run through the
+     text head (kernel A under ``use_pallas``);
   3. the user tower and scorer run on the gathered vectors (kernels B and E
      with ``fuse_hot_path``), then sigmoid-then-CE in f32;
   4. each tower steps its own optimizer chain (``train.state``), after the
@@ -81,7 +82,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from fedrec_tpu_torch.config import ExperimentConfig
+from fedrec_tpu_torch.config import ExperimentConfig, unported_obs_keys
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.eval.metrics import (
     full_pool_metrics_batch,
@@ -348,12 +349,9 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
         ("fed.elastic.enabled (elastic membership, the coordinator's lease service: "
          "ROADMAP.md's Queue A item 9)", cfg.fed.elastic.enabled),
         ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
-        ("obs.dir (observability artifacts, ROADMAP.md's Queue A item 10b)", bool(cfg.obs.dir)),
-        ("obs.quality.enabled (sliced-evaluation telemetry, ROADMAP.md's Queue A item 10b)",
-         cfg.obs.quality.enabled),
-        (f"model.text_head_arch={cfg.model.text_head_arch!r} (ROADMAP.md's Queue A item 8)",
-         cfg.model.text_head_arch != "additive"),
     ]
+    levers += [(f"{key} (SLOs, alerts, fleet telemetry and the wire envelope: ROADMAP.md's "
+                "Queue A item 10b)", True) for key in unported_obs_keys(cfg.obs)]
     for name, on in levers:
         if on:
             raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")

@@ -86,10 +86,20 @@ fixed world's round weights are the participation mask
 (``hash((train.seed, round))``, bitwise JAX's) times the chaos plan's
 drop/straggle mask times the quarantine exclusion.
 
+Observability. Metrics go to the ``obs`` registry and a print per round;
+the round (``fed_round``, with a ``torch.profiler.record_function`` of the
+same round), ``batch_build``, ``h2d``, ``dispatch``, ``aggregate``,
+``eval``, rollback and quorum-replay spans to the ``obs`` tracer. With
+``obs.dir`` the run writes ``metrics.jsonl`` (a record and a registry
+snapshot a round), ``trace.json`` and ``prometheus.txt`` on every exit, and
+the flight recorder keeps the round's batches and entry state, dumped on a
+health trigger or an exception. ``obs.quality.enabled`` adds the sliced
+evaluation, ``obs.perf.enabled`` the MFU and roofline gauges and the
+capture windows. ``data.native_loader`` feeds the fixed world from the C++
+engine (``data.native_batcher``).
+
 The levers this trainer does not run are refused by name at construction
-(``train.step._refuse_unported``). Metrics go to the ``obs`` registry and
-a print per round; the round, rollback and quorum-replay spans to the
-``obs`` tracer.
+(``train.step._refuse_unported``).
 """
 
 from __future__ import annotations
@@ -114,6 +124,7 @@ from fedrec_tpu_torch.data import (
     process_shard_indices,
 )
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
+from fedrec_tpu_torch.eval.metrics import QUALITY_SUM_KEYS
 from fedrec_tpu_torch.fed.chaos import FaultPlan
 from fedrec_tpu_torch.fed.population import (
     SIDECAR_FIELDS,
@@ -127,6 +138,9 @@ from fedrec_tpu_torch.fed.sampling import CohortSampler, validate_sampler_mode
 from fedrec_tpu_torch.fed.strategies import ServerOptimizer, get_strategy, participation_mask
 from fedrec_tpu_torch.models import NewsRecommender
 from fedrec_tpu_torch.obs import HealthMonitor, TrainingHealthError, get_registry, get_tracer
+from fedrec_tpu_torch.obs.device import BuildWatch, sample_device_memory
+from fedrec_tpu_torch.obs.health import FlightRecorder
+from fedrec_tpu_torch.obs.report import dump_artifacts, rotate_jsonl
 from fedrec_tpu_torch.params import from_flax, init_params
 from fedrec_tpu_torch.train.checkpoint import (
     POPULATION_SIDECAR,
@@ -134,6 +148,7 @@ from fedrec_tpu_torch.train.checkpoint import (
     SERVER_OPT_SIDECAR,
     SnapshotManager,
     atomic_write_bytes,
+    host_states,
     load_population_state,
     population_state_bytes,
 )
@@ -153,12 +168,14 @@ from fedrec_tpu_torch.train.step import (
     encode_all_news,
     encode_corpus_tokens,
 )
+from fedrec_tpu_torch.utils.logging import MetricLogger
 
 # the model knobs that change the parameter tree: a snapshot written under
-# other values cannot load; the trunk's shape the tree only in a finetune
-# snapshot, which holds the trunk
+# other values cannot load (the text-head family and its conv width shape
+# the text head as user_tower shapes the user tower); the trunk's shape the
+# tree only in a finetune snapshot, which holds the trunk
 _TREE_KNOBS = ("user_tower", "news_dim", "num_heads", "head_dim", "query_dim",
-               "text_encoder_mode", "bert_hidden", "text_head_arch")
+               "text_encoder_mode", "bert_hidden", "text_head_arch", "cnn_kernel")
 _TRUNK_KNOBS = ("trunk_layers", "trunk_heads", "trunk_ffn", "trunk_vocab")
 _EVAL_BATCH = 256
 
@@ -268,9 +285,16 @@ class Trainer:
             # this process's disjoint shard of the training set
             train_ix = train_ix.take(process_shard_indices(
                 len(train_ix), cfg.data.num_shards, cfg.data.shard_index, cfg.data.seed))
-        self.batcher = TrainBatcher(train_ix, cfg.data.batch_size, cfg.data.npratio,
-                                    shuffle=cfg.data.shuffle,
-                                    drop_remainder=cfg.data.drop_remainder, seed=cfg.data.seed)
+        batcher_cls = TrainBatcher
+        if cfg.data.native_loader:
+            # the C++ engine (built at first use; raises when it cannot be
+            # built, where the JAX trainer falls back to the Python batcher)
+            from fedrec_tpu_torch.data.native_batcher import NativeTrainBatcher
+
+            batcher_cls = NativeTrainBatcher
+        self.batcher = batcher_cls(train_ix, cfg.data.batch_size, cfg.data.npratio,
+                                   shuffle=cfg.data.shuffle,
+                                   drop_remainder=cfg.data.drop_remainder, seed=cfg.data.seed)
         self.valid_ix: IndexedSamples | None = None
         if data.valid_samples:
             self.valid_ix = index_samples(data.valid_samples, data.nid2index,
@@ -291,10 +315,8 @@ class Trainer:
         self.eval_step = build_eval_step(cfg, device=self.dev)
         self.full_eval_step = build_full_eval_step(device=self.dev)
         self.last_per_client_metrics: list[dict[str, float]] | None = None
-
-        self.registry = get_registry()
-        self.tracer = get_tracer()
-        self.health = HealthMonitor(cfg.obs.health, registry=self.registry)
+        self.data = data
+        self._setup_obs(cfg, data)
         self.chaos = FaultPlan(cfg.chaos, cfg.fed.num_clients) if cfg.chaos.enabled else None
         # quarantine ledger: client -> rounds left excluded; retries count the
         # rollbacks of the current round
@@ -395,6 +417,73 @@ class Trainer:
                           "tracking restarts this run")
 
     # ------------------------------------------------------------------
+    def _setup_obs(self, cfg: ExperimentConfig, data: MindData) -> None:
+        """The observability layer (the JAX trainer's): registry
+        instruments and host spans always; under ``obs.dir`` the artifacts
+        (``metrics.jsonl`` with its rotation, ``trace.json``,
+        ``prometheus.txt``) and the flight recorder; the quality monitor
+        under ``obs.quality.enabled``, the perf monitor under
+        ``obs.perf.enabled``."""
+        self._obs_dir: Path | None = None
+        jsonl_path = None
+        if cfg.obs.dir:
+            self._obs_dir = Path(cfg.obs.dir)
+            self._obs_dir.mkdir(parents=True, exist_ok=True)
+            jsonl_path = str(self._obs_dir / "metrics.jsonl")
+        self.registry = get_registry()
+        self.tracer = get_tracer()
+        self.tracer.capacity = cfg.obs.trace_capacity
+        self.logger = MetricLogger(jsonl_path=jsonl_path, registry=self.registry,
+                                   jsonl_max_mb=cfg.obs.jsonl_max_mb)
+        self._m_rounds = self.registry.counter("train.rounds_total", "federated rounds completed")
+        self._m_steps = self.registry.counter("train.steps_total", "train-step batches dispatched")
+        self._m_round_loss = self.registry.gauge("train.round_loss",
+                                                 "mean train loss of the last round")
+        self._m_round_secs = self.registry.histogram(
+            "train.round_seconds", "wall seconds per federated round",
+            buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+                     1000.0))
+        self._m_overflow = self.registry.counter(
+            "train.cap_overflow_total",
+            "unique-news cap overflow count (client-summed over steps; nonzero aborts the round)")
+        # the hand-written hot-path kernels a train step launches under
+        # model.fuse_hot_path: 2 = C/D and B/E, 1 = B/E only (the CNN head and
+        # finetune mode keep the dense gather + encode), 0 = the dense step
+        fused_n = 0
+        if cfg.model.fuse_hot_path:
+            fused_n = 1 + int(cfg.model.text_encoder_mode == "head"
+                              and cfg.model.text_head_arch == "additive")
+        self.registry.gauge("model.fused_hot_path_kernels",
+                            "fused hot-path kernels per train step (0 = dense path)").set(fused_n)
+        hcfg = cfg.obs.health
+        self.health = HealthMonitor(hcfg, registry=self.registry)
+        self.quality = None
+        self._slice_defs = None
+        self.full_eval_step_q = None
+        if cfg.obs.quality.enabled:
+            from fedrec_tpu_torch.obs.quality import QualityMonitor
+
+            self.quality = QualityMonitor(cfg.obs.quality, registry=self.registry)
+            q = cfg.obs.quality
+            self.full_eval_step_q = build_full_eval_step(
+                quality=(int(q.score_bins), float(q.score_range), int(q.ece_bins)),
+                device=self.dev)
+        self.flightrec: FlightRecorder | None = None
+        if self._obs_dir is not None and hcfg.flight_recorder:
+            self.flightrec = FlightRecorder(ring_size=hcfg.ring_size,
+                                            dump_policy=hcfg.dump_policy,
+                                            dump_table_max_mb=hcfg.dump_table_max_mb)
+        self.perf = None
+        self._perf_last_batch: dict | None = None
+        if cfg.obs.perf.enabled:
+            from fedrec_tpu_torch.obs.perf import PerfMonitor
+
+            name = torch.cuda.get_device_name(self.dev) if self.dev.type == "cuda" else "cpu"
+            self.perf = PerfMonitor(cfg.obs.perf, cfg, data.num_news, registry=self.registry,
+                                    tracer=self.tracer, obs_dir=self._obs_dir,
+                                    device_name=name)
+        self.builds = BuildWatch(self.registry)
+
     def _setup_population(self, snapshot_dir: str | None) -> None:
         """The cohort engine (``fed.population``), validated with the JAX
         trainer's messages. ``_pop_engine``: any population (bookkeeping,
@@ -973,10 +1062,43 @@ class Trainer:
         round-end aggregate (and the FedOpt step), one host read of the
         round's losses and health vectors, the health check, then the
         evaluation when due."""
+        t0 = time.perf_counter()
         # the cohort first: the draw and the install define who the round is
         self._ensure_cohort(round_idx)
-        with self.tracer.span("fed_round", step_num=round_idx, **self._round_span_args()):
-            return self._train_round_inner(round_idx)
+        if self.perf is not None:
+            self.perf.begin_round()
+        # the host span and a profiler range of the same round number, so a
+        # CUDA trace captured around it lines up with trace.json
+        with self.tracer.span("fed_round", step_num=round_idx, **self._round_span_args()), \
+                torch.profiler.record_function(f"fed_round#{round_idx}"):
+            result = self._train_round_inner(round_idx)
+            # device-memory gauges at the round boundary, as an instant
+            # inside this fed_round span; a no-op on the CPU
+            sample_device_memory(self.registry, self.tracer, self.dev, fed_round=round_idx)
+            self._perf_sample_components(round_idx)
+        wall = time.perf_counter() - t0
+        self._m_round_secs.observe(wall)
+        self.builds.publish()
+        if self.perf is not None:
+            self.perf.observe_round(round_idx, 1, wall)
+        return result
+
+    def _perf_sample_components(self, round_idx: int) -> None:
+        """``obs.perf.hbm_components``: the device bytes of the trainer's
+        own tensors by component, at the round boundary."""
+        if self.perf is None or not self.cfg.obs.perf.hbm_components:
+            return
+        from fedrec_tpu_torch.obs.perf import hbm_components
+
+        hbm_components({
+            "params": [p for st in self.states for p in st.model.parameters()],
+            "optimizer": [t for st in self.states for t in self._opt_tensors(st)]
+                         + [st.news_grad_accum for st in self.states
+                            if st.news_grad_accum is not None],
+            "news_table": [t for t in (self.token_states, self.news_tokens, self._table)
+                           if t is not None],
+            "batch": list((self._perf_last_batch or {}).values()),
+        }, registry=self.registry, tracer=self.tracer, fed_round=round_idx)
 
     def _epoch_batches_source(self, epoch_idx: int):
         """One local epoch's stacked (slots, B, ...) batches: the fixed
@@ -1009,15 +1131,45 @@ class Trainer:
             if self._global_host is None:
                 self._global_host = self._params_host(0)
             round_start_global = self._global_host
+        if self.flightrec is not None:
+            # replay starts from the state the round's steps saw
+            self.flightrec.start_chunk(
+                round_idx,
+                host_states(self.states, round_idx) if cfg.obs.health.snapshot_state else None,
+                {round_idx: weights})
         means, losses, overflow = [], [], 0
         health: dict[str, list] = {}
+        tracer = self.tracer
+        step_in_round = 0
         for local_epoch in range(cfg.fed.local_epochs):
             epoch_idx = round_idx * cfg.fed.local_epochs + local_epoch
             table = self._feature_table()
             it = self._epoch_batch_iter(epoch_idx, faults)
+            src = iter(it)
             try:
-                for batch in it:
-                    self.states, metrics = self.train_step(self.states, batch, table)
+                while True:
+                    # the consumer-side wait: the batch build itself without
+                    # prefetch, what prefetch did not hide with it
+                    t_build = tracer.now()
+                    try:
+                        batch = next(src)
+                    except StopIteration:
+                        break
+                    tracer.add_span("batch_build", dur_s=tracer.now() - t_build,
+                                    epoch=epoch_idx)
+                    if self.flightrec is not None:
+                        self.flightrec.record(batch, round_idx, epoch_idx, step_in_round)
+                    step_in_round += 1
+                    with tracer.span("h2d", epoch=epoch_idx):
+                        batch = {k: (torch.as_tensor(v).to(self.dev)
+                                     if k in ("candidates", "history", "labels") else v)
+                                 for k, v in batch.items()}
+                    if self.perf is not None:
+                        self._perf_last_batch = {k: batch[k] for k in
+                                                 ("candidates", "history", "labels")}
+                    with tracer.span("dispatch", epoch=epoch_idx):
+                        self.states, metrics = self.train_step(self.states, batch, table)
+                    self._m_steps.inc()
                     means.append(metrics["mean_loss"])
                     losses.append(metrics["loss"])
                     overflow += metrics["unique_overflow"]
@@ -1051,6 +1203,7 @@ class Trainer:
         # before any other abort describes the same round
         self._check_health(round_idx, arrays, [train_loss])
         if overflow > 0:
+            self._m_overflow.inc(overflow)
             raise RuntimeError(self._overflow_message(overflow))
         result = RoundResult(round_idx, train_loss)
         self._eval_if_due(result)
@@ -1077,10 +1230,10 @@ class Trainer:
     def _check_health(self, round_idx: int, arrays: dict, round_losses: list) -> None:
         """Digest the round's health arrays through the ``HealthMonitor``.
         Under ``fed.robust.recover`` a non-finite or outlier client raises
-        ``RoundRecovery`` while retries remain; otherwise a non-finite cell
-        raises ``TrainingHealthError`` under ``abort_on_nonfinite``, and any
-        other trigger is a warning. The JAX trainer's semantics, without its
-        flight recorder (``obs.dir``)."""
+        ``RoundRecovery`` while retries remain; otherwise a trigger dumps the
+        flight recorder (``obs.dir``), then a non-finite cell raises
+        ``TrainingHealthError`` under ``abort_on_nonfinite``, and any other
+        trigger is a warning. The JAX trainer's semantics."""
         if not self.cfg.obs.health.sentry or not arrays:
             return
         trigger = self.health.check(round_idx, arrays, list(round_losses),
@@ -1096,17 +1249,56 @@ class Trainer:
                 raise RoundRecovery(cand)
         if trigger is None:
             return
+        dump_dir = self._dump_flightrec(trigger)
         kind = trigger["kind"]
         where = f"round {trigger.get('round')}"
         if trigger.get("step") is not None:
             where += f" step {trigger['step']} client {trigger.get('client')}"
         detail = trigger.get("detail") or {
             k: trigger[k] for k in ("round_loss", "trailing_mean") if k in trigger}
-        hint = " Set obs.dir (+ obs.health.flight_recorder) for a replayable dump."
+        if dump_dir:
+            hint = (f" Forensics dumped to {dump_dir} — confirm with "
+                    f"`python -m fedrec_tpu_torch.cli.obs replay {dump_dir}`.")
+        elif self.flightrec is not None:
+            hint = (" Flight-recorder dump suppressed by "
+                    f"obs.health.dump_policy={self.cfg.obs.health.dump_policy!r} "
+                    f"(earlier dump: {self.flightrec.last_dump_dir}).")
+        else:
+            hint = " Set obs.dir (+ obs.health.flight_recorder) for a replayable dump."
         msg = f"training-health trigger [{kind}] at {where}: {detail}.{hint}"
         if kind == "nonfinite" and self.cfg.obs.health.abort_on_nonfinite:
             raise TrainingHealthError(msg)
         print(f"[trainer] WARNING: {msg}")
+
+    def _dump_meta(self) -> dict:
+        return {"num_news": self.data.num_news, "title_len": self.data.title_len,
+                "mode": self.mode}
+
+    def _dump_flightrec(self, trigger: dict):
+        """The flight recorder's dump for ``trigger`` (None without a
+        recorder, or when its dump policy suppressed a repeat). The feature
+        table goes in when it fits ``obs.health.dump_table_max_mb``; a
+        failing dump is reported, never raised over the trigger."""
+        if self.flightrec is None:
+            return None
+        try:
+            return self.flightrec.dump(self._obs_dir / "flightrec", trigger, cfg=self.cfg,
+                                       registry=self.registry, table=self._feature_table(),
+                                       meta=self._dump_meta())
+        except Exception as e:  # noqa: BLE001 — forensics must not mask the trigger
+            print(f"[trainer] flight-recorder dump failed: {type(e).__name__}: {e}")
+            return None
+
+    def _flightrec_on_exception(self, e: BaseException) -> None:
+        """A run dying to an exception that never reached a round-end health
+        check (a step error, a cap-overflow abort) still dumps its batch
+        ring and round-entry state."""
+        if self.flightrec is None or self.flightrec.dump_count > 0:
+            return
+        if not isinstance(e, Exception):
+            return  # KeyboardInterrupt / SystemExit: exit fast, no dump
+        self._dump_flightrec({"kind": "exception", "error": type(e).__name__,
+                              "message": str(e)[:500], "round": None, "step": None})
 
     def _round_span_args(self) -> dict:
         args: dict = {}
@@ -1296,12 +1488,55 @@ class Trainer:
         if self.valid_ix is None or (result.round_idx + 1) % self.cfg.train.eval_every != 0:
             return
         protocol = self.cfg.train.eval_protocol
-        if protocol == "full":
-            result.val_metrics = self.evaluate_full()
-        elif protocol == "last4":
-            result.val_metrics = self.evaluate_full(last_k=4)
-        else:
-            result.val_metrics = self.evaluate()
+        with self.tracer.span("eval", round=result.round_idx, protocol=protocol):
+            # sliced telemetry rides the full-pool protocols only: the sampled
+            # protocol re-draws negatives, so its slices would carry noise
+            q = None
+            if self.quality is not None and protocol in ("full", "last4"):
+                q = self._begin_quality_eval()
+            if protocol == "full":
+                result.val_metrics = self.evaluate_full(_quality=q)
+            elif protocol == "last4":
+                result.val_metrics = self.evaluate_full(last_k=4, _quality=q)
+            else:
+                result.val_metrics = self.evaluate()
+            if q is not None:
+                self._finish_quality_eval(result.round_idx, q, result.val_metrics)
+
+    def _begin_quality_eval(self) -> dict:
+        """One sliced-eval session: the slice accumulator (the definitions
+        built once a run, seeded) and the score/calibration partial sums the
+        eval loop folds batches into."""
+        from fedrec_tpu_torch.obs.quality import SlicedEvalAccumulator, build_slice_defs
+
+        if self._slice_defs is None:
+            self._slice_defs = build_slice_defs(self.valid_ix, self.cfg.obs.quality)
+        return {"acc": SlicedEvalAccumulator(self._slice_defs, len(self.valid_ix)), "sums": {}}
+
+    def _finish_quality_eval(self, round_idx: int, q: dict,
+                             val_metrics: dict[str, float]) -> None:
+        """Publish the session: per-slice gauges (and the skip counter), the
+        corpus quartet under ``slice="all"``, the score/calibration digest,
+        and the per-client quality-outlier digest (informational)."""
+        slices, skipped = q["acc"].finalize()
+        # a diverged cohort pooled every client's pass into the session: the
+        # means are invariant, the counts and sums are x passes
+        passes = max(int(q.get("passes", 1)), 1)
+        if passes > 1:
+            for m in slices.values():
+                m["count"] /= passes
+            q["sums"] = {k: v / passes for k, v in q["sums"].items()}
+        self.quality.publish_slices(slices, skipped)
+        # the category family partitions the scoreable impressions
+        kept = sum(m["count"] for n, m in slices.items()
+                   if n.startswith("category=")) or float(len(self.valid_ix))
+        self.quality.publish_corpus(val_metrics, count=kept)
+        if q["sums"]:
+            self.quality.publish_distribution(q["sums"])
+        if self.cfg.obs.quality.per_client:
+            self.health.last_quality_outliers = self.quality.digest_clients(
+                round_idx, self.last_per_client_metrics,
+                ignore_clients=set(self._quarantine), shared=val_metrics)
 
     def evaluate(self, client: int | None = None) -> dict[str, float]:
         """Mean validation metrics over all impressions of 1 positive +
@@ -1331,20 +1566,23 @@ class Trainer:
             count += valid_n
         return {k: v / count for k, v in sums.items()}
 
-    def evaluate_full(self, last_k: int | None = None,
-                      client: int | None = None) -> dict[str, float]:
+    def evaluate_full(self, last_k: int | None = None, client: int | None = None,
+                      _quality: dict | None = None) -> dict[str, float]:
         """Deterministic evaluation over each impression's full negative
         pool (the protocol behind the reference's published MIND table);
         ``last_k`` keeps each pool's last k negatives (``last_k=4`` is the
         reference client's per-round slice, ``client.py:159-160``).
         Impressions with an empty pool are skipped, as the reference's
         try/except does; padding is masked out of every mean. ``client``
-        resolves as in :meth:`evaluate`."""
+        resolves as in :meth:`evaluate`. ``_quality``
+        (``_begin_quality_eval``'s session) routes the pass through the
+        quality-instrumented step and folds each batch into the slice
+        accumulator and the score/calibration sums."""
         if self.valid_ix is None:
             raise ValueError("no validation samples")
         if client is None:
             return self._aggregate_eval(
-                lambda c: self.evaluate_full(last_k=last_k, client=c))
+                lambda c: self.evaluate_full(last_k=last_k, client=c, _quality=_quality))
         user = self.states[client].model.user_encoder
         table = self._corpus_for(client)
 
@@ -1375,17 +1613,29 @@ class Trainer:
         keep_a = _pad((lens > 0).astype(np.float32))
         if pad:
             keep_a[n:] = 0.0  # padded rows never count
+        step = self.full_eval_step if _quality is None else self.full_eval_step_q
+        if _quality is not None:
+            # one pass per evaluated client: the session divides the pooled
+            # counts back down
+            _quality["passes"] = _quality.get("passes", 0) + 1
         sums = {k: 0.0 for k in ("auc", "mrr", "ndcg5", "ndcg10")}
         kept = 0.0
         for b in range(0, n + pad, bsz):
             sl = slice(b, b + bsz)
-            out = self.full_eval_step(user, table, {"pos": pos_a[sl], "neg_pools": pools_a[sl],
-                                                    "neg_mask": mask_a[sl],
-                                                    "history": his_a[sl]})
+            batch = {"pos": pos_a[sl], "neg_pools": pools_a[sl], "neg_mask": mask_a[sl],
+                     "history": his_a[sl]}
+            if _quality is not None:
+                batch["keep"] = keep_a[sl]
+            out = step(user, table, batch)
             w = torch.from_numpy(keep_a[sl]).to(self.dev)
             for k in sums:
                 sums[k] += float((out[k] * w).sum())
             kept += float(keep_a[sl].sum())
+            if _quality is not None:
+                _quality["acc"].add(b, {k: out[k].cpu().numpy() for k in sums}, keep_a[sl])
+                qs = _quality["sums"]
+                for k in QUALITY_SUM_KEYS:
+                    qs[k] = qs.get(k, 0.0) + out[k].double().cpu().numpy()
         if kept == 0:
             raise ValueError("no impression has a non-empty negative pool")
         return {k: v / kept for k, v in sums.items()}
@@ -1396,15 +1646,41 @@ class Trainer:
         quarantine-and-rollback policy, each followed by its snapshot
         bookkeeping and the quarantine tick; returns the rounds' results."""
         history = []
-        for round_idx in range(self.start_round, self.cfg.fed.rounds):
-            result = self._train_round_with_recovery(round_idx)
-            history.append(result)
-            # before the snapshot: its population state includes this round
-            self._commit_population(round_idx)
-            self._after_round(result)
-            self._tick_quarantine()
-        if self.snapshots is not None:
-            self.snapshots.wait()  # settle the writes before handing back
+        try:
+            for round_idx in range(self.start_round, self.cfg.fed.rounds):
+                if self.perf is not None:
+                    # a capture window opens before the round it wraps
+                    self.perf.capture_before_round(round_idx)
+                result = self._train_round_with_recovery(round_idx)
+                history.append(result)
+                # before the snapshot: its population state includes this round
+                self._commit_population(round_idx)
+                self._after_round(result)
+                self._tick_quarantine()
+                if self.perf is not None:
+                    # closes after the round's bookkeeping, which it captures
+                    self.perf.capture_after_round(round_idx)
+            if self.snapshots is not None:
+                self.snapshots.wait()  # settle the writes before handing back
+        except BaseException as e:
+            # forensics on every failing exit: an error that never reached a
+            # round-end health check still dumps the ring
+            self._flightrec_on_exception(e)
+            raise
+        finally:
+            if self.perf is not None:
+                self.perf.close()
+                self._perf_last_batch = None
+            if self._obs_dir is not None:
+                # on every exit path: a run that died is the one whose
+                # trace and registry are needed
+                try:
+                    paths = dump_artifacts(self._obs_dir, registry=self.registry,
+                                           tracer=self.tracer)
+                    print(f"[trainer] obs artifacts: {paths['metrics']} {paths['trace']} "
+                          f"{paths['prometheus']}")
+                except Exception as e:  # noqa: BLE001 — never mask the training error
+                    print(f"[trainer] could not write obs artifacts: {type(e).__name__}: {e}")
         return history
 
     def _after_round(self, result: RoundResult) -> None:
@@ -1412,12 +1688,18 @@ class Trainer:
         snapshot."""
         cfg = self.cfg
         r = result.round_idx
+        self._m_rounds.inc()
+        self._m_round_loss.set(result.train_loss)
         log = {"round": r, "training_loss": result.train_loss}
         m = result.val_metrics
         log.update({name: m[key] for name, key in (
             ("validation_loss", "loss"), ("val_auc", "auc"), ("val_mrr", "mrr"),
             ("val_ndcg5", "ndcg5"), ("val_ndcg10", "ndcg10")) if key in m})
         print(f"[trainer] {json.dumps(log)}", flush=True)
+        if self.perf is not None and self.perf.last_round is not None:
+            # the round's digest rides its record: the trend fedrec-obs perf reads
+            log.update({k: v for k, v in self.perf.last_round.items() if k != "round"})
+        self.logger.log(r, log)
         auc = m.get("auc")
         if (self.best_snapshots is not None and auc is not None
                 and (self._best_auc is None or auc > self._best_auc)):
@@ -1440,6 +1722,10 @@ class Trainer:
             extras = (self._snapshot_extras(r)
                       if self.server_opt is not None or self._pop_engine else None)
             self.snapshots.save(r, self.states, wait=extras is not None, extras=extras)
+        if self._obs_dir is not None and (r + 1) % max(cfg.obs.snapshot_every, 1) == 0:
+            # rotate before the append: snapshots are the event log's bulk
+            rotate_jsonl(self._obs_dir / "metrics.jsonl", cfg.obs.jsonl_max_mb)
+            self.registry.write_snapshot(self._obs_dir / "metrics.jsonl")
 
     def _snapshot_extras(self, round_idx: int) -> Callable[[Path], None]:
         """The files a snapshot holds beside its state: the FedOpt buffers,

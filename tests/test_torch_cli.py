@@ -118,7 +118,8 @@ def test_cli_runs_a_decoupled_run_on_the_cpu(tmp_path, capsys):
       "cpu"], NotImplementedError, "model.fuse_hot_path with privacy.mechanism='dpsgd'"),
     (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu"],
      NotImplementedError, "--agg-server.*Queue A item 9"),
-    (["--obs-dir", "obs", "--device", "cpu"], NotImplementedError, "Queue A item 10"),
+    (["--set", "obs.fleet.collector=localhost:1", "--device", "cpu"], NotImplementedError,
+     "obs.fleet.collector.*Queue A item 10b"),
     ([], NoGPUError, "no CUDA device"),
 ])
 def test_cli_refuses_what_the_port_cannot_run(monkeypatch, artifacts, argv, exc, match):

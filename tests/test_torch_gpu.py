@@ -364,6 +364,85 @@ def test_fused_history_score_backward_matches_plain(cuda, rng, dtype, shape, c):
     _check_history_score_backward(cuda, rng, dtype, *shape, c, dead=1)
 
 
+def _tower_grads_f64(x, cand, mask, w, gs, gu, nh):
+    """Autograd of the user tower (``fused_history_score_plain``'s
+    arithmetic without its rounding points) in float64 on the CPU: the exact
+    answer kernel E and the plain f32 route are both held to."""
+    from fedrec_tpu_torch.ops.fused_hot_path import masked_softmax
+
+    with torch.enable_grad():
+        xl, cl = (t.detach().cpu().double().requires_grad_() for t in (x, cand))
+        wl = UserTowerWeights(*(t.detach().cpu().double().requires_grad_() for t in w))
+        m = mask.cpu().double()
+        n, h, d = xl.shape
+        q, k, v = (xl @ a + b for a, b in ((wl.wq, wl.bq), (wl.wk, wl.bk), (wl.wv, wl.bv)))
+
+        def heads(t):
+            return t.reshape(n, h, nh, d // nh).transpose(1, 2)
+
+        a = masked_softmax(heads(q) @ heads(k).transpose(-1, -2) / np.sqrt(d // nh),
+                           m[:, None, None, :])
+        ctx = (a @ heads(v)).transpose(1, 2).reshape(n, h, d)
+        alpha = masked_softmax(torch.tanh(ctx @ wl.pw1 + wl.pb1) @ wl.pw2, m)
+        user = torch.einsum("nh,nhd->nd", alpha, ctx)
+        scores = torch.einsum("ncd,nd->nc", cl, user)
+        return torch.autograd.grad([user, scores], [xl, cl, *wl],
+                                   [gu.cpu().double(), gs.cpu().double()])
+
+
+@pytest.mark.parametrize("common", [0.0, 1.0])
+def test_fused_history_score_backward_keeps_cancelling_gradients(cuda, rng, common):
+    """Histories and candidates that share a large common part (as the CNN
+    head's news vectors do) flatten both softmaxes, so the pool's weight
+    gradients and the key bias's cancel to far below their terms. Every
+    output of kernel E against float64: within 10 x the plain f32 route's
+    own error, or 1e-4 of the output's scale, whichever is larger (a kernel
+    that returned zeros for a cancelling output would miss it)."""
+    n, h, d, nh, q, c = 8, 50, 400, 20, 200, 5
+    base = np.abs(rng.standard_normal(d)) * common
+    x = _t(base + 0.05 * rng.standard_normal((n, h, d)), cuda)
+    cand = _t(base + 0.05 * rng.standard_normal((n, c, d)), cuda)
+    m = (rng.random((n, h)) > 0.25).astype(np.float32)
+    m[:, 0] = 1.0
+    mask = _t(m, cuda)
+    w = _tower(rng, d, q, cuda, torch.float32)
+    gs, gu = _t(rng.standard_normal((n, c)), cuda), _t(rng.standard_normal((n, d)), cuda)
+    dx, dcand, dw = fused_history_score_bwd(x, cand, mask, w, gs, gu, nh)
+    px, pc, pw = fused_history_score_bwd_plain(x, cand, mask, w, gs, gu, nh)
+    ref = _tower_grads_f64(x, cand, mask, w, gs, gu, nh)
+    names = ["x", "cand", *UserTowerWeights._fields]
+    for name, a, b, r in zip(names, [dx, dcand, *dw], [px, pc, *pw], ref):
+        err_k, err_p = (float((t.detach().cpu().double() - r).abs().max()) for t in (a, b))
+        bar = max(10 * err_p, 1e-4 * float(r.abs().max()))
+        assert err_k <= bar, f"{name}: kernel {err_k} vs float64, plain {err_p}, bar {bar}"
+
+
+@pytest.mark.parametrize("common", [0.0, 1.0])
+def test_fused_gather_encode_backward_keeps_cancelling_gradients(cuda, rng, common):
+    """Kernel D on token rows that share a large common part: every head
+    gradient against float64 at the bar of the test above."""
+    from fedrec_tpu_torch.ops.fused_hot_path import masked_softmax
+
+    n, t, dh, ah, d, u = 24, 50, 768, 384, 400, 17
+    base = np.abs(rng.standard_normal(dh)) * common
+    table = _t(base + 0.05 * rng.standard_normal((n, t, dh)), cuda)
+    ids = torch.from_numpy(rng.integers(0, n, u)).to(cuda)
+    w = _head(rng, dh, ah, d, cuda, torch.float32)
+    g = _t(rng.standard_normal((u, d)), cuda)
+    got = fused_gather_encode_bwd(table, ids, w, g)
+    plain = fused_gather_encode_bwd_plain(table, ids, w, g)
+    with torch.enable_grad():
+        wl = TextHeadWeights(*(p.detach().cpu().double().requires_grad_() for p in w))
+        xs = table.cpu().double()[ids.cpu()]
+        lg = torch.tanh(xs @ wl.w1 + wl.b1) @ wl.w2
+        pooled = torch.einsum("ut,utd->ud", masked_softmax(lg, torch.ones_like(lg)), xs)
+        ref = torch.autograd.grad(pooled @ wl.fcw + wl.fcb, list(wl), g.cpu().double())
+    for name, a, b, r in zip(TextHeadWeights._fields, got, plain, ref):
+        err_k, err_p = (float((x.cpu().double() - r).abs().max()) for x in (a, b))
+        bar = max(10 * err_p, 1e-4 * float(r.abs().max()))
+        assert err_k <= bar, f"{name}: kernel {err_k} vs float64, plain {err_p}, bar {bar}"
+
+
 # (n, H, D, heads, Q, C, fully-masked row or None): the edges of kernel E's
 # row products (64-row tiles over the flat n H rows) and per-head blocks
 _HIST_BWD_EDGES = {
@@ -1315,3 +1394,133 @@ def test_finetune_step_launches_b_and_e_and_tracks_the_dense_route(cuda):
                 assert np.abs(got - want).max() <= 2 * 1e-3 * 3, name
             else:
                 np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4, err_msg=name)
+
+
+def _family_setup(dev, use_pallas: bool, mode: str = "head", tower: str = "gru",
+                  fuse: bool = False):
+    """K=2 clients of the GRU tower (or ``tower``) and the CNN head at small
+    widths, three batches, the token states on ``dev``."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import TrainBatcher, index_samples, make_synthetic_mind
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import build_fed_train_step, init_client_state, replicate_state
+
+    cfg = ExperimentConfig().apply_overrides([
+        f"model.text_encoder_mode={mode}", "model.news_dim=32", "model.num_heads=4",
+        "model.head_dim=8", "model.query_dim=16", "model.bert_hidden=48",
+        f"model.user_tower={tower}", "model.text_head_arch=cnn", "model.cnn_kernel=4",
+        "data.max_his_len=10", "data.max_title_len=12", "data.batch_size=8",
+        "fed.num_clients=2", "optim.user_lr=1e-3", "optim.news_lr=1e-3",
+        f"model.use_pallas={use_pallas}", f"model.fuse_hot_path={fuse}",
+    ])
+    data = make_synthetic_mind(num_news=80, num_train=64, num_valid=8, title_len=12,
+                               his_len_range=(2, 10), seed=2)
+    model = init_params(NewsRecommender(cfg.model), seed=4).to(dev)
+    states = replicate_state(init_client_state(model, cfg, seed=0), 2)
+    step = build_fed_train_step(model, cfg, get_strategy("param_avg"), device=dev)
+    ix = index_samples(data.train_samples, data.nid2index, 10)
+    batches = [{"candidates": b.candidates, "history": b.history, "labels": b.labels}
+               for b in TrainBatcher(ix, 8, 4, seed=0).epoch_batches_sharded(2, 0)][:3]
+    toks = torch.from_numpy(np.random.default_rng(5).standard_normal((80, 12, 48)).astype(
+        np.float32)).to(dev)
+    return states, step, batches, toks
+
+
+@pytest.mark.parametrize("mode", ["head", "table"])
+def test_gru_cnn_kernel_route_tracks_the_dense_route(cuda, mode):
+    """Three steps of the GRU tower and the CNN head with user dropout on:
+    under ``use_pallas`` kernel A pools both towers (joint mode: two
+    launches a client step; decoupled mode: the GRU pool's one), the
+    losses and parameters follow the dense route at the trajectory bars."""
+    from fedrec_tpu_torch.train import encode_all_news
+
+    runs = []
+    for use_pallas in (True, False):
+        states, step, batches, toks = _family_setup(cuda, use_pallas, mode)
+        table = toks if mode == "head" else encode_all_news(states[0].model, toks, device=cuda)
+        losses, per_step = [], []
+        for batch in batches:
+            reset_launch_counts()
+            states, m = step(states, batch, table)
+            torch.cuda.synchronize()
+            per_step.append(launch_counts())
+            losses.append(m["loss"].cpu().numpy())
+        runs.append((states, losses, per_step))
+    (sk, lk, ck), (sd, ld, cd) = runs
+    for counts in ck:
+        assert counts["additive_pool"] == (4 if mode == "head" else 2)
+        assert counts["fused_gather_encode"] == counts["fused_history_score"] == 0
+    assert not any(v for counts in cd for v in counts.values())
+    np.testing.assert_allclose(np.array(lk), np.array(ld), rtol=1e-5, atol=1e-6)
+    for a, b in zip(sk, sd):
+        for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+            got, want = p.detach().cpu().numpy(), q.detach().cpu().numpy()
+            if name.endswith("att_fc2.bias"):
+                assert np.abs(got - want).max() <= 2 * 1e-3 * 3, name
+            else:
+                np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4, err_msg=name)
+
+
+def test_cnn_head_under_fuse_hot_path_launches_b_and_e_only(cuda):
+    """The CNN head with the MHA tower under ``fuse_hot_path``: B and E on
+    every client step, C and D never (the dense gather + encode, as in
+    JAX)."""
+    states, step, batches, toks = _family_setup(cuda, True, tower="mha", fuse=True)
+    for batch in batches:
+        reset_launch_counts()
+        states, m = step(states, batch, toks)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["fused_history_score"] == counts["fused_history_score_bwd"] == 2
+        assert counts["fused_gather_encode"] == counts["fused_gather_encode_bwd"] == 0
+        assert counts["additive_pool"] == 2  # the CNN pool, a launch a client
+        assert np.isfinite(m["loss"].cpu().numpy()).all()
+
+
+def test_cnn_head_fused_route_tracks_the_dense_route(cuda):
+    """The CNN head under the MHA tower: three steps on the kernel route
+    (``fuse_hot_path`` and ``use_pallas``: kernel A in the CNN pool, B and E
+    on the user tower) against the dense route (no kernel), losses and
+    parameters at the trajectory bars; the leaves whose true gradient is
+    zero (the key bias, both pools' fc2 bias) at 2 x lr x steps."""
+    runs = []
+    for kernels in (True, False):
+        states, step, batches, toks = _family_setup(cuda, kernels, tower="mha", fuse=kernels)
+        reset_launch_counts()
+        losses = []
+        for batch in batches:
+            states, m = step(states, batch, toks)
+            losses.append(m["loss"].cpu().numpy())
+        torch.cuda.synchronize()
+        runs.append((states, losses, launch_counts()))
+    (sk, lk, ck), (sd, ld, cd) = runs
+    assert ck["fused_history_score_bwd"] == 2 * len(lk) and not any(cd.values())
+    np.testing.assert_allclose(np.array(lk), np.array(ld), rtol=1e-5, atol=1e-6)
+    for a, b in zip(sk, sd):
+        for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+            got, want = p.detach().cpu().numpy(), q.detach().cpu().numpy()
+            if name.endswith(("att_fc2.bias", "w_k.bias")):
+                assert np.abs(got - want).max() <= 2 * 1e-3 * 3, name
+            else:
+                np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4, err_msg=name)
+
+
+def test_cnn_product_matches_float64_with_tf32_off(cuda, rng):
+    """The CNN head's conv as one (L, k * 768) x (k * 768, 400) product on
+    the card, TF32 off, against float64 on the CPU at full width."""
+    from fedrec_tpu_torch.models.encoders import CnnTextHead
+    from fedrec_tpu_torch.params import init_params
+
+    head = init_params(CnnTextHead(news_dim=400, bert_hidden=768, kernel=3), seed=1).to(cuda)
+    x = _t(rng.standard_normal((64, 50, 768)), cuda)
+    with torch.no_grad():
+        win = head.windows(x)
+        got = torch.nn.functional.linear(win, head.conv.weight, head.conv.bias)
+    with _one_cpu_thread():
+        w64 = head.conv.weight.detach().double().cpu()
+        want = win.double().cpu() @ w64.T + head.conv.bias.detach().double().cpu()
+    err = float((got.double().cpu() - want).abs().max())
+    assert err <= 1e-4, err
+    assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -56,12 +56,15 @@ def _modules():
 
 
 def test_importing_every_module_leaves_jax_out():
-    # the cohort engine's, the data path's and the real-data path's modules
-    # are among them
+    # the cohort engine's, the data path's, the real-data path's, the native
+    # batcher's and the observability artifacts' modules are among them
     assert {"fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
             "fedrec_tpu_torch.data.prefetch", "fedrec_tpu_torch.data.tokenizer",
             "fedrec_tpu_torch.data.preprocess", "fedrec_tpu_torch.data.adressa",
-            "fedrec_tpu_torch.models.bert"} <= set(_modules())
+            "fedrec_tpu_torch.models.bert", "fedrec_tpu_torch.data.native_batcher",
+            "fedrec_tpu_torch.obs.report", "fedrec_tpu_torch.obs.perf",
+            "fedrec_tpu_torch.obs.device", "fedrec_tpu_torch.cli.obs",
+            "fedrec_tpu_torch.utils.logging"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -198,8 +201,9 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
     with pytest.raises(NoGPUError):
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
-    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.dir=obs", "model.text_head_arch=cnn",
-                  "chaos.enabled=1,chaos.kill_round=2", "obs.quality.enabled=1"):
+    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.fleet.collector=localhost:1",
+                  "obs.watch.flap_max=9", "chaos.enabled=1,chaos.kill_round=2",
+                  "obs.slo.enabled=1", "obs.wire.window=64"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])
         name = lever.split(",")[-1].split("=")[0]

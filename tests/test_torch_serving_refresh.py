@@ -316,10 +316,10 @@ def test_serve_cli_checkpoint_service(trained):
     assert all(n.startswith("N") for n in r["news"])
 
 
-@pytest.mark.parametrize("flag", ["--shard-store", "--obs-dir"])
+@pytest.mark.parametrize("flag", ["--shard-store", "obs.slo.enabled", "obs.wire.window"])
 def test_serve_cli_refuses_unported_flags_by_name(trained, flag, capsys):
-    args, cfg = _cli_args(trained, "--device", "cpu", flag,
-                          *(["obs"] if flag == "--obs-dir" else []))
+    args, cfg = _cli_args(trained, "--device", "cpu",
+                          *([flag] if flag.startswith("--") else ["--set", f"{flag}=1"]))
     assert serve_cli.build_service(args, cfg) is None
     assert f"{flag} is not ported" in capsys.readouterr().err
 

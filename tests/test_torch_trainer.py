@@ -270,15 +270,15 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-    "obs.dir=obs", "fed.elastic.enabled=1", "model.text_head_arch=cnn",
-    "model.user_tower=gru", "obs.quality.enabled=1",
+    "obs.slo.enabled=1", "fed.elastic.enabled=1", "obs.fleet.collector=localhost:1",
+    "obs.watch.anomaly_z=3", "obs.slo.objectives=x,obs.slo.enabled=1", "obs.wire.enabled=0",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
     """Each lever the port does not run raises, naming it and its Queue A
     item. Per-example DP-SGD runs now: on ``_tiny``'s fused route it meets
     the JAX package's own refusal; chaos runs, its wire faults do not."""
     over = {"privacy.enabled=1": [lever, "privacy.sigma=1"],
-            "chaos.enabled=1": [lever, "chaos.wire_faults=drop@*"]}.get(lever, [lever])
+            "chaos.enabled=1": [lever, "chaos.wire_faults=drop@*"]}.get(lever, lever.split(","))
     cfg = _tiny().apply_overrides(over)
     data, toks = _data_and_tokens(cfg)
     name = over[-1].split("=")[0].split(".")[-1]
