@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives ten paths at full width through the entry points a user calls:
+then drives eleven paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -89,6 +89,17 @@ then drives ten paths at full width through the entry points a user calls:
   or D); one decoupled round (the CNN head's chunked corpus re-encode);
   and a ``nan`` chaos run on a 2,048-news catalog whose flight-recorder
   dump ``fedrec-obs replay`` re-runs on the card;
+* ``coordinator_path`` (the reference's client/server deployment): real
+  processes of ``fedrec_tpu_torch.cli.coordinator`` on 127.0.0.1, all on
+  the one card, gloo over host buffers: 3 processes (a non-training server,
+  two clients of 4 x 4 steps at B=64 on unequal shards,
+  ``fed.weight_by_samples``) for 3 rounds, every round's global held to the
+  in-process emulation and served through the recommend CLI over 2,048
+  users; the int8, topk and countsketch wires for 2 rounds each; trimmed
+  mean up a fanout-2 hierarchy with a training server; a process killed at
+  round 1 (the survivors degrade, the client finishes standalone); each
+  worker's launches of C, D, B, E (and A in the evaluation) summed into the
+  kernels line as ``launches_by_path["coordinator"]``;
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -118,6 +129,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,cohort_path
   python3 chip_smoke.py --phases build,kernels,data_path
   python3 chip_smoke.py --phases build,kernels,family_path
+  python3 chip_smoke.py --phases build,kernels,coordinator_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -139,9 +151,9 @@ import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
           "decoupled_path", "safety_path", "cohort_path", "data_path", "family_path",
-          "serving_path")
+          "coordinator_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
-         "cohort_path", "data_path", "family_path", "serving_path")
+         "cohort_path", "data_path", "family_path", "coordinator_path", "serving_path")
 DEV = "cuda"
 
 
@@ -235,6 +247,13 @@ KERNEL_META = {
         "path": "long_path",
     },
 }
+
+
+# the kernels' letters (PERF.md's table)
+KERNEL_LETTER = {"additive_pool": "A", "fused_history_score": "B", "fused_gather_encode": "C",
+                 "fused_gather_encode_bwd": "D", "fused_history_score_bwd": "E",
+                 "additive_pool_long": "A2", "flash_forward": "F1", "flash_backward_dq": "F2",
+                 "flash_backward_dkv": "F3"}
 
 
 class SmokeFailure(RuntimeError):
@@ -4658,13 +4677,377 @@ def phase_family_path(state: dict, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------- coordinator_path
+# coordinator_path: the reference deployment's rounds (more would cost a
+# process start-up's worth each) and the codec legs' rounds
+COORD_ROUNDS = 3
+COORD_CODEC_ROUNDS = 2
+# the wall limit of one world: no worker may hang the phase
+COORD_WORLD_TIMEOUT_S = 420
+
+
+def _coord_sets(args, *overrides: str) -> list[str]:
+    """The coordinator path's ``--set`` flags: ExperimentConfig's widths,
+    joint mode on the fused kernel route (the ``--mode joint`` flag), one
+    full-pool evaluation at the end of round ``COORD_ROUNDS - 1``."""
+    return ["model.fuse_hot_path=true", "model.use_pallas=true", f"train.seed={args.seed}",
+            f"train.eval_every={COORD_ROUNDS}", "train.eval_protocol=full", *overrides]
+
+
+def _coord_argv(args, art: Path, snaps: Path, rounds: int, *sets: str) -> list[str]:
+    flags = [x for kv in _coord_sets(args, *sets) for x in ("--set", kv)]
+    return [str(rounds), str(args.batch_size), "1", "--data-dir", str(art), "--device", DEV,
+            "--clients", str(args.clients), "--mode", "joint", *flags,
+            "--set", f"train.snapshot_dir={snaps}"]
+
+
+def _coord_world(argv: list[str], n: int, logs: Path, name: str) -> dict:
+    """``n`` coordinator processes of one world on 127.0.0.1 (a free port),
+    each under a wall limit; their exit codes, outputs and reports."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    files = [logs / f"{name}_p{i}.log" for i in range(n)]
+    t0 = time.perf_counter()
+    procs = []
+    for i, path in enumerate(files):
+        with open(path, "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "fedrec_tpu_torch.cli.coordinator", *argv,
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                 "--process-id", str(i)], cwd=root, env=env, stdout=fh,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            left = COORD_WORLD_TIMEOUT_S - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise SmokeFailure(f"{name}: a coordinator process outlived {COORD_WORLD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [f.read_text() for f in files]
+    reports = [[json.loads(ln.split("[coordinator] report ", 1)[1]) for ln in o.splitlines()
+                if ln.startswith("[coordinator] report ")] for o in outs]
+    return {"rcs": [p.returncode for p in procs], "outs": outs, "reports": reports,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _coord_emulate(argv: list[str], tokens, procs: int, server_trains: bool, rounds: int):
+    """The world's rounds in this process (``cli.coordinator.emulate_world``):
+    one ``Trainer`` a training process on its shard, over the same token
+    states (on the card, shared)."""
+    import torch
+    from fedrec_tpu_torch.cli import coordinator as coord
+    from fedrec_tpu_torch.data import load_mind_artifacts
+    from fedrec_tpu_torch.train import Trainer
+
+    args = coord._build_parser().parse_args(argv)
+    dev = torch.device(DEV)
+    shards = procs if server_trains else procs - 1
+    data = load_mind_artifacts(args.data_dir)
+    trainers = [] if server_trains else [None]
+    for i in range(shards):
+        c = coord.config_from_args(args, dev)
+        c.train.snapshot_dir = ""
+        c.data.num_shards, c.data.shard_index = shards, i
+        trainers.append(Trainer(c, data, tokens, device=dev))
+    cfg = coord.config_from_args(args, dev)
+    with contextlib.redirect_stdout(sys.stderr):
+        globals_, losses = coord.emulate_world(trainers, cfg, range(rounds))
+    del trainers
+    torch.cuda.empty_cache()
+    return globals_, losses, cfg
+
+
+def _coord_hold(world: dict, snaps: Path, emulated, cfg, rounds: list[int]) -> dict:
+    """Each round's server global and the clients' round losses against the
+    emulation, at the trajectory bars; whether every global is bitwise."""
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import from_flax
+    from fedrec_tpu_torch.train.checkpoint import load_state_bytes
+
+    globals_, losses = emulated
+    worst, bitwise = 0.0, True
+    for r in rounds:
+        snap = load_state_bytes((snaps / f"global_round_{r}.pt").read_bytes())
+        model = NewsRecommender(cfg.model)
+        from_flax(model.user_encoder, globals_[r][0])
+        from_flax(model.news_tower, globals_[r][1])
+        for part, module in (("user_params", model.user_encoder),
+                             ("news_params", model.news_tower)):
+            for name, p in module.named_parameters():
+                got, want = snap[part][name].numpy(), p.detach().numpy()
+                d = float(np.abs(got - want).max())
+                worst = max(worst, d)
+                bitwise &= bool(np.array_equal(got, want))
+                if name.endswith(ZERO_GRAD_LEAVES):
+                    check(d <= TRAJ_NOISE, f"round {r} global {part}.{name} off by {d}")
+                else:
+                    check(bool(np.all(np.abs(got - want) <= TRAJ_ATOL + TRAJ_RTOL * np.abs(want))),
+                          f"round {r} global {part}.{name} off the emulation by {d}")
+    for p, reps in enumerate(world["reports"]):
+        if not reps or not reps[-1]["trains"]:
+            continue
+        got = reps[-1]["losses"]
+        want = [losses[r][p] for r in range(len(got))]
+        check(bool(np.allclose(got, want, rtol=TRAJ_LOSS_RTOL, atol=TRAJ_LOSS_ATOL)),
+              f"process {p} round losses {got} vs the emulation's {want}")
+    return {"max_abs_diff": worst, "bitwise": bitwise}
+
+
+def _coord_leg_summary(world: dict, dense_bytes: int, rounds: int) -> dict:
+    """Per process: rounds, round / fan-out / gather ms, bytes, peak device
+    memory, the kernels' launches."""
+    procs = []
+    for p, reps in enumerate(world["reports"]):
+        check(bool(reps), f"process {p} printed no report (rc {world['rcs'][p]})")
+        r = reps[-1]
+        procs.append({
+            "process": p, "trains": r["trains"], "rc": world["rcs"][p],
+            "round_ms": r["round_ms"], "sync_from_server_ms": r["sync_from_server_ms"],
+            "aggregate_ms": r["aggregate_ms"], "aggregate_parts_ms": r["aggregate_parts_ms"],
+            "bytes_up": r["bytes_up"],
+            "bytes_down": r["bytes_down"], "peak_gpu_mb": r["peak_gpu_mb"],
+            "launches": {KERNEL_LETTER[k]: v for k, v in r["launches"].items() if v},
+            "compression_ratio_measured": (rounds * dense_bytes / r["bytes_up"]
+                                           if r["bytes_up"] else None),
+            "tier_reduce_ms": r["tier_reduce_ms"], "degraded": r["degraded"]})
+    return {"wall_s": world["wall_s"], "server_round_ms": procs[0]["round_ms"],
+            "processes": procs}
+
+
+def _coord_check_launches(world: dict, k: int, steps: int, counts: dict) -> None:
+    """Every training process launched C, D, B and E at least K times a
+    step; the launches add up into the path's counts."""
+    for p, reps in enumerate(world["reports"]):
+        for r in reps:
+            for name, n in r["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+        last = reps[-1]
+        if last["trains"] and not last["degraded"]:
+            for name in ("fused_gather_encode", "fused_gather_encode_bwd",
+                         "fused_history_score", "fused_history_score_bwd"):
+                want = k * steps * len(last["rounds"])
+                check(last["launches"][name] >= want,
+                      f"process {p} launched {name} {last['launches'][name]} times, "
+                      f"under K x steps = {want}")
+
+
+def phase_coordinator_path(state: dict, args) -> dict:
+    """The coordinator deployment at full width: real processes of
+    ``fedrec_tpu_torch.cli.coordinator`` on 127.0.0.1, every one on this card,
+    the gloo wire over host buffers.
+
+    1. the reference deployment: 3 processes (the server does not train), 3
+       rounds of K x 4 steps at B on each client's shard (2,049 rows dealt
+       1,025 / 1,024, ``fed.weight_by_samples``), ``save_every`` 1, one
+       full-pool evaluation; every round's global held to the in-process
+       emulation (the two shards' ``Trainer``s here, the same reduction),
+       the bytes on the wire to the dense tree's, then the last global
+       served through ``load_checkpoint_params`` and the recommend CLI over
+       ``--coord-rec-users`` users against the plain route;
+    2. codecs: the same world for 2 rounds under int8, topk (ratio 0.01,
+       error feedback) and countsketch (width 0.1), each against the
+       emulation through the same codec, the compression measured from the
+       shipped bytes, the residual sidecars written;
+    3. robust and hierarchical: 3 processes with ``--server-trains``,
+       trimmed_mean (trim_k 1), int8, ``agg.mode=hierarchical`` (fanout 2),
+       against the emulation; ``agg.tier_reduce_ms``;
+    4. a host fault: ``chaos.kill_process=2`` at ``kill_round=1`` with
+       ``--collective-timeout 30``: the killed process exits 137, the
+       survivors degrade, the client re-executes itself standalone and
+       finishes, every process under a wall limit.
+    """
+    import copy
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.cli import coordinator as coord
+    from fedrec_tpu_torch.cli import recommend
+    from fedrec_tpu_torch.comms import tree_dense_nbytes
+    from fedrec_tpu_torch.data import MindData, make_synthetic_mind
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import init_params, to_flax
+    from fedrec_tpu_torch.serving import load_checkpoint_params, restore_model
+    from fedrec_tpu_torch.train import encode_all_news
+
+    dev = torch.device(DEV)
+    K, B, S = args.clients, args.batch_size, args.trainer_steps
+    base = coord.config_from_args(coord._build_parser().parse_args(
+        _coord_argv(args, Path("."), Path("."), 1)), dev)
+    T, H, Dh = base.data.max_title_len, base.data.max_his_len, base.model.bert_hidden
+    tokens = _tokens(state, args, T, Dh)
+    rows = K * B * S
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="coordinator_path_", dir=build)
+    root = Path(work.name)
+    logs = root / "logs"
+    logs.mkdir()
+    out: dict = {"clients": K, "batch_size": B, "steps": S, "num_news": args.num_news,
+                 "news_dim": base.model.news_dim, "bert_hidden": Dh, "dtype": "float32",
+                 "tf32": False}
+    # two artifact dirs over one token file: 2 training shards of K x B x S
+    # rows (one more row in the first, so the sample weights differ) and 3
+    data3 = make_synthetic_mind(num_news=args.num_news, num_train=3 * rows + 1,
+                                num_valid=args.coord_valid, title_len=T, seed=args.seed)
+    data2 = MindData(data3.news_tokens, data3.nid2index, data3.train_samples[: 2 * rows + 1],
+                     data3.valid_samples)
+    art2, art3 = root / "UserData2", root / "UserData3"
+    _write_artifacts(data2, art2)
+    _write_artifacts(data3, art3)
+    out["token_states_write_s"] = _write_token_states(tokens, art2 / "token_states.npy",
+                                                      args.chunk)
+    (art3 / "token_states.npy").hardlink_to(art2 / "token_states.npy")
+    dense = tree_dense_nbytes((to_flax(init_params(NewsRecommender(base.model)).user_encoder),
+                               to_flax(init_params(NewsRecommender(base.model)).news_tower)))
+    out["dense_tree_bytes"] = dense
+    counts: dict = {}
+    torch.cuda.empty_cache()
+    peak_before = torch.cuda.memory_allocated()
+
+    # ---- 1. the reference deployment
+    snaps = root / "ref"
+    argv = _coord_argv(args, art2, snaps, COORD_ROUNDS, "fed.weight_by_samples=1")
+    world = _coord_world(argv, 3, logs, "reference")
+    check(world["rcs"] == [0, 0, 0], f"reference world rcs {world['rcs']}: "
+                                     f"{[o[-1500:] for o in world['outs']]}")
+    leg = _coord_leg_summary(world, dense, COORD_ROUNDS)
+    _coord_check_launches(world, K, S, counts)
+    check([p["trains"] for p in leg["processes"]] == [False, True, True], "roles")
+    for p in leg["processes"]:
+        check(p["bytes_up"] == COORD_ROUNDS * dense and p["bytes_down"] == COORD_ROUNDS * dense,
+              f"process {p['process']} shipped {p['bytes_up']} up / {p['bytes_down']} down, "
+              f"not {COORD_ROUNDS} x the dense tree's {dense}")
+    samples = sorted(r[-1]["num_local_samples"] for r in world["reports"][1:])
+    check(samples == [rows, rows + 1], f"shard sizes {samples}")
+    em = _coord_emulate(argv, tokens, 3, False, COORD_ROUNDS)
+    leg["vs_emulation"] = _coord_hold(world, snaps, em[:2], em[2], list(range(COORD_ROUNDS)))
+    # the last global served: the store's loader, then the recommend CLI
+    user_state, news_state, round_, kind = load_checkpoint_params(snaps)
+    check((round_, kind) == (COORD_ROUNDS - 1, "coordinator"), f"served {kind} round {round_}")
+    model = restore_model(base.model, user_state, news_state, dev)
+    table = encode_all_news(model, tokens, device=dev)
+    users = recommend.collect_histories(data2, H)
+    uids = sorted(users)[: args.coord_rec_users]
+    recs = root / "recs.jsonl"
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = recommend.main(["--data-dir", str(art2), "--snapshot-dir", str(snaps), "--out",
+                             str(recs), "--device", DEV, "--uids", *uids])
+    rec_s = time.perf_counter() - t0
+    check(rc == 0, f"recommend CLI rc {rc}: {err.getvalue()[-2000:]}")
+    check("serving coordinator snapshot" in err.getvalue(), "the CLI served no coordinator global")
+    lines = [json.loads(ln) for ln in recs.read_text().splitlines()]
+    check([ln["uid"] for ln in lines] == uids, f"{len(lines)} lines for {len(uids)} users")
+    hist = torch.tensor([[data2.nid2index[n] for n in users[ln["uid"]]]
+                         + [0] * (H - len(users[ln["uid"]])) for ln in lines], device=dev)
+    ref_scores, ref_ids = _plain_scores(model.user_encoder, table, hist, 10)
+    got = torch.tensor([[data2.nid2index[n] for n in ln["news"]] for ln in lines], device=dev)
+    mismatch = _topk_disagreements(got, ref_scores, ref_ids, 10)
+    check(mismatch == 0, f"{mismatch} recommended ids differ from the plain route's")
+    leg["recommend_cli"] = {"rc": rc, "users": len(lines), "wall_s": rec_s,
+                            "id_mismatches": mismatch}
+    del model, table
+    out["reference"] = leg
+
+    # ---- 2. codecs
+    out["codecs"] = {}
+    for codec, sets in (("int8", ["fed.dcn_compress=int8"]),
+                        ("topk", ["fed.dcn_compress=topk", "fed.dcn_topk_ratio=0.01",
+                                  "fed.dcn_error_feedback=true"]),
+                        ("countsketch", ["fed.dcn_compress=countsketch",
+                                         "fed.dcn_sketch_width=0.1"])):
+        snaps = root / codec
+        argv = _coord_argv(args, art2, snaps, COORD_CODEC_ROUNDS, "fed.weight_by_samples=1",
+                           *sets)
+        world = _coord_world(argv, 3, logs, codec)
+        check(world["rcs"] == [0, 0, 0], f"{codec} world rcs {world['rcs']}: "
+                                         f"{[o[-1500:] for o in world['outs']]}")
+        leg = _coord_leg_summary(world, dense, COORD_CODEC_ROUNDS)
+        _coord_check_launches(world, K, S, counts)
+        ratios = {p["compression_ratio_measured"] for p in leg["processes"]}
+        check(len(ratios) == 1, f"{codec}: processes shipped different byte counts {ratios}")
+        leg["compression_ratio"] = ratios.pop()
+        if codec == "topk":
+            sidecars = sorted(p.name for p in snaps.glob("codec_state_p*.npz"))
+            check(sidecars == [f"codec_state_p{i}.npz" for i in range(3)],
+                  f"residual sidecars {sidecars}")
+            leg["residual_sidecars"] = sidecars
+        em = _coord_emulate(argv, tokens, 3, False, COORD_CODEC_ROUNDS)
+        leg["vs_emulation"] = _coord_hold(world, snaps, em[:2], em[2],
+                                          list(range(COORD_CODEC_ROUNDS)))
+        out["codecs"][codec] = leg
+
+    # ---- 3. robust and hierarchical, the server training
+    snaps = root / "hier"
+    argv = _coord_argv(args, art3, snaps, COORD_CODEC_ROUNDS, "fed.dcn_compress=int8",
+                       "fed.robust.method=trimmed_mean", "fed.robust.trim_k=1",
+                       "agg.mode=hierarchical", "agg.tree_fanout=2")
+    world = _coord_world([*argv, "--server-trains"], 3, logs, "hierarchical")
+    check(world["rcs"] == [0, 0, 0], f"hierarchical world rcs {world['rcs']}: "
+                                     f"{[o[-1500:] for o in world['outs']]}")
+    leg = _coord_leg_summary(world, dense, COORD_CODEC_ROUNDS)
+    _coord_check_launches(world, K, S, counts)
+    check(all(p["trains"] for p in leg["processes"]), "every process trains")
+    check(all((p["tier_reduce_ms"] or 0) > 0 for p in leg["processes"]),
+          "agg.tier_reduce_ms not set")
+    em = _coord_emulate(argv, tokens, 3, True, COORD_CODEC_ROUNDS)
+    leg["vs_emulation"] = _coord_hold(world, snaps, em[:2], em[2],
+                                      list(range(COORD_CODEC_ROUNDS)))
+    out["hierarchical"] = leg
+
+    # ---- 4. a host fault
+    snaps = root / "kill"
+    argv = _coord_argv(args, art2, snaps, COORD_ROUNDS, "chaos.enabled=1",
+                       "chaos.kill_process=2", "chaos.kill_round=1")
+    world = _coord_world([*argv, "--collective-timeout", "30"], 3, logs, "kill")
+    check(world["rcs"] == [0, 0, 137], f"kill world rcs {world['rcs']}: "
+                                       f"{[o[-1500:] for o in world['outs']]}")
+    killed_at = (snaps / "chaos_killed_p2").stat().st_mtime
+    server, client = world["reports"][0][-1], world["reports"][1]
+    check(server["degraded"] and server["deadline_misses"] >= 1, "the server did not degrade")
+    check(len(client) == 2 and client[0]["degraded"] and client[1]["standalone"]
+          and client[1]["rounds"] == [1, 2], f"client 1's continuation: {client}")
+    lags = [server["degraded_at"] - killed_at, client[0]["degraded_at"] - killed_at]
+    check(max(lags) <= 30 + 10, f"survivors degraded {lags} s after the kill")
+    _coord_check_launches({"reports": [world["reports"][1][1:]]}, K, S, counts)
+    out["kill"] = {"rcs": world["rcs"], "wall_s": world["wall_s"],
+                   "degrade_after_kill_s": lags,
+                   "continuation_rounds": client[1]["rounds"],
+                   "continuation_round_ms": client[1]["round_ms"],
+                   "server_rounds": server["rounds"]}
+    out["peak_gpu_mb_this_process"] = (torch.cuda.max_memory_allocated() - peak_before) / 2**20
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd", "additive_pool"):
+        check(counts.get(name, 0) > 0, f"{name} never launched on the coordinator path")
+    state.setdefault("launches", {})["coordinator"] = counts
+    out["launches"] = {KERNEL_LETTER[k]: v for k, v in counts.items() if v}
+    (art2 / "token_states.npy").unlink()
+    work.cleanup()
+    return out
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
     under the per-example transform; trainer_path, cohort_path and data_path run A
     through E, decoupled_path and family_path A, B and E, serving_path A and B),
-    times from the kernels phase."""
+    times from the kernels phase. ``launches_by_path["coordinator"]`` sums
+    the coordinator processes' own counts (A through E)."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -4747,6 +5130,10 @@ def main(argv=None) -> int:
                    help="family_path: users the recommend CLI serves from the GRU+CNN snapshot")
     p.add_argument("--family-chaos-news", type=int, default=2048,
                    help="family_path: the nan chaos run's catalog (its dump keeps the table)")
+    p.add_argument("--coord-valid", type=int, default=2048,
+                   help="coordinator_path: validation impressions of the one evaluation")
+    p.add_argument("--coord-rec-users", type=int, default=2048,
+                   help="coordinator_path: users the recommend CLI serves from the last global")
     args = p.parse_args(argv)
     args.waves = [int(w) for w in args.waves.split(",")]
     args.serving_waves = [int(w) for w in args.serving_waves.split(",")]
@@ -4784,6 +5171,7 @@ def main(argv=None) -> int:
         "cohort_path": lambda: phase_cohort_path(state, args),
         "data_path": lambda: phase_data_path(state, args),
         "family_path": lambda: phase_family_path(state, args),
+        "coordinator_path": lambda: phase_coordinator_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:

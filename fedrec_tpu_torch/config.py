@@ -10,7 +10,9 @@ Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
 ``train.trainer.Trainer``): ``fed.seq_shards``,
 ``fed.elastic.enabled``, ``shard.table``, ``obs.fleet.collector``,
-``obs.slo.enabled``, the ``obs.watch`` and ``obs.wire`` fields (the
+``obs.slo.enabled``, ``fed.dcn_compress="auto"``, ``agg.mode="async"``
+with ``agg.quorum`` and ``agg.staleness_cap``, the ``obs.watch`` and
+``obs.wire`` fields (the
 port speaks no wire that carries the envelope: ROADMAP.md's Queue A item
 10b) and the chaos keys ``fed.chaos.refuse_unported_chaos`` names.
 ``obs.health``'s flight-recorder fields are inert
@@ -206,7 +208,20 @@ class FedConfig:
     local_epochs: int = 1              # client epochs per round
     rounds: int = 10                   # global rounds (reference server.py global_epochs)
     participation: float = 1.0         # fraction of clients aggregated per round
+    # classic FedAvg weighting by each coordinator process's shard size
+    # (McMahan et al.); False = reference parity, the server's unweighted
+    # key-wise mean over unequal shards (reference server.py:37-55)
+    weight_by_samples: bool = False
     seq_shards: int = 1                # not ported: > 1 raises
+    # the update codec of the round-end sync and the coordinator's wire
+    # (comms.codecs): none|int8|sign1bit|topk|countsketch|randproj. "auto"
+    # (a per-leaf map pinned from warm-up telemetry) is not ported and raises
+    dcn_compress: str = "none"
+    dcn_topk_ratio: float = 0.01       # topk: ceil(ratio * n) coordinates a tensor
+    dcn_sketch_width: float = 0.1      # sketches: buckets / coordinates, in (0, 1]
+    dcn_sketch_seed: int = 0           # the shared sketch hash/projection seed
+    # per-client error-feedback residuals for the biased codecs (sign1bit, topk)
+    dcn_error_feedback: bool = True
     # FedOpt over round deltas (fed.strategies.ServerOptimizer): "none"
     # adopts the client mean (FedAvg); "sgd" with server_momentum > 0 is
     # FedAvgM; "adam" is FedAdam. Needs a strategy that syncs params
@@ -252,8 +267,9 @@ class ChaosConfig:
     """Deterministic fault injection (``fed.chaos``): a seeded plan of
     per-round, per-client faults. ``faults`` is a comma list of
     ``kind@round:client[xscale]`` (``round`` may be ``*``): ``nan@2:3``,
-    ``scale@*:5x100``, ``flip@4:2``. The wire and host-kill keys are the
-    JAX package's and refused by name when set."""
+    ``scale@*:5x100``, ``flip@4:2``. The host faults act in the coordinator
+    deployment; the wire and rejoin keys are the JAX package's and refused
+    by name when set."""
 
     enabled: bool = False
     seed: int = 0
@@ -271,10 +287,13 @@ class ChaosConfig:
     pop_flaky_drop_rate: float = 0.5
     pop_straggle_ms: float = 0.0
     pop_straggle_sigma: float = 1.0
-    # not ported (fed.chaos.refuse_unported_chaos): host and wire faults
+    # host faults of the coordinator deployment (cli.coordinator): process
+    # kill_process exits (137) at the entry of round kill_round; every
+    # process truncates its local snapshot of torn_snapshot_round
     kill_round: int = -1
     kill_process: int = -1
     torn_snapshot_round: int = -1
+    # not ported (fed.chaos.refuse_unported_chaos): elastic and wire faults
     rejoin_delay_s: float = 0.0
     wire_faults: str = ""
     wire_seed: int = 0
@@ -455,6 +474,21 @@ EVAL_PROTOCOLS = ("sampled", "full", "last4")
 
 
 @dataclass
+class AggConfig:
+    """Round-end aggregation topology (``agg.hierarchy``): "flat" (one
+    reduce) or "hierarchical" (``tree_fanout``-wide tiers, the
+    ``fed.robust`` method applied per tier; with ``mean`` it lowers to the
+    flat reduce, bit for bit). "async" and ``quorum`` / ``staleness_cap``
+    off their defaults (the buffered quorum commit) are not ported and
+    raise."""
+
+    mode: str = "flat"                 # "flat" | "hierarchical"
+    quorum: int = 0                    # not ported: async commit quorum
+    staleness_cap: int = 2             # not ported: async staleness cap
+    tree_fanout: int = 2               # hierarchical tier width (>= 2)
+
+
+@dataclass
 class TrainConfig:
     """The round loop's cadences (``train.trainer.Trainer``)."""
 
@@ -484,6 +518,7 @@ class ExperimentConfig:
     shard: ShardConfig = field(default_factory=ShardConfig)
     chaos: ChaosConfig = field(default_factory=ChaosConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    agg: AggConfig = field(default_factory=AggConfig)
 
     def to_dict(self) -> dict[str, Any]:
         """The nested dict ``from_dict`` reads (a flight-recorder manifest's

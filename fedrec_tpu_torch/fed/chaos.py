@@ -18,9 +18,13 @@ packages plan the same faults.
   cohort engine (``fed.population``), from numpy ``default_rng([seed,
   round, attempt, client, 0x90B])`` draws, bitwise the JAX package's.
 
-Not ported: the wire faults (``chaos.wire_faults``, ``ChaosProxy``) and the
-host-level kills (``kill_round``, ``kill_process``, ``torn_snapshot_round``,
-``rejoin_delay_s``); ``refuse_unported_chaos`` names them.
+* host faults (``kill_round``, ``kill_process``, ``torn_snapshot_round``):
+  read by the coordinator deployment (``cli.coordinator``), inert in the
+  single-process trainer, as in the JAX package.
+
+Not ported: the wire faults (``chaos.wire_faults``, ``wire_seed``,
+``ChaosProxy``) and ``rejoin_delay_s`` (elastic membership);
+``refuse_unported_chaos`` names them.
 """
 
 from __future__ import annotations
@@ -215,9 +219,7 @@ def apply_update_fault(updates: Sequence[torch.Tensor], code: int,
 # ROADMAP.md Queue A item that ports it
 _UNPORTED = (
     ("wire_faults", "", "9 (the wire: ChaosProxy)"),
-    ("kill_round", -1, "9 (the coordinator deployment's host faults)"),
-    ("kill_process", -1, "9 (the coordinator deployment's host faults)"),
-    ("torn_snapshot_round", -1, "9 (the coordinator deployment's host faults)"),
+    ("wire_seed", 0, "9 (the wire: ChaosProxy)"),
     ("rejoin_delay_s", 0.0, "9 (elastic membership)"),
 )
 
@@ -232,5 +234,6 @@ def refuse_unported_chaos(chaos_cfg: Any) -> None:
             raise NotImplementedError(
                 f"chaos.{key} is not ported to fedrec_tpu_torch yet (ROADMAP.md's "
                 f"Queue A item {item}); the port injects chaos.faults, drop_rate, "
-                "straggle_rate and the pop_* population faults"
+                "straggle_rate, the pop_* population faults and, in the coordinator "
+                "deployment, kill_round/kill_process/torn_snapshot_round"
             )

@@ -51,7 +51,7 @@ from fedrec_tpu_torch.fed.chaos import population_report
 # news-gradient accumulator (zero at every round boundary, so carried as an
 # empty marker; train.trainer)
 SIDECAR_FIELDS = ("step", "opt_user", "opt_news", "generator", "noise_generator",
-                  "news_grad_accum")
+                  "news_grad_accum", "ef_residual")
 
 
 class QuorumFailure(Exception):

@@ -22,17 +22,23 @@ to the bit. Non-participants (weight 0) are left out of every method, so a
 quarantined client whose parameters are NaN contributes nothing. A round
 with no participant keeps each client's local parameters.
 
-``robust_reduce_np``, the coordinator's host variant, is not ported (it
-comes with the multi-process deployment, ``ROADMAP.md`` Queue A item 9).
+``robust_reduce_np`` and ``robust_reduce_tree_np`` are the host variants
+the coordinator's gather and the hierarchical reduce use: numpy over (P,
+...) stacks of per-process contributions in f64, the JAX package's
+arithmetic line for line (NaN cells and weight-0 rows left out, an m == 0
+coordinate keeps the fallback, ``clip`` on the deviation norm over every
+leaf).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
+
+from fedrec_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
 
 ROBUST_METHODS = ("mean", "clip", "trimmed_mean", "median")
 
@@ -141,3 +147,104 @@ def robust_aggregate(params: Sequence[Sequence[torch.Tensor]], weights, method: 
         rows = torch.where(m > 0, agg.to(stacked.dtype), stacked)
     sizes = [math.prod(s) for s in shapes]
     return [[t.view(s) for t, s in zip(row.split(sizes), shapes)] for row in rows]
+
+
+# ----------------------------------------------------------------- numpy
+def robust_reduce_np(
+    stacked: np.ndarray,
+    weights: np.ndarray,
+    method: str,
+    trim_k: int = 1,
+    clip_norm: float = 10.0,
+    sq_norms: np.ndarray | None = None,
+    fallback: np.ndarray | None = None,
+) -> np.ndarray:
+    """Robust reduction over a (P, ...) stack of per-process contributions,
+    in f64: participation is ``weights > 0``, non-finite cells are left
+    out, trimming and the median are per coordinate, and a coordinate with
+    no finite participant (m == 0) keeps ``fallback`` (0.0 without one).
+    ``clip`` needs the per-process deviation norm over every leaf
+    (``sq_norms``, from :func:`robust_reduce_tree_np`); without it the leaf
+    is clipped by its own norm."""
+    validate_robust_method(method)
+    w = np.asarray(weights, np.float64)
+    x = np.asarray(stacked, np.float64)
+    wmask = (w > 0).reshape((-1,) + (1,) * (x.ndim - 1))
+    if method == "mean":
+        total = float(np.sum(w))
+        if total == 0:
+            raise ValueError("mean reduction needs >= 1 participant")
+        contrib = np.where(wmask > 0, x, 0.0)
+        return np.einsum("p,p...->...", w, contrib) / total
+
+    finite = np.isfinite(x) & (wmask > 0)
+    vals = np.where(finite, x, np.inf)
+    srt = np.sort(vals, axis=0)
+    m = finite.sum(axis=0)
+    pos = np.arange(x.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
+    fb = 0.0 if fallback is None else np.asarray(fallback, np.float64)
+    if method == "trimmed_mean":
+        k = np.minimum(trim_k, (m - 1) // 2)
+        keep = (pos >= k) & (pos < m - k)
+        denom = np.maximum(m - 2 * k, 1)
+        out = np.where(keep, np.where(np.isfinite(srt), srt, 0.0), 0.0).sum(0)
+        return np.where(m > 0, out / denom, fb)
+    lo, hi = (m - 1) // 2, m // 2
+    safe = np.where(np.isfinite(srt), srt, 0.0)
+    mid = 0.5 * (np.where(pos == lo, safe, 0.0).sum(0) + np.where(pos == hi, safe, 0.0).sum(0))
+    if method == "median":
+        return np.where(m > 0, mid, fb)
+    # clip, around the coordinate-wise median
+    d = x - mid[None]
+    if sq_norms is None:
+        sq_norms = _sq_deviation(d)
+    norm = np.sqrt(sq_norms)
+    scale = np.where(np.isfinite(norm), np.minimum(1.0, clip_norm / np.maximum(norm, 1e-12)), 0.0)
+    coeff = w * (w > 0) * scale
+    total = float(np.sum(w * (w > 0)))
+    if total == 0:
+        raise ValueError("clip reduction needs >= 1 participant")
+    safe_d = np.where(np.isfinite(d), d, 0.0)
+    return mid + np.einsum("p,p...->...", coeff, safe_d) / total
+
+
+def _sq_deviation(d: np.ndarray) -> np.ndarray:
+    """Each row's squared L2 norm over its finite cells; inf for a row
+    with a non-finite cell."""
+    d_flat = d.reshape(d.shape[0], -1)
+    finite_rows = np.isfinite(d_flat).all(axis=1)
+    return np.where(finite_rows, (np.where(np.isfinite(d_flat), d_flat, 0.0) ** 2).sum(axis=1),
+                    np.inf)
+
+
+def robust_reduce_tree_np(
+    gathered_tree: Any,
+    weights: np.ndarray,
+    method: str,
+    trim_k: int = 1,
+    clip_norm: float = 10.0,
+    fallback_tree: Any = None,
+) -> Any:
+    """:func:`robust_reduce_np` over every leaf of a tree of (P, ...)
+    stacks. ``clip``'s per-process deviation norm spans all leaves;
+    ``fallback_tree`` (unstacked, the caller's local values) fills the m ==
+    0 coordinates."""
+    validate_robust_method(method)
+    leaves, treedef = tree_flatten(gathered_tree)
+    leaves = [np.asarray(leaf, np.float64) for leaf in leaves]
+    fb_leaves: list = [None] * len(leaves)
+    if fallback_tree is not None:
+        fb_leaves = tree_flatten(fallback_tree)[0]
+    if method != "clip":
+        return tree_unflatten(treedef, [
+            robust_reduce_np(leaf, weights, method, trim_k=trim_k, fallback=fb)
+            for leaf, fb in zip(leaves, fb_leaves)])
+    n = leaves[0].shape[0]
+    w = np.asarray(weights, np.float64)
+    sq = np.zeros((n,), np.float64)
+    for x in leaves:
+        center = robust_reduce_np(x, w, "median")
+        sq = sq + _sq_deviation(x - center[None])
+    return tree_unflatten(treedef, [
+        robust_reduce_np(leaf, weights, "clip", clip_norm=clip_norm, sq_norms=sq)
+        for leaf in leaves])

@@ -21,6 +21,12 @@ reshaped to (k * in, out), tap-major, the layout of
 ``nn.LayerNorm``, ``scale`` as its weight. The GRU tower's leaves sit under
 ``user_encoder/GRUCell_0/{ir,iz,in,hr,hz,hn}``, as in the Flax tree.
 
+``to_flax`` is the inverse: the module's leaves as a Flax-layout tree of
+numpy arrays. ``flax_leaves`` and ``load_flax_leaves`` do the same on the
+device, as one list of tensors in ``jax.tree_util``'s leaf order (keys
+sorted depth first: ``bias`` before ``kernel``), the order and layout the
+update codecs address a contribution by (``comms.codecs``).
+
 ``init_params`` gives a module Flax's default initialisation from a seeded
 ``torch.Generator``: LeCun-normal Dense and Conv kernels (a Conv's fan-in
 is k * in, its ``nn.Linear``'s ``in_features``) and Embed tables
@@ -108,6 +114,81 @@ def from_flax(module: nn.Module, tree: Mapping[str, Any]) -> list[str]:
                 target.copy_(torch.from_numpy(value))
             loaded.append(path)
     return loaded
+
+
+def _flax_specs(module: nn.Module) -> list[tuple[tuple[str, ...], torch.Tensor, Any]]:
+    """``(flax path, parameter, kernel shape or None)`` for every leaf of
+    ``module``, sorted by path (the Flax tree's leaf order). The kernel
+    shape is the Flax ``(in, out)`` (or a Conv's ``(k, in, out)``) of a
+    Dense's transposed weight; None marks a leaf stored as is."""
+    specs = []
+    for name, layer in module.named_modules():
+        base = tuple(name.split(".")) if name else ()
+        if isinstance(layer, nn.Linear):
+            out_f, in_f = layer.weight.shape
+            # the CNN head's conv: its parent's int ``kernel`` is the tap count
+            k = (getattr(module.get_submodule(name.rpartition(".")[0]), "kernel", None)
+                 if base[-1:] == ("conv",) else None)
+            shape = (k, in_f // k, out_f) if isinstance(k, int) else (in_f, out_f)
+            specs.append((base + ("kernel",), layer.weight, shape))
+            if layer.bias is not None:
+                specs.append((base + ("bias",), layer.bias, None))
+        elif isinstance(layer, nn.Embedding):
+            specs.append((base + ("embedding",), layer.weight, None))
+        elif isinstance(layer, nn.LayerNorm):
+            specs.append((base + ("scale",), layer.weight, None))
+            specs.append((base + ("bias",), layer.bias, None))
+    return sorted(specs, key=lambda s: s[0])
+
+
+def flax_leaves(module: nn.Module) -> list[torch.Tensor]:
+    """The module's parameters in Flax layout and leaf order, as new f32
+    tensors on the parameters' device."""
+    with torch.no_grad():
+        return [(p.t().reshape(shape) if shape is not None else p).detach().to(
+                    torch.float32, copy=True).contiguous()
+                for _, p, shape in _flax_specs(module)]
+
+
+def flax_leaf_count(module: nn.Module) -> int:
+    """The number of leaves ``flax_leaves`` returns."""
+    return len(_flax_specs(module))
+
+
+def load_flax_leaves(module: nn.Module, leaves) -> None:
+    """Copy Flax-layout leaves (``flax_leaves``' order, tensors or numpy)
+    into the module's parameters in place."""
+    specs = _flax_specs(module)
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(leaves)} leaves for a module of {len(specs)}")
+    with torch.no_grad():
+        for (path, p, shape), x in zip(specs, leaves):
+            x = torch.as_tensor(x)
+            want = shape if shape is not None else tuple(p.shape)
+            if tuple(x.shape) != tuple(want):
+                raise ValueError(f"{'/'.join(path)}: leaf {tuple(x.shape)} does not fit {want}")
+            if shape is not None:
+                x = x.reshape(-1, shape[-1]).t()
+            p.copy_(x)
+
+
+def to_flax(module: nn.Module) -> dict:
+    """The inverse of ``from_flax``: the module's leaves as a nested dict of
+    numpy f32 arrays in Flax layout (Dense kernels ``(in, out)``, a Conv's
+    ``(k, in, out)``), one host copy."""
+    specs = _flax_specs(module)
+    leaves = flax_leaves(module)
+    flat = (torch.cat([x.reshape(-1) for x in leaves]).cpu().numpy() if leaves
+            else np.zeros(0, np.float32))
+    out: dict = {}
+    offset = 0
+    for (path, _, _), x in zip(specs, leaves):
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = flat[offset:offset + x.numel()].reshape(tuple(x.shape))
+        offset += x.numel()
+    return out
 
 
 def init_params(module: nn.Module, seed: int = 0) -> nn.Module:

@@ -25,7 +25,12 @@ from fedrec_tpu_torch.config import ModelConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.models import NewsRecommender
 from fedrec_tpu_torch.obs import DriftProbe, get_registry
-from fedrec_tpu_torch.train.checkpoint import SnapshotManager
+from fedrec_tpu_torch.train.checkpoint import (
+    SnapshotManager,
+    coordinator_globals,
+    global_round_of,
+    load_state_bytes,
+)
 
 
 class EmptyStoreError(RuntimeError):
@@ -151,7 +156,7 @@ def _orbax_rounds(snap_dir: Path) -> list[int]:
     return sorted(int(p.name) for p in snap_dir.iterdir() if p.is_dir() and p.name.isdigit())
 
 
-def _coordinator_globals(snap_dir: Path) -> list[Path]:
+def _jax_coordinator_globals(snap_dir: Path) -> list[Path]:
     """The JAX coordinator deployment's ``global_round_<r>.msgpack`` files."""
     return [p for p in snap_dir.glob("global_round_*.msgpack")
             if p.stem.rsplit("_", 1)[-1].isdigit()]
@@ -161,24 +166,32 @@ def load_checkpoint_params(
     snap_dir: str | Path, log: Callable[[str], None] | None = None
 ) -> tuple[dict, dict, int, str]:
     """Restore ``(user_state, news_state, round, kind)`` from the newest of
-    the port's own snapshots in ``snap_dir`` (``train.checkpoint``:
-    ``round_<r>/state.pt``): client 0's user-tower and text-head parameters
-    as host tensors by name (every client holds the same after a
-    ``param_avg`` round end), the round, and ``kind="torch"``.
+    the port's own snapshots in ``snap_dir``: a trainer snapshot
+    (``train.checkpoint``: ``round_<r>/state.pt``, ``kind="torch"``) or a
+    coordinator server's global (``global_round_<r>.pt``,
+    ``kind="coordinator"``), whichever holds the later round. The
+    parameters are client 0's user-tower and news-tower parameters as host
+    tensors by name (every client holds the same after a ``param_avg``
+    round end).
 
     The JAX package's formats are refused by name: its coordinator's
-    msgpack globals wait for the coordinator port (ROADMAP.md's Queue A
-    item 9), and its orbax trees for an orbax-to-npz bridge that is not
-    ported. Where they sit beside the port's snapshots, ``log`` (optional)
-    is told they were passed over.
+    msgpack globals wait for a msgpack reader (ROADMAP.md's Queue A item
+    9), and its orbax trees for an orbax-to-npz bridge that is not ported.
+    Where they sit beside the port's snapshots, ``log`` (optional) is told
+    they were passed over.
     """
     snap_dir = Path(snap_dir)
     if not snap_dir.is_dir():
         raise FileNotFoundError(f"no snapshot directory {snap_dir}")
-    orbax, globals_ = _orbax_rounds(snap_dir), _coordinator_globals(snap_dir)
+    orbax, globals_ = _orbax_rounds(snap_dir), _jax_coordinator_globals(snap_dir)
     mgr = SnapshotManager(snap_dir)
     try:
         round_ = mgr.latest_round()
+        port_globals = coordinator_globals(snap_dir)
+        if port_globals and (round_ is None or global_round_of(port_globals[-1]) >= round_):
+            # written atomically: a concurrent writer never shows a torn file
+            g = load_state_bytes(port_globals[-1].read_bytes())
+            return g["user_params"], g["news_params"], int(g["round"]), "coordinator"
         raw = mgr.restore_raw(round_) if round_ is not None else None
     finally:
         mgr.close()
@@ -192,8 +205,9 @@ def load_checkpoint_params(
     if globals_:
         raise SnapshotFormatError(
             f"{snap_dir} holds coordinator msgpack globals (global_round_<r>.msgpack) "
-            "written by the JAX package's coordinator; restoring them waits for the "
-            "coordinator's port (ROADMAP.md Queue A item 9)"
+            "written by the JAX package's coordinator; restoring them waits for a "
+            "msgpack reader (ROADMAP.md Queue A item 9). The port's coordinator writes "
+            "global_round_<r>.pt, which this loader serves"
         )
     if orbax:
         raise SnapshotFormatError(
@@ -201,7 +215,8 @@ def load_checkpoint_params(
             "JAX package; the orbax-to-npz bridge is not ported. Serve a snapshot of "
             "fedrec_tpu_torch's Trainer (round_<r>/state.pt)"
         )
-    raise FileNotFoundError(f"no snapshot (round_<r>/state.pt) under {snap_dir}")
+    raise FileNotFoundError(
+        f"no snapshot (round_<r>/state.pt or global_round_<r>.pt) under {snap_dir}")
 
 
 def restore_model(

@@ -4,7 +4,8 @@ counterpart of ``fedrec_tpu/train/checkpoint.py``.
 A snapshot holds everything a bitwise resume needs, per client: both
 towers' parameters, both optimizer states (Adam's ``count``, ``mu``,
 ``nu``), the step count and the states of the dropout and DP-noise
-``torch.Generator``s; and the round index. The batchers are stateless in
+``torch.Generator``s, the codec's error-feedback residual when the run
+keeps one; and the round index. The batchers are stateless in
 ``(seed, epoch)``, so they need none. Decoupled mode's news-gradient
 accumulators are zero at every round end (each epoch's news update zeroes
 them), so a snapshot leaves them out and a restore drops them; the next
@@ -21,8 +22,16 @@ the cohort engine's state (``POPULATION_SIDECAR``,
 ``population_state_bytes``) and its per-client sidecars
 (``POPULATION_STORE``), each tagged with its round, so a snapshot that is
 visible has them. Loading uses ``torch.load(..., weights_only=True)``:
-tensors, numbers, lists and dicts only. There is no multi-host layout, so
-no gather on save.
+tensors, numbers, lists and dicts only.
+
+The coordinator deployment (``cli.coordinator``) writes flat files beside
+its ``config.json`` instead, in the same format and atomically: each
+process's whole local state (``local_state_p<i>.pt``: ``host_states`` of
+its clients and the round) and the server's global model of each saved
+round (``global_round_<r>.pt``: client 0's named user-tower and news-tower
+parameters and the round, the newest three kept). ``coordinator_globals``
+and ``global_round_of`` are the one definition of that file name, shared by
+the writer, its retention and the serving store.
 """
 
 from __future__ import annotations
@@ -167,6 +176,8 @@ def _client_snapshot(st: ClientState) -> dict:
         "opt_news": _opt_dict(st.opt_news),
         "generator": st.generator.get_state(),
         "noise_generator": st.noise_generator.get_state(),
+        "ef_residual": (None if st.ef_residual is None
+                        else [_host(r) for r in st.ef_residual]),
     }
 
 
@@ -212,6 +223,12 @@ def _load_into(template: list[ClientState], snap: dict) -> list[ClientState]:
             if "noise_generator" in cs:  # absent from snapshots that predate DP noise
                 st.noise_generator.set_state(cs["noise_generator"])
             st.news_grad_accum = None
+            saved = cs.get("ef_residual")
+            if st.ef_residual is not None:
+                # a snapshot without one (no biased codec then) restarts the
+                # residual from zero, as a fresh client does
+                st.ef_residual = ([torch.zeros_like(r) for r in st.ef_residual]
+                                  if saved is None else [r.to(dev) for r in saved])
     return template
 
 
@@ -226,6 +243,56 @@ def load_host_states(template: list[ClientState], snap: dict) -> list[ClientStat
     clients in place, after the same structure check as ``restore``."""
     _check_against(template, snap)
     return _load_into(template, snap)
+
+
+GLOBAL_PREFIX = "global_round_"
+GLOBAL_SUFFIX = ".pt"
+
+
+def global_round_of(path: Path) -> int | None:
+    """The round of a ``global_round_<r>.pt`` file; None when the suffix is
+    not an integer (an operator's ``global_round_19_backup.pt``)."""
+    try:
+        return int(Path(path).stem.rsplit("_", 1)[1])
+    except (ValueError, IndexError):
+        return None
+
+
+def coordinator_globals(directory: str | Path) -> list[Path]:
+    """The coordinator's global-model files in ``directory``, oldest to
+    newest round."""
+    out = []
+    for p in Path(directory).glob(f"{GLOBAL_PREFIX}*{GLOBAL_SUFFIX}"):
+        r = global_round_of(p)
+        if r is not None:
+            out.append((r, p))
+    return [p for _, p in sorted(out)]
+
+
+def global_state_bytes(states: list[ClientState], round_idx: int) -> bytes:
+    """Client 0's named parameters (the global after the round's mean) and
+    the round, as a ``global_round_<r>.pt`` file's bytes."""
+    m = states[0].model
+    snap = {"round": int(round_idx),
+            "user_params": {k: _host(v) for k, v in m.user_encoder.named_parameters()},
+            "news_params": {k: _host(v) for k, v in m.news_tower.named_parameters()}}
+    buf = io.BytesIO()
+    torch.save(snap, buf)
+    return buf.getvalue()
+
+
+def local_state_bytes(states: list[ClientState], round_idx: int) -> bytes:
+    """A coordinator process's whole local state (every client's) as a
+    ``local_state_p<i>.pt`` file's bytes."""
+    buf = io.BytesIO()
+    torch.save(host_states(states, round_idx), buf)
+    return buf.getvalue()
+
+
+def load_state_bytes(blob: bytes) -> dict:
+    """A ``local_state_*.pt`` or ``global_round_*.pt`` file's contents (host
+    tensors); raises on a torn or truncated file."""
+    return torch.load(io.BytesIO(blob), map_location="cpu", weights_only=True)
 
 
 class SnapshotManager:

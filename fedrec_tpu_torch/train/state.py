@@ -15,8 +15,14 @@ cosine schedule — so that the arithmetic follows optax's step for step:
 the clip scales by ``max_norm / norm`` only when ``norm >= max_norm`` (no
 epsilon, unlike ``torch.nn.utils.clip_grad_norm_``); Adam's moments update
 as ``(1 - b) g + b m``, its bias correction reads the incremented count, and
-the schedule reads the count before the increment. The codecs'
-error-feedback residual is not ported yet.
+the schedule reads the count before the increment.
+
+Under a biased update codec with error feedback (``fed.dcn_compress`` in
+sign1bit/topk, ``fed.dcn_error_feedback``) a client also carries
+``ef_residual``: one f32 tensor per leaf of its ``(user, news)``
+contribution, in the Flax layout and leaf order the codecs address
+(``params.flax_leaves``), zero at init; the mass its encodes dropped, added
+to its next round's update (``train.step.build_param_sync``).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from fedrec_tpu_torch.comms.codecs import codec_uses_feedback
 from fedrec_tpu_torch.config import ExperimentConfig
+from fedrec_tpu_torch.params import flax_leaves
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 # a client's noise stream is seeded this far from its dropout stream, so the
@@ -125,6 +133,9 @@ class ClientState:
     # current epoch; allocated by the train step from the table it is given,
     # zeroed by the epoch-end news update
     news_grad_accum: torch.Tensor | None = field(default=None, repr=False)
+    # the codec's error-feedback residual, Flax layout and leaf order
+    # (None without a biased codec under fed.dcn_error_feedback)
+    ef_residual: list[torch.Tensor] | None = field(default=None, repr=False)
 
     def user_params(self) -> list[torch.Tensor]:
         return list(self.model.user_encoder.parameters())
@@ -138,6 +149,10 @@ def init_client_state(model: torch.nn.Module, cfg: ExperimentConfig, seed: int =
     ``params.init_params`` or ``params.from_flax``, and on its device)."""
     opt_user, opt_news = make_optimizers(cfg)
     dev = next(model.parameters()).device
+    residual = None
+    if codec_uses_feedback(cfg.fed.dcn_compress, cfg.fed.dcn_error_feedback):
+        residual = [torch.zeros_like(x) for x in
+                    flax_leaves(model.user_encoder) + flax_leaves(model.news_tower)]
     return ClientState(
         step=0,
         model=model,
@@ -145,6 +160,7 @@ def init_client_state(model: torch.nn.Module, cfg: ExperimentConfig, seed: int =
         opt_news=opt_news.init(list(model.news_tower.parameters())),
         generator=torch.Generator(device=dev).manual_seed(seed),
         noise_generator=torch.Generator(device=dev).manual_seed(seed + _NOISE_SEED_OFFSET),
+        ef_residual=residual,
     )
 
 
@@ -162,6 +178,8 @@ def replicate_state(state: ClientState, num_clients: int, seed: int = 0) -> list
             generator=torch.Generator(device=dev).manual_seed(seed + c),
             noise_generator=torch.Generator(device=dev).manual_seed(
                 seed + c + _NOISE_SEED_OFFSET),
+            ef_residual=(None if state.ef_residual is None
+                         else [r.clone() for r in state.ef_residual]),
         )
         for c in range(num_clients)
     ]

@@ -82,6 +82,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from fedrec_tpu_torch.comms.codecs import (
+    codec_uses_feedback,
+    torch_encode_decode,
+    validate_codec,
+)
 from fedrec_tpu_torch.config import ExperimentConfig, unported_obs_keys
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.eval.metrics import (
@@ -91,10 +96,11 @@ from fedrec_tpu_torch.eval.metrics import (
 )
 from fedrec_tpu_torch.fed.chaos import apply_update_fault, refuse_unported_chaos
 from fedrec_tpu_torch.fed.robust import robust_aggregate, validate_robust_method
-from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg
+from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg, weighted_param_avg
 from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
 from fedrec_tpu_torch.models.encoders import apply_dropout_mask
 from fedrec_tpu_torch.ops import fused_gather_encode
+from fedrec_tpu_torch.params import flax_leaf_count, flax_leaves, load_flax_leaves
 from fedrec_tpu_torch.privacy import make_noise_fn, per_example_clipped_grads
 from fedrec_tpu_torch.train.state import ClientState, make_optimizers
 
@@ -349,6 +355,13 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
         ("fed.elastic.enabled (elastic membership, the coordinator's lease service: "
          "ROADMAP.md's Queue A item 9)", cfg.fed.elastic.enabled),
         ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
+        ("fed.dcn_compress='auto' (the per-leaf codec map pinned from warm-up "
+         "telemetry: ROADMAP.md's Queue A item 9)", cfg.fed.dcn_compress == "auto"),
+        ("agg.mode='async' (the buffered quorum commit and the async aggregation "
+         "server: ROADMAP.md's Queue A item 9)", cfg.agg.mode == "async"),
+        ("agg.quorum (the async commit: ROADMAP.md's Queue A item 9)", cfg.agg.quorum != 0),
+        ("agg.staleness_cap (the async commit: ROADMAP.md's Queue A item 9)",
+         cfg.agg.staleness_cap != 2),
     ]
     levers += [(f"{key} (SLOs, alerts, fleet telemetry and the wire envelope: ROADMAP.md's "
                 "Queue A item 10b)", True) for key in unported_obs_keys(cfg.obs)]
@@ -789,6 +802,27 @@ def build_news_update_step(
     return update
 
 
+def compressed_sync_active(cfg: ExperimentConfig, strategy: FedStrategy) -> bool:
+    """True when the round-end sync runs the codec body, which takes each
+    client's round-entry parameters (``contribution_leaves``) as a third
+    argument: a codec compresses round deltas."""
+    return cfg.fed.dcn_compress != "none" and strategy.sync_params_every_round
+
+
+def contribution_leaves(st: ClientState) -> list[torch.Tensor]:
+    """A client's ``(user, news)`` contribution as f32 tensors in Flax
+    layout and leaf order (``params.flax_leaves``): what a codec encodes."""
+    return flax_leaves(st.model.user_encoder) + flax_leaves(st.model.news_tower)
+
+
+def load_contribution(st: ClientState, leaves: Sequence) -> None:
+    """The inverse of :func:`contribution_leaves`: Flax-layout leaves
+    (tensors or numpy) into the client's parameters, in place."""
+    n_user = flax_leaf_count(st.model.user_encoder)
+    load_flax_leaves(st.model.user_encoder, leaves[:n_user])
+    load_flax_leaves(st.model.news_tower, leaves[n_user:])
+
+
 def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None) -> Callable:
     """Round-end parameter aggregation through the strategy.
 
@@ -803,6 +837,18 @@ def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None)
     "clip", "trimmed_mean" and "median" run ``fed.robust.robust_aggregate``
     over both towers at once, so that ``clip``'s deviation norm spans the
     whole client update.
+
+    With an update codec (``fed.dcn_compress``, ``compressed_sync_active``)
+    the sync is ``sync(states, weights, entry)``, ``entry`` each client's
+    round-entry ``contribution_leaves``, and models the compressed uplink
+    as the JAX package's ``_make_local_sync`` does, in Flax layout and leaf
+    order: each client's delta from its entry (plus its error-feedback
+    residual under a biased codec) goes through
+    ``comms.torch_encode_decode``; a client of weight > 0 banks what the
+    codec dropped as its new residual; the mean or the ``fed.robust``
+    method runs over the decoded deltas (decode before reduce); every
+    client adopts entry + aggregate. A round with no reporter keeps every
+    client's parameters.
     """
     strategy = strategy or ParamAvg()
     rb = cfg.fed.robust
@@ -814,6 +860,40 @@ def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None)
                  if p is not q]
         if pairs:
             torch._foreach_copy_([p for p, _ in pairs], [q for _, q in pairs])
+
+    if compressed_sync_active(cfg, strategy):
+        fed = cfg.fed
+        codec = validate_codec(fed.dcn_compress)
+        use_ef = codec_uses_feedback(codec, fed.dcn_error_feedback)
+
+        @torch.no_grad()
+        def sync_codec(states: list[ClientState], weights, entry) -> list[ClientState]:
+            w = np.asarray(weights, dtype=np.float32).reshape(-1)
+            decoded = []
+            for st, base, wc in zip(states, entry, w):
+                decs = []
+                for i, (t, e) in enumerate(zip(contribution_leaves(st), base)):
+                    a = t - e
+                    if use_ef:
+                        a = a + st.ef_residual[i]
+                    dec = torch_encode_decode(a, codec, fed.dcn_topk_ratio,
+                                              sketch_width=fed.dcn_sketch_width,
+                                              sketch_seed=fed.dcn_sketch_seed, leaf_id=i)
+                    if use_ef and wc > 0:
+                        # a weight-0 client sent nothing: its residual carries over
+                        st.ef_residual[i] = a - dec
+                    decs.append(dec)
+                decoded.append(decs)
+            if not (w > 0).any():
+                return states
+            agg = (weighted_param_avg(decoded, w) if method == "mean" else
+                   robust_aggregate(decoded, w, method, trim_k=rb.trim_k,
+                                    clip_norm=rb.clip_norm))
+            for st, base, rows in zip(states, entry, agg):
+                load_contribution(st, [e + a for e, a in zip(base, rows)])
+            return states
+
+        return sync_codec
 
     def sync(states: list[ClientState], weights) -> list[ClientState]:
         if not strategy.sync_params_every_round:

@@ -4,9 +4,10 @@ or decoupled ("table", the default) mode over the frozen trunk's cached
 token states, or in finetune mode over the token table with the DistilBERT
 trunk trained in the loop, with the health sentry, robust aggregation, chaos faults,
 quarantine-and-rollback, the cross-device cohort engine
-(``fed.population``), FedOpt server optimizers (``fed.server_opt``) and the
-prefetched data path (``data.prefetch_batches``); no codecs, scan chains or
-rounds-in-jit.
+(``fed.population``), FedOpt server optimizers (``fed.server_opt``), the
+prefetched data path (``data.prefetch_batches``), the update codecs of the
+round-end sync (``fed.dcn_compress``) and the hierarchical robust reduce
+(``agg.mode``); no scan chains or rounds-in-jit.
 
 A run is ``fed.rounds`` rounds. A round draws its cohort (with a
 population), computes its participation weights, runs ``fed.local_epochs``
@@ -86,6 +87,20 @@ fixed world's round weights are the participation mask
 (``hash((train.seed, round))``, bitwise JAX's) times the chaos plan's
 drop/straggle mask times the quarantine exclusion.
 
+Codecs and topology. Under ``fed.dcn_compress`` the round-end sync takes
+each client's round-entry parameters and runs the codec over its delta in
+Flax layout (``train.step.build_param_sync``), with a per-client
+error-feedback residual (``ClientState.ef_residual``: in snapshots, in the
+population's sidecars, reset on a heal); one real wire encode of client 0
+prices the modeled uplink (``fed.dcn_bytes_up_total`` / ``_down_total``,
+``path="cohort"``, ``fed.dcn_compression_ratio`` and ``_leaf``). Under
+``agg.mode="hierarchical"`` with a non-mean ``fed.robust`` method, the
+clients' parameters come to the host and reduce up an ``agg.tree_fanout``
+tree (``agg.tier_reduce_ms``); with ``mean`` the mode is the flat sync.
+``_client0_params`` (Flax trees), ``set_global_params``,
+``num_local_samples`` and ``adopt_state`` are what the coordinator
+deployment (``cli.coordinator``) drives a process's trainer with.
+
 Observability. Metrics go to the ``obs`` registry and a print per round;
 the round (``fed_round``, with a ``torch.profiler.record_function`` of the
 same round), ``batch_build``, ``h2d``, ``dispatch``, ``aggregate``,
@@ -114,6 +129,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from fedrec_tpu_torch.comms.codecs import (
+    codec_caps,
+    encode_tree,
+    leaf_names,
+    payload_nbytes,
+    tree_dense_nbytes,
+    validate_codec,
+)
 from fedrec_tpu_torch.config import EVAL_PROTOCOLS, ExperimentConfig
 from fedrec_tpu_torch.data import (
     IndexedSamples,
@@ -141,7 +164,7 @@ from fedrec_tpu_torch.obs import HealthMonitor, TrainingHealthError, get_registr
 from fedrec_tpu_torch.obs.device import BuildWatch, sample_device_memory
 from fedrec_tpu_torch.obs.health import FlightRecorder
 from fedrec_tpu_torch.obs.report import dump_artifacts, rotate_jsonl
-from fedrec_tpu_torch.params import from_flax, init_params
+from fedrec_tpu_torch.params import from_flax, init_params, to_flax
 from fedrec_tpu_torch.train.checkpoint import (
     POPULATION_SIDECAR,
     POPULATION_STORE,
@@ -149,6 +172,7 @@ from fedrec_tpu_torch.train.checkpoint import (
     SnapshotManager,
     atomic_write_bytes,
     host_states,
+    load_host_states,
     load_population_state,
     population_state_bytes,
 )
@@ -165,7 +189,10 @@ from fedrec_tpu_torch.train.step import (
     build_full_eval_step,
     build_news_update_step,
     build_param_sync,
+    compressed_sync_active,
+    contribution_leaves,
     encode_all_news,
+    load_contribution,
     encode_corpus_tokens,
 )
 from fedrec_tpu_torch.utils.logging import MetricLogger
@@ -250,6 +277,11 @@ class Trainer:
                     "fed.robust.recover=true requires obs.health.sentry: "
                     "recovery is driven by the in-graph health vectors"
                 )
+        self._validate_codec_and_topology(cfg)
+        # agg.mode="hierarchical" with a non-mean method: the host-side tiered
+        # reduce replaces the round-end sync (with mean it lowers to the flat
+        # sync, bit for bit)
+        self._agg_hier_host = cfg.agg.mode == "hierarchical" and rb.method != "mean"
         self.server_opt: ServerOptimizer | None = None
         if cfg.fed.server_opt != "none":
             if not self.strategy.sync_params_every_round:
@@ -285,6 +317,8 @@ class Trainer:
             # this process's disjoint shard of the training set
             train_ix = train_ix.take(process_shard_indices(
                 len(train_ix), cfg.data.num_shards, cfg.data.shard_index, cfg.data.seed))
+        # the true local sample count: what fed.weight_by_samples weighs
+        self.num_local_samples = len(train_ix)
         batcher_cls = TrainBatcher
         if cfg.data.native_loader:
             # the C++ engine (built at first use; raises when it cannot be
@@ -312,6 +346,7 @@ class Trainer:
         # decoupled mode's news-vector table (client 0's head), built lazily
         self._table: torch.Tensor | None = None
         self.param_sync = build_param_sync(cfg, self.strategy)
+        self._sync_takes_entry = compressed_sync_active(cfg, self.strategy)
         self.eval_step = build_eval_step(cfg, device=self.dev)
         self.full_eval_step = build_full_eval_step(device=self.dev)
         self.last_per_client_metrics: list[dict[str, float]] | None = None
@@ -361,6 +396,29 @@ class Trainer:
         # FedOpt: the round-entry global on the host, the last one broadcast
         # (None: read client 0 at the next round entry)
         self._global_host: list[np.ndarray] | None = None
+        # the communication instruments: bytes by path ("cohort", the modeled
+        # uplink of the round-end sync, priced from one real wire encode;
+        # "dcn", the coordinator's gather, counted in parallel.multihost)
+        self._m_bytes_up = self.registry.counter(
+            "fed.dcn_bytes_up_total",
+            "client->server round-update bytes shipped, by path (cohort = modeled "
+            "round-end uplink, dcn = the coordinator's gather)", labels=("path",))
+        self._m_bytes_down = self.registry.counter(
+            "fed.dcn_bytes_down_total",
+            "server->client fan-out bytes (full precision in every mode), by path",
+            labels=("path",))
+        self._g_comp_ratio = self.registry.gauge(
+            "fed.dcn_compression_ratio",
+            "dense/encoded byte ratio of one client's round-update payload under the "
+            "active codec")
+        self._g_agg_tier_ms = self.registry.gauge(
+            "agg.tier_reduce_ms",
+            "per-level-max tier-reduce time of the last hierarchical round, summed over "
+            "levels (the tree's parallel critical path)")
+        self._codec_bytes_per_client: int | None = None
+        self._dense_bytes_per_client: int | None = None
+        if cfg.fed.dcn_compress != "none":
+            self._price_codec()
 
         self.start_round = 0
         self.snapshots: SnapshotManager | None = None
@@ -415,6 +473,47 @@ class Trainer:
                     print("[trainer] best-snapshot marker/round mismatch "
                           f"(marker {best_round}, stored {stored}); best-AUC "
                           "tracking restarts this run")
+
+    def _validate_codec_and_topology(self, cfg: ExperimentConfig) -> None:
+        """The JAX trainer's up-front checks of ``fed.dcn_compress`` and
+        ``agg.*``, with its wording: a codec or a topology that would
+        silently never apply is a misconfiguration. ("auto" and "async" are
+        refused by name at the train step's build.)"""
+        rb = cfg.fed.robust
+        if cfg.fed.dcn_compress != "auto":
+            validate_codec(cfg.fed.dcn_compress)
+        if cfg.fed.dcn_compress != "none" and not self.strategy.sync_params_every_round:
+            raise ValueError(
+                f"fed.dcn_compress={cfg.fed.dcn_compress!r} requires a strategy that syncs "
+                "params every round (param_avg or coordinator); "
+                f"fed.strategy={cfg.fed.strategy!r} never ships a round update, so the "
+                "codec would silently never run (per-step grad_avg traffic is not compressed)"
+            )
+        if (rb.method != "mean" and cfg.fed.dcn_compress not in ("none", "auto")
+                and not codec_caps(cfg.fed.dcn_compress).decodes_per_contribution):
+            raise ValueError(
+                f"fed.robust.method={rb.method!r} needs per-contribution decode, which codec "
+                f"{cfg.fed.dcn_compress!r} cannot provide (its contributions only exist "
+                "pre-aggregated: order statistics judge CLIENTS, and sketch collisions mix "
+                "every client's coordinates before any decode exists); use one of the "
+                "decodable codecs (int8/sign1bit/topk) or fed.robust.method='mean'"
+            )
+        if cfg.agg.mode not in ("flat", "hierarchical", "async"):
+            raise ValueError(f"unknown agg.mode {cfg.agg.mode!r}; expected 'flat', "
+                             "'hierarchical', or 'async'")
+        if cfg.agg.tree_fanout < 2:
+            raise ValueError(f"agg.tree_fanout={cfg.agg.tree_fanout} must be >= 2")
+        if cfg.agg.staleness_cap < 0:
+            raise ValueError(f"agg.staleness_cap={cfg.agg.staleness_cap} must be >= 0")
+        if cfg.agg.quorum < 0 or cfg.agg.quorum > cfg.fed.num_clients:
+            raise ValueError(
+                f"agg.quorum={cfg.agg.quorum} must be in [0, fed.num_clients="
+                f"{cfg.fed.num_clients}] (0 = all-reporting)")
+        if cfg.agg.mode != "flat" and not self.strategy.sync_params_every_round:
+            raise ValueError(
+                f"agg.mode={cfg.agg.mode!r} requires a strategy that syncs params every "
+                f"round (param_avg or coordinator); fed.strategy={cfg.fed.strategy!r} never "
+                "aggregates, so the aggregation topology would silently never apply")
 
     # ------------------------------------------------------------------
     def _setup_obs(self, cfg: ExperimentConfig, data: MindData) -> None:
@@ -667,6 +766,102 @@ class Trainer:
         if self.mode == "decoupled":
             self._refresh_table()
 
+    def _client0_params(self) -> tuple[dict, dict]:
+        """Client 0's ``(user, news)`` parameters as Flax-layout numpy trees
+        (``params.to_flax``): the global after a synced round, what the
+        coordinator broadcasts and gathers, and what ``set_global_params``
+        takes back."""
+        m = self.states[0].model
+        return to_flax(m.user_encoder), to_flax(m.news_tower)
+
+    def adopt_state(self, snap: dict) -> None:
+        """Install a restored full state (``checkpoint.host_states``' dict:
+        every client's parameters, optimizer states, generators and codec
+        residual): the coordinator's per-process resume. Cached tables and
+        the FedOpt global are re-derived."""
+        self.states = load_host_states(self.states, snap)
+        self._table = None
+        self._global_host = None
+
+    def _price_codec(self) -> None:
+        """Price one client's uplink from one real wire encode of client 0's
+        contribution (payload sizes are fixed per codec and shapes) and set
+        the overall and per-leaf compression-ratio gauges."""
+        cfg = self.cfg
+        host = self._client0_params()
+        enc = encode_tree(host, cfg.fed.dcn_compress, cfg.fed.dcn_topk_ratio,
+                          sketch_width=cfg.fed.dcn_sketch_width,
+                          sketch_seed=cfg.fed.dcn_sketch_seed)
+        self._codec_bytes_per_client = enc.nbytes()
+        self._dense_bytes_per_client = tree_dense_nbytes(host)
+        self._g_comp_ratio.set(self._dense_bytes_per_client / max(self._codec_bytes_per_client, 1))
+        ratio_leaf = self.registry.gauge(
+            "fed.dcn_compression_ratio_leaf",
+            "dense/encoded byte ratio of one round-update tensor, by leaf", labels=("leaf",))
+        for name, payload, shape in zip(leaf_names(host), enc.payloads, enc.shapes):
+            dense_b = 4 * int(np.prod(shape)) if shape else 4
+            ratio_leaf.set(dense_b / max(payload_nbytes(payload), 1), leaf=name)
+
+    def _count_uplink(self, weights: np.ndarray) -> None:
+        """Bank one synced round's modeled traffic (``path="cohort"``): each
+        reporting client ships one encoded update up, every client receives
+        one dense fan-out down. No-op without a codec."""
+        if self._codec_bytes_per_client is None:
+            return
+        reporting = int((np.asarray(weights) > 0).sum())
+        self._m_bytes_up.inc(float(self._codec_bytes_per_client * reporting), path="cohort")
+        self._m_bytes_down.inc(float(self._dense_bytes_per_client * self.cfg.fed.num_clients),
+                               path="cohort")
+
+    def _uplink_span_args(self, weights: np.ndarray) -> dict:
+        """Byte attributes of the aggregate span under a codec."""
+        if self._codec_bytes_per_client is None:
+            return {}
+        return {"codec": self.cfg.fed.dcn_compress,
+                "bytes_up": int(self._codec_bytes_per_client * (np.asarray(weights) > 0).sum()),
+                "bytes_down": int(self._dense_bytes_per_client * self.cfg.fed.num_clients)}
+
+    def _agg_hier_sync(self, weights: np.ndarray, round_start_global: list[np.ndarray]) -> None:
+        """Hierarchical robust sync (``agg.mode="hierarchical"`` with a
+        non-mean method): every client's parameters come to the host as (K,
+        ...) stacks in Flax layout, reduce up an ``agg.tree_fanout`` tree
+        (``agg.hierarchy.tree_reduce_np``, the method per tier, the
+        round-entry global as the fallback), then the FedOpt step when on,
+        and every client adopts the result. Nobody reporting keeps local
+        parameters."""
+        from fedrec_tpu_torch.agg.hierarchy import tree_critical_path_ms, tree_reduce_np
+
+        if float(np.sum(weights)) == 0.0:
+            return
+        cfg = self.cfg
+        per_client = [self._contribution_host(c) for c in range(len(self.states))]
+        stacks = [np.stack(cells) for cells in zip(*per_client)]
+        stats: dict = {}
+        reduced = tree_reduce_np(stacks, weights, cfg.agg.tree_fanout, cfg.fed.robust.method,
+                                 trim_k=cfg.fed.robust.trim_k, clip_norm=cfg.fed.robust.clip_norm,
+                                 fallback_tree=round_start_global, stats=stats)
+        self._g_agg_tier_ms.set(tree_critical_path_ms(stats))
+        new = list(reduced)
+        if self.server_opt is not None:
+            new = self.server_opt.step(round_start_global, new)
+        self._adopt_contribution(new)
+
+    @torch.no_grad()
+    def _contribution_host(self, client: int) -> list[np.ndarray]:
+        """A client's ``contribution_leaves`` on the host, in one copy."""
+        leaves = contribution_leaves(self.states[client])
+        flat = torch.cat([x.reshape(-1) for x in leaves]).cpu().numpy()
+        return [v.reshape(tuple(x.shape)) for v, x in
+                zip(np.split(flat, np.cumsum([x.numel() for x in leaves])[:-1]), leaves)]
+
+    def _adopt_contribution(self, leaves: list[np.ndarray]) -> None:
+        """Every client adopts Flax-layout leaves in contribution order."""
+        for st in self.states:
+            load_contribution(st, leaves)
+        self._global_host = None
+        if self.mode == "decoupled":
+            self._refresh_table()
+
     def _slot_params(self, client: int) -> list[torch.Tensor]:
         """A client's parameters in the server optimizer's order: the user
         tower's, then the text head's."""
@@ -888,6 +1083,8 @@ class Trainer:
             "noise_generator": (np.zeros(0, np.uint8) if st.noise_generator is None
                                 else gen_state(seed + _NOISE_SEED_OFFSET)),
             "news_grad_accum": np.zeros(0, np.float32),
+            "ef_residual": ([] if st.ef_residual is None else
+                            [np.zeros(tuple(r.shape), np.float32) for r in st.ef_residual]),
         }
 
     @torch.no_grad()
@@ -916,6 +1113,9 @@ class Trainer:
             "noise_generator": (np.zeros(0, np.uint8) if st.noise_generator is None
                                 else st.noise_generator.get_state().numpy()),
             "news_grad_accum": (accum.cpu().numpy() if keep else np.zeros(0, np.float32)),
+            # copies: on the CPU .numpy() would alias the slot's tensors
+            "ef_residual": ([] if st.ef_residual is None else
+                            [r.to("cpu", copy=True).numpy() for r in st.ef_residual]),
         }
 
     @torch.no_grad()
@@ -943,6 +1143,9 @@ class Trainer:
             st.news_grad_accum = torch.from_numpy(accum).to(self.dev)
         elif st.news_grad_accum is not None:
             st.news_grad_accum.zero_()
+        if st.ef_residual is not None:
+            for r, x in zip(st.ef_residual, sidecar["ef_residual"]):
+                r.copy_(torch.from_numpy(np.asarray(x)))
 
     def _install_cohort(self, plan) -> None:
         """Around the round: write every persisted occupant's sidecar back
@@ -1125,12 +1328,18 @@ class Trainer:
         weights = self._round_weights(round_idx)
         faults = self.chaos.batch_keys(round_idx) if self.chaos is not None else {}
         # FedOpt's round-entry global: the last broadcast, or client 0's
-        # parameters (every client holds the global at round entry)
+        # parameters (every client holds the global at round entry); the
+        # hierarchical reduce's is in Flax layout, its fallback
         round_start_global = None
-        if self.server_opt is not None:
+        if self._agg_hier_host:
+            round_start_global = self._contribution_host(0)
+        elif self.server_opt is not None:
             if self._global_host is None:
                 self._global_host = self._params_host(0)
             round_start_global = self._global_host
+        # the codec sync compresses round deltas: each client's entry params
+        sync_entry = ([contribution_leaves(st) for st in self.states]
+                      if self._sync_takes_entry and not self._agg_hier_host else None)
         if self.flightrec is not None:
             # replay starts from the state the round's steps saw
             self.flightrec.start_chunk(
@@ -1184,10 +1393,22 @@ class Trainer:
             if self.mode == "decoupled":
                 self.states, tables = self.news_update(self.states, self.token_states)
                 self._table = tables[0]
-        if self.strategy.sync_params_every_round:
-            with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method):
-                self.states = self.param_sync(self.states, weights)
+        if self.strategy.sync_params_every_round and self._agg_hier_host:
+            # the host-side tiered reduce replaces the round-end sync
+            with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method,
+                                  mode=cfg.agg.mode, **self._uplink_span_args(weights)):
+                self._agg_hier_sync(weights, round_start_global)
             self._m_robust_rounds.inc(method=cfg.fed.robust.method)
+            self._count_uplink(weights)
+        elif self.strategy.sync_params_every_round:
+            with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method,
+                                  **self._uplink_span_args(weights)):
+                if sync_entry is not None:
+                    self.states = self.param_sync(self.states, weights, sync_entry)
+                else:
+                    self.states = self.param_sync(self.states, weights)
+            self._m_robust_rounds.inc(method=cfg.fed.robust.method)
+            self._count_uplink(weights)
             if self.server_opt is not None:
                 # FedOpt: the mean is a proposal; the server optimizer steps
                 # the global from the round-entry one toward it
@@ -1310,6 +1531,11 @@ class Trainer:
                 args["quarantined"] = sorted(self.population.ledger.quarantined)
         if self._round_retries:
             args["replay_retry"] = self._round_retries
+        if self._codec_bytes_per_client is not None:
+            # what one client's update costs on the wire under the codec
+            args["codec"] = self.cfg.fed.dcn_compress
+            args["codec_bytes_per_client"] = self._codec_bytes_per_client
+            args["dense_bytes_per_client"] = self._dense_bytes_per_client
         return args
 
     @staticmethod
@@ -1340,6 +1566,8 @@ class Trainer:
                                     else st.noise_generator.get_state()),
                 "news_grad_accum": (None if st.news_grad_accum is None
                                     else st.news_grad_accum.clone()),
+                "ef_residual": (None if st.ef_residual is None
+                                else [r.clone() for r in st.ef_residual]),
             } for st in self.states],
             "table": self._table,
             "occupancy": (self._slot_occupants.copy(), self._slot_writeback.copy()),
@@ -1369,6 +1597,8 @@ class Trainer:
                 st.noise_generator.set_state(saved["noise_generator"])
             accum = saved["news_grad_accum"]
             st.news_grad_accum = None if accum is None else accum.clone()
+            if saved["ef_residual"] is not None:
+                st.ef_residual = [r.clone() for r in saved["ef_residual"]]
         saved = self._recovery_state
         self._table = saved["table"]
         self._slot_occupants, self._slot_writeback = (x.copy() for x in saved["occupancy"])
@@ -1449,6 +1679,10 @@ class Trainer:
                 None if o.nu is None else [torch.zeros_like(v) for v in o.nu]))
         if st.news_grad_accum is not None:
             st.news_grad_accum.zero_()
+        if st.ef_residual is not None:
+            # a healed client must not replay a poisoned codec residual
+            for r in st.ef_residual:
+                r.zero_()
         if client == 0:
             self._global_host = None  # FedOpt reads client 0 afresh
         if self.mode == "decoupled":

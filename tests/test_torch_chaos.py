@@ -189,8 +189,7 @@ def test_straggler_rounds_sleep_on_the_host(monkeypatch):
     assert not t._round_weights(0).any() and slept == [0.25]
 
 
-@pytest.mark.parametrize("key,value", [("wire_faults", "drop@*"), ("kill_round", "2"),
-                                       ("kill_process", "0"), ("torn_snapshot_round", "1"),
+@pytest.mark.parametrize("key,value", [("wire_faults", "drop@*"), ("wire_seed", "3"),
                                        ("rejoin_delay_s", "1.5")])
 def test_unported_chaos_keys_are_refused_by_name(key, value):
     cfg = _cfg("chaos.enabled=1", f"chaos.{key}={value}")
@@ -200,6 +199,17 @@ def test_unported_chaos_keys_are_refused_by_name(key, value):
     # without chaos.enabled the key is inert, as in the JAX package
     cfg.chaos.enabled = False
     Trainer(cfg, data, toks, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [("kill_round", "2"), ("kill_process", "0"),
+                                       ("torn_snapshot_round", "1")])
+def test_host_fault_keys_are_inert_in_the_trainer(key, value):
+    """The coordinator deployment's host faults (``cli.coordinator``) build a
+    single-process ``Trainer`` untouched, as in the JAX package."""
+    cfg = _cfg("chaos.enabled=1", f"chaos.{key}={value}")
+    data, toks = _data(cfg)
+    t = Trainer(cfg, data, toks, device="cpu")
+    assert getattr(t.cfg.chaos, key) == int(value)
 
 
 def test_chaos_config_accepts_the_cli_spelling():

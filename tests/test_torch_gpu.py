@@ -1524,3 +1524,111 @@ def test_cnn_product_matches_float64_with_tf32_off(cuda, rng):
     err = float((got.double().cpu() - want).abs().max())
     assert err <= 1e-4, err
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# ------------------------------------------------ codecs and the coordinator
+@pytest.mark.parametrize("codec", ["int8", "sign1bit", "topk", "countsketch", "randproj"])
+def test_codec_twin_on_the_card_matches_the_wire_decode(cuda, rng, codec):
+    """``comms.torch_encode_decode`` on CUDA tensors against the numpy
+    decode of the same tensor's wire payload: int8 and topk to the bit;
+    sign1bit's signs to the bit and its scale (``mean|x|``, summed in
+    another order on the card than numpy's pairwise sum) within 2 f32 ulps;
+    the sketches within 1e-6 of the leaf's scale."""
+    from fedrec_tpu_torch import comms
+
+    for i, shape in enumerate([(48, 32), (32,), (7, 5, 3), (1,)]):
+        x = (rng.standard_normal(shape) * 1e-2).astype(np.float32)
+        x.reshape(-1)[:2] = x.reshape(-1)[0]  # a magnitude tie
+        got = comms.torch_encode_decode(_t(x, cuda), codec, 0.05, sketch_width=0.25,
+                                        sketch_seed=3, leaf_id=i).cpu().numpy()
+        want = comms.decode_leaf(comms.encode_leaf(x, codec, 0.05, sketch_width=0.25,
+                                                   sketch_seed=3, leaf_id=i),
+                                 codec, x.shape, sketch_seed=3, leaf_id=i)
+        if codec in ("int8", "topk"):
+            np.testing.assert_array_equal(got, want, err_msg=f"leaf {i}")
+        elif codec == "sign1bit":
+            np.testing.assert_array_equal(np.sign(got), np.sign(want), err_msg=f"leaf {i}")
+            np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=0, err_msg=f"leaf {i}")
+        else:
+            scale = float(np.abs(x).max())
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale, err_msg=f"leaf {i}")
+
+
+def test_coordinator_round_on_the_card_matches_the_emulation(cuda, tmp_path):
+    """A 2-process coordinator world (the server training too) on cuda:0,
+    2 rounds under int8: the server's global against the in-process
+    emulation at the trajectory bars."""
+    import os
+    import pickle
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from fedrec_tpu_torch.cli.coordinator import _build_parser, config_from_args, emulate_world
+    from fedrec_tpu_torch.data import load_mind_artifacts, make_synthetic_mind
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.params import from_flax
+    from fedrec_tpu_torch.train import Trainer
+    from fedrec_tpu_torch.train.checkpoint import load_state_bytes
+
+    art = tmp_path / "UserData"
+    art.mkdir()
+    data = make_synthetic_mind(num_news=64, num_train=129, num_valid=16, title_len=6,
+                               his_len_range=(2, 8), seed=3)
+    np.save(art / "bert_news_index.npy", data.news_tokens)
+    np.save(art / "token_states.npy",
+            np.random.default_rng(4).standard_normal((64, 6, 48)).astype(np.float32))
+    for name, obj in (("bert_nid2index.pkl", data.nid2index),
+                      ("train_sam_uid.pkl", data.train_samples),
+                      ("valid_sam_uid.pkl", data.valid_samples)):
+        with open(art / name, "wb") as f:
+            pickle.dump(obj, f)
+    snaps = tmp_path / "snaps"
+    small = ["model.news_dim=32", "model.num_heads=4", "model.head_dim=8",
+             "model.query_dim=16", "model.bert_hidden=48", "data.max_his_len=8",
+             "data.max_title_len=6", "train.eval_every=1000", "model.fuse_hot_path=true",
+             "model.use_pallas=true", "fed.dcn_compress=int8"]
+    argv = ["2", "8", "1", "--data-dir", str(art), "--device", "cuda", "--clients", "2",
+            "--mode", "joint", *[x for kv in small for x in ("--set", kv)],
+            "--set", f"train.snapshot_dir={snaps}", "--server-trains"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fedrec_tpu_torch.cli.coordinator", *argv, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(i)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], outs
+
+    args = _build_parser().parse_args(argv)
+    cfg = config_from_args(args, cuda)
+    toks = np.load(art / "token_states.npy")
+    trainers = []
+    for i in range(2):
+        c = config_from_args(args, cuda)
+        c.train.snapshot_dir = ""
+        c.data.num_shards, c.data.shard_index = 2, i
+        trainers.append(Trainer(c, load_mind_artifacts(str(art)), toks, device=cuda))
+    emulated = emulate_world(trainers, cfg, range(2))[0][-1]
+    snap = load_state_bytes((snaps / "global_round_1.pt").read_bytes())
+    model = NewsRecommender(cfg.model)
+    from_flax(model.user_encoder, emulated[0])
+    from_flax(model.news_tower, emulated[1])
+    for part, module in (("user_params", model.user_encoder), ("news_params", model.news_tower)):
+        for name, p in module.named_parameters():
+            got, want = snap[part][name].numpy(), p.detach().numpy()
+            if name.endswith(("w_k.bias", "att_fc2.bias")):
+                assert float(np.abs(got - want).max()) < 1e-3, f"{part}.{name}"
+            else:
+                np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4,
+                                           err_msg=f"{part}.{name}")

@@ -57,8 +57,13 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     # the cohort engine's, the data path's, the real-data path's, the native
-    # batcher's and the observability artifacts' modules are among them
-    assert {"fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
+    # batcher's, the observability artifacts' and the coordinator
+    # deployment's modules are among them
+    assert {"fedrec_tpu_torch.comms", "fedrec_tpu_torch.comms.codecs",
+            "fedrec_tpu_torch.agg", "fedrec_tpu_torch.agg.hierarchy",
+            "fedrec_tpu_torch.parallel.multihost", "fedrec_tpu_torch.cli.coordinator",
+            "fedrec_tpu_torch.utils.pytree",
+            "fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
             "fedrec_tpu_torch.data.prefetch", "fedrec_tpu_torch.data.tokenizer",
             "fedrec_tpu_torch.data.preprocess", "fedrec_tpu_torch.data.adressa",
             "fedrec_tpu_torch.models.bert", "fedrec_tpu_torch.data.native_batcher",
@@ -185,9 +190,18 @@ def test_overrides_set_the_slice_and_reject_unknown_keys():
             cfg.train.seed) == (2, "/tmp/x", False, 3, "last4", True, 7)
     assert (cfg.fed.rounds, cfg.fed.local_epochs, cfg.fed.participation) == (4, 2, 0.5)
     for unported in ("train.scan_steps=2", "train.rounds_per_scan=2", "train.profile=1",
-                     "fed.weight_by_samples=1", "fed.dcn_compress=int8"):
+                     "fed.dcn_auto_warmup=2", "fed.mesh_axis=hosts"):
         with pytest.raises(KeyError):
             ExperimentConfig().apply_overrides([unported])
+    # the coordinator deployment's and the codecs' fields, the JAX defaults
+    fed, agg = ExperimentConfig().fed, ExperimentConfig().agg
+    assert (fed.weight_by_samples, fed.dcn_compress, fed.dcn_topk_ratio, fed.dcn_sketch_width,
+            fed.dcn_sketch_seed, fed.dcn_error_feedback) == (False, "none", 0.01, 0.1, 0, True)
+    assert (agg.mode, agg.quorum, agg.staleness_cap, agg.tree_fanout) == ("flat", 0, 2, 2)
+    cfg = ExperimentConfig().apply_overrides(["fed.weight_by_samples=1", "fed.dcn_compress=int8",
+                                              "agg.mode=hierarchical", "agg.tree_fanout=3"])
+    assert (cfg.fed.weight_by_samples, cfg.fed.dcn_compress, cfg.agg.mode,
+            cfg.agg.tree_fanout) == (True, "int8", "hierarchical", 3)
     with pytest.raises(ValueError):
         ExperimentConfig().apply_overrides(["model.fuse_hot_path=maybe"])
 
@@ -202,7 +216,7 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
     for lever in ("fed.seq_shards=2", "shard.table=1", "obs.fleet.collector=localhost:1",
-                  "obs.watch.flap_max=9", "chaos.enabled=1,chaos.kill_round=2",
+                  "obs.watch.flap_max=9", "chaos.enabled=1,chaos.wire_seed=2",
                   "obs.slo.enabled=1", "obs.wire.window=64"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])
