@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives eleven paths at full width through the entry points a user calls:
+then drives thirteen paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -63,6 +63,12 @@ then drives eleven paths at full width through the entry points a user calls:
   world, a quorum replay, the logical-client quarantine, FedAdam, and a
   decoupled leg (16 clients, 2 rounds); install, spill, FedOpt and sampler
   costs;
+* ``async_path`` (the buffered quorum commit, ``agg.mode=async``, in
+  ``Trainer``): the cohort path's population without its deadline, 6 rounds
+  synchronous then 6 async at quorum 3 of 4 slots (the later reporters fold
+  into the next commit, weighted by staleness): round times, each commit's
+  ``agg.quorum_wait_ms`` and ``agg.gate_saved_ms``, a bitwise repeat, the
+  dense route at the train path's bars (B, C, D, E, and A in the evaluation);
 * ``data_path`` (raw tsv -> trunk -> train -> recommend): a MIND-format
   ``news.tsv`` / ``behaviors.tsv`` written from the seed at MIND-small scale
   (65,535 news, 50,000 users, 157,000 training impressions) and run through
@@ -100,6 +106,16 @@ then drives eleven paths at full width through the entry points a user calls:
   round 1 (the survivors degrade, the client finishes standalone); each
   worker's launches of C, D, B, E (and A in the evaluation) summed into the
   kernels line as ``launches_by_path["coordinator"]``;
+* ``elastic_path`` (elastic membership and the supervisor): the standalone
+  membership service and ``--supervise --membership`` workers with a
+  training server, every one on the one card: a fault-free world of 3 for
+  3 rounds, every global bitwise the fixed world's and the emulation's;
+  then a world of 4 whose worker 2 dies at round 2: the survivors shrink to
+  an epoch of 3 and train, worker 2 rejoins after its holdoff and the world
+  re-forms at 4 and finishes with a full-pool evaluation (epoch history
+  [4, 3, 4]); formation times, each incarnation's start to first round,
+  hand-off save and restore, rounds by world, peak memory; C, D, B, E in
+  every training incarnation (``launches_by_path["elastic"]``);
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -130,6 +146,8 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,data_path
   python3 chip_smoke.py --phases build,kernels,family_path
   python3 chip_smoke.py --phases build,kernels,coordinator_path
+  python3 chip_smoke.py --phases build,kernels,elastic_path
+  python3 chip_smoke.py --phases build,kernels,async_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -150,10 +168,11 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
-          "decoupled_path", "safety_path", "cohort_path", "data_path", "family_path",
-          "coordinator_path", "serving_path")
+          "decoupled_path", "safety_path", "cohort_path", "async_path", "data_path",
+          "family_path", "coordinator_path", "elastic_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
-         "cohort_path", "data_path", "family_path", "coordinator_path", "serving_path")
+         "cohort_path", "async_path", "data_path", "family_path", "coordinator_path",
+         "elastic_path", "serving_path")
 DEV = "cuda"
 
 
@@ -608,8 +627,62 @@ def phase_kernels(state: dict, args) -> dict:
     )
     _check_backward_kernels(state, args, gen, record)
     _check_long_kernels(state, args, gen, record)
+    cancelling = _check_flash_cancelling(args, gen, record)
     check(not failures, f"kernel checks failed: {failures}")
-    return {"checks": checks, "timing": state["timing"]}
+    return {"checks": checks, "timing": state["timing"], "flash_cancelling": cancelling}
+
+
+def _check_flash_cancelling(args, gen, record) -> list:
+    """F1's forward, then F2 (dq) and F3 (dk, dv, dbias), on keys that share
+    a large common part (a common vector plus 0.05 per-key noise, as kernel
+    E's and D's cancelling checks build them): the softmax flattens, each dS
+    row sums to ~0 and dq's common term cancels. Every output against a
+    float64 autograd reference on the card, within ``E_PLAIN_FACTOR`` x the
+    plain route's own error or ``GRAD_REL`` of the output's scale. At the
+    long path's width (20) and length, 2 x 20 heads, f32 and bf16."""
+    import torch
+    from fedrec_tpu_torch.ops import (
+        flash_backward_dkv,
+        flash_backward_dq,
+        flash_backward_plain,
+        flash_forward,
+        flash_forward_plain,
+    )
+
+    bh, L, d = 40, args.long_history, 20
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        base = torch.randn((d,), generator=gen, device=DEV).abs()
+        q, v, g = (torch.randn((bh, L, d), generator=gen, device=DEV).to(dt) for _ in range(3))
+        k = (base + 0.05 * torch.randn((bh, L, d), generator=gen, device=DEV)).to(dt)
+        keep = torch.rand((bh, L), generator=gen, device=DEV) > 0.3
+        keep[:, 0] = True
+        bias = torch.where(keep, 0.0, -1e9).contiguous()
+        out, lse = flash_forward(q, k, v, bias)
+        delta = (g.float() * out.float()).sum(-1)
+        got = (flash_backward_dq(q, k, v, bias, g, lse, delta),
+               *flash_backward_dkv(q, k, v, bias, g, lse, delta))
+        p_out, p_lse = flash_forward_plain(q, k, v, bias)
+        plain = flash_backward_plain(q, k, v, bias, p_out, p_lse, g)
+        with torch.enable_grad():
+            leaves = [t.detach().double().requires_grad_() for t in (q, k, v, bias)]
+            ql, kl, vl, bl = leaves
+            s = ql @ kl.transpose(-1, -2) / math.sqrt(d) + bl[:, None, :]
+            ref = torch.autograd.grad(torch.softmax(s, -1) @ vl, leaves, g.double())
+        torch.cuda.synchronize()
+        for name, a, b, r in zip(("dq", "dk", "dv", "dbias"), got, plain, ref):
+            err_k = float((a.double() - r).abs().max())
+            err_p = float((b.double() - r).abs().max())
+            scale = float(r.abs().max())
+            bar = max(E_PLAIN_FACTOR * err_p, GRAD_REL["float32"] * scale)
+            record("flash_backward_cancelling:" + name, [bh, L, d], dt, "partial",
+                   err_k <= bar, err_k, f"max({E_PLAIN_FACTOR} x plain {err_p:.3g}, "
+                   f"{GRAD_REL['float32']} x {scale:.3g})")
+            rows.append({"output": name, "dtype": str(dt).split(".")[-1], "kernel_err": err_k,
+                         "plain_err": err_p, "scale": scale, "bar": bar})
+        del q, k, v, g, out, lse, got, plain, ref, leaves, s
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _check_backward_kernels(state: dict, args, gen, record) -> None:
@@ -3582,7 +3655,7 @@ def phase_serving_path(state: dict, args) -> dict:
     # ---- 1. train round 0, write the token states, publish the snapshot
     npy = root / "token_states.npy"
     out["token_states_gb"] = tokens.numel() * 4 / 1e9
-    out["token_states_write_s"] = _write_token_states(tokens, npy, args.chunk)
+    npy.hardlink_to(_token_file(state, args, tokens, out))
     with launches.segment(), quiet:
         trainer = Trainer(cfg, data, tokens, device=dev)
         trainer.run()
@@ -4483,8 +4556,7 @@ def phase_family_path(state: dict, args) -> dict:
     # ---- 4. the snapshot through the recommend CLI, against the plain route
     art = root / "UserData"
     _write_artifacts(data, art)
-    out["token_states_write_s"] = _write_token_states(tokens, art / "token_states.npy",
-                                                      args.chunk)
+    (art / "token_states.npy").hardlink_to(_token_file(state, args, tokens, out))
     tower, table = trainer.export_for_serving()
     users = recommend.collect_histories(data, H)
     uids = sorted(users)[: args.family_rec_users]
@@ -4701,17 +4773,28 @@ def _coord_argv(args, art: Path, snaps: Path, rounds: int, *sets: str) -> list[s
             "--set", f"train.snapshot_dir={snaps}"]
 
 
-def _coord_world(argv: list[str], n: int, logs: Path, name: str) -> dict:
-    """``n`` coordinator processes of one world on 127.0.0.1 (a free port),
-    each under a wall limit; their exit codes, outputs and reports."""
+def _coord_world(argv: list[str], n: int, logs: Path, name: str, flags=None,
+                 supervise: bool = False, timeout_s: float = COORD_WORLD_TIMEOUT_S) -> dict:
+    """``n`` coordinator processes of one world on 127.0.0.1, under one wall
+    limit; their exit codes, outputs and reports. Process ``i`` gets
+    ``flags(i)``, by default a fixed world's rendezvous on a free port.
+    ``supervise`` runs each under ``--supervise`` in a session of its own
+    (a supervisor and its worker are killed together), its log holding
+    every incarnation's lines."""
     import os
-    import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    from fedrec_tpu_torch.parallel.membership import free_port
+
+    if flags is None:
+        port = free_port()
+
+        def flags(i: int) -> list[str]:
+            return ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+                    "--process-id", str(i)]
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
+    if supervise:
+        env["FEDREC_SUPERVISE_MAX"] = "12"
     files = [logs / f"{name}_p{i}.log" for i in range(n)]
     t0 = time.perf_counter()
     procs = []
@@ -4719,21 +4802,19 @@ def _coord_world(argv: list[str], n: int, logs: Path, name: str) -> dict:
         with open(path, "w") as fh:
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "fedrec_tpu_torch.cli.coordinator", *argv,
-                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
-                 "--process-id", str(i)], cwd=root, env=env, stdout=fh,
-                stderr=subprocess.STDOUT))
+                 *(["--supervise"] if supervise else []), *flags(i)], cwd=root, env=env,
+                stdout=fh, stderr=subprocess.STDOUT, start_new_session=supervise))
     try:
         for p in procs:
-            left = COORD_WORLD_TIMEOUT_S - (time.perf_counter() - t0)
-            p.wait(timeout=max(left, 1.0))
+            p.wait(timeout=max(timeout_s - (time.perf_counter() - t0), 1.0))
     except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.wait()
-        raise SmokeFailure(f"{name}: a coordinator process outlived {COORD_WORLD_TIMEOUT_S} s")
+        raise SmokeFailure(f"{name}: a coordinator process outlived {timeout_s} s: "
+                           f"{[f.read_text()[-1500:] for f in files]}")
     finally:
         for p in procs:
-            if p.poll() is None:
+            if supervise:
+                _stop_group(p)
+            elif p.poll() is None:
                 p.kill()
                 p.wait()
     outs = [f.read_text() for f in files]
@@ -4907,9 +4988,8 @@ def phase_coordinator_path(state: dict, args) -> dict:
     art2, art3 = root / "UserData2", root / "UserData3"
     _write_artifacts(data2, art2)
     _write_artifacts(data3, art3)
-    out["token_states_write_s"] = _write_token_states(tokens, art2 / "token_states.npy",
-                                                      args.chunk)
-    (art3 / "token_states.npy").hardlink_to(art2 / "token_states.npy")
+    for art in (art2, art3):
+        (art / "token_states.npy").hardlink_to(_token_file(state, args, tokens, out))
     dense = tree_dense_nbytes((to_flax(init_params(NewsRecommender(base.model)).user_encoder),
                                to_flax(init_params(NewsRecommender(base.model)).news_tower)))
     out["dense_tree_bytes"] = dense
@@ -5035,19 +5115,450 @@ def phase_coordinator_path(state: dict, args) -> dict:
         check(counts.get(name, 0) > 0, f"{name} never launched on the coordinator path")
     state.setdefault("launches", {})["coordinator"] = counts
     out["launches"] = {KERNEL_LETTER[k]: v for k, v in counts.items() if v}
-    (art2 / "token_states.npy").unlink()
     work.cleanup()
     return out
+
+
+# ------------------------------------------------------------- elastic_path
+# (a) a fault-free membership world's rounds; (b) the kill leg's rounds: 2
+# before the kill, then enough that the shrunk world is still running when
+# the killed worker's holdoff ends, and that the regrown world runs more
+ELASTIC_FIXED_ROUNDS = 3
+ELASTIC_KILL_ROUNDS = 26
+ELASTIC_KILL_ROUND = 2
+# the membership service's policy, as the JAX package's elastic smoke sets
+# it: a 6 s lease, heartbeats a second apart, a 4 s grace. The lease must
+# outlast a worker's restart at a reformation (its exit, the supervisor's
+# ~1 s, an interpreter, the join: the worker joins before it imports torch),
+# or the world re-forms without it. The killed worker's holdoff outlasts the
+# survivors' shrink (its lease, a restart, the grace) and their bring-up
+# with the token states, so the shrunk world runs rounds before the rejoin.
+ELASTIC_LEASE_MS, ELASTIC_HEARTBEAT_MS, ELASTIC_GRACE_MS = 6000, 1000, 4000
+ELASTIC_HOLDOFF_S = 30
+ELASTIC_WORLD_TIMEOUT_S = 360
+
+
+def _token_file(state: dict, args, tokens, out: dict) -> Path:
+    """The token states as one ``.npy`` under ``build/``, written once a run
+    for every path that reads them from disk (the paths hard-link it) and
+    removed at the end of the run. The phase that writes it reports the
+    write's seconds in its ``out`` (``token_states_write_s``)."""
+    if "token_file" not in state:
+        build = Path(__file__).resolve().parent / "build"
+        build.mkdir(exist_ok=True)
+        path = build / f"token_states_{args.num_news}_{args.seed}.npy"
+        out["token_states_write_s"] = _write_token_states(tokens, path, args.chunk)
+        state["token_file"] = path
+    return state["token_file"]
+
+
+def _membership_service(port: int, target: int, obs_dir: Path, log: Path):
+    """The standalone service (``python -m fedrec_tpu_torch.parallel.membership``)
+    with the path's policy, in a session of its own; returns the process once
+    it serves."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fedrec_tpu_torch.parallel.membership", f"127.0.0.1:{port}",
+             "--target-world", str(target), "--lease-ms", str(ELASTIC_LEASE_MS),
+             "--heartbeat-ms", str(ELASTIC_HEARTBEAT_MS),
+             "--formation-grace-ms", str(ELASTIC_GRACE_MS), "--obs-dir", str(obs_dir)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(root)), stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.perf_counter() + 60
+    while "serving on" not in log.read_text():
+        check(proc.poll() is None and time.perf_counter() < deadline,
+              f"the membership service did not start: {log.read_text()[-2000:]}")
+        time.sleep(0.2)
+    return proc
+
+
+def _stop_group(proc, sig=None) -> None:
+    """Signal ``proc``'s whole session (a supervisor and its worker), then
+    reap it."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, sig or signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    proc.wait()
+
+
+def _round_logs(out: str) -> list[dict]:
+    """The round records a coordinator worker's log prints
+    (``[coordinator] process P {json}``)."""
+    recs = []
+    for ln in out.splitlines():
+        if ln.startswith("[coordinator] process ") and " {" in ln:
+            try:
+                recs.append(json.loads(ln[ln.index("{"):]))
+            except json.JSONDecodeError:
+                continue
+    return recs
+
+
+def _saved_globals(outs: list[str]) -> list[int]:
+    """The rounds whose global a server saved, once a save, over every
+    incarnation's log."""
+    return sorted(int(ln.rsplit("global_round_", 1)[1].split(".")[0])
+                  for o in outs for ln in o.splitlines() if "saved global_round_" in ln)
+
+
+def _globals_bitwise(a: Path, b: Path, rounds) -> bool:
+    """Two worlds' server globals of ``rounds`` bitwise equal."""
+    from fedrec_tpu_torch.train.checkpoint import load_state_bytes
+
+    for r in rounds:
+        x = load_state_bytes((a / f"global_round_{r}.pt").read_bytes())
+        y = load_state_bytes((b / f"global_round_{r}.pt").read_bytes())
+        for part in ("user_params", "news_params"):
+            if x[part].keys() != y[part].keys() or not all(
+                    bool((x[part][k] == y[part][k]).all()) for k in x[part]):
+                return False
+    return True
+
+
+def _formation_ms(trace_path: Path) -> list[dict]:
+    """Each epoch's formation from the service's trace, in milliseconds
+    from the first join after the previous formation (a rejoin's knock, a
+    survivor's return) and from the last lease expiry before it (what a
+    shrink waits for)."""
+    events = json.loads(trace_path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    out, first_join, last_expiry = [], None, None
+    for ev in sorted((e for e in events if e.get("name", "").startswith("membership_")),
+                     key=lambda e: e["ts"]):
+        if ev["name"] == "membership_epoch_formed":
+            a = ev.get("args", {})
+            out.append({"epoch": a.get("epoch"), "world": a.get("world"),
+                        "ms_from_first_join": (ev["ts"] - first_join) / 1e3
+                        if first_join is not None else None,
+                        "ms_from_lease_expiry": (ev["ts"] - last_expiry) / 1e3
+                        if last_expiry is not None else None})
+            first_join = last_expiry = None
+        elif ev["name"] == "membership_worker_join" and first_join is None:
+            first_join = ev["ts"]
+        elif ev["name"] == "membership_lease_expired":
+            last_expiry = ev["ts"]
+    return out
+
+
+def _incarnations(world: dict) -> list[dict]:
+    """Every worker incarnation's report, with what the path prints of it."""
+    rows = []
+    for w, reps in enumerate(world["reports"]):
+        for r in reps:
+            first = r.get("first_round_at")
+            rows.append({
+                "worker": w, "epoch": r["epoch"], "world": r["world"], "rounds": r["rounds"],
+                "start_to_first_round_s": (first - r["started_at"]) if first else None,
+                "start_to_join_s": (r["joined_at"] - r["started_at"]) if r.get("joined_at")
+                else None,
+                "restore_ms": r["restore_ms"], "handoff_save_ms": r["handoff_save_ms"],
+                "reformed": r["reformed"], "degraded": r["degraded"],
+                "peak_gpu_mb": r["peak_gpu_mb"], "round_ms": r["round_ms"],
+                "launches": {KERNEL_LETTER[k]: v for k, v in r["launches"].items() if v}})
+    return rows
+
+
+def _elastic_check_launches(world: dict, k: int, b: int, counts: dict) -> None:
+    """Every training incarnation launched C, D, B and E at least K x steps
+    a round (its shard's steps), and its counts add into the path's."""
+    for reps in world["reports"]:
+        for r in reps:
+            for name, n in r["launches"].items():
+                counts[name] = counts.get(name, 0) + n
+            if not r["trains"] or not r["rounds"]:
+                continue
+            steps = (r["num_local_samples"] // k) // b
+            want = k * steps * len(r["rounds"])
+            for name in ("fused_gather_encode", "fused_gather_encode_bwd",
+                         "fused_history_score", "fused_history_score_bwd"):
+                check(r["launches"][name] >= want,
+                      f"worker {r['worker']} epoch {r['epoch']} launched {name} "
+                      f"{r['launches'][name]} times, under K x steps = {want}")
+
+
+def phase_elastic_path(state: dict, args) -> dict:
+    """Elastic membership and the supervisor at full width: the standalone
+    membership service and supervised ``fedrec_tpu_torch.cli.coordinator``
+    workers (``--supervise --membership``, ``--server-trains``) on
+    127.0.0.1, every one on this card, the token states memory-mapped.
+
+    (a) fault-free: a membership world of 3 for ``ELASTIC_FIXED_ROUNDS``
+        rounds, every round's global bitwise the fixed world's (the same
+        argv without the service) and the in-process emulation's;
+    (b) kill, shrink, rejoin: a world of 4; worker 2 dies at round
+        ``ELASTIC_KILL_ROUND``, the survivors re-form at 3 and train, worker
+        2 holds off ``ELASTIC_HOLDOFF_S`` then rejoins, and the world
+        re-forms at 4 and finishes ``ELASTIC_KILL_ROUNDS`` rounds with a
+        full-pool evaluation: epoch history [4, 3, 4], one shrink, one
+        rejoin, a round at world 3, every round's global written once, the
+        evaluation in [0, 1], C, D, B and E launched in every training
+        incarnation. Printed: each epoch's formation time, each
+        incarnation's start to first round, hand-off save and restore,
+        rounds at each world, peak device memory."""
+    import signal
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.parallel.membership import MembershipClient, free_port
+
+    K, B = args.clients, args.batch_size
+    steps = 2
+    base = _coord_sets(args)
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    cfg = ExperimentConfig().apply_overrides(base)
+    T, Dh = cfg.data.max_title_len, cfg.model.bert_hidden
+    tokens = _tokens(state, args, T, Dh)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="elastic_path_", dir=build)
+    root = Path(work.name)
+    logs = root / "logs"
+    logs.mkdir()
+    # 3 shards of K x B x steps rows (one more in the first: weight_by_samples)
+    rows = K * B * steps
+    data = make_synthetic_mind(num_news=args.num_news, num_train=3 * rows + 1,
+                               num_valid=args.coord_valid, title_len=T, seed=args.seed)
+    art = root / "UserData"
+    _write_artifacts(data, art)
+    out: dict = {"clients": K, "batch_size": B, "steps_at_world_3": steps,
+                 "num_news": args.num_news, "policy": {
+                     "lease_ms": ELASTIC_LEASE_MS, "heartbeat_ms": ELASTIC_HEARTBEAT_MS,
+                     "formation_grace_ms": ELASTIC_GRACE_MS, "rejoin_delay_s": ELASTIC_HOLDOFF_S}}
+    (art / "token_states.npy").hardlink_to(_token_file(state, args, tokens, out))
+    counts: dict = {}
+
+    def membership_world(argv, n, name, target):
+        port = free_port()
+        svc = _membership_service(port, target, root / f"{name}_service_obs",
+                                  logs / f"{name}_service.log")
+        try:
+            world = _coord_world(argv, n, logs, name, lambda i: [
+                "--membership", f"127.0.0.1:{port}", "--process-id", str(i),
+                "--collective-timeout", "30"], supervise=True, timeout_s=ELASTIC_WORLD_TIMEOUT_S)
+            world["status"] = MembershipClient(f"127.0.0.1:{port}", "_smoke").status()
+        finally:
+            # SIGTERM: the service dumps its trace on the way out
+            _stop_group(svc, signal.SIGTERM)
+        world["formations"] = _formation_ms(root / f"{name}_service_obs" / "trace.json")
+        return world
+
+    # ---- (a) fault-free: the membership world, the fixed world, the emulation
+    snaps_m, snaps_f = root / "a_membership", root / "a_fixed"
+    sets = ["fed.weight_by_samples=1"]
+    argv_m = [*_coord_argv(args, art, snaps_m, ELASTIC_FIXED_ROUNDS, *sets), "--server-trains"]
+    world = membership_world(argv_m, 3, "fault_free", 3)
+    check(world["rcs"] == [0, 0, 0], f"fault-free membership world rcs {world['rcs']}: "
+                                     f"{[o[-1500:] for o in world['outs']]}")
+    hist = [h["world"] for h in world["status"]["epoch_history"]]
+    check(hist == [3], f"fault-free epoch history {hist}")
+    _elastic_check_launches(world, K, B, counts)
+    fixed = _coord_world([*_coord_argv(args, art, snaps_f, ELASTIC_FIXED_ROUNDS, *sets),
+                          "--server-trains"], 3, logs, "fault_free_fixed")
+    check(fixed["rcs"] == [0, 0, 0], f"fixed world rcs {fixed['rcs']}")
+    _coord_check_launches(fixed, K, steps, counts)
+    em = _coord_emulate(argv_m, tokens, 3, True, ELASTIC_FIXED_ROUNDS)
+    rounds = list(range(ELASTIC_FIXED_ROUNDS))
+    vs_em = _coord_hold(world, snaps_m, em[:2], em[2], rounds)
+    check(vs_em["bitwise"], f"the membership world's globals are not the emulation's: {vs_em}")
+    same = _globals_bitwise(snaps_m, snaps_f, rounds)
+    check(same, "the membership world's globals are not the fixed world's")
+    check(_saved_globals(world["outs"]) == rounds, "a fault-free global written twice or never")
+    out["fault_free"] = {"wall_s": world["wall_s"], "fixed_wall_s": fixed["wall_s"],
+                         "vs_emulation": vs_em, "bitwise_fixed_world": same,
+                         "formations": world["formations"],
+                         "incarnations": _incarnations(world)}
+    del em
+
+    # ---- (b) kill, shrink, rejoin: a world of 4
+    snaps = root / "b_kill"
+    argv = [*_coord_argv(args, art, snaps, ELASTIC_KILL_ROUNDS, *sets, "chaos.enabled=1",
+                         "chaos.kill_process=2", f"chaos.kill_round={ELASTIC_KILL_ROUND}",
+                         f"chaos.rejoin_delay_s={ELASTIC_HOLDOFF_S}",
+                         f"train.eval_every={ELASTIC_KILL_ROUNDS}"), "--server-trains"]
+    world = membership_world(argv, 4, "kill", 4)
+    check(world["rcs"] == [0, 0, 0, 0], f"kill world rcs {world['rcs']}: "
+                                        f"{[o[-2000:] for o in world['outs']]}")
+    st = world["status"]
+    hist = [h["world"] for h in st["epoch_history"]]
+    check(hist == [4, 3, 4] and st["shrinks"] == 1 and st["rejoins"] == 1
+          and st["lease_misses"] >= 1, f"membership status {st}")
+    check(world["outs"][2].count(f"dying at round {ELASTIC_KILL_ROUND}") == 1,
+          "the chaos kill did not fire once")
+    check(f"holding off its rejoin {ELASTIC_HOLDOFF_S}s" in world["outs"][2],
+          "the rejoin holdoff never applied")
+    reps = [r for w in world["reports"] for r in w]
+    at3 = sorted(x for r in reps if r["world"] == 3 for x in r["rounds"])
+    check(bool(at3), "no round ran at world 3")
+    check(_saved_globals(world["outs"]) == list(range(ELASTIC_KILL_ROUNDS)),
+          f"globals saved {_saved_globals(world['outs'])}")
+    finals = [w[-1] for w in world["reports"]]
+    check(all(r["world"] == 4 and r["rounds"] and r["rounds"][-1] == ELASTIC_KILL_ROUNDS - 1
+              for r in finals), "the regrown world did not finish")
+    evals = [rec for rec in _round_logs(world["outs"][0]) if "auc" in rec]
+    final_eval = evals[-1] if evals else {}
+    metrics = {k: v for k, v in final_eval.items() if k not in ("round", "training_loss")}
+    check(final_eval.get("round") == ELASTIC_KILL_ROUNDS - 1 and metrics
+          and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()),
+          f"final evaluation {final_eval}")
+    check(all(math.isfinite(x) for r in reps for x in r["losses"] if x is not None),
+          "a non-finite round loss")
+    _elastic_check_launches(world, K, B, counts)
+    by_world: dict = {}
+    for r in reps:
+        by_world.setdefault(str(r["world"]), []).extend(r["rounds"])
+    out["kill"] = {"wall_s": world["wall_s"], "status": st, "formations": world["formations"],
+                   "rounds_by_world": {w: sorted(set(v)) for w, v in by_world.items()},
+                   "final_eval": final_eval, "incarnations": _incarnations(world)}
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd", "additive_pool"):
+        check(counts.get(name, 0) > 0, f"{name} never launched on the elastic path")
+    state.setdefault("launches", {})["elastic"] = counts
+    out["launches"] = {KERNEL_LETTER[k]: v for k, v in counts.items() if v}
+    work.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------- async_path
+ASYNC_ROUNDS = 6
+ASYNC_QUORUM = 3
+
+
+def phase_async_path(state: dict, args) -> dict:
+    """The in-process buffered quorum commit (``agg.mode=async``) at full
+    width: the cohort path's population (``--cohort-population`` logical
+    clients of ``--cohort-shard`` rows on K slots, dropout, lognormal
+    stragglers, FedAvgM) without the round deadline, ``ASYNC_ROUNDS`` rounds
+    synchronous (the barrier: the round waits for its slowest reporter),
+    then the same rounds async at quorum ``ASYNC_QUORUM`` (the stragglers
+    fold into the next commit, weighted 1 / (1 + staleness)): round times of
+    both, each commit's ``agg.quorum_wait_ms`` and ``agg.gate_saved_ms``; a
+    repeat, bitwise; the dense route against the kernel route at the train
+    path's bars."""
+    import torch
+    from fedrec_tpu_torch.data import make_synthetic_mind
+    from fedrec_tpu_torch.obs import MetricsRegistry, Tracer, set_registry, set_tracer
+    from fedrec_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fedrec_tpu_torch.train import Trainer
+
+    K, B, P = args.clients, args.batch_size, args.cohort_population
+    dev = torch.device(DEV)
+    # every sidecar resident (the cohort path measures the spills)
+    rounds = [f"fed.rounds={ASYNC_ROUNDS}", f"train.eval_every={ASYNC_ROUNDS}",
+              "fed.population.round_deadline_ms=0", "fed.population.min_reports=0",
+              "fed.population.resident_cap=0"]
+    async_over = ["agg.mode=async", f"agg.quorum={ASYNC_QUORUM}", "agg.staleness_cap=2"]
+    cfg = _cohort_cfg(args, *rounds)
+    tokens = _tokens(state, args, cfg.data.max_title_len, cfg.model.bert_hidden)
+    data = make_synthetic_mind(num_news=args.num_news, num_train=P * args.cohort_shard,
+                               num_valid=args.valid, title_len=cfg.data.max_title_len,
+                               seed=args.seed)
+    quiet = contextlib.redirect_stdout(sys.stderr)
+
+    def run(*over):
+        set_registry(MetricsRegistry())
+        set_tracer(Tracer())
+        with quiet:
+            t = Trainer(_cohort_cfg(args, *rounds, *over), data, tokens, device=dev)
+        clock = _Clock()
+        clock.wrap(t, "train_round", "round")
+        gauges: list = []
+        round_fn = t.train_round
+
+        def read_gauges(r):
+            res = round_fn(r)
+            gauges.append({k: t.registry.gauge(k).value() for k in (
+                "agg.quorum_wait_ms", "agg.gate_saved_ms", "agg.buffer_pending",
+                "agg.staleness")})
+            return res
+
+        t.train_round = read_gauges
+        with quiet:
+            hist = t.run()
+        return t, hist, clock.ms["round"], gauges
+
+    sync_t, sync_hist, sync_ms, _ = run()
+    del sync_t
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    main, hist, round_ms, gauges = run(*async_over)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    state.setdefault("launches", {})["async"] = launches
+    reg = main.registry
+    losses = [h.train_loss for h in hist]
+    check(all(math.isfinite(v) for v in losses), f"non-finite async round loss {losses}")
+    check(main._agg_version == ASYNC_ROUNDS, f"commit version {main._agg_version}")
+    late = reg.counter("agg.late_folds_total").value()
+    check(late > 0, "no late contribution folded")
+    metrics = hist[-1].val_metrics
+    check(metrics and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()),
+          f"final evaluation {metrics}")
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd", "additive_pool"):
+        check(launches.get(name, 0) > 0, f"{name} never launched on the async path")
+    check(all(g["agg.quorum_wait_ms"] is not None and g["agg.gate_saved_ms"] is not None
+              and g["agg.gate_saved_ms"] >= 0 for g in gauges), f"commit gauges {gauges}")
+
+    again = run(*async_over)[0]
+    repeat_ok = (again._agg_version == main._agg_version
+                 and all(torch.equal(a, b) for a, b in zip(_trainer_params(main),
+                                                           _trainer_params(again)))
+                 and [(e.worker, e.based_on) for e in again.agg_buffer.entries]
+                 == [(e.worker, e.based_on) for e in main.agg_buffer.entries])
+    check(repeat_ok, "the async repeat differs")
+    del again
+
+    reset_launch_counts()
+    dense, dense_hist, _, _ = run(*async_over, "model.fuse_hot_path=false",
+                                  "model.use_pallas=false")
+    check(not any(launch_counts().values()), "the dense route launched a kernel")
+    traj = [(a.train_loss, b.train_loss) for a, b in zip(hist, dense_hist)]
+    for r, (lk, ld) in enumerate(traj):
+        check(math.isclose(lk, ld, rel_tol=TRAJ_LOSS_RTOL, abs_tol=TRAJ_LOSS_ATOL),
+              f"round {r}: kernel-route loss {lk!r} vs dense {ld!r}")
+    worst, worst_noise = 0.0, 0.0
+    for c, (sk, sd) in enumerate(zip(main.states, dense.states)):
+        bad, w, wn = _param_diffs(sk.model, sd.model)
+        check(not bad, f"slot {c}: kernel vs dense route after {ASYNC_ROUNDS} async rounds: {bad}")
+        worst, worst_noise = max(worst, w), max(worst_noise, wn)
+    return {
+        "config": {"population": P, "slots": K, "batch_size": B, "rounds": ASYNC_ROUNDS,
+                   "quorum": ASYNC_QUORUM, "staleness_cap": 2,
+                   "pop_straggle_ms": cfg.chaos.pop_straggle_ms,
+                   "pop_drop_rate": cfg.chaos.pop_drop_rate, "server_opt": cfg.fed.server_opt},
+        "round_ms": {"sync": sync_ms, "async": round_ms},
+        "round_ms_median": {"sync": _median(sync_ms[:-1]), "async": _median(round_ms[:-1])},
+        "commit_gauges": gauges,
+        "commits": reg.counter("agg.commits_total").value(), "late_folds": late,
+        "stale_drops": reg.counter("agg.stale_drops_total").value(),
+        "losses": {"sync": [h.train_loss for h in sync_hist], "async": losses},
+        "val_metrics": metrics, "repeat_bitwise": repeat_ok,
+        "kernel_vs_dense": {"losses": traj, "max_param_diff": worst,
+                            "max_zero_grad_leaf_diff": worst_noise},
+        "launches": {KERNEL_LETTER[k]: v for k, v in launches.items() if v},
+    }
 
 
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
-    under the per-example transform; trainer_path, cohort_path and data_path run A
-    through E, decoupled_path and family_path A, B and E, serving_path A and B),
-    times from the kernels phase. ``launches_by_path["coordinator"]`` sums
-    the coordinator processes' own counts (A through E)."""
+    under the per-example transform; trainer_path, cohort_path, async_path and
+    data_path run A through E, decoupled_path and family_path A, B and E,
+    serving_path A and B), times from the kernels phase.
+    ``launches_by_path["coordinator"]`` and ``["elastic"]`` sum the worker
+    processes' own counts (A through E)."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -5172,17 +5683,23 @@ def main(argv=None) -> int:
         "data_path": lambda: phase_data_path(state, args),
         "family_path": lambda: phase_family_path(state, args),
         "coordinator_path": lambda: phase_coordinator_path(state, args),
+        "elastic_path": lambda: phase_elastic_path(state, args),
+        "async_path": lambda: phase_async_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
-    for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
-        t0 = time.perf_counter()
-        try:
-            result = runners[ph]()
-        except Exception as e:  # noqa: BLE001 — report the phase, then fail the run
-            traceback.print_exc()
-            emit({"phase": ph, "ok": False, "error": f"{type(e).__name__}: {e}"[:4000]})
-            return 1
-        emit({"phase": ph, "ok": True, "seconds": time.perf_counter() - t0, **result})
+    try:
+        for ph in ["device", *[q for q in PHASES[1:] if q in phases]]:
+            t0 = time.perf_counter()
+            try:
+                result = runners[ph]()
+            except Exception as e:  # noqa: BLE001 — report the phase, then fail the run
+                traceback.print_exc()
+                emit({"phase": ph, "ok": False, "error": f"{type(e).__name__}: {e}"[:4000]})
+                return 1
+            emit({"phase": ph, "ok": True, "seconds": time.perf_counter() - t0, **result})
+    finally:
+        if "token_file" in state:
+            state["token_file"].unlink(missing_ok=True)
     if all(path in phases for path in PATHS):
         emit(kernels_line(state))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,11 +41,28 @@ encode, the collective and the decode + reduce), the bytes it shipped
 (``fed.dcn_bytes_*_total``, ``path="dcn"``), its peak device memory and
 its kernel launches, whether it degraded.
 
+Supervision and elastic membership. ``--supervise`` wraps the worker in a
+respawn loop (:func:`_supervise`): a worker that dies (a signal, the chaos
+kill's 137) or leaves a broken world (:data:`RESPAWN_EXIT`, 75) relaunches
+after a jittered backoff and resumes from its local state; every degraded
+process, the server too, exits 75 under supervision instead of going
+standalone. With it alone the fixed world relaunches whole. ``--supervise
+--membership HOST:PORT`` is the elastic world: each worker joins the
+membership service (``parallel.membership``) as its stable ``--process-id``
+and takes its epoch's rank, world and rendezvous address; a lost peer's
+lease expires and the survivors re-form a smaller epoch, a rejoining
+worker's knock makes the server broadcast ``REFORM_SIGNAL`` at the next
+round boundary, where every worker saves a hand-off state and exits 75 to
+join the next epoch. State files then key on the worker id
+(``local_state_w<ID>.pt``, ``population_state_w<ID>.npz``), and
+``chaos.rejoin_delay_s`` holds the killed worker's first rejoin back. Fleet
+identity and counter baselines (the JAX package's ``obs.fleet``) are Queue A
+item 10b and stay out.
+
 ``--device`` defaults to ``cuda`` and raises without a GPU unless it is
 ``cpu``; every process of a one-card machine uses that card. Without
-``--coordinator`` the script runs standalone (local FedAvg). ``--supervise``
-and ``--membership`` (elastic membership) and ``fed.dcn_compress="auto"``
-are refused by name (ROADMAP.md's Queue A item 9).
+``--coordinator`` (and ``--membership``) the script runs standalone (local
+FedAvg). ``fed.dcn_compress="auto"`` and ``shard.table`` are refused by name.
 """
 
 from __future__ import annotations
@@ -66,6 +83,147 @@ from fedrec_tpu_torch.cli.run import (
 )
 
 _KEEP_GLOBALS = 3
+# EX_TEMPFAIL: a supervised worker's "the world broke, relaunch me"
+RESPAWN_EXIT = 75
+
+
+def _argv_value(tokens: list[str], flag: str) -> str | None:
+    """The value of ``--flag X`` or ``--flag=X`` in an argv slice, or None."""
+    for i, tok in enumerate(tokens):
+        if tok == flag and i + 1 < len(tokens):
+            return tokens[i + 1]
+        if tok.startswith(flag + "="):
+            return tok.split("=", 1)[1]
+    return None
+
+
+def _membership_status(address: str) -> dict | None:
+    """The membership service's status, or None when it cannot answer (a
+    service that is down must not stop a respawn)."""
+    from fedrec_tpu_torch.parallel.membership import MembershipClient, MembershipError
+
+    try:
+        return MembershipClient(address, worker_id="_supervisor", rpc_timeout_s=5.0).status()
+    except (OSError, MembershipError, ValueError):
+        return None
+
+
+def _reforming(address: str, last_epoch: int | None) -> bool:
+    """The service shows a reformation under way: a join pending, a reform
+    flagged, or an epoch other than the one the child was spawned into."""
+    st = _membership_status(address)
+    return st is not None and bool(st.get("reform_pending") or st.get("pending")
+                                   or (last_epoch is not None
+                                       and int(st["epoch"]) != last_epoch))
+
+
+def _supervise(argv: list[str]) -> int:
+    """``--supervise``: run the worker (this command without the flag) as a
+    child and relaunch it whenever it dies by a signal, by the chaos kill's
+    137 or with :data:`RESPAWN_EXIT`, after a jittered backoff from about
+    ``--collective-timeout`` (clamped to [2, 30] s, 5 s without it), growing
+    1.5x a respawn up to 60 s. Other exit codes are deterministic failures
+    and return at once. ``FEDREC_SUPERVISE_MAX`` (default 20) bounds the
+    respawns; ``FEDREC_WORKER_PIDFILE`` receives the live child's pid.
+
+    With ``--membership`` the supervisor asks the service for its epoch
+    before every spawn and hands it to the child (``FEDREC_MEMBERSHIP_EPOCH``);
+    while a reformation is under way (a join pending, a reform flagged, or
+    the epoch moved since the last spawn) the backoff is cut to about 1 s:
+    the exit was the reformation, and the forming epoch waits on this
+    worker. The JAX supervisor looks once, when the child exits; this one
+    looks again every second of the backoff, because gloo reports a dead peer
+    at once, before the peer's lease has expired and flagged the reform:
+    looked at only then, the survivors would each sleep a crash-grade
+    backoff and rejoin too far apart for one formation window."""
+    import random
+    import subprocess
+
+    keep = [t for t in argv if t != "--supervise"]
+    env = dict(os.environ, FEDREC_SUPERVISED="1")
+    pidfile = os.environ.get("FEDREC_WORKER_PIDFILE")
+    membership_addr = _argv_value(keep, "--membership")
+    last_epoch: int | None = None
+    base_delay = 5.0
+    timeout = _argv_value(keep, "--collective-timeout")
+    if timeout is not None:
+        try:
+            base_delay = max(2.0, min(float(timeout), 30.0))
+        except ValueError:
+            pass
+    max_respawns = int(os.environ.get("FEDREC_SUPERVISE_MAX", "20"))
+    rng = random.Random(os.getpid())
+    attempt = 0
+    while True:
+        if membership_addr:
+            st = _membership_status(membership_addr)
+            if st is not None:
+                env["FEDREC_MEMBERSHIP_EPOCH"] = str(st["epoch"])
+                last_epoch = int(st["epoch"])
+        proc = subprocess.Popen([sys.executable, "-m", "fedrec_tpu_torch.cli.coordinator",
+                                 *keep], env=env)
+        if pidfile:
+            try:
+                Path(pidfile).write_text(str(proc.pid))
+            except OSError:
+                pass
+        rc = proc.wait()
+        if rc == 0:
+            if attempt:
+                print(f"[supervisor] worker finished after {attempt} respawn(s)", flush=True)
+            return 0
+        # a config error (1) or argparse (2) would fail the same way again
+        if rc > 0 and rc not in (RESPAWN_EXIT, 137):
+            print(f"[supervisor] worker exited rc={rc} (non-retryable); not respawning",
+                  flush=True)
+            return rc
+        attempt += 1
+        if attempt > max_respawns:
+            print(f"[supervisor] giving up after {max_respawns} respawns (last rc={rc})",
+                  flush=True)
+            return rc if rc > 0 else 1
+        delay = min(base_delay * (1.5 ** min(attempt - 1, 6)), 60.0)
+        delay *= 0.5 + rng.random()  # desynchronize the peers' supervisors
+        cut = membership_addr is not None and _reforming(membership_addr, last_epoch)
+        if cut:
+            delay = 0.5 + rng.random()
+        print(f"[supervisor] worker exited rc={rc}; respawn {attempt}/{max_respawns} in "
+              f"{delay:.1f}s", flush=True)
+        deadline = time.monotonic() + delay
+        while (left := deadline - time.monotonic()) > 0:
+            time.sleep(min(left, 1.0))
+            if not cut and membership_addr is not None and _reforming(membership_addr,
+                                                                      last_epoch):
+                cut = True
+                deadline = min(deadline, time.monotonic() + 0.5 + rng.random())
+                print("[supervisor] a reformation is under way; respawning now", flush=True)
+
+
+def _process_start_wall() -> float:
+    """The wall-clock time this process started (Linux ``/proc``), else
+    now."""
+    try:
+        with open("/proc/self/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        # field 22, starttime, in clock ticks since boot
+        return time.time() - uptime + int(fields[19]) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return time.time()
+
+
+def params_digest(tree) -> str:
+    """SHA-256 of a parameter tree's leaves in JAX's leaf order (their
+    bytes as f32): equal digests are bitwise-equal trees."""
+    import hashlib
+
+    from fedrec_tpu_torch.utils.pytree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(np.ascontiguousarray(np.asarray(leaf, np.float32)).tobytes())
+    return h.hexdigest()
 
 
 def apply_process_sharding(cfg, rt, server_trains: bool) -> None:
@@ -199,10 +357,13 @@ def _build_parser():
                         help="internal: resume standalone from a per-process local state "
                              "(a degraded client's continuation)")
     parser.add_argument("--supervise", action="store_true",
-                        help="not ported: the auto-respawn supervisor (ROADMAP.md Queue A "
-                             "item 9, elastic membership)")
+                        help="run the worker under an auto-respawn supervisor: a dead or "
+                             "degraded worker relaunches and resumes from its local state")
     parser.add_argument("--membership", default=None, metavar="HOST:PORT",
-                        help="not ported: the elastic membership service (Queue A item 9)")
+                        help="the elastic membership service (parallel.membership): the world "
+                             "becomes a membership epoch that shrinks when a peer is lost and "
+                             "re-forms when one rejoins; --process-id is the stable worker "
+                             "identity; needs --supervise")
     return parser
 
 
@@ -232,16 +393,68 @@ def _standalone_argv(original_argv: list[str], local_snap: Path, cfg) -> list[st
             "--set", f"data.shard_index={cfg.data.shard_index}"]
 
 
+def _join_membership(parser, args):
+    """The elastic worker's join: the chaos holdoff, the join (exit
+    :data:`RESPAWN_EXIT` when it fails: retryable under supervision), the
+    lease heartbeats (started before the rendezvous, which can outlast a
+    lease). Returns ``(client, assignment)``."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.fed.chaos import rejoin_holdoff
+    from fedrec_tpu_torch.parallel.membership import (
+        MembershipClient,
+        MembershipError,
+        elastic_policy,
+        publish_membership_metrics,
+    )
+
+    if args.process_id is None:
+        parser.error("--membership requires --process-id (the stable worker identity snapshots "
+                     "are keyed by)")
+    if os.environ.get("FEDREC_SUPERVISED") != "1":
+        parser.error("--membership requires --supervise: reforming an epoch LEAVES the process "
+                     "(rc 75) and only the supervisor can rejoin it at the next epoch")
+    pre_cfg = ExperimentConfig().apply_overrides(args.overrides)
+    el = pre_cfg.fed.elastic
+    holdoff = rejoin_holdoff(pre_cfg.chaos, args.process_id,
+                             Path(pre_cfg.train.snapshot_dir or "snapshots"))
+    if holdoff > 0:
+        print(f"[chaos] worker {args.process_id} holding off its rejoin {holdoff:.0f}s "
+              "(chaos.rejoin_delay_s) so the survivors' shrunk epoch forms first", flush=True)
+        time.sleep(holdoff)
+    client = MembershipClient(args.membership, worker_id=str(args.process_id),
+                              join_timeout_s=el.join_timeout_s)
+    handed = os.environ.get("FEDREC_MEMBERSHIP_EPOCH")
+    try:
+        assignment = client.join(policy=elastic_policy(el))
+    except (OSError, MembershipError, ValueError) as e:
+        print(f"[membership] worker {args.process_id} join failed ({type(e).__name__}: {e}); "
+              f"exiting for retry (rc {RESPAWN_EXIT})", flush=True)
+        sys.exit(RESPAWN_EXIT)
+    print(f"[membership] worker {args.process_id} joined epoch {assignment.epoch} as rank "
+          f"{assignment.rank}/{assignment.world} (coordinator {assignment.coordinator}"
+          + (f"; supervisor handed epoch {handed}" if handed else "") + ")", flush=True)
+    client.start_heartbeat()
+    publish_membership_metrics(assignment=assignment, client=client)
+    return client, assignment
+
+
 def main(argv: list[str] | None = None) -> int:
+    started_at = _process_start_wall()
     parser = _build_parser()
     original_argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
     _refuse_unported_args(args)
-    for flag, value in (("--supervise", args.supervise), ("--membership", args.membership)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A item 9, "
-                "elastic membership and the supervisor); run a fixed world")
+    if args.supervise:
+        return _supervise(original_argv)
+    supervised = os.environ.get("FEDREC_SUPERVISED") == "1"
+    membership = assignment = None
+    joined_at = None
+    if args.membership is not None:
+        # first, before torch and the trainer stack are imported (seconds
+        # with CUDA), as the JAX worker joins before it imports jax: a
+        # restart's join must land within its old lease
+        membership, assignment = _join_membership(parser, args)
+        joined_at = time.time()
 
     import torch
 
@@ -254,7 +467,12 @@ def main(argv: list[str] | None = None) -> int:
     from fedrec_tpu_torch.device import resolve_device
     from fedrec_tpu_torch.fed.strategies import ServerOptimizer
     from fedrec_tpu_torch.obs import get_registry
-    from fedrec_tpu_torch.parallel.multihost import CoordinatorRuntime, initialize_distributed
+    from fedrec_tpu_torch.parallel.membership import publish_membership_metrics
+    from fedrec_tpu_torch.parallel.multihost import (
+        REFORM_SIGNAL,
+        CoordinatorRuntime,
+        initialize_distributed,
+    )
     from fedrec_tpu_torch.privacy import calibrate_from_config
     from fedrec_tpu_torch.train.checkpoint import (
         SnapshotIntegrityError,
@@ -271,9 +489,31 @@ def main(argv: list[str] | None = None) -> int:
 
     # before the rendezvous: a process without its device fails alone
     dev = resolve_device(args.device)
-    world = initialize_distributed(args.coordinator, args.num_processes, args.process_id)
+    address, size, rank = args.coordinator, args.num_processes, args.process_id
+    if assignment is not None:
+        # the epoch's assignment sets the world
+        address, size, rank = assignment.coordinator, assignment.world, assignment.rank
+    # a supervised rendezvous is bounded: a respawn racing the dying world
+    # fails fast and retries
+    init_timeout = (max(30.0, min(args.collective_timeout * 2, 120.0))
+                    if supervised and args.collective_timeout else None)
+    try:
+        world = initialize_distributed(address, size, rank, initialization_timeout=init_timeout)
+    except (RuntimeError, OSError) as e:
+        if not supervised:
+            raise
+        print(f"[coordinator] supervised rendezvous failed ({type(e).__name__}: {e}); exiting "
+              f"for retry (rc {RESPAWN_EXIT})", flush=True)
+        sys.exit(RESPAWN_EXIT)
 
     cfg = config_from_args(args, dev)
+    if membership is not None:
+        cfg.fed.elastic.enabled = True  # config.json records it
+    elif cfg.fed.elastic.enabled:
+        raise ValueError(
+            "fed.elastic.enabled is set but no membership service was given: pass --membership "
+            "HOST:PORT (and run under --supervise) — the epoch layer cannot form without the "
+            "lease service")
     if cfg.fed.dcn_compress == "auto":
         raise ValueError(
             "fed.dcn_compress='auto' needs the trainer's warmup telemetry and is not available "
@@ -303,6 +543,8 @@ def main(argv: list[str] | None = None) -> int:
         round_deadline_s=(cfg.fed.population.round_deadline_ms / 1e3
                           if cfg.fed.population.round_deadline_ms > 0 else None),
         agg=cfg.agg,
+        membership=membership,
+        epoch=assignment.epoch if assignment is not None else 0,
     )
     apply_process_sharding(cfg, rt, args.server_trains)
     data, token_states = load_inputs(args, cfg)
@@ -317,13 +559,18 @@ def main(argv: list[str] | None = None) -> int:
         if cfg.data.num_shards > 1:
             n_local = -(-(n_local - cfg.data.shard_index) // cfg.data.num_shards)
         cfg.privacy.sigma = calibrate_from_config(cfg, n_local)
-    if cfg.obs.dir and rt.num_processes > 1:
-        cfg.obs.dir = str(Path(cfg.obs.dir) / f"worker_{rt.process_id}")
+    # under membership the stable worker id (ranks are re-dealt every epoch)
+    # names the obs subdirectory, the state files and the chaos kill's target
+    ident = int(args.process_id) if membership is not None else rt.process_id
+    if cfg.obs.dir and (rt.num_processes > 1 or membership is not None):
+        cfg.obs.dir = str(Path(cfg.obs.dir) / f"worker_{ident}")
 
     trains = args.server_trains or not rt.is_server or rt.num_processes == 1
-    # a degraded client's standalone continuation keeps the per-process files
-    per_process_files = rt.num_processes > 1 or args.resume_local_state is not None
-    state_suffix = f"p{rt.process_id}"
+    # a degraded client's standalone continuation keeps the per-process
+    # files; so does an elastic world shrunk to one (the next may grow)
+    per_process_files = (rt.num_processes > 1 or args.resume_local_state is not None
+                         or membership is not None)
+    state_suffix = f"w{args.process_id}" if membership is not None else f"p{rt.process_id}"
     snapshot_dir = Path(cfg.train.snapshot_dir or "snapshots")
     if per_process_files:
         cfg.train.snapshot_dir = ""
@@ -354,10 +601,12 @@ def main(argv: list[str] | None = None) -> int:
 
     local_snap = None
     server_optimizer = None
+    restore_ms = None
     if per_process_files:
         local_snap = (Path(args.resume_local_state) if args.resume_local_state
                       else snapshot_dir / f"local_state_{state_suffix}.pt")
         if cfg.train.resume and local_snap.exists():
+            t_restore = time.perf_counter()
             try:
                 restored = load_state_bytes(local_snap.read_bytes())
                 verify_state_tree(restored)
@@ -375,6 +624,20 @@ def main(argv: list[str] | None = None) -> int:
                 trainer.start_round = int(restored["round"]) + 1
                 print(f"[coordinator] process {rt.process_id} resumed local state at round "
                       f"{trainer.start_round - 1}", flush=True)
+            restore_ms = (time.perf_counter() - t_restore) * 1e3
+        pop_snap = snapshot_dir / f"population_state_{state_suffix}.npz"
+        if (membership is not None and cfg.train.resume and pop_snap.exists()
+                and trainer._pop_engine):
+            # the participation ledger carries across epochs, resized: the
+            # re-formed world may deal other local data
+            try:
+                pop_round = trainer.adopt_population_sidecar(pop_snap.read_bytes(), resize=True)
+                print(f"[membership] worker {ident} carried its participation ledger from "
+                      f"round {pop_round}", flush=True)
+            except (OSError, ValueError, KeyError) as e:
+                # a torn sidecar costs history, never the resume
+                print(f"[membership] population sidecar unreadable ({type(e).__name__}: {e}); "
+                      "ledger restarts fresh", flush=True)
         if cfg.fed.server_opt != "none":
             # hub-and-spoke FedOpt: only the server holds and steps it; a
             # client (a standalone continuation too) never does
@@ -391,10 +654,18 @@ def main(argv: list[str] | None = None) -> int:
                               f"snapshot from round {trainer.start_round - 1} — momentum may "
                               "be skewed for the first resumed round", flush=True)
 
-    report = {"process": rt.process_id, "trains": bool(trains), "rounds": [], "losses": [],
+    report = {"process": rt.process_id, "worker": ident, "world": rt.num_processes,
+              "epoch": rt.epoch, "trains": bool(trains), "rounds": [], "losses": [],
               "round_ms": [], "sync_from_server_ms": [], "aggregate_ms": [],
               "aggregate_parts_ms": [],
-              "degraded": False, "standalone": args.resume_local_state is not None}
+              "degraded": False, "standalone": args.resume_local_state is not None,
+              "reformed": False, "started_at": started_at, "joined_at": joined_at,
+              "first_round_at": None,
+              "restore_ms": restore_ms, "handoff_save_ms": None}
+    if membership is not None:
+        # params_digest of the global each round's fan-out delivered and,
+        # on the server, of each global it saved
+        report["fanout_sha256"], report["global_sha256"] = [], []
 
     def print_report() -> None:
         reg = get_registry()
@@ -417,8 +688,10 @@ def main(argv: list[str] | None = None) -> int:
             from fedrec_tpu_torch.obs.report import dump_artifacts
 
             try:
+                # an elastic worker's trace of each epoch survives the respawn
                 dump_artifacts(Path(cfg.obs.dir), registry=trainer.registry,
-                               tracer=trainer.tracer)
+                               tracer=trainer.tracer,
+                               trace_tag=f"e{rt.epoch}" if membership is not None else None)
             except OSError as e:
                 print(f"[coordinator] obs artifact dump failed: {e}", flush=True)
 
@@ -426,8 +699,21 @@ def main(argv: list[str] | None = None) -> int:
         """A degraded client leaves the broken world device-free and
         re-executes itself as a standalone continuation of its shard from
         its last saved local state; the round in flight is retrained. The
-        server finishes its rounds in process (``finalize`` exits)."""
-        if rt.num_processes == 1 or rt.is_server or local_snap is None:
+        server finishes its rounds in process (``finalize`` exits). Under a
+        supervisor every degraded process, the server too, exits
+        :data:`RESPAWN_EXIT` device-free, and the relaunched world resumes
+        from the local states (the server's exit frees the rendezvous)."""
+        if rt.num_processes == 1:
+            return
+        if supervised:
+            print(f"[coordinator] process {rt.process_id} world degraded under supervision — "
+                  f"exiting for re-rendezvous (rc {RESPAWN_EXIT})", flush=True)
+            report["degraded"] = True
+            print_report()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(RESPAWN_EXIT)
+        if rt.is_server or local_snap is None:
             return
         print(f"[coordinator] process {rt.process_id} world degraded — respawning "
               f"standalone, resuming from "
@@ -438,24 +724,58 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.flush()
         os.execv(sys.executable, _standalone_argv(original_argv, local_snap, cfg))
 
-    def save(round_idx: int) -> None:
+    def save_local(round_idx: int) -> None:
+        """The local state and its sidecars: the FedOpt buffers (server),
+        the codec residual, under membership the population sidecar."""
         snapshot_dir.mkdir(parents=True, exist_ok=True)
         atomic_write_bytes(local_snap, local_state_bytes(trainer.states, round_idx))
+        if server_optimizer is not None:
+            atomic_write_bytes(snapshot_dir / "server_opt_state.npz",
+                               server_optimizer.state_bytes(round_idx))
+        if codec_snap is not None:
+            atomic_write_bytes(codec_snap, codec_state_bytes(rt.codec_state, round_idx))
+        if membership is not None:
+            blob = trainer.population_sidecar_bytes(round_idx)
+            if blob is not None:
+                atomic_write_bytes(pop_snap, blob)
+
+    def reform_handoff(next_round: int) -> None:
+        """The reformation barrier's worker half: every member got
+        :data:`REFORM_SIGNAL` in the same broadcast, so the whole world is
+        at one boundary. Save the hand-off state (round ``next_round - 1``),
+        close the still-healthy world in step, and exit
+        :data:`RESPAWN_EXIT` so the supervisor joins the forming epoch."""
+        print(f"[membership] worker {ident} leaving epoch {rt.epoch} at round boundary "
+              f"{next_round} for reformation", flush=True)
+        trainer.tracer.instant("membership_reform", epoch=rt.epoch, round=next_round)
+        t0 = time.perf_counter()
+        save_local(next_round - 1)
+        report["handoff_save_ms"] = (time.perf_counter() - t0) * 1e3
+        report["reformed"] = True
+        publish_membership_metrics(reforms=1, client=membership)
+        print_report()
+        trainer.logger.finish()
+        rt._synchronized_shutdown()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(RESPAWN_EXIT)
+
+    def save(round_idx: int) -> None:
+        save_local(round_idx)
         if cfg.chaos.enabled and cfg.chaos.torn_snapshot_round == round_idx:
             # a crash mid-write: the resume must survive it
             blob = local_snap.read_bytes()
             local_snap.write_bytes(blob[: max(len(blob) // 2, 1)])
             print(f"[chaos] process {rt.process_id} tore its local snapshot at round "
                   f"{round_idx}", flush=True)
-        if server_optimizer is not None:
-            atomic_write_bytes(snapshot_dir / "server_opt_state.npz",
-                               server_optimizer.state_bytes(round_idx))
-        if codec_snap is not None:
-            atomic_write_bytes(codec_snap, codec_state_bytes(rt.codec_state, round_idx))
         if rt.is_server and rt.num_processes > 1:
             # a standalone continuation is a client: its params are not the global
             atomic_write_bytes(snapshot_dir / f"global_round_{round_idx}.pt",
                                global_state_bytes(trainer.states, round_idx))
+            print(f"[coordinator] process {rt.process_id} saved global_round_{round_idx}.pt",
+                  flush=True)
+            if membership is not None:
+                report["global_sha256"].append(params_digest(trainer._client0_params()))
             for old in coordinator_globals(snapshot_dir)[:-_KEEP_GLOBALS]:
                 old.unlink(missing_ok=True)
 
@@ -466,15 +786,19 @@ def main(argv: list[str] | None = None) -> int:
         server_round = rt.start_round(round_idx, cfg.fed.rounds)
         if rt.degraded:
             respawn_standalone()
+        if server_round == REFORM_SIGNAL:
+            reform_handoff(round_idx)
         if server_round < 0:
             break
         round_idx = server_round
+        if report["first_round_at"] is None:
+            report["first_round_at"] = time.time()
         if (cfg.chaos.enabled and cfg.chaos.kill_round == round_idx
-                and cfg.chaos.kill_process == rt.process_id):
+                and cfg.chaos.kill_process == ident):
             marker_dir = snapshot_dir if per_process_files else Path(
                 cfg.train.snapshot_dir or "snapshots")
             marker_dir.mkdir(parents=True, exist_ok=True)
-            marker = marker_dir / f"chaos_killed_p{rt.process_id}"
+            marker = marker_dir / f"chaos_killed_p{ident}"
             if not marker.exists():
                 marker.write_text(str(round_idx))
                 print(f"[chaos] process {rt.process_id} dying at round {round_idx} "
@@ -484,6 +808,8 @@ def main(argv: list[str] | None = None) -> int:
         u, n = rt.sync_from_server(trainer._client0_params())
         if rt.degraded:
             respawn_standalone()
+        if membership is not None:
+            report["fanout_sha256"].append(params_digest((u, n)))
         trainer.set_global_params(u, n)
         round_start_global = (u, n)
         result = trainer.train_round_recovering(round_idx) if trains else None
@@ -521,6 +847,11 @@ def main(argv: list[str] | None = None) -> int:
 
     state = "degraded" if rt.degraded else "done"
     print(f"[coordinator] process {rt.process_id} {state} after {round_idx} rounds", flush=True)
+    if membership is not None:
+        # a finished worker leaves: the service reads completion, not death
+        publish_membership_metrics(client=membership)
+        membership.leave()
+        membership.close()
     print_report()
     trainer.logger.finish()
     rt.finalize(0)  # a broken world exits here

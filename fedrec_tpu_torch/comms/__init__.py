@@ -7,6 +7,7 @@ from fedrec_tpu_torch.comms.codecs import (
     DEFAULT_SKETCH_SEED,
     DEFAULT_SKETCH_WIDTH,
     EF_CODECS,
+    SKETCH_PAYLOAD_KEY,
     CodecCaps,
     CodecState,
     EncodedTree,
@@ -32,7 +33,7 @@ from fedrec_tpu_torch.comms.codecs import (
 
 __all__ = [
     "CODEC_CAPS", "CODECS", "DEFAULT_SKETCH_SEED", "DEFAULT_SKETCH_WIDTH", "EF_CODECS",
-    "CodecCaps", "CodecState", "EncodedTree",
+    "SKETCH_PAYLOAD_KEY", "CodecCaps", "CodecState", "EncodedTree",
     "codec_caps", "codec_state_bytes", "codec_uses_feedback",
     "decode_gathered", "decode_leaf", "decode_tree", "encode_leaf", "encode_tree", "leaf_names",
     "load_codec_state", "payload_nbytes", "sketch_dims", "sum_payloads", "topk_count",

@@ -86,6 +86,10 @@ CODEC_CAPS: dict[str, CodecCaps] = {
 
 EF_CODECS = tuple(c for c in CODECS if CODEC_CAPS[c].supports_error_feedback)
 
+# the payload key of each linear sketch's one array: what the async buffer
+# holds for a sketch-coded contribution, summed in sketch space at commit
+SKETCH_PAYLOAD_KEY = {"countsketch": "sketch", "randproj": "proj"}
+
 
 def validate_codec(name: str) -> str:
     """Fail fast on a bad codec name: raised inside a collective, a typo

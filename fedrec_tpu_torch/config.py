@@ -8,11 +8,9 @@ section.key=value`` overrides work as they do there
 
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
-``train.trainer.Trainer``): ``fed.seq_shards``,
-``fed.elastic.enabled``, ``shard.table``, ``obs.fleet.collector``,
-``obs.slo.enabled``, ``fed.dcn_compress="auto"``, ``agg.mode="async"``
-with ``agg.quorum`` and ``agg.staleness_cap``, the ``obs.watch`` and
-``obs.wire`` fields (the
+``train.trainer.Trainer``): ``fed.seq_shards``, ``shard.table``,
+``obs.fleet.collector``, ``obs.slo.enabled``, ``fed.dcn_compress="auto"``,
+the ``obs.watch`` and ``obs.wire`` fields (the
 port speaks no wire that carries the envelope: ROADMAP.md's Queue A item
 10b) and the chaos keys ``fed.chaos.refuse_unported_chaos`` names.
 ``obs.health``'s flight-recorder fields are inert
@@ -189,9 +187,11 @@ class PopulationConfig:
 
 @dataclass
 class ElasticConfig:
-    """Elastic membership (the JAX package's coordinator lease service). Not
-    ported: ``enabled`` raises, naming ROADMAP.md's Queue A item 9; the other
-    fields are inert."""
+    """Elastic membership (``parallel.membership``): the lease and formation
+    policy a coordinator worker ships in its join (a service started without
+    explicit flags adopts the first joiner's), and its join timeout.
+    ``enabled`` records a ``--membership`` run in ``config.json``; set
+    without a service, the coordinator refuses it."""
 
     enabled: bool = False
     lease_ms: float = 15000.0
@@ -232,7 +232,7 @@ class FedConfig:
     robust: RobustConfig = field(default_factory=RobustConfig)
     # the cross-device cohort engine (PopulationConfig)
     population: PopulationConfig = field(default_factory=PopulationConfig)
-    # elastic membership (ElasticConfig; not ported)
+    # elastic membership (ElasticConfig, cli.coordinator --membership)
     elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
 
@@ -268,8 +268,8 @@ class ChaosConfig:
     per-round, per-client faults. ``faults`` is a comma list of
     ``kind@round:client[xscale]`` (``round`` may be ``*``): ``nan@2:3``,
     ``scale@*:5x100``, ``flip@4:2``. The host faults act in the coordinator
-    deployment; the wire and rejoin keys are the JAX package's and refused
-    by name when set."""
+    deployment; the wire keys are the JAX package's and refused by name
+    when set."""
 
     enabled: bool = False
     seed: int = 0
@@ -293,8 +293,10 @@ class ChaosConfig:
     kill_round: int = -1
     kill_process: int = -1
     torn_snapshot_round: int = -1
-    # not ported (fed.chaos.refuse_unported_chaos): elastic and wire faults
+    # elastic membership: the killed worker's one holdoff before it rejoins
+    # (fed.chaos.rejoin_holdoff), so the survivors' shrunk epoch runs first
     rejoin_delay_s: float = 0.0
+    # not ported (fed.chaos.refuse_unported_chaos): the wire faults
     wire_faults: str = ""
     wire_seed: int = 0
 
@@ -475,16 +477,17 @@ EVAL_PROTOCOLS = ("sampled", "full", "last4")
 
 @dataclass
 class AggConfig:
-    """Round-end aggregation topology (``agg.hierarchy``): "flat" (one
-    reduce) or "hierarchical" (``tree_fanout``-wide tiers, the
-    ``fed.robust`` method applied per tier; with ``mean`` it lowers to the
-    flat reduce, bit for bit). "async" and ``quorum`` / ``staleness_cap``
-    off their defaults (the buffered quorum commit) are not ported and
-    raise."""
+    """Round-end aggregation topology (``agg.*``): "flat" (one reduce),
+    "hierarchical" (``tree_fanout``-wide tiers, the ``fed.robust`` method
+    applied per tier; with ``mean`` it lowers to the flat reduce, bit for
+    bit) or "async" (the buffered quorum commit, ``agg.buffer`` and
+    ``agg.commit``: the global commits once ``quorum`` contributions report,
+    the later ones fold into the next commit weighted 1 / (1 + staleness)
+    and drop past ``staleness_cap`` commits)."""
 
-    mode: str = "flat"                 # "flat" | "hierarchical"
-    quorum: int = 0                    # not ported: async commit quorum
-    staleness_cap: int = 2             # not ported: async staleness cap
+    mode: str = "flat"                 # "flat" | "hierarchical" | "async"
+    quorum: int = 0                    # async commit quorum; 0 = all-reporting
+    staleness_cap: int = 2             # drop buffered updates older than this (commits)
     tree_fanout: int = 2               # hierarchical tier width (>= 2)
 
 

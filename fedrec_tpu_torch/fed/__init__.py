@@ -1,19 +1,30 @@
 """Federated aggregation (``fed/strategies.py``, FedOpt included) and the cohort
-engine's sampler (``fed/sampling.py``) for the port."""
+engine's sampler (``fed/sampling.py``) for the port.
 
-from fedrec_tpu_torch.fed.strategies import (
-    FedStrategy,
-    GradAvg,
-    Local,
-    ParamAvg,
-    ServerOptimizer,
-    get_strategy,
-    participation_mask,
-    weighted_param_avg,
-)
+The names load on first use, so that a torch-free submodule (``fed.chaos``'s
+``rejoin_holdoff``, read before the coordinator imports torch) imports
+without them."""
 
-from fedrec_tpu_torch.fed.sampling import SAMPLER_MODES, CohortSampler, validate_sampler_mode
+import importlib
 
-__all__ = ["SAMPLER_MODES", "CohortSampler", "FedStrategy", "GradAvg", "Local", "ParamAvg",
-           "ServerOptimizer", "get_strategy", "participation_mask", "validate_sampler_mode",
-           "weighted_param_avg"]
+_EXPORTS = {
+    "FedStrategy": "strategies",
+    "GradAvg": "strategies",
+    "Local": "strategies",
+    "ParamAvg": "strategies",
+    "ServerOptimizer": "strategies",
+    "get_strategy": "strategies",
+    "participation_mask": "strategies",
+    "weighted_param_avg": "strategies",
+    "SAMPLER_MODES": "sampling",
+    "CohortSampler": "sampling",
+    "validate_sampler_mode": "sampling",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

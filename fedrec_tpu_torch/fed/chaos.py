@@ -18,22 +18,25 @@ packages plan the same faults.
   cohort engine (``fed.population``), from numpy ``default_rng([seed,
   round, attempt, client, 0x90B])`` draws, bitwise the JAX package's.
 
-* host faults (``kill_round``, ``kill_process``, ``torn_snapshot_round``):
+* host faults (``kill_round``, ``kill_process``, ``torn_snapshot_round``,
+  and under elastic membership ``rejoin_delay_s``, :func:`rejoin_holdoff`):
   read by the coordinator deployment (``cli.coordinator``), inert in the
   single-process trainer, as in the JAX package.
 
 Not ported: the wire faults (``chaos.wire_faults``, ``wire_seed``,
-``ChaosProxy``) and ``rejoin_delay_s`` (elastic membership);
-``refuse_unported_chaos`` names them.
+``ChaosProxy``); ``refuse_unported_chaos`` names them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence
+from pathlib import Path
+from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 # update-fault codes carried in the batch's chaos.code vector; 0 = none
 FAULT_CODES = {"nan": 1, "scale": 2, "flip": 3}
@@ -205,7 +208,11 @@ def apply_update_fault(updates: Sequence[torch.Tensor], code: int,
     """One client's chaos update fault at the optimizer-update boundary:
     code 0 leaves the updates untouched (exact, not ``u * 1``), 1 makes them
     NaN, 2 multiplies them by ``scale`` (f32), 3 flips their sign. The codes
-    are host values, so the branch costs no device read."""
+    are host values, so the branch costs no device read. (torch is imported
+    here: the coordinator reads :func:`rejoin_holdoff` before it imports
+    torch.)"""
+    import torch
+
     code = int(code)
     if code == 0:
         return list(updates)
@@ -215,12 +222,32 @@ def apply_update_fault(updates: Sequence[torch.Tensor], code: int,
     return [u * factor for u in updates]
 
 
+def rejoin_holdoff(chaos_cfg: Any, worker_id: int, marker_dir) -> float:
+    """The seconds a respawned, chaos-killed worker waits before it rejoins
+    the membership service (``chaos.rejoin_delay_s``), or 0: only for the
+    worker ``chaos.kill_process`` names, only once its kill marker exists,
+    and only once (``chaos_rejoin_delayed_p<ID>`` marks it). The holdoff
+    lets the survivors' shrunk epoch form and run before the rejoin; without
+    it a fast respawn races back into their formation window."""
+    if (not getattr(chaos_cfg, "enabled", False)
+            or float(getattr(chaos_cfg, "rejoin_delay_s", 0.0)) <= 0
+            or int(getattr(chaos_cfg, "kill_process", -1)) != int(worker_id)):
+        return 0.0
+    marker_dir = Path(marker_dir)
+    killed = marker_dir / f"chaos_killed_p{int(worker_id)}"
+    delayed = marker_dir / f"chaos_rejoin_delayed_p{int(worker_id)}"
+    if not killed.exists() or delayed.exists():
+        return 0.0
+    marker_dir.mkdir(parents=True, exist_ok=True)
+    delayed.write_text(str(chaos_cfg.rejoin_delay_s))
+    return float(chaos_cfg.rejoin_delay_s)
+
+
 # the ChaosConfig keys the port does not run, each with its default and the
 # ROADMAP.md Queue A item that ports it
 _UNPORTED = (
     ("wire_faults", "", "9 (the wire: ChaosProxy)"),
     ("wire_seed", 0, "9 (the wire: ChaosProxy)"),
-    ("rejoin_delay_s", 0.0, "9 (elastic membership)"),
 )
 
 

@@ -18,8 +18,9 @@
   under ``obs.dir``).
 
 ``fedrec_tpu_torch.cli.obs`` (``fedrec-obs``) renders and replays them.
-The fleet, wire, watch and alert layers need several processes
-(``ROADMAP.md`` Queue A item 10b).
+``obs.fleet`` holds only the control plane's JSON-lines exchange (the
+membership service's wire); the fleet telemetry, wire, watch and alert
+layers need several processes (``ROADMAP.md`` Queue A item 10b).
 """
 
 from fedrec_tpu_torch.obs.health import (

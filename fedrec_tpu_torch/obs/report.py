@@ -1074,7 +1074,7 @@ def dump_artifacts(
     shutdown path for the Trainer, ``fedrec-serve`` and ``serve_load``.
 
     ``trace_tag`` additionally writes the trace as ``trace_<tag>.json``
-    (the JAX package's elastic workers tag each incarnation)."""
+    (an elastic coordinator worker tags each epoch's incarnation)."""
     from fedrec_tpu_torch.obs.registry import get_registry
     from fedrec_tpu_torch.obs.tracing import get_tracer
 

@@ -1,16 +1,29 @@
 """The coordinator deployment's world on ``torch.distributed`` (gloo,
-``parallel.multihost``) and the wire clients' retry policy
-(``parallel.rpc``)."""
+``parallel.multihost``), its elastic membership service
+(``parallel.membership``) and the wire clients' retry policy
+(``parallel.rpc``).
 
-from fedrec_tpu_torch.parallel.multihost import (
-    CoordinatorRuntime,
-    World,
-    aggregate_from_hosts,
-    broadcast_params,
-    broadcast_round_index,
-    initialize_distributed,
-)
-from fedrec_tpu_torch.parallel.rpc import backoff_delay_s
+The names load on first use, so that the torch-free membership service
+(which a coordinator worker joins before it imports torch) imports without
+them."""
 
-__all__ = ["CoordinatorRuntime", "World", "aggregate_from_hosts", "backoff_delay_s",
-           "broadcast_params", "broadcast_round_index", "initialize_distributed"]
+import importlib
+
+_EXPORTS = {
+    "REFORM_SIGNAL": "multihost",
+    "CoordinatorRuntime": "multihost",
+    "World": "multihost",
+    "aggregate_from_hosts": "multihost",
+    "broadcast_params": "multihost",
+    "broadcast_round_index": "multihost",
+    "initialize_distributed": "multihost",
+    "backoff_delay_s": "rpc",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

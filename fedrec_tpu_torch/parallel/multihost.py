@@ -62,6 +62,11 @@ from fedrec_tpu_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 # a collective abandoned by the watchdog ends its thread eventually
 _GLOO_TIMEOUT_S = 600.0
 
+# start_round's control value beside -1 (stop): the elastic membership layer
+# wants the world to reform at this boundary (a peer rejoined, or a lease
+# expired); every worker that receives it saves a hand-off state and leaves
+REFORM_SIGNAL = -2
+
 
 @dataclass
 class World:
@@ -461,10 +466,17 @@ class CoordinatorRuntime:
         agg: Any = None,
         sketch_width: float = 0.1,
         sketch_seed: int = 0,
+        membership: Any = None,
+        epoch: int = 0,
     ):
         self.world = world
         self.process_id = world.rank
         self.num_processes = world.size
+        # elastic membership (parallel.membership): the client whose lease
+        # thread latches reform_pending, and this world's epoch; None is the
+        # fixed world, where start_round never signals a reform
+        self.membership = membership
+        self.epoch = int(epoch)
         self.collective_timeout_s = collective_timeout_s
         self.round_deadline_s = round_deadline_s
         self.deadline_misses = 0
@@ -528,9 +540,15 @@ class CoordinatorRuntime:
         return box[0]
 
     def start_round(self, round_idx: int, total_rounds: int) -> int:
-        """The server's round index for the next round, or -1 to stop;
-        locally (one process, or degraded) the caller's own counter."""
+        """The server's round index for the next round, -1 to stop, or
+        :data:`REFORM_SIGNAL` when the server's membership client has
+        latched ``reform_pending``; locally (one process, or degraded) the
+        caller's own counter. The reform travels in the round index's
+        broadcast, so every worker leaves at the same boundary."""
         local = round_idx if round_idx < total_rounds else -1
+        if (self.membership is not None and self.is_server and local >= 0
+                and self.membership.reform_pending):
+            local = REFORM_SIGNAL
         if self.num_processes == 1:
             return local
         return self._collective(

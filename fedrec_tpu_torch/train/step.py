@@ -352,16 +352,9 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
             )
     levers = [
         ("fed.seq_shards>1 (ROADMAP.md's Queue A item 9)", cfg.fed.seq_shards > 1),
-        ("fed.elastic.enabled (elastic membership, the coordinator's lease service: "
-         "ROADMAP.md's Queue A item 9)", cfg.fed.elastic.enabled),
         ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
         ("fed.dcn_compress='auto' (the per-leaf codec map pinned from warm-up "
          "telemetry: ROADMAP.md's Queue A item 9)", cfg.fed.dcn_compress == "auto"),
-        ("agg.mode='async' (the buffered quorum commit and the async aggregation "
-         "server: ROADMAP.md's Queue A item 9)", cfg.agg.mode == "async"),
-        ("agg.quorum (the async commit: ROADMAP.md's Queue A item 9)", cfg.agg.quorum != 0),
-        ("agg.staleness_cap (the async commit: ROADMAP.md's Queue A item 9)",
-         cfg.agg.staleness_cap != 2),
     ]
     levers += [(f"{key} (SLOs, alerts, fleet telemetry and the wire envelope: ROADMAP.md's "
                 "Queue A item 10b)", True) for key in unported_obs_keys(cfg.obs)]

@@ -97,6 +97,12 @@ prices the modeled uplink (``fed.dcn_bytes_up_total`` / ``_down_total``,
 ``agg.mode="hierarchical"`` with a non-mean ``fed.robust`` method, the
 clients' parameters come to the host and reduce up an ``agg.tree_fanout``
 tree (``agg.tier_reduce_ms``); with ``mean`` the mode is the flat sync.
+Under ``agg.mode="async"`` the round ends in the buffered quorum commit
+(``_agg_async_commit``): the ``agg.quorum`` earliest reporters (latencies
+from the chaos plan's population report) commit now, the later ones' deltas
+wait in ``agg_buffer`` and fold into the next commit weighted by their
+staleness, dropped past ``agg.staleness_cap``; the buffer and the commit
+version are saved with each snapshot (``agg_buffer.npz``).
 ``_client0_params`` (Flax trees), ``set_global_params``,
 ``num_local_samples`` and ``adopt_state`` are what the coordinator
 deployment (``cli.coordinator``) drives a process's trainer with.
@@ -129,6 +135,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from fedrec_tpu_torch.agg.buffer import AGG_BUFFER_SIDECAR, AggBuffer, BufferEntry
+from fedrec_tpu_torch.agg.commit import CommitPolicy, encode_contribution, fold_commit
 from fedrec_tpu_torch.comms.codecs import (
     codec_caps,
     encode_tree,
@@ -148,7 +156,7 @@ from fedrec_tpu_torch.data import (
 )
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.eval.metrics import QUALITY_SUM_KEYS
-from fedrec_tpu_torch.fed.chaos import FaultPlan
+from fedrec_tpu_torch.fed.chaos import FaultPlan, population_report
 from fedrec_tpu_torch.fed.population import (
     SIDECAR_FIELDS,
     ClientPopulation,
@@ -282,6 +290,15 @@ class Trainer:
         # reduce replaces the round-end sync (with mean it lowers to the flat
         # sync, bit for bit)
         self._agg_hier_host = cfg.agg.mode == "hierarchical" and rb.method != "mean"
+        # agg.mode="async": the buffered quorum commit replaces the round-end
+        # sync; the commit version counts the global's commits
+        self._agg_async = cfg.agg.mode == "async"
+        self._agg_version = 0
+        self.agg_buffer: AggBuffer | None = None
+        if self._agg_async:
+            self.agg_buffer = AggBuffer()
+            self._agg_policy = CommitPolicy(quorum=cfg.agg.quorum,
+                                            staleness_cap=cfg.agg.staleness_cap)
         self.server_opt: ServerOptimizer | None = None
         if cfg.fed.server_opt != "none":
             if not self.strategy.sync_params_every_round:
@@ -415,6 +432,29 @@ class Trainer:
             "agg.tier_reduce_ms",
             "per-level-max tier-reduce time of the last hierarchical round, summed over "
             "levels (the tree's parallel critical path)")
+        # the async commit's instruments, zero under the other modes
+        self._m_agg_commits = self.registry.counter(
+            "agg.commits_total", "async quorum commits performed (global version bumps)")
+        self._m_agg_late = self.registry.counter(
+            "agg.late_folds_total", "buffered contributions folded with staleness > 0")
+        self._m_agg_stale = self.registry.counter(
+            "agg.stale_drops_total", "buffered contributions dropped past agg.staleness_cap")
+        self._g_agg_staleness = self.registry.gauge(
+            "agg.staleness", "mean staleness (commits behind) of the last commit's folds")
+        self._g_agg_version = self.registry.gauge(
+            "agg.adopted_version",
+            "global model version this worker last adopted (async commit counter; 0 until a "
+            "first commit)")
+        self._g_agg_quorum_wait = self.registry.gauge(
+            "agg.quorum_wait_ms",
+            "first-report -> quorum-close time of the last async commit (what the commit "
+            "waited, vs the barrier's slowest reporter)")
+        self._g_agg_gate_saved = self.registry.gauge(
+            "agg.gate_saved_ms",
+            "slowest-report latency minus the quorum-close latency of the last async commit "
+            "— the barrier wait the quorum removed")
+        self._g_agg_pending = self.registry.gauge(
+            "agg.buffer_pending", "contributions in the async buffer awaiting a later commit")
         self._codec_bytes_per_client: int | None = None
         self._dense_bytes_per_client: int | None = None
         if cfg.fed.dcn_compress != "none":
@@ -444,6 +484,8 @@ class Trainer:
                 self.start_round = self.snapshots.last_restored_round + 1
                 print(f"[trainer] resumed from snapshot at round {self.start_round - 1}")
                 self._restore_sidecars(self.snapshots.round_dir(self.start_round - 1))
+                # a restored buffer sidecar brought its commit version
+                self._g_agg_version.set(float(self._agg_version))
             try:
                 atomic_write_bytes(self.snapshots.directory / "config.json",
                                    cfg.to_json().encode())
@@ -477,8 +519,8 @@ class Trainer:
     def _validate_codec_and_topology(self, cfg: ExperimentConfig) -> None:
         """The JAX trainer's up-front checks of ``fed.dcn_compress`` and
         ``agg.*``, with its wording: a codec or a topology that would
-        silently never apply is a misconfiguration. ("auto" and "async" are
-        refused by name at the train step's build.)"""
+        silently never apply is a misconfiguration. ("auto" is refused by
+        name at the train step's build.)"""
         rb = cfg.fed.robust
         if cfg.fed.dcn_compress != "auto":
             validate_codec(cfg.fed.dcn_compress)
@@ -514,6 +556,15 @@ class Trainer:
                 f"agg.mode={cfg.agg.mode!r} requires a strategy that syncs params every "
                 f"round (param_avg or coordinator); fed.strategy={cfg.fed.strategy!r} never "
                 "aggregates, so the aggregation topology would silently never apply")
+        if cfg.agg.mode == "async" and cfg.fed.dcn_compress == "auto":
+            # every concrete codec composes with the buffered commit: linear
+            # sketches fold in sketch space, the others decode at push time
+            raise ValueError(
+                "agg.mode='async' is incompatible with fed.dcn_compress='auto': buffered "
+                "entries may outlive the warmup window, so the per-leaf map could change "
+                "between a push and its fold — pin a concrete codec (every registered codec "
+                "composes: linear sketches fold in sketch space, per-contribution codecs "
+                "decode at push time with per-edge error feedback)")
 
     # ------------------------------------------------------------------
     def _setup_obs(self, cfg: ExperimentConfig, data: MindData) -> None:
@@ -669,6 +720,8 @@ class Trainer:
                 if loaded != restored:
                     print(f"[trainer] server_opt sidecar from round {loaded} != snapshot round "
                           f"{restored}; momentum may be skewed for the first resumed round")
+        if self._agg_async:
+            self._restore_agg_buffer(round_dir / AGG_BUFFER_SIDECAR, restored)
         if not self._pop_engine:
             return
         path = round_dir / POPULATION_SIDECAR
@@ -686,6 +739,30 @@ class Trainer:
         if loaded != restored:
             print(f"[trainer] population sidecar from round {loaded} != snapshot round "
                   f"{restored}; the cohort schedule may be skewed for the first resumed rounds")
+
+    def _restore_agg_buffer(self, path: Path, restored: int) -> None:
+        """The pending async contributions and the commit version, from the
+        snapshot's buffer sidecar: a missing or unreadable one starts empty
+        (late updates are droppable), one of another round keeps its version
+        so staleness stays coherent but drops its entries."""
+        if not path.exists():
+            print(f"[trainer] resuming an agg.mode=async run without {path.name} — pending "
+                  "late contributions (if any) are lost and the commit version restarts")
+            return
+        try:
+            buf, tag, ver = AggBuffer.load_state(path.read_bytes())
+        except ValueError as e:
+            print(f"[trainer] ignoring unreadable agg-buffer sidecar: {e}")
+            return
+        self._agg_version = ver
+        if tag != restored:
+            print(f"[trainer] agg-buffer sidecar from round {tag} != snapshot round {restored}; "
+                  "starting with an empty buffer (pending late updates dropped)")
+            return
+        self.agg_buffer = buf
+        if len(buf):
+            print(f"[trainer] restored {len(buf)} pending async contribution(s) at commit "
+                  f"version {ver}")
 
     def population_sidecar_bytes(self, round_idx: int, store: dict | None = None) -> bytes | None:
         """The cohort engine's schedule-defining state (the sampler's
@@ -843,6 +920,75 @@ class Trainer:
         self._g_agg_tier_ms.set(tree_critical_path_ms(stats))
         new = list(reduced)
         if self.server_opt is not None:
+            new = self.server_opt.step(round_start_global, new)
+        self._adopt_contribution(new)
+
+    def _agg_async_commit(self, round_idx: int, weights: np.ndarray,
+                          round_start_global: list[np.ndarray]) -> None:
+        """The in-process buffered quorum commit (``agg.mode="async"``):
+        each slot's report latency comes from the chaos plan's population
+        report (all 0 without ``pop_straggle_ms``), the ``agg.quorum``
+        earliest reporters commit now with the buffer's earlier stragglers
+        (``agg.commit.fold_commit``), and this round's stragglers' deltas
+        wait in the buffer, based on the pre-commit version. Under a codec
+        each delta goes through ``encode_contribution`` with its logical
+        client's banked residual. Then the FedOpt step, and every client
+        adopts the commit. Nobody reporting: no commit."""
+        cfg = self.cfg
+        part = np.flatnonzero(weights > 0)
+        if part.size == 0:
+            return
+        client_ids = np.asarray(self._slot_occupants)
+        _, latency = population_report(self.chaos, round_idx, client_ids)
+        latency = np.asarray(latency, np.float64)
+        per_client = [self._contribution_host(c) for c in range(len(self.states))]
+
+        k = self._agg_policy.quorum_for(int(part.size))
+        order = part[np.argsort(latency[part], kind="stable")]
+        on_time, late = order[:k], order[k:]
+        quorum_lat = float(latency[order[k - 1]])
+        max_lat = float(latency[order[-1]])
+        codec = cfg.fed.dcn_compress
+
+        def entry(slot: int) -> BufferEntry:
+            wid = str(int(client_ids[slot]))
+            leaves = [np.asarray(x - b) for x, b in zip(per_client[slot], round_start_global)]
+            ecodec = "none"
+            if codec != "none":
+                banked = (self.agg_buffer.residual_for(wid) if cfg.fed.dcn_error_feedback
+                          else None)
+                leaves, ecodec, new_res, _ = encode_contribution(
+                    leaves, codec, topk_ratio=cfg.fed.dcn_topk_ratio,
+                    sketch_width=cfg.fed.dcn_sketch_width, sketch_seed=cfg.fed.dcn_sketch_seed,
+                    residual_leaves=banked)
+                if new_res is not None and cfg.fed.dcn_error_feedback:
+                    self.agg_buffer.bank_residual(wid, self._agg_version, new_res)
+            return BufferEntry(worker=wid, round=round_idx, epoch=self.agg_buffer.epoch,
+                               based_on=self._agg_version, weight=float(weights[slot]),
+                               arrival_ms=float(latency[slot]), leaves=leaves, codec=ecodec)
+
+        # earlier rounds' stragglers fold into this commit (staleness >= 1);
+        # this round's are built before the bump, so their staleness counts
+        # from the version their deltas are against
+        commit_entries = self.agg_buffer.take_all() + [entry(int(s)) for s in on_time]
+        late_entries = [entry(int(s)) for s in late]
+        new, stats = fold_commit(
+            round_start_global, commit_entries, self._agg_version, self._agg_policy,
+            method=cfg.fed.robust.method, trim_k=cfg.fed.robust.trim_k,
+            clip_norm=cfg.fed.robust.clip_norm, sketch_seed=cfg.fed.dcn_sketch_seed)
+        self._agg_version = stats.version
+        self._g_agg_version.set(float(stats.version))
+        for e in late_entries:
+            self.agg_buffer.add(e)
+        self._m_agg_commits.inc()
+        self._m_agg_late.inc(float(stats.late_folds))
+        self._m_agg_stale.inc(float(stats.stale_drops))
+        self._g_agg_staleness.set(stats.mean_staleness)
+        self._g_agg_quorum_wait.set(quorum_lat - float(latency[order[0]]))
+        self._g_agg_gate_saved.set(max_lat - quorum_lat)
+        self._g_agg_pending.set(float(len(self.agg_buffer)))
+        if self.server_opt is not None:
+            # the commit is a proposal, as the flat mean is
             new = self.server_opt.step(round_start_global, new)
         self._adopt_contribution(new)
 
@@ -1331,15 +1477,16 @@ class Trainer:
         # parameters (every client holds the global at round entry); the
         # hierarchical reduce's is in Flax layout, its fallback
         round_start_global = None
-        if self._agg_hier_host:
+        if self._agg_hier_host or self._agg_async:
             round_start_global = self._contribution_host(0)
         elif self.server_opt is not None:
             if self._global_host is None:
                 self._global_host = self._params_host(0)
             round_start_global = self._global_host
         # the codec sync compresses round deltas: each client's entry params
+        host_topology = self._agg_hier_host or self._agg_async
         sync_entry = ([contribution_leaves(st) for st in self.states]
-                      if self._sync_takes_entry and not self._agg_hier_host else None)
+                      if self._sync_takes_entry and not host_topology else None)
         if self.flightrec is not None:
             # replay starts from the state the round's steps saw
             self.flightrec.start_chunk(
@@ -1393,11 +1540,14 @@ class Trainer:
             if self.mode == "decoupled":
                 self.states, tables = self.news_update(self.states, self.token_states)
                 self._table = tables[0]
-        if self.strategy.sync_params_every_round and self._agg_hier_host:
-            # the host-side tiered reduce replaces the round-end sync
+        if self.strategy.sync_params_every_round and host_topology:
+            # the host-side topologies replace the round-end sync
             with self.tracer.span("aggregate", round=round_idx, method=cfg.fed.robust.method,
                                   mode=cfg.agg.mode, **self._uplink_span_args(weights)):
-                self._agg_hier_sync(weights, round_start_global)
+                if self._agg_async:
+                    self._agg_async_commit(round_idx, weights, round_start_global)
+                else:
+                    self._agg_hier_sync(weights, round_start_global)
             self._m_robust_rounds.inc(method=cfg.fed.robust.method)
             self._count_uplink(weights)
         elif self.strategy.sync_params_every_round:
@@ -1954,7 +2104,8 @@ class Trainer:
             # blocking under FedOpt or the cohort engine: their files pair
             # with this snapshot and read live state
             extras = (self._snapshot_extras(r)
-                      if self.server_opt is not None or self._pop_engine else None)
+                      if self.server_opt is not None or self._pop_engine or self._agg_async
+                      else None)
             self.snapshots.save(r, self.states, wait=extras is not None, extras=extras)
         if self._obs_dir is not None and (r + 1) % max(cfg.obs.snapshot_every, 1) == 0:
             # rotate before the append: snapshots are the event log's bulk
@@ -1963,12 +2114,16 @@ class Trainer:
 
     def _snapshot_extras(self, round_idx: int) -> Callable[[Path], None]:
         """The files a snapshot holds beside its state: the FedOpt buffers,
-        and the cohort engine's state with (under sampling) the whole
-        sidecar store, all tagged with ``round_idx``."""
+        the async buffer with its commit version, and the cohort engine's
+        state with (under sampling) the whole sidecar store, all tagged with
+        ``round_idx``."""
         def write(directory: Path) -> None:
             if self.server_opt is not None:
                 atomic_write_bytes(directory / SERVER_OPT_SIDECAR,
                                    self.server_opt.state_bytes(round_idx))
+            if self._agg_async:
+                atomic_write_bytes(directory / AGG_BUFFER_SIDECAR,
+                                   self.agg_buffer.state_bytes(round_idx, self._agg_version))
             if self._pop_engine:
                 store = (self.population.save_store(directory / POPULATION_STORE)
                          if self._pop_sampling else None)

@@ -190,7 +190,7 @@ def test_straggler_rounds_sleep_on_the_host(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [("wire_faults", "drop@*"), ("wire_seed", "3"),
-                                       ("rejoin_delay_s", "1.5")])
+                                       ("wire_faults", "delay@2:150")])
 def test_unported_chaos_keys_are_refused_by_name(key, value):
     cfg = _cfg("chaos.enabled=1", f"chaos.{key}={value}")
     data, toks = _data(cfg)

@@ -254,15 +254,20 @@ def global_round_exists(snaps: Path, r: int) -> bool:
     return (snaps / f"global_round_{r}.pt").exists()
 
 
-def test_refusals_and_the_device(art, tmp_path, monkeypatch):
+def test_refusals_and_the_device(art, tmp_path, monkeypatch, capsys):
     base = _argv(art, tmp_path / "s", 1)
-    for extra, err, match in ((["--supervise"], NotImplementedError, "elastic membership"),
-                              (["--membership", "h:1"], NotImplementedError, "Queue A item 9"),
-                              (["--set", "fed.dcn_compress=auto"], ValueError, "warmup"),
+    monkeypatch.delenv("FEDREC_SUPERVISED", raising=False)
+    # the membership refusals the JAX coordinator keeps: no identity, no supervisor
+    for extra, match in ((["--membership", "h:1"], "requires --process-id"),
+                         (["--membership", "h:1", "--process-id", "1"], "requires --supervise")):
+        with pytest.raises(SystemExit):
+            main([*base, *extra])
+        assert match in capsys.readouterr().err
+    for extra, err, match in ((["--set", "fed.dcn_compress=auto"], ValueError, "warmup"),
                               (["--set", "fed.dcn_compress=countsketch", "--set",
                                 "fed.robust.method=median"], ValueError,
                                "per-contribution decode"),
-                              (["--set", "agg.mode=async"], NotImplementedError, "async")):
+                              (["--agg-server", "h:1"], NotImplementedError, "Queue A item 9")):
         with pytest.raises(err, match=match):
             main([*base, *extra])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -443,6 +443,52 @@ def test_fused_gather_encode_backward_keeps_cancelling_gradients(cuda, rng, comm
         assert err_k <= bar, f"{name}: kernel {err_k} vs float64, plain {err_p}, bar {bar}"
 
 
+def _flash_grads_f64(q, k, v, bias, g):
+    """(dq, dk, dv, dbias) of softmax(q k^T / sqrt(d) + bias) v against the
+    cotangent ``g``, by float64 autograd on the CPU."""
+    with torch.enable_grad():
+        leaves = [t.detach().cpu().double().requires_grad_() for t in (q, k, v, bias)]
+        ql, kl, vl, bl = leaves
+        s = ql @ kl.transpose(-1, -2) / np.sqrt(q.shape[-1]) + bl[:, None, :]
+        out = torch.softmax(s, -1) @ vl
+        return torch.autograd.grad(out, leaves, g.detach().cpu().double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [130, 600])
+@pytest.mark.parametrize("common", [0.0, 1.0])
+def test_flash_backward_keeps_cancelling_gradients(cuda, rng, dtype, L, common):
+    """Keys that share a large common part (a common vector plus small
+    per-key noise) flatten the softmax, so each dS row sums to ~0 and dq's
+    common term cancels to far below its parts. F1's forward, then F2 (dq)
+    and F3 (dk, dv, dbias), every output against float64: within 10 x the
+    plain route's own error, or 1e-4 of the output's scale, whichever is
+    larger (kernel E's bar)."""
+    bh, d = 4, 20
+    base = np.abs(rng.standard_normal(d)) * common
+    q = _t(rng.standard_normal((bh, L, d)), cuda, dtype)
+    k = _t(base + 0.05 * rng.standard_normal((bh, L, d)), cuda, dtype)
+    v = _t(rng.standard_normal((bh, L, d)), cuda, dtype)
+    keep = rng.random((bh, L)) > 0.3
+    keep[:, 0] = True
+    bias = _t(np.where(keep, 0.0, -1e9), cuda)
+    g = _t(rng.standard_normal((bh, L, d)), cuda, dtype)
+    out, lse = flash_forward(q, k, v, bias)
+    delta = (g.float() * out.float()).sum(-1)
+    got = (flash_backward_dq(q, k, v, bias, g, lse, delta),
+           *flash_backward_dkv(q, k, v, bias, g, lse, delta))
+    torch.cuda.synchronize()
+    with _one_cpu_thread():
+        cpu = [t.cpu() for t in (q, k, v, bias, g)]
+        p_out, p_lse = flash_forward_plain(*cpu[:4])
+        plain = flash_backward_plain(*cpu[:4], p_out, p_lse, cpu[4])
+        ref = _flash_grads_f64(*cpu)
+    for name, a, b, r in zip(("dq", "dk", "dv", "dbias"), got, plain, ref):
+        err_k, err_p = (float((t.detach().cpu().double() - r).abs().max()) for t in (a, b))
+        bar = max(10 * err_p, 1e-4 * float(r.abs().max()))
+        assert err_k <= bar, f"{name}: kernel {err_k} vs float64, plain {err_p}, bar {bar}"
+
+
 # (n, H, D, heads, Q, C, fully-masked row or None): the edges of kernel E's
 # row products (64-row tiles over the flat n H rows) and per-head blocks
 _HIST_BWD_EDGES = {

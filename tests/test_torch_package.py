@@ -57,10 +57,12 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     # the cohort engine's, the data path's, the real-data path's, the native
-    # batcher's, the observability artifacts' and the coordinator
-    # deployment's modules are among them
+    # batcher's, the observability artifacts', the coordinator deployment's,
+    # elastic membership's and the async commit's modules are among them
     assert {"fedrec_tpu_torch.comms", "fedrec_tpu_torch.comms.codecs",
             "fedrec_tpu_torch.agg", "fedrec_tpu_torch.agg.hierarchy",
+            "fedrec_tpu_torch.agg.buffer", "fedrec_tpu_torch.agg.commit",
+            "fedrec_tpu_torch.parallel.membership", "fedrec_tpu_torch.obs.fleet",
             "fedrec_tpu_torch.parallel.multihost", "fedrec_tpu_torch.cli.coordinator",
             "fedrec_tpu_torch.utils.pytree",
             "fedrec_tpu_torch.fed.sampling", "fedrec_tpu_torch.fed.population",
@@ -226,12 +228,16 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
 
 
 def test_elastic_membership_is_refused_by_name(no_gpu):
-    """``fed.elastic`` exists with the JAX package's fields; enabling it
-    raises, naming the coordinator's lease service's Queue A item."""
+    """``fed.elastic`` has the JAX package's fields and builds a train step;
+    the coordinator refuses ``fed.elastic.enabled`` without a membership
+    service, with the JAX coordinator's words."""
+    from fedrec_tpu_torch.cli.coordinator import main
     from fedrec_tpu_torch.fed import get_strategy
     from fedrec_tpu_torch.train import build_fed_train_step
 
     cfg = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                               "fed.elastic.enabled=1"])
-    with pytest.raises(NotImplementedError, match=r"fed\.elastic\.enabled .*Queue A item 9"):
-        build_fed_train_step(_tiny_model(), cfg, get_strategy("param_avg"), device="cpu")
+    build_fed_train_step(_tiny_model(), cfg, get_strategy("param_avg"), device="cpu")
+    with pytest.raises(ValueError, match="no membership service was given"):
+        main(["1", "8", "1", "--synthetic", "--device", "cpu", "--set", "train.snapshot_dir=",
+              "--set", "fed.elastic.enabled=1"])

@@ -270,7 +270,7 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 
 @pytest.mark.parametrize("lever", [
     "privacy.enabled=1", "fed.seq_shards=2", "shard.table=1", "chaos.enabled=1",
-    "obs.slo.enabled=1", "fed.elastic.enabled=1", "obs.fleet.collector=localhost:1",
+    "obs.slo.enabled=1", "fed.dcn_compress=auto", "obs.fleet.collector=localhost:1",
     "obs.watch.anomaly_z=3", "obs.slo.objectives=x,obs.slo.enabled=1", "obs.wire.enabled=0",
 ])
 def test_trainer_refuses_unported_levers_by_name(lever):
