@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives thirteen paths at full width through the entry points a user calls:
+then drives fourteen paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -116,6 +116,18 @@ then drives thirteen paths at full width through the entry points a user calls:
   [4, 3, 4]); formation times, each incarnation's start to first round,
   hand-off save and restore, rounds by world, peak memory; C, D, B, E in
   every training incarnation (``launches_by_path["elastic"]``);
+* ``wire_path`` (the async wire deployment): the commit authority
+  (``python -m fedrec_tpu_torch.agg.server``, host only) and
+  ``fedrec_tpu_torch.cli.run --agg-server`` workers, each a single-client
+  ``Trainer`` on the one card (16 steps a round at B=64): quorum 3 of 4 for 4
+  rounds with worker 3 straggling 4 s before every push (commits, a late
+  fold, the straggler's gate near 0, the sidecars on disk); quorum 2 of 2
+  through a seeded ``ChaosProxy`` (dup, tear, partition) with the authority
+  SIGKILLed after its second commit and restarted from its state directory
+  (one incarnation bump, a resync per worker, no acked push lost); and
+  countsketch pushes at quorum 2 (bytes a push against the dense leg's);
+  C, D, B, E on every worker step, A and B in each worker's evaluation
+  (``launches_by_path["wire"]``);
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -148,6 +160,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,coordinator_path
   python3 chip_smoke.py --phases build,kernels,elastic_path
   python3 chip_smoke.py --phases build,kernels,async_path
+  python3 chip_smoke.py --phases build,kernels,wire_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -169,10 +182,10 @@ import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
           "decoupled_path", "safety_path", "cohort_path", "async_path", "data_path",
-          "family_path", "coordinator_path", "elastic_path", "serving_path")
+          "family_path", "coordinator_path", "elastic_path", "wire_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
          "cohort_path", "async_path", "data_path", "family_path", "coordinator_path",
-         "elastic_path", "serving_path")
+         "elastic_path", "wire_path", "serving_path")
 DEV = "cuda"
 
 
@@ -5550,6 +5563,439 @@ def phase_async_path(state: dict, args) -> dict:
     }
 
 
+# ---------------------------------------------------------------- wire_path
+WIRE_ROUNDS = 4
+# steps a round (1 client at B): four processes on the card take ~50 ms a
+# step, so a round (~3 s) outlasts the straggler's one round and straggle
+# (4 s) less than three times: held to the first commit, its round-0 push
+# lands inside the others' run and its next after it
+WIRE_STEPS = 64
+WIRE_QUORUM, WIRE_WORLD = 3, 4
+WIRE_STRAGGLER = 3
+WIRE_STRAGGLE_MS = 4000
+# rounds - 1: a fold in a run of WIRE_ROUNDS commits can never pass it (the
+# JAX smoke's choice, 3 rounds at the default cap of 2)
+WIRE_STALENESS_CAP = WIRE_ROUNDS - 1
+# the fault and codec legs: 2 workers on a shard of this many steps
+WIRE_SHORT_STEPS = 8
+WIRE_CODEC_ROUNDS = 3
+# the fault leg's least rounds; it runs enough more that the rounds after
+# its fault windows outlast this many seconds (the second commit, the kill,
+# the authority's restart, the circuit breaker's reset, a resync)
+WIRE_FAULT_ROUNDS = 10
+WIRE_RECOVERY_S = 8.0
+# the fault leg's commit wait, which is also its breaker's reset window
+WIRE_FAULT_WAIT_S = 1.0
+# no fault window opens before this many seconds after a proxy's start: a
+# worker's bootstrap (hello, the version-0 global) must pass, or it exits 75
+WIRE_BOOTSTRAP_S = 2.0
+WIRE_SKETCH_SEED = 7
+WIRE_LEG_TIMEOUT_S = 300
+
+
+def _wire_authority(port: int, log: Path, *flags: str):
+    """The commit authority (``python -m fedrec_tpu_torch.agg.server``) in a
+    session of its own; returns the process and the wall time of its first
+    status reply."""
+    import os
+
+    from fedrec_tpu_torch.obs.fleet import request_json_line
+
+    root = Path(__file__).resolve().parent
+    with open(log, "a") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fedrec_tpu_torch.agg.server", f"127.0.0.1:{port}", *flags],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(root)), stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.perf_counter() + 60
+    while True:
+        check(proc.poll() is None and time.perf_counter() < deadline,
+              f"the commit authority did not start: {log.read_text()[-2000:]}")
+        try:
+            request_json_line("127.0.0.1", port, {"cmd": "status"}, timeout_s=5.0)
+            return proc, time.time()
+        except (OSError, ValueError):
+            time.sleep(0.05)
+
+
+def _wire_status(port: int) -> dict:
+    from fedrec_tpu_torch.obs.fleet import request_json_line
+
+    return request_json_line("127.0.0.1", port, {"cmd": "status"}, timeout_s=30.0)
+
+
+def _wire_stop(proc, log: Path) -> None:
+    """SIGTERM the authority (it persists its state on the way out) and
+    hold it to its exit line: no CUDA context."""
+    import signal
+
+    _stop_group(proc, signal.SIGTERM)
+    tail = log.read_text()
+    check("cuda initialised: False" in tail.splitlines()[-1] if tail else False,
+          f"the authority's exit: {tail[-800:]}")
+
+
+def _wire_sets(args, rounds: int, *overrides: str) -> list[str]:
+    """A wire worker's ``--set`` flags: ExperimentConfig's widths on the
+    fused kernel route, one full-pool evaluation at the last round, no
+    snapshots, a 20 ms commit poll."""
+    return ["model.fuse_hot_path=true", "model.use_pallas=true", f"train.seed={args.seed}",
+            f"train.eval_every={rounds}", "train.eval_protocol=full", "train.snapshot_dir=",
+            "agg.worker_poll_s=0.02", *overrides]
+
+
+def _wire_argv(args, art: Path, rounds: int, port: int, worker: int, *sets: str) -> list[str]:
+    flags = [x for kv in _wire_sets(args, rounds, *sets) for x in ("--set", kv)]
+    return [str(rounds), str(args.batch_size), "1", "--data-dir", str(art), "--device", DEV,
+            "--clients", "1", "--mode", "joint", *flags, "--agg-server", f"127.0.0.1:{port}",
+            "--worker-id", str(worker)]
+
+
+def _wire_workers(argvs: list, logs: Path, name: str) -> list:
+    """One ``fedrec_tpu_torch.cli.run`` worker process an argv, each in a
+    session of its own; returns the processes and their log files."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = []
+    for i, argv in enumerate(argvs):
+        path = logs / f"{name}_w{i}.log"
+        with open(path, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "fedrec_tpu_torch.cli.run", *argv], cwd=root, env=env,
+                stdout=fh, stderr=subprocess.STDOUT, start_new_session=True), path))
+    return procs
+
+
+def _wire_hold_straggler(proc, port: int, t0: float) -> float:
+    """Hold the straggler (SIGSTOP) from its hello, its table uploaded, to
+    the on-time workers' first commit, so that start-up skew (the workers
+    reach their first round seconds apart) cannot pass for straggling: its
+    round-0 push then lands straggle + one round after that commit, inside
+    the others' run, and its next one after their last commit. Returns the
+    seconds it was held (0 when it said hello after the first commit)."""
+    import os
+    import signal
+
+    held_at = None
+    try:
+        while time.perf_counter() - t0 < WIRE_LEG_TIMEOUT_S:
+            st = _wire_status(port)
+            if st["version"] >= 1:
+                break
+            if held_at is None and str(WIRE_STRAGGLER) in st["workers"]:
+                os.killpg(proc.pid, signal.SIGSTOP)
+                held_at = time.perf_counter()
+            check(proc.poll() is None, "the straggler exited before the first commit")
+            time.sleep(0.01)
+    finally:
+        if held_at is not None:
+            os.killpg(proc.pid, signal.SIGCONT)
+    return time.perf_counter() - held_at if held_at is not None else 0.0
+
+
+def _wire_join(procs: list, name: str, t0: float) -> list[dict]:
+    """Wait for the workers under the leg's wall limit (the leg stops them
+    on its way out); every one must exit 0 and print its report. Returns
+    the reports."""
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(WIRE_LEG_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"{name}: a worker outlived {WIRE_LEG_TIMEOUT_S} s: "
+                           f"{[f.read_text()[-1500:] for _, f in procs]}")
+    outs = [f.read_text() for _, f in procs]
+    rcs = [p.returncode for p, _ in procs]
+    check(rcs == [0] * len(procs), f"{name}: worker rcs {rcs}: {[o[-2000:] for o in outs]}")
+    reps = []
+    for i, o in enumerate(outs):
+        lines = [ln for ln in o.splitlines() if ln.startswith(f"[agg-worker {i}] report ")]
+        check(bool(lines), f"{name}: worker {i} printed no report")
+        reps.append(json.loads(lines[-1].split(" report ", 1)[1]))
+    return reps
+
+
+def _ms_brief(values: list):
+    """A short list as it is, a long one as its count, median and maximum."""
+    if len(values) <= 8:
+        return values
+    return {"n": len(values), "median": _median(values), "max": max(values)}
+
+
+def _wire_worker_rows(reps: list[dict], steps: int, counts: dict) -> list[dict]:
+    """Each worker's times and launches: C, D, B, E at least steps x rounds
+    (the one client's steps), A and B again in the final evaluation, whose
+    metrics must lie in [0, 1]; the counts add into the path's."""
+    rows = []
+    for r in reps:
+        n = len(r["rounds"])
+        for name, v in r["launches"].items():
+            counts[name] = counts.get(name, 0) + v
+        for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                     "fused_history_score_bwd"):
+            check(r["launches"][name] >= steps * n,
+                  f"worker {r['worker']} launched {name} {r['launches'][name]} times, under "
+                  f"steps x rounds = {steps * n}")
+        check(r["launches"]["additive_pool"] >= 1
+              and r["launches"]["fused_history_score"] > steps * n,
+              f"worker {r['worker']}: A and B not launched in its evaluation {r['launches']}")
+        m = r["val_metrics"]
+        check(bool(m) and all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+              f"worker {r['worker']} final evaluation {m}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"worker {r['worker']} losses")
+        rows.append({
+            "worker": r["worker"], "rounds": n, "round_ms": _ms_brief(r["round_ms"]),
+            "start_to_first_round_s": r["first_round_at"] - r["started_at"],
+            "push_ms": _ms_brief(r["push_ms"]), "poll_adopt_ms": _ms_brief(r["poll_adopt_ms"]),
+            "peak_gpu_mb": r["peak_gpu_mb"], "resyncs": r["resyncs"],
+            "dropped": r["dropped"], "undelivered": r["undelivered"],
+            "uplink_bytes_per_push": _median(r["uplink_bytes"]), "val_metrics": m,
+            "launches": {KERNEL_LETTER[k]: v for k, v in r["launches"].items() if v},
+            **({"wire_faults_injected": r["wire_faults_injected"]}
+               if "wire_faults_injected" in r else {})})
+    return rows
+
+
+def _wire_commits(st: dict) -> list[dict]:
+    return [{k: c[k] for k in ("version", "folded", "late_folds", "stale_drops",
+                               "max_staleness", "quorum", "closer", "gate_ms",
+                               "quorum_wait_ms", "fold_ms")} for c in st["commits"]]
+
+
+def _wire_bytes_per_push(st: dict) -> float:
+    return sum(st["push_bytes"].values()) / max(sum(st["push_counts"].values()), 1)
+
+
+def phase_wire_path(state: dict, args) -> dict:
+    """The async wire deployment at full width: the commit authority
+    (``python -m fedrec_tpu_torch.agg.server``, host only) and workers of
+    ``python -m fedrec_tpu_torch.cli.run --agg-server --worker-id``, each a
+    single-client ``Trainer`` on this card (1 client at B, ``WIRE_STEPS``
+    steps a round, the fused kernels), over the shared token file.
+
+    (a) quorum: an authority at quorum 3 of world 4 with a state directory,
+        4 workers for ``WIRE_ROUNDS`` rounds, worker 3 straggling 4 s before
+        every push (held from its hello to the first commit, so that
+        start-up skew cannot pass for straggling): commits >= rounds, one
+        version a commit, a late fold and
+        no stale drop, worker 3's summed gate <= 5% of its straggle, every
+        final evaluation in [0, 1], both sidecars on disk after the stop, C,
+        D, B, E >= steps x rounds and A, B in the evaluation, per worker;
+    (c) codec: 2 workers at quorum 2 under ``fed.dcn_compress=countsketch``
+        (the authority's ``--sketch-seed`` the workers'), ``WIRE_SHORT_STEPS``
+        steps a round: one version a round, the bytes a push <= 1/8 of
+        (a)'s dense push;
+    (b) faults: quorum 2 of 2, both workers through a ``ChaosProxy`` whose
+        seeded plan duplicates every exchange and tears, then partitions,
+        a window of it (the windows scaled by (c)'s round); the authority
+        SIGKILLed after its second commit and restarted from its state
+        directory: one incarnation bump, a resync per worker, a duplicate
+        push, the version kept, every acked push with one disposition in
+        the ledger or pending, each fault kind injected.
+
+    The authority never creates a CUDA context (its exit line says so)."""
+    import signal
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.config import ExperimentConfig
+    from fedrec_tpu_torch.data import MindData, make_synthetic_mind
+    from fedrec_tpu_torch.parallel.membership import free_port
+
+    B = args.batch_size
+    cfg = ExperimentConfig().apply_overrides(_wire_sets(args, WIRE_ROUNDS))
+    T, Dh = cfg.data.max_title_len, cfg.model.bert_hidden
+    tokens = _tokens(state, args, T, Dh)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    work = tempfile.TemporaryDirectory(prefix="wire_path_", dir=build)
+    root = Path(work.name)
+    logs = root / "logs"
+    logs.mkdir()
+    data = make_synthetic_mind(num_news=args.num_news, num_train=B * WIRE_STEPS,
+                               num_valid=args.coord_valid, title_len=T, seed=args.seed)
+    out: dict = {"batch_size": B, "steps": WIRE_STEPS, "short_steps": WIRE_SHORT_STEPS,
+                 "num_news": args.num_news, "valid": args.coord_valid}
+    # two artifact dirs over one token file: (a)'s shard and a shorter one
+    art, art_short = root / "UserData", root / "UserDataShort"
+    _write_artifacts(data, art)
+    _write_artifacts(MindData(data.news_tokens, data.nid2index,
+                              data.train_samples[: B * WIRE_SHORT_STEPS], data.valid_samples),
+                     art_short)
+    for d in (art, art_short):
+        (d / "token_states.npy").hardlink_to(_token_file(state, args, tokens, out))
+    counts: dict = {}
+
+    # ---- (a) quorum 3 of 4, worker 3 straggling
+    port = free_port()
+    a_state, a_log = root / "a_state", logs / "a_authority.log"
+    auth, _ = _wire_authority(port, a_log, "--quorum", str(WIRE_QUORUM), "--world",
+                              str(WIRE_WORLD), "--staleness-cap", str(WIRE_STALENESS_CAP),
+                              "--state-dir", str(a_state), "--obs-dir", str(root / "a_obs"))
+    procs: list = []
+    try:
+        argvs = [_wire_argv(args, art, WIRE_ROUNDS, port, i, "agg.worker_global_wait_s=60",
+                            *(("chaos.enabled=true", f"chaos.straggle_ms={WIRE_STRAGGLE_MS}",
+                               "agg.worker_global_wait_s=1") if i == WIRE_STRAGGLER else ()))
+                 for i in range(WIRE_WORLD)]
+        t0 = time.perf_counter()
+        procs = _wire_workers(argvs, logs, "a")
+        held_s = _wire_hold_straggler(procs[WIRE_STRAGGLER][0], port, t0)
+        reps = _wire_join(procs, "quorum", t0)
+        wall = time.perf_counter() - t0
+        st = _wire_status(port)
+    finally:
+        for p, _ in procs:
+            _stop_group(p)
+        _wire_stop(auth, a_log)
+    commits = st["commits"]
+    launched = time.time() - wall
+    timeline = {r["worker"]: {"first_round_s": r["first_round_at"] - launched,
+                              "round_ms": [round(x) for x in r["round_ms"]],
+                              "acked_s": [round(t - launched, 2) for t in r["acked_at"]]}
+                for r in reps}
+    check(st["version"] >= WIRE_ROUNDS and [c["version"] for c in commits]
+          == list(range(1, st["version"] + 1)), f"quorum leg commits {_wire_commits(st)}")
+    check(all(c["quorum"] >= WIRE_QUORUM for c in commits), "a commit under quorum")
+    late = sum(c["late_folds"] for c in commits)
+    check(late >= 1, f"no late fold: {_wire_commits(st)}; {timeline}")
+    check(sum(c["stale_drops"] for c in commits) == 0, "a fold within the cap was dropped")
+    gate = sum(c["gate_ms"] for c in commits if c["closer"] == str(WIRE_STRAGGLER))
+    check(gate <= 0.05 * WIRE_STRAGGLE_MS,
+          f"the straggler was charged {gate:.0f} ms, over 5% of its {WIRE_STRAGGLE_MS} ms: "
+          f"{_wire_commits(st)}; {timeline}")
+    check("straggling" in (logs / f"a_w{WIRE_STRAGGLER}.log").read_text(),
+          "worker 3 never straggled")
+    check((a_state / "agg_buffer.npz").exists() and (a_state / "agg_global.npz").exists(),
+          "the authority's sidecars are not on disk after its stop")
+    dense = _wire_bytes_per_push(st)
+    rows = _wire_worker_rows(reps, WIRE_STEPS, counts)
+    round_ms = _median([x for r in reps for x in r["round_ms"][1:]])
+    out["quorum"] = {"wall_s": wall, "straggler_held_s": held_s, "version": st["version"],
+                     "late_folds": late, "acked_s": {w: t["acked_s"] for w, t in timeline.items()},
+                     "straggler_gate_ms": gate, "barrier_would_charge_ms":
+                     WIRE_STRAGGLE_MS * WIRE_ROUNDS, "dense_bytes_per_push": dense,
+                     "commits": _wire_commits(st), "workers": rows}
+
+    # ---- (c) countsketch at quorum 2 of 2, on the shorter shard
+    port = free_port()
+    c_log = logs / "c_authority.log"
+    auth, _ = _wire_authority(port, c_log, "--quorum", "2", "--world", "2", "--sketch-seed",
+                              str(WIRE_SKETCH_SEED))
+    procs = []
+    try:
+        argvs = [_wire_argv(args, art_short, WIRE_CODEC_ROUNDS, port, i,
+                            "fed.dcn_compress=countsketch",
+                            f"fed.dcn_sketch_seed={WIRE_SKETCH_SEED}",
+                            "agg.worker_global_wait_s=60") for i in range(2)]
+        t0 = time.perf_counter()
+        procs = _wire_workers(argvs, logs, "c")
+        reps = _wire_join(procs, "codec", t0)
+        st = _wire_status(port)
+    finally:
+        for p, _ in procs:
+            _stop_group(p)
+        _wire_stop(auth, c_log)
+    check(st["version"] == WIRE_CODEC_ROUNDS and [c["version"] for c in st["commits"]]
+          == list(range(1, WIRE_CODEC_ROUNDS + 1)), f"codec leg commits {_wire_commits(st)}")
+    sketch = _wire_bytes_per_push(st)
+    check(sketch <= dense / 8, f"countsketch pushes {sketch:.0f} B against dense {dense:.0f} B")
+    # a round of two workers on the short shard: the fault leg's time scale
+    r_s = _median([x for r in reps for x in r["round_ms"][1:]]) / 1e3
+    out["codec"] = {"wall_s": time.perf_counter() - t0, "version": st["version"],
+                    "bytes_per_push": {"none": dense, "countsketch": sketch},
+                    "ratio": dense / sketch, "commits": _wire_commits(st),
+                    "workers": _wire_worker_rows(reps, WIRE_SHORT_STEPS, counts)}
+
+    # ---- (b) wire faults and an authority restart, quorum 2 of 2. The
+    # windows, in seconds since each worker's proxy started, scale with
+    # (c)'s round: each outlasts the circuit breaker's reset (a failed push
+    # opens it, and an open breaker sends nothing the window could catch)
+    # by more than two rounds, the partition opens once the breaker has
+    # closed after the tear, and the rounds outlast the windows by
+    # WIRE_RECOVERY_S (the second commit, the kill, the restart, a resync)
+    w = WIRE_FAULT_WAIT_S + 2.5 * r_s
+    t0_tear = WIRE_BOOTSTRAP_S + r_s
+    t1 = t0_tear + w + WIRE_FAULT_WAIT_S + r_s
+    plan = (f"dup@*,tear@{t0_tear:.2f}-{t0_tear + w:.2f},"
+            f"partition@{t1:.2f}-{t1 + w:.2f}")
+    rounds = max(WIRE_FAULT_ROUNDS, math.ceil((t1 + w + WIRE_RECOVERY_S) / r_s))
+    port = free_port()
+    b_state, b_log = root / "b_state", logs / "b_authority.log"
+    auth_flags = ("--quorum", "2", "--world", "2", "--staleness-cap", str(rounds),
+                  "--state-dir", str(b_state))
+    auth, _ = _wire_authority(port, b_log, *auth_flags)
+    restarted, procs = None, []
+    try:
+        argvs = [_wire_argv(args, art_short, rounds, port, i, "chaos.enabled=true",
+                            f"chaos.wire_faults={plan}", f"chaos.wire_seed={args.seed + i}",
+                            f"agg.worker_global_wait_s={WIRE_FAULT_WAIT_S}",
+                            "agg.worker_unreachable_budget_s=120")
+                 for i in range(2)]
+        t0 = time.perf_counter()
+        procs = _wire_workers(argvs, logs, "b")
+        while True:
+            v_kill = _wire_status(port)["version"]
+            if v_kill >= 2:
+                break
+            check(time.perf_counter() - t0 < WIRE_LEG_TIMEOUT_S
+                  and all(p.poll() is None for p, _ in procs),
+                  f"fault leg: no second commit: {[f.read_text()[-1500:] for _, f in procs]}")
+            time.sleep(0.02)
+        killed_at = time.time()
+        _stop_group(auth, signal.SIGKILL)
+        restarted, replied_at = _wire_authority(port, b_log, *auth_flags)
+        reps = _wire_join(procs, "faults", t0)
+        st = _wire_status(port)
+    finally:
+        for p, _ in procs:
+            _stop_group(p)
+        _stop_group(auth, signal.SIGKILL)
+        if restarted is not None:
+            _wire_stop(restarted, b_log)
+    resumed = [ln for ln in b_log.read_text().splitlines() if "resumed committed global v" in ln]
+    check(len(resumed) == 1, f"the restart did not resume once: {resumed}")
+    restored = int(resumed[0].split("global v", 1)[1].split()[0])
+    check(restored >= v_kill, f"restored v{restored} below v{v_kill}")
+    check(st["incarnation"] == 2, f"incarnation {st['incarnation']} after one restart")
+    check(all(r["resyncs"] >= 1 for r in reps), f"resyncs {[r['resyncs'] for r in reps]}")
+    check(st["push_dups"] >= 1, "no duplicate push reached the ledger")
+    ledger, pending = set(st["ledger"]), set(st["pending_push_ids"])
+    acked = {pid for r in reps for pid in r["acked"]}
+    check(acked <= ledger | pending and not ledger & pending,
+          f"acked pushes lost: {sorted(acked - ledger - pending)}")
+    injected: dict = {}
+    for r in reps:
+        for k, v in r.get("wire_faults_injected", {}).items():
+            injected[k] = injected.get(k, 0) + v
+    check(all(injected.get(k, 0) >= 1 for k in ("tear", "dup", "partition")),
+          f"the plan's faults did not all fire: {injected}")
+    first_ack_s = []
+    for r in reps:
+        after = [t for t in r["acked_at"] if t > replied_at]
+        first_ack_s.append(min(after) - killed_at if after else None)
+    out["faults"] = {
+        "plan": plan, "rounds": rounds, "wall_s": time.perf_counter() - t0,
+        "version_at_kill": v_kill, "restored_version": restored, "final_version": st["version"],
+        "kill_to_first_reply_s": replied_at - killed_at,
+        "kill_to_first_ack_after_resync_s": first_ack_s, "push_dups": st["push_dups"],
+        "acked": len(acked), "ledgered": len(ledger), "pending": len(pending),
+        "injected": injected, "commits_total": len(st["commits"]),
+        "late_folds": sum(c["late_folds"] for c in st["commits"]),
+        "first_commits": _wire_commits(st)[:6],
+        "workers": _wire_worker_rows(reps, WIRE_SHORT_STEPS, counts)}
+
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd", "additive_pool"):
+        check(counts.get(name, 0) > 0, f"{name} never launched on the wire path")
+    state.setdefault("launches", {})["wire"] = counts
+    out["launches"] = {KERNEL_LETTER[k]: v for k, v in counts.items() if v}
+    work.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
@@ -5557,8 +6003,8 @@ def kernels_line(state: dict) -> dict:
     under the per-example transform; trainer_path, cohort_path, async_path and
     data_path run A through E, decoupled_path and family_path A, B and E,
     serving_path A and B), times from the kernels phase.
-    ``launches_by_path["coordinator"]`` and ``["elastic"]`` sum the worker
-    processes' own counts (A through E)."""
+    ``launches_by_path["coordinator"]``, ``["elastic"]`` and ``["wire"]`` sum
+    the worker processes' own counts (A through E)."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -5685,6 +6131,7 @@ def main(argv=None) -> int:
         "coordinator_path": lambda: phase_coordinator_path(state, args),
         "elastic_path": lambda: phase_elastic_path(state, args),
         "async_path": lambda: phase_async_path(state, args),
+        "wire_path": lambda: phase_wire_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     try:

@@ -75,12 +75,7 @@ from pathlib import Path
 
 import numpy as np
 
-from fedrec_tpu_torch.cli.run import (
-    _device_count,
-    _refuse_unported_args,
-    build_parser,
-    make_synthetic_from_args,
-)
+from fedrec_tpu_torch.cli.run import _device_count, build_parser, make_synthetic_from_args
 
 _KEEP_GLOBALS = 3
 # EX_TEMPFAIL: a supervised worker's "the world broke, relaunch me"
@@ -443,7 +438,10 @@ def main(argv: list[str] | None = None) -> int:
     parser = _build_parser()
     original_argv = list(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(argv)
-    _refuse_unported_args(args)
+    if args.agg_server or args.worker_id:
+        raise ValueError("--agg-server and --worker-id start a worker of the async deployment "
+                         "(python -m fedrec_tpu_torch.cli.run); the coordinator deployment "
+                         "takes --coordinator or --membership")
     if args.supervise:
         return _supervise(original_argv)
     supervised = os.environ.get("FEDREC_SUPERVISED") == "1"

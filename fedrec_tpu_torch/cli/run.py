@@ -20,9 +20,17 @@ route with a real (epsilon, delta); either way sigma comes from the
 accountant. ``--device`` defaults to ``cuda`` and
 raises without a GPU unless it is ``cpu``; ``--clients`` defaults to the
 number of devices of that kind (the JAX CLI's ``len(jax.local_devices())``).
-The multi-process options (``--agg-server``, ``--worker-id``) are
-accepted and refused by name. ``--obs-dir DIR`` (``obs.dir``) writes the
-run's observability artifacts there (``metrics.jsonl``, ``trace.json``,
+``--agg-server HOST:PORT --worker-id ID`` makes the run one worker of the
+async deployment (``agg.mode=async`` across processes): a single-client
+``Trainer`` in flat mode that pushes each round's delta to the commit
+authority (``python -m fedrec_tpu_torch.agg.server``) and adopts its
+commits (``agg.worker.run_async_worker``, the ``agg.worker_*`` fields);
+``obs.dir`` becomes ``obs.dir/worker_<ID>``, ``chaos.wire_faults`` (with
+``chaos.enabled``) puts a seeded ``ChaosProxy`` between the worker and the
+authority, and an authority that stays unreachable past
+``agg.worker_unreachable_budget_s`` exits 75. The worker ends with one
+``[agg-worker ID] report {...}`` line. ``--obs-dir DIR`` (``obs.dir``)
+writes the run's observability artifacts there (``metrics.jsonl``, ``trace.json``,
 ``prometheus.txt``, the flight recorder's dump), which ``python -m
 fedrec_tpu_torch.cli.obs report DIR`` reads. The other model families run
 with ``--set model.user_tower=gru --set model.text_head_arch=cnn``, the
@@ -77,9 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "prometheus.txt, the flight recorder's dump; read them with "
                         "python -m fedrec_tpu_torch.cli.obs report DIR")
     p.add_argument("--agg-server", default=None, metavar="HOST:PORT",
-                   help="not ported: async federation (ROADMAP.md Queue A item 9)")
+                   help="async federation (agg.mode=async across processes): drive rounds "
+                        "against this fedrec_tpu_torch.agg.server commit authority instead "
+                        "of a collective world")
     p.add_argument("--worker-id", default=None,
-                   help="not ported: the worker's name on the agg server (Queue A item 9)")
+                   help="this worker's name on the agg server (required with --agg-server)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; raises without a GPU unless 'cpu')")
     p.add_argument("--set", dest="overrides", action="append", default=[],
@@ -99,16 +109,6 @@ def make_synthetic_from_args(args, cfg):
     )
 
 
-def _refuse_unported_args(args) -> None:
-    for flag, value, item in (("--agg-server", args.agg_server, 9),
-                              ("--worker-id", args.worker_id, 9)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A "
-                f"item {item})"
-            )
-
-
 def _device_count(dev) -> int:
     import torch
 
@@ -117,7 +117,9 @@ def _device_count(dev) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported_args(args)
+    if args.agg_server and not args.worker_id:
+        print("[run] --agg-server requires --worker-id", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -178,7 +180,9 @@ def main(argv: list[str] | None = None) -> int:
         # the trunk trains in the loop over data.news_tokens: no cached states
         token_states = None
     elif Path(token_path).exists():
-        token_states = np.load(token_path)
+        # mapped, not read: the trainer uploads the table in chunks, and
+        # several workers on one host share the page cache
+        token_states = np.load(token_path, mmap_mode="c")
     else:
         print(f"[run] no cached token states at {token_path}; using random states "
               "(smoke mode)", file=sys.stderr)
@@ -191,8 +195,13 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[run] DP enabled: eps={cfg.privacy.epsilon} delta={cfg.privacy.delta} "
               f"sigma={cfg.privacy.sigma:.4f} clip={cfg.privacy.clip_norm}", file=sys.stderr)
 
-    trainer = Trainer(cfg, data, token_states, device=dev)
-    history = trainer.run()
+    if args.agg_server:
+        rc, history = _run_async_worker(args, cfg, data, token_states, dev)
+        if rc:
+            return rc
+    else:
+        trainer = Trainer(cfg, data, token_states, device=dev)
+        history = trainer.run()
     if history and history[-1].val_metrics:
         m = history[-1].val_metrics
         print(
@@ -201,6 +210,69 @@ def main(argv: list[str] | None = None) -> int:
             f"ndcg10={m.get('ndcg10', float('nan')):.4f}"
         )
     return 0
+
+
+def _run_async_worker(args, cfg, data, token_states, dev):
+    """One worker of the async deployment: ``(0, round history)``, or ``(75,
+    None)`` when the authority stayed unreachable. The trainer stays in
+    flat mode (its one-client sync is the identity; the buffered commit is
+    the authority's): ``agg.mode=async`` is the in-process knob, not this
+    path. Prints the worker's ``report`` line at the end."""
+    import json
+
+    import torch
+
+    from fedrec_tpu_torch.agg.worker import run_async_worker
+    from fedrec_tpu_torch.cli.coordinator import _process_start_wall
+    from fedrec_tpu_torch.ops import launch_counts
+    from fedrec_tpu_torch.parallel.rpc import AuthorityUnreachable
+    from fedrec_tpu_torch.train.trainer import Trainer
+
+    started_at = _process_start_wall()
+    if cfg.obs.dir:
+        # the per-worker layout of the fleet's artifacts
+        cfg.obs.dir = str(Path(cfg.obs.dir) / f"worker_{args.worker_id}")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(cfg, data, token_states, device=dev)
+    # the wire faults: a seeded chaos proxy in front of the authority, which
+    # this worker dials through; no spec, no proxy
+    proxy = None
+    if cfg.chaos.wire_faults:
+        if not cfg.chaos.enabled:
+            raise ValueError("wire fault injection requires chaos.enabled=true "
+                             "(chaos.wire_faults is part of the chaos plan)")
+        from fedrec_tpu_torch.fed.chaos import ChaosProxy, WireFaultPlan
+
+        up_host, up_port = args.agg_server.rsplit(":", 1)
+        proxy = ChaosProxy(up_host, int(up_port),
+                           plan=WireFaultPlan(cfg.chaos.wire_faults, seed=cfg.chaos.wire_seed))
+        proxy.start()
+        print(f"[run] chaos wire proxy {proxy.address} -> {args.agg_server} "
+              f"({cfg.chaos.wire_faults})", file=sys.stderr)
+    report: dict = {"worker": str(args.worker_id), "started_at": started_at}
+    try:
+        history = run_async_worker(trainer, proxy.address if proxy else args.agg_server,
+                                   str(args.worker_id), report=report)
+    except AuthorityUnreachable as e:
+        print(f"[run] {e}", file=sys.stderr)
+        return e.returncode, None
+    finally:
+        if proxy is not None:
+            proxy.stop()
+            report["wire_faults_injected"] = dict(proxy.injected)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    report.update({
+        "rounds": [r.round_idx for r in history],
+        "losses": [r.train_loss for r in history],
+        "launches": launch_counts(),
+        "peak_gpu_mb": torch.cuda.max_memory_allocated(dev) / 2**20 if on_card else None,
+        "val_metrics": history[-1].val_metrics if history else {},
+    })
+    print(f"[agg-worker {args.worker_id}] report {json.dumps(report)}", flush=True)
+    return 0, history
 
 
 if __name__ == "__main__":

@@ -42,10 +42,12 @@ from __future__ import annotations
 
 import io
 from dataclasses import dataclass
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 from fedrec_tpu_torch.utils.pytree import (
     num_leaves,
@@ -345,6 +347,8 @@ _DEVICE_CONSTS: dict = {}
 def _device_const(key: tuple, make, device: torch.device) -> Any:
     """A seeded hash or projection, built on the host once and kept on
     ``device`` (the maps depend only on the seed, the leaf and its size)."""
+    import torch
+
     full = key + (str(device),)
     if full not in _DEVICE_CONSTS:
         _DEVICE_CONSTS[full] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -367,6 +371,8 @@ def torch_encode_decode(
     stable descending sort of |x| for ``topk`` (ties to the lowest flat
     index), the wire codec's seeded hash and projection for the sketches.
     ``x`` must be in the Flax layout the wire codec sees."""
+    import torch
+
     xf = x.to(torch.float32)
     if codec == "none":
         return xf

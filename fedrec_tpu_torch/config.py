@@ -12,7 +12,7 @@ named and refused at build time (``train.step.build_fed_train_step`` and
 ``obs.fleet.collector``, ``obs.slo.enabled``, ``fed.dcn_compress="auto"``,
 the ``obs.watch`` and ``obs.wire`` fields (the
 port speaks no wire that carries the envelope: ROADMAP.md's Queue A item
-10b) and the chaos keys ``fed.chaos.refuse_unported_chaos`` names.
+10b).
 ``obs.health``'s flight-recorder fields are inert
 without ``obs.dir``, as in the JAX package; ``obs.perf.compile_cost`` is
 accepted and inert (the port has no XLA compiles to price).
@@ -296,7 +296,11 @@ class ChaosConfig:
     # elastic membership: the killed worker's one holdoff before it rejoins
     # (fed.chaos.rejoin_holdoff), so the survivors' shrunk epoch runs first
     rejoin_delay_s: float = 0.0
-    # not ported (fed.chaos.refuse_unported_chaos): the wire faults
+    # wire faults of the async deployment (fed.chaos.WireFaultPlan): a comma
+    # list of "kind@start[-end][:arg]" (kinds drop, delay, tear, dup,
+    # partition; times in seconds since the proxy started), drawn per
+    # (wire_seed, connection index). The run CLI puts a ChaosProxy in front
+    # of --agg-server when set (chaos.enabled required); empty: no proxy
     wire_faults: str = ""
     wire_seed: int = 0
 
@@ -483,12 +487,26 @@ class AggConfig:
     bit) or "async" (the buffered quorum commit, ``agg.buffer`` and
     ``agg.commit``: the global commits once ``quorum`` contributions report,
     the later ones fold into the next commit weighted 1 / (1 + staleness)
-    and drop past ``staleness_cap`` commits)."""
+    and drop past ``staleness_cap`` commits). The ``worker_*`` fields are
+    the wire policy of the async deployment's workers (``--agg-server``)."""
 
     mode: str = "flat"                 # "flat" | "hierarchical" | "async"
     quorum: int = 0                    # async commit quorum; 0 = all-reporting
     staleness_cap: int = 2             # drop buffered updates older than this (commits)
     tree_fanout: int = 2               # hierarchical tier width (>= 2)
+    # the async worker's wire policy (agg.worker, parallel.rpc): exchanges
+    # retry transport failures with full-jitter backoff inside
+    # worker_rpc_attempts; a dead host fails in worker_connect_timeout_s,
+    # a slow fold gets worker_timeout_s; past worker_unreachable_budget_s of
+    # silence the worker exits 75 for its supervisor
+    worker_timeout_s: float = 60.0     # per-exchange read deadline
+    worker_connect_timeout_s: float = 5.0   # the dial's deadline
+    worker_poll_s: float = 0.2         # sleep between commit polls
+    worker_global_wait_s: float = 20.0  # the wait for a newer commit a round
+    worker_rpc_attempts: int = 4       # attempts an op
+    worker_backoff_ms: float = 50.0    # full-jitter backoff base
+    worker_backoff_cap_ms: float = 2000.0   # backoff ceiling a retry
+    worker_unreachable_budget_s: float = 120.0  # silence before the rc 75 exit
 
 
 @dataclass

@@ -23,12 +23,26 @@ packages plan the same faults.
   read by the coordinator deployment (``cli.coordinator``), inert in the
   single-process trainer, as in the JAX package.
 
-Not ported: the wire faults (``chaos.wire_faults``, ``wire_seed``,
-``ChaosProxy``); ``refuse_unported_chaos`` names them.
+* wire faults (``chaos.wire_faults``, ``chaos.wire_seed``): a seeded
+  :class:`WireFaultPlan` drives a :class:`ChaosProxy`, a TCP man in the
+  middle in front of the async commit authority (``agg.server``) that
+  refuses, delays, tears, duplicates or partitions the one-shot JSON-lines
+  exchanges through it, by connection and by time window. The draws are
+  pure in ``(wire_seed, connection index)``; with no plan, or outside every
+  window, the proxy forwards every byte verbatim. The run CLI builds one in
+  front of ``--agg-server`` when ``chaos.wire_faults`` is set (and only with
+  ``chaos.enabled``); the trainer ignores the two keys, as in the JAX
+  package.
+
+The module imports no torch: the coordinator reads :func:`rejoin_holdoff`
+before it imports torch, and the wire faults need none.
 """
 
 from __future__ import annotations
 
+import socket
+import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import TYPE_CHECKING, Any, Sequence
@@ -243,24 +257,224 @@ def rejoin_holdoff(chaos_cfg: Any, worker_id: int, marker_dir) -> float:
     return float(chaos_cfg.rejoin_delay_s)
 
 
-# the ChaosConfig keys the port does not run, each with its default and the
-# ROADMAP.md Queue A item that ports it
-_UNPORTED = (
-    ("wire_faults", "", "9 (the wire: ChaosProxy)"),
-    ("wire_seed", 0, "9 (the wire: ChaosProxy)"),
-)
+# ======================================================================
+# wire faults (chaos.wire_faults): seeded network faults applied by a chaos
+# TCP proxy in front of a JSON-lines service
+# ======================================================================
+
+# the transport fault kinds and their default argument (a probability for
+# drop, milliseconds for delay, copies for dup; tear and partition take none)
+WIRE_FAULT_KINDS = {
+    "drop": 1.0,        # refuse the connection (arg = probability)
+    "delay": 100.0,     # hold the request this many ms before forwarding it
+    "tear": 0.0,        # forward half the request bytes, then hang up
+    "dup": 2.0,         # deliver the request arg times upstream
+    "partition": 0.0,   # nothing gets through the window
+}
 
 
-def refuse_unported_chaos(chaos_cfg: Any) -> None:
-    """Raise, naming the key and its Queue A item, for a chaos fault the
-    port does not inject."""
-    if not chaos_cfg.enabled:
-        return
-    for key, default, item in _UNPORTED:
-        if getattr(chaos_cfg, key) != default:
-            raise NotImplementedError(
-                f"chaos.{key} is not ported to fedrec_tpu_torch yet (ROADMAP.md's "
-                f"Queue A item {item}); the port injects chaos.faults, drop_rate, "
-                "straggle_rate, the pop_* population faults and, in the coordinator "
-                "deployment, kill_round/kill_process/torn_snapshot_round"
-            )
+def parse_wire_faults(spec: str) -> list[tuple[str, float, float, float]]:
+    """Parse the ``chaos.wire_faults`` DSL: a comma list of
+    ``kind@start[-end][:arg]``, ``start``/``end`` seconds since the proxy
+    started, ``*`` always, a single time ``t`` the window ``[t, t+1)``.
+    Returns ``(kind, start_s, end_s, arg)`` tuples; a malformed entry raises
+    ``ValueError``, so a typo fails when the plan is built."""
+    out: list[tuple[str, float, float, float]] = []
+    for item in spec.split(","):
+        item = item.strip()
+        if not item:
+            continue
+        try:
+            kind, rest = item.split("@", 1)
+            arg_s = None
+            if ":" in rest:
+                rest, arg_s = rest.split(":", 1)
+            if rest == "*":
+                start, end = 0.0, float("inf")
+            elif "-" in rest:
+                start_s, end_s = rest.split("-", 1)
+                start, end = float(start_s), float(end_s)
+            else:
+                start = float(rest)
+                end = start + 1.0
+            arg = float(arg_s) if arg_s is not None else WIRE_FAULT_KINDS.get(kind, 0.0)
+        except ValueError:
+            raise ValueError(
+                f"chaos.wire_faults entry {item!r} is not 'kind@start[-end][:arg]' (e.g. "
+                "'tear@2-4,dup@5-8,partition@20-30,drop@*:0.3')") from None
+        if kind not in WIRE_FAULT_KINDS:
+            raise ValueError(f"chaos.wire_faults entry {item!r}: unknown kind {kind!r}; "
+                             f"expected one of {sorted(WIRE_FAULT_KINDS)}")
+        if end <= start:
+            raise ValueError(f"chaos.wire_faults entry {item!r}: empty window "
+                             f"[{start:g}, {end:g})")
+        out.append((kind, start, end, arg))
+    return out
+
+
+class WireFaultPlan:
+    """The seeded wire-fault schedule of one proxy. ``actions(t_s,
+    conn_idx)`` gives the faults of the ``conn_idx``-th accepted connection
+    at ``t_s`` seconds after the proxy's start; a ``drop`` below probability
+    1 draws from ``default_rng([seed, conn_idx])``, as the JAX package does,
+    so both packages plan the same faults."""
+
+    def __init__(self, spec: str, seed: int = 0):
+        self.spec = str(spec)
+        self.seed = int(seed)
+        self.entries = parse_wire_faults(self.spec)
+
+    def actions(self, t_s: float, conn_idx: int) -> list[tuple[str, float]]:
+        out: list[tuple[str, float]] = []
+        rng = None
+        for kind, start, end, arg in self.entries:
+            if not start <= t_s < end:
+                continue
+            if kind == "drop" and arg < 1.0:
+                if rng is None:
+                    rng = np.random.default_rng([self.seed, int(conn_idx)])
+                if rng.random() >= arg:
+                    continue
+            out.append((kind, arg))
+        return out
+
+
+class ChaosProxy:
+    """A chaos TCP man in the middle for one-shot JSON-lines exchanges.
+
+    It listens on ``host:port`` and forwards each accepted connection's one
+    request line to ``upstream``, then the reply line back, byte for byte
+    when no fault applies. When the plan fires:
+
+    * ``partition`` / ``drop``: the client's connection closes before a
+      byte crosses;
+    * ``delay``: the request is held ``arg`` ms, then forwarded;
+    * ``tear``: half the request reaches the upstream, then both sides hang
+      up (the peer sees no whole line, the client an ackless close);
+    * ``dup``: the request goes upstream ``arg`` times, as separate
+      exchanges, and the client gets the first reply (the idempotent
+      ``push_id`` case).
+
+    Each fault counts into ``chaos.wire_faults_total`` (by kind) and the
+    ``injected`` dict."""
+
+    _POLL_S = 0.2
+
+    def __init__(self, upstream_host: str, upstream_port: int,
+                 plan: WireFaultPlan | None = None, host: str = "127.0.0.1",
+                 port: int = 0, timeout_s: float = 30.0):
+        self.upstream = (str(upstream_host), int(upstream_port))
+        self.plan = plan
+        self.timeout_s = float(timeout_s)
+        self.injected: dict[str, int] = {}
+        self._sock = socket.create_server((host, int(port)))
+        self._sock.settimeout(self._POLL_S)
+        self.host, self.port = self._sock.getsockname()[:2]
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._lock = threading.Lock()
+        self._conn_idx = 0
+        self._t0 = time.monotonic()
+
+    @property
+    def address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def start(self) -> "ChaosProxy":
+        self._t0 = time.monotonic()
+        self._thread = threading.Thread(target=self._accept_loop, name="chaos-proxy",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def _count(self, kind: str) -> None:
+        with self._lock:
+            self.injected[kind] = self.injected.get(kind, 0) + 1
+        from fedrec_tpu_torch.obs.registry import get_registry
+
+        get_registry().counter(
+            "chaos.wire_faults_total",
+            "transport faults the chaos proxy injected, by kind (chaos.wire_faults, "
+            "chaos.wire_seed)",
+            labels=("kind",),
+        ).inc(kind=kind)
+
+    @staticmethod
+    def _read_line(conn: socket.socket) -> bytes:
+        """The whole request, through its newline, as raw bytes."""
+        buf = b""
+        while b"\n" not in buf:
+            chunk = conn.recv(1 << 20)
+            if not chunk:
+                break
+            buf += chunk
+        return buf
+
+    def _exchange_upstream(self, payload: bytes) -> bytes:
+        with socket.create_connection(self.upstream, timeout=self.timeout_s) as up:
+            up.settimeout(self.timeout_s)
+            up.sendall(payload)
+            return self._read_line(up)
+
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            idx, self._conn_idx = self._conn_idx, self._conn_idx + 1
+            t_s = time.monotonic() - self._t0
+            threading.Thread(target=self._handle, args=(conn, idx, t_s), daemon=True).start()
+
+    def _handle(self, conn: socket.socket, idx: int, t_s: float) -> None:
+        actions = dict(self.plan.actions(t_s, idx)) if self.plan is not None else {}
+        try:
+            with conn:
+                conn.settimeout(self.timeout_s)
+                if "partition" in actions or "drop" in actions:
+                    # a black hole: the client sees an empty reply, and its
+                    # resilient RPC retries into its backoff budget
+                    self._count("partition" if "partition" in actions else "drop")
+                    return
+                payload = self._read_line(conn)
+                if not payload:
+                    return
+                if "delay" in actions:
+                    self._count("delay")
+                    time.sleep(actions["delay"] / 1e3)
+                if "tear" in actions:
+                    self._count("tear")
+                    try:
+                        with socket.create_connection(self.upstream,
+                                                      timeout=self.timeout_s) as up:
+                            up.sendall(payload[: max(len(payload) // 2, 1)])
+                    except OSError:
+                        pass
+                    return
+                copies = int(actions["dup"]) if "dup" in actions else 1
+                if copies > 1:
+                    self._count("dup")
+                reply = b""
+                for i in range(max(copies, 1)):
+                    try:
+                        got = self._exchange_upstream(payload)
+                    except OSError:
+                        got = b""
+                    if i == 0:
+                        reply = got
+                if reply:
+                    conn.sendall(reply)
+        except OSError:
+            pass

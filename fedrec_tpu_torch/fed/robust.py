@@ -33,12 +33,14 @@ leaf).
 from __future__ import annotations
 
 import math
-from typing import Any, Sequence
+from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
-import torch
 
 from fedrec_tpu_torch.utils.pytree import tree_flatten, tree_unflatten
+
+if TYPE_CHECKING:
+    import torch
 
 ROBUST_METHODS = ("mean", "clip", "trimmed_mean", "median")
 
@@ -62,6 +64,8 @@ def _sorted_participants(stacked: torch.Tensor, wmask: torch.Tensor):
     participant values first, ascending, and every other cell (dropouts,
     quarantined clients, NaN/inf) replaced by +inf at the end; and the
     per-coordinate count of finite participant values."""
+    import torch
+
     finite = torch.isfinite(stacked) & (_client_axis(wmask, stacked) > 0)
     vals = torch.where(finite, stacked, torch.full_like(stacked, float("inf")))
     return torch.sort(vals, dim=0).values, finite.sum(0, dtype=torch.int32)
@@ -70,6 +74,8 @@ def _sorted_participants(stacked: torch.Tensor, wmask: torch.Tensor):
 def trimmed_mean(stacked: torch.Tensor, wmask: torch.Tensor, trim_k: int):
     """Coordinate-wise trimmed mean of a (K, ...) stack -> ``(mean, m)``,
     ``m`` the per-coordinate count of finite participant values."""
+    import torch
+
     srt, m = _sorted_participants(stacked, wmask)
     pos = _client_axis(torch.arange(srt.shape[0], device=srt.device), srt)
     k = torch.clamp((m - 1) // 2, max=trim_k)
@@ -81,6 +87,8 @@ def trimmed_mean(stacked: torch.Tensor, wmask: torch.Tensor, trim_k: int):
 def median(stacked: torch.Tensor, wmask: torch.Tensor):
     """Coordinate-wise median of the finite participant values of a
     (K, ...) stack -> ``(median, m)``; 0 where ``m == 0``."""
+    import torch
+
     srt, m = _sorted_participants(stacked, wmask)
     safe = torch.where(torch.isfinite(srt), srt, torch.zeros_like(srt))
     lo = ((m - 1) // 2).clamp(min=0).long().unsqueeze(0)
@@ -94,6 +102,8 @@ def clip(stacked: torch.Tensor, weights: torch.Tensor, wmask: torch.Tensor,
     from the coordinate-wise median, its L2 over the whole row scaled to at
     most ``clip_norm`` (to 0 when not finite), then the weighted mean of the
     scaled deviations added to the median."""
+    import torch
+
     center = median(stacked, wmask)[0]
     d = stacked - center[None]
     # a non-finite deviation poisons the norm on purpose: the client's
@@ -120,6 +130,8 @@ def robust_aggregate(params: Sequence[Sequence[torch.Tensor]], weights, method: 
     coordinate has no finite participant value (trimmed mean, median) or
     no client reports at all, which keep the local value.
     """
+    import torch
+
     from fedrec_tpu_torch.fed.strategies import weighted_param_avg
 
     validate_robust_method(method)

@@ -3,8 +3,9 @@
 (the rest of that module, fleet telemetry, is ROADMAP.md's Queue A item 10b).
 
 One request line in, one response line out, over a fresh TCP connection: the
-membership service (``parallel.membership``) serves with
-:func:`serve_json_line` and its clients call with :func:`request_json_line`.
+membership service (``parallel.membership``) and the async commit authority
+(``agg.server``) serve with :func:`serve_json_line`; their clients call with
+:func:`request_json_line`, the async worker through ``parallel.rpc.FleetRpc``.
 
 The port speaks no wire envelope (``obs.wire``, item 10b). A request that
 carries one (the JAX client with wire observability on) has its ``_wire`` key
@@ -27,13 +28,21 @@ def _strip_envelope(msg):
     return msg
 
 
-def request_json_line(host: str, port: int, req: dict, timeout_s: float) -> dict:
-    """Connect, send one request line, read one response line, all under
-    ``timeout_s``. Raises ``OSError`` on a transport failure (a hang-up
-    before a reply included) and ``ValueError`` on a malformed or
-    ``{"error": ...}`` reply."""
+def request_json_line(host: str, port: int, req: dict, timeout_s: float,
+                      connect_timeout_s: float | None = None) -> dict:
+    """Connect, send one request line, read one response line. Raises
+    ``OSError`` on a transport failure (a hang-up before a reply included:
+    an ackless close is not a reply) and ``ValueError`` on a malformed or
+    ``{"error": ...}`` reply.
+
+    ``connect_timeout_s`` is the dial's deadline and ``timeout_s`` the
+    exchange's, so a dead host fails in the dial's time while a live peer
+    in the middle of a fold gets the whole read budget; ``None`` dials
+    under ``timeout_s``."""
     line = (json.dumps(req) + "\n").encode()
-    with socket.create_connection((host, port), timeout=timeout_s) as conn:
+    dial_s = timeout_s if connect_timeout_s is None else connect_timeout_s
+    with socket.create_connection((host, port), timeout=dial_s) as conn:
+        conn.settimeout(timeout_s)
         conn.sendall(line)
         buf = b""
         while b"\n" not in buf:
@@ -49,16 +58,18 @@ def request_json_line(host: str, port: int, req: dict, timeout_s: float) -> dict
     return resp
 
 
-def serve_json_line(conn: socket.socket, handler, timeout_s: float = 30.0) -> None:
-    """Read one request line from ``conn`` and answer ``handler(request)``
-    as one response line, then close. A torn or malformed request answers
-    ``{"error": "bad request"}`` where it can, and nothing raises."""
+def serve_json_line(conn: socket.socket, handler, timeout_s: float = 30.0,
+                    recv_bytes: int = 1 << 20) -> None:
+    """Read one request line from ``conn`` (``recv_bytes`` a read) and answer
+    ``handler(request)`` as one response line, then close. A torn or
+    malformed request answers ``{"error": "bad request"}`` where it can, and
+    nothing raises."""
     with conn:
         try:
             conn.settimeout(timeout_s)
             buf = b""
             while b"\n" not in buf:
-                chunk = conn.recv(1 << 20)
+                chunk = conn.recv(recv_bytes)
                 if not chunk:
                     return  # hung up before a whole request line: no reply
                 buf += chunk

@@ -1,11 +1,11 @@
 """The coordinator deployment's world on ``torch.distributed`` (gloo,
 ``parallel.multihost``), its elastic membership service
-(``parallel.membership``) and the wire clients' retry policy
-(``parallel.rpc``).
+(``parallel.membership``) and the wire clients' failure handling
+(``parallel.rpc``: backoff, ``FleetRpc``, the circuit breaker).
 
 The names load on first use, so that the torch-free membership service
-(which a coordinator worker joins before it imports torch) imports without
-them."""
+(which a coordinator worker joins before it imports torch) and the
+torch-free ``rpc`` import without the rest."""
 
 import importlib
 
@@ -17,7 +17,14 @@ _EXPORTS = {
     "broadcast_params": "multihost",
     "broadcast_round_index": "multihost",
     "initialize_distributed": "multihost",
+    "RC_DEGRADED": "rpc",
+    "AuthorityUnreachable": "rpc",
+    "CircuitBreaker": "rpc",
+    "CircuitOpen": "rpc",
+    "FleetRpc": "rpc",
+    "RpcPolicy": "rpc",
     "backoff_delay_s": "rpc",
+    "new_push_id": "rpc",
 }
 
 __all__ = sorted(_EXPORTS)

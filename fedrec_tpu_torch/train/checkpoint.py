@@ -37,7 +37,6 @@ the writer, its retention and the serving store.
 from __future__ import annotations
 
 import io
-import os
 import shutil
 import json
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -48,6 +47,7 @@ import numpy as np
 import torch
 
 from fedrec_tpu_torch.train.state import ClientState, OptState
+from fedrec_tpu_torch.utils import atomic_write_bytes
 
 _STATE_FILE = "state.pt"
 _ROUND_PREFIX = "round_"
@@ -80,17 +80,6 @@ def verify_state_tree(state: Any, samples_per_leaf: int = 256) -> None:
                     raise SnapshotIntegrityError(
                         f"non-finite values in restored clients[{c}].{part}.{name}"
                     )
-
-
-def atomic_write_bytes(path: Path, blob: bytes) -> None:
-    """Write to a temporary name, flush to disk, then rename, so that a
-    reader never sees a torn file."""
-    tmp = path.with_suffix(path.suffix + ".tmp")
-    with open(tmp, "wb") as f:
-        f.write(blob)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 def _pack(tree: dict) -> bytes:

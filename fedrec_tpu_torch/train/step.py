@@ -94,7 +94,7 @@ from fedrec_tpu_torch.eval.metrics import (
     quality_stats_batch,
     ranking_metrics_batch,
 )
-from fedrec_tpu_torch.fed.chaos import apply_update_fault, refuse_unported_chaos
+from fedrec_tpu_torch.fed.chaos import apply_update_fault
 from fedrec_tpu_torch.fed.robust import robust_aggregate, validate_robust_method
 from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg, weighted_param_avg
 from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
@@ -361,7 +361,6 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
     for name, on in levers:
         if on:
             raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")
-    refuse_unported_chaos(cfg.chaos)
 
 
 def refuse_unported(cfg: ExperimentConfig) -> None:

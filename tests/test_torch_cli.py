@@ -116,8 +116,8 @@ def test_cli_runs_a_decoupled_run_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--mode", "joint", "--dp-epsilon", "8", "--set", "model.fuse_hot_path=1", "--device",
       "cpu"], NotImplementedError, "model.fuse_hot_path with privacy.mechanism='dpsgd'"),
-    (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu"],
-     NotImplementedError, "--agg-server.*Queue A item 9"),
+    (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu", "--set",
+      "chaos.wire_faults=tear@1-2"], ValueError, "wire fault injection requires chaos.enabled"),
     (["--set", "obs.fleet.collector=localhost:1", "--device", "cpu"], NotImplementedError,
      "obs.fleet.collector.*Queue A item 10b"),
     ([], NoGPUError, "no CUDA device"),

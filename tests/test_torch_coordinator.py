@@ -267,7 +267,8 @@ def test_refusals_and_the_device(art, tmp_path, monkeypatch, capsys):
                               (["--set", "fed.dcn_compress=countsketch", "--set",
                                 "fed.robust.method=median"], ValueError,
                                "per-contribution decode"),
-                              (["--agg-server", "h:1"], NotImplementedError, "Queue A item 9")):
+                              (["--agg-server", "h:1"], ValueError,
+                               "start a worker of the async deployment")):
         with pytest.raises(err, match=match):
             main([*base, *extra])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -58,10 +58,14 @@ def _modules():
 def test_importing_every_module_leaves_jax_out():
     # the cohort engine's, the data path's, the real-data path's, the native
     # batcher's, the observability artifacts', the coordinator deployment's,
-    # elastic membership's and the async commit's modules are among them
+    # elastic membership's, the async commit's and the async wire's modules
+    # are among them
     assert {"fedrec_tpu_torch.comms", "fedrec_tpu_torch.comms.codecs",
             "fedrec_tpu_torch.agg", "fedrec_tpu_torch.agg.hierarchy",
             "fedrec_tpu_torch.agg.buffer", "fedrec_tpu_torch.agg.commit",
+            "fedrec_tpu_torch.agg.server", "fedrec_tpu_torch.agg.worker",
+            "fedrec_tpu_torch.parallel.rpc", "fedrec_tpu_torch.fed.chaos",
+            "fedrec_tpu_torch.cli.run",
             "fedrec_tpu_torch.parallel.membership", "fedrec_tpu_torch.obs.fleet",
             "fedrec_tpu_torch.parallel.multihost", "fedrec_tpu_torch.cli.coordinator",
             "fedrec_tpu_torch.utils.pytree",
@@ -200,6 +204,14 @@ def test_overrides_set_the_slice_and_reject_unknown_keys():
     assert (fed.weight_by_samples, fed.dcn_compress, fed.dcn_topk_ratio, fed.dcn_sketch_width,
             fed.dcn_sketch_seed, fed.dcn_error_feedback) == (False, "none", 0.01, 0.1, 0, True)
     assert (agg.mode, agg.quorum, agg.staleness_cap, agg.tree_fanout) == ("flat", 0, 2, 2)
+    # the async worker's wire policy, the JAX defaults
+    assert (agg.worker_timeout_s, agg.worker_connect_timeout_s, agg.worker_poll_s,
+            agg.worker_global_wait_s, agg.worker_rpc_attempts, agg.worker_backoff_ms,
+            agg.worker_backoff_cap_ms, agg.worker_unreachable_budget_s) == (
+        60.0, 5.0, 0.2, 20.0, 4, 50.0, 2000.0, 120.0)
+    cfg = ExperimentConfig().apply_overrides(["agg.worker_rpc_attempts=2",
+                                              "agg.worker_global_wait_s=1.5"])
+    assert (cfg.agg.worker_rpc_attempts, cfg.agg.worker_global_wait_s) == (2, 1.5)
     cfg = ExperimentConfig().apply_overrides(["fed.weight_by_samples=1", "fed.dcn_compress=int8",
                                               "agg.mode=hierarchical", "agg.tree_fanout=3"])
     assert (cfg.fed.weight_by_samples, cfg.fed.dcn_compress, cfg.agg.mode,
@@ -218,13 +230,17 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
     for lever in ("fed.seq_shards=2", "shard.table=1", "obs.fleet.collector=localhost:1",
-                  "obs.watch.flap_max=9", "chaos.enabled=1,chaos.wire_seed=2",
-                  "obs.slo.enabled=1", "obs.wire.window=64"):
+                  "obs.watch.flap_max=9", "obs.slo.enabled=1", "obs.wire.window=64"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])
         name = lever.split(",")[-1].split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
             build_fed_train_step(model, bad, get_strategy("param_avg"), device="cpu")
+    # the wire faults are ported (the run CLI's ChaosProxy): the step ignores them
+    wire = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head", "chaos.enabled=1",
+                                               "chaos.wire_seed=2",
+                                               "chaos.wire_faults=tear@1-2"])
+    build_fed_train_step(model, wire, get_strategy("param_avg"), device="cpu")
 
 
 def test_elastic_membership_is_refused_by_name(no_gpu):

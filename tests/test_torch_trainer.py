@@ -276,11 +276,16 @@ def test_resume_under_another_model_config_fails_with_a_guided_error(tmp_path):
 def test_trainer_refuses_unported_levers_by_name(lever):
     """Each lever the port does not run raises, naming it and its Queue A
     item. Per-example DP-SGD runs now: on ``_tiny``'s fused route it meets
-    the JAX package's own refusal; chaos runs, its wire faults do not."""
+    the JAX package's own refusal. The wire faults run too (the run CLI's
+    ``ChaosProxy`` in front of ``--agg-server``), and the trainer ignores
+    them, as the JAX trainer does."""
     over = {"privacy.enabled=1": [lever, "privacy.sigma=1"],
             "chaos.enabled=1": [lever, "chaos.wire_faults=drop@*"]}.get(lever, lever.split(","))
     cfg = _tiny().apply_overrides(over)
     data, toks = _data_and_tokens(cfg)
+    if lever == "chaos.enabled=1":
+        assert Trainer(cfg, data, toks, device="cpu").cfg.chaos.wire_faults == "drop@*"
+        return
     name = over[-1].split("=")[0].split(".")[-1]
     if lever == "privacy.enabled=1":
         name = "model.fuse_hot_path with privacy.mechanism='dpsgd' is not supported"
