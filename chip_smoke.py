@@ -8,7 +8,11 @@ then drives fourteen paths at full width through the entry points a user calls:
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
   ``ServingService.warmup`` and a JSON-lines TCP server answering a few
-  hundred requests (kernel B on every batch);
+  hundred requests (kernel B on every batch); then the port's
+  ``ServingClient`` with the wire envelope (an echoed reply envelope, the
+  edge's RTT in the client's registry) and an unmeetable ``obs.slo``
+  objective over ``serve.p99_ms`` (a firing alert from ``{"cmd":
+  "alerts"}``);
 * ``train_path`` (training): one federated ``param_avg`` round of the
   joint-mode train step over the same token states — 4 clients x 8 local
   steps at B=64, then the round-end mean (kernels B, C, D and E on every
@@ -89,8 +93,11 @@ then drives fourteen paths at full width through the entry points a user calls:
   batcher, 2 rounds of 4 clients x 4 steps, each evaluated on 8,192
   impressions, with ``obs.dir``, the quality and perf monitors and a
   ``torch.profiler`` capture of round 1, against the same run without
-  ``obs.dir`` (bitwise equal); ``fedrec-obs report``, ``perf`` and
-  ``quality`` on its artifacts; its snapshot through the recommend CLI;
+  ``obs.dir`` (bitwise equal), and the same run with ``obs.slo`` and an
+  unmeetable ``train.round_seconds`` objective (bitwise equal; the alert
+  fires, ``fedrec-obs alerts`` and ``tail --once`` exit 1, the report has
+  its Alerts panel); ``fedrec-obs report``, ``perf`` and ``quality`` on its
+  artifacts; its snapshot through the recommend CLI;
   the CNN head under the MHA tower with ``fuse_hot_path`` (B and E, no C
   or D); one decoupled round (the CNN head's chunked corpus re-encode);
   and a ``nan`` chaos run on a 2,048-news catalog whose flight-recorder
@@ -101,8 +108,8 @@ then drives fourteen paths at full width through the entry points a user calls:
   two clients of 4 x 4 steps at B=64 on unequal shards,
   ``fed.weight_by_samples``) for 3 rounds, every round's global held to the
   in-process emulation and served through the recommend CLI over 2,048
-  users; the int8, topk and countsketch wires for 2 rounds each; trimmed
-  mean up a fanout-2 hierarchy with a training server; a process killed at
+  users; the topk and countsketch wires for 2 rounds each; trimmed mean
+  over int8 up a fanout-2 hierarchy with a training server; a process killed at
   round 1 (the survivors degrade, the client finishes standalone); each
   worker's launches of C, D, B, E (and A in the evaluation) summed into the
   kernels line as ``launches_by_path["coordinator"]``;
@@ -127,7 +134,14 @@ then drives fourteen paths at full width through the entry points a user calls:
   (one incarnation bump, a resync per worker, no acked push lost); and
   countsketch pushes at quorum 2 (bytes a push against the dense leg's);
   C, D, B, E on every worker step, A and B in each worker's evaluation
-  (``launches_by_path["wire"]``);
+  (``launches_by_path["wire"]``); fleet observability over the quorum leg:
+  a standalone collector (``python -m fedrec_tpu_torch.obs.fleet --watch``)
+  the workers push to, the authority's ``--slo``, and ``fedrec-obs fleet``
+  / ``fleet-trace`` over the workers' and the authority's obs dirs (five
+  workers merged, the straggler's gate, per-edge RTT and clock offsets
+  near 0, flow arrows push -> commit -> adoption, the collector's
+  ``fleet:straggler:3`` alert); the envelope's bytes, a push's ms and the
+  merge's s;
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -462,6 +476,7 @@ def phase_device(state: dict) -> dict:
     check(smi.returncode == 0 and bool(smi.stdout.strip()), f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line, flush=True)
+    state["nvidia_smi"] = smi_line
     # full-f32 products and convolutions: TF32 keeps about 3 decimal digits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -951,9 +966,11 @@ def _check_long_kernels(state: dict, args, gen, record) -> None:
 
 
 async def _drive_server(service, waves, num_news: int, rng, his_len: int = 50,
-                        clicks: tuple[int, int] = (1, 50)) -> dict:
+                        clicks: tuple[int, int] = (1, 50), wire_checks: bool = False) -> dict:
     """Send ``waves`` of requests (each with ``clicks`` real clicks, 0-padded
-    to ``his_len``) over TCP; collect responses, round trips, metrics."""
+    to ``his_len``) over TCP; collect responses, round trips, metrics. With
+    ``wire_checks`` the same server then answers the envelope and alerts
+    checks (``_serving_wire_checks``)."""
     from fedrec_tpu_torch.serving import start_server
 
     server = await start_server(service, "127.0.0.1", 0)
@@ -981,13 +998,78 @@ async def _drive_server(service, waves, num_news: int, rng, his_len: int = 50,
         writer.write(b'{"cmd": "metrics"}\n')
         await writer.drain()
         metrics = json.loads(await asyncio.wait_for(reader.readline(), timeout=60))["metrics"]
+        wire = (await _serving_wire_checks(service, port, reader, writer, num_news, rng,
+                                           his_len) if wire_checks else None)
     finally:
         writer.close()
         await writer.wait_closed()
         server.close()
         await server.wait_closed()
         await service.stop()
-    return {"sent": sent, "responses": responses, "rtt_ms": rtt_ms, "metrics": metrics}
+    return {"sent": sent, "responses": responses, "rtt_ms": rtt_ms, "metrics": metrics,
+            "wire": wire}
+
+
+SERVE_WIRE_REQUESTS = 32
+
+
+async def _serving_wire_checks(service, port: int, reader, writer, num_news: int, rng,
+                               his_len: int) -> dict:
+    """The serving wire with fleet observability: a request carrying the
+    ``_wire`` envelope gets one back (its parent the request's span,
+    ``recv_ts <= reply_ts``); the port's ``ServingClient`` sends
+    ``SERVE_WIRE_REQUESTS`` with the envelope and books the edge's RTT in
+    its registry; then an unmeetable ``obs.slo`` objective over
+    ``serve.p99_ms``, evaluated at two heartbeats as ``serve_forever``'s
+    beat does, makes ``{"cmd": "alerts"}`` answer a firing alert."""
+    from fedrec_tpu_torch.config import SloConfig, WatchConfig
+    from fedrec_tpu_torch.obs import MetricsRegistry, set_registry, wire
+    from fedrec_tpu_torch.obs.registry import quantile_from_counts
+    from fedrec_tpu_torch.obs.watch import Watch
+    from fedrec_tpu_torch.serving import ServingClient
+
+    hist = rng.integers(1, num_news, size=his_len).tolist()
+    env = wire.request_envelope("score")
+    bare = (json.dumps({"id": -1, "history": hist}) + "\n").encode()
+    line = (json.dumps({"id": -1, "history": hist, "_wire": env}) + "\n").encode()
+    writer.write(line)
+    await writer.drain()
+    resp = json.loads(await asyncio.wait_for(reader.readline(), timeout=60))
+    renv = resp.get("_wire") or {}
+    check(resp.get("id") == -1 and len(resp.get("ids", ())) > 0 and renv.get("parent")
+          == env["span_id"] and renv["recv_ts"] <= renv["reply_ts"],
+          f"the enveloped request's reply {str(resp)[:400]}")
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    client = ServingClient("127.0.0.1", port, request_timeout_ms=60_000)
+    try:
+        for i in range(SERVE_WIRE_REQUESTS):
+            r = await client.request({"id": 10_000 + i, "history": hist})
+            check("_wire" not in r and len(r.get("ids", ())) > 0, f"client reply {str(r)[:300]}")
+    finally:
+        await client.close()
+        set_registry(prev)
+    rows = [row for row in reg.snapshot()["metrics"].get("wire.rtt_ms", {}).get("values", [])
+            if row["labels"]["op"] == "score"]
+    check(len(rows) == 1 and rows[0]["count"] == SERVE_WIRE_REQUESTS,
+          f"the client's wire.rtt_ms rows {rows}")
+    h = reg.get("wire.rtt_ms")
+    rtt_p50 = quantile_from_counts(0.5, h.buckets, list(rows[0]["buckets"].values()))
+    # the heartbeat's watch, fed the serve.* snapshot twice (pending_for 2)
+    service.watch = Watch(SloConfig(enabled=True, objectives="p99:serve.p99_ms<0.001"),
+                          WatchConfig(), registry=service.registry)
+    for _ in range(2):
+        service.watch.evaluate(record={f"serve.{k}": v for k, v in service.metrics().items()
+                                       if isinstance(v, (int, float)) and not isinstance(v, bool)})
+    writer.write(b'{"cmd": "alerts"}\n')
+    await writer.drain()
+    alerts = json.loads(await asyncio.wait_for(reader.readline(), timeout=60))["alerts"]
+    firing = [a for a in alerts["active"] if a["state"] == "firing"]
+    check([a["key"] for a in firing] == ["slo:p99"], f"the alerts command answered {alerts}")
+    return {"envelope_bytes": len(line) - len(bare), "request_bytes_bare": len(bare),
+            "reply_recv_to_reply_ms": (renv["reply_ts"] - renv["recv_ts"]) * 1e3,
+            "client_rtt_ms": {"mean": rows[0]["sum"] / rows[0]["count"], "p50": rtt_p50},
+            "peer": rows[0]["labels"]["peer"], "alert": firing[0]["summary"]}
 
 
 def _plain_recommend(model, table, hist, top_k: int):
@@ -1122,7 +1204,7 @@ def phase_main_path(state: dict, args) -> dict:
     service.warmup()
     warmup_ms = (time.perf_counter() - t0) * 1e3
     rng = np.random.default_rng(args.seed)
-    run = asyncio.run(_drive_server(service, args.waves, N, rng))
+    run = asyncio.run(_drive_server(service, args.waves, N, rng, wire_checks=True))
     torch.cuda.synchronize()
     launches = launch_counts()
     # ---------------- end of the main path
@@ -1216,6 +1298,7 @@ def phase_main_path(state: dict, args) -> dict:
         "max_abs_err": {"table_vs_plain": err_a, "user_vs_plain": err_b,
                         "topk_scores_vs_plain": err_scores},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wire": run["wire"],
     }
 
 
@@ -4291,6 +4374,42 @@ def phase_data_path(state: dict, args) -> dict:
 
 
 # ------------------------------------------------------------- family_path
+# family_path's watch leg: an objective no round meets, so the alert fires at
+# the second round's evaluation (pending_for 2)
+FAMILY_SLO = "round_time:train.round_seconds:p50<0.001"
+
+
+def _family_slo_checks(obs_dir: Path, slo_dir: Path, round_ms_slo: list,
+                       round_ms_obs: list) -> dict:
+    """The watch leg's artifacts: a firing ``slo:round_time`` record in its
+    ``metrics.jsonl`` and none in the watch-less ``obs`` leg's; ``fedrec-obs
+    alerts`` and ``tail --once`` exit 1 on it (0 on the other); its report
+    has the Alerts panel."""
+    from fedrec_tpu_torch.cli import obs as obs_cli
+    from fedrec_tpu_torch.obs.report import load_jsonl
+
+    fired = [r for r in load_jsonl(slo_dir / "metrics.jsonl")[0]
+             if r.get("kind") == "alert" and r.get("event") == "firing"]
+    check([r["key"] for r in fired] == ["slo:round_time"], f"the watch leg's alerts {fired}")
+    quiet = [r for r in load_jsonl(obs_dir / "metrics.jsonl")[0] if r.get("kind") == "alert"]
+    check(not quiet, f"the run without obs.slo wrote alert records {quiet}")
+    rcs = {}
+    for name, argv in (("alerts", ["alerts", str(slo_dir)]),
+                       ("tail_once", ["tail", str(slo_dir), "--once"]),
+                       ("alerts_without_slo", ["alerts", str(obs_dir)]),
+                       ("report", ["report", str(slo_dir)])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[name] = obs_cli.main(argv)
+        if name == "report":
+            check("## Alerts" in buf.getvalue() and "STILL FIRING" in buf.getvalue(),
+                  "the watch leg's report has no Alerts panel")
+    check(rcs == {"alerts": 1, "tail_once": 1, "alerts_without_slo": 0, "report": 0},
+          f"fedrec-obs exit codes {rcs}")
+    return {"objective": FAMILY_SLO, "fired": fired[0]["summary"], "rcs": rcs,
+            "round_ms_slo": round_ms_slo, "round_ms_obs": round_ms_obs}
+
+
 def _family_cfg(args, snapshot_dir: str, *overrides: str):
     """The family path's runs: ExperimentConfig's widths with the GRU user
     tower and the CNN text head (``cnn_kernel`` 3), kernel A on both pools
@@ -4434,16 +4553,19 @@ def phase_family_path(state: dict, args) -> dict:
     out["epoch_fill"] = fill
     del ix
 
-    # ---- 2. the GRU + CNN joint run with obs.dir, then the same run without
+    # ---- 2. the GRU + CNN joint run with obs.dir, the same run without, and
+    # the same run with the watch layer over an unmeetable round-time SLO
     rounds = 2
-    obs_dir = root / "obs"
+    obs_dir, slo_dir = root / "obs", root / "obs_slo"
     snaps = root / "snapshots"
     runs = {}
     for leg, extra in (("obs", (f"obs.dir={obs_dir}", "obs.quality.enabled=true",
                                 "obs.perf.enabled=true", "obs.perf.capture_rounds=1")),
-                       ("plain", ())):
-        # both legs snapshot every round: obs.dir is their one difference
-        cfg = _family_cfg(args, str(snaps if leg == "obs" else root / "snapshots_plain"),
+                       ("plain", ()),
+                       ("slo", (f"obs.dir={slo_dir}", "obs.slo.enabled=true",
+                                f"obs.slo.objectives={FAMILY_SLO}"))):
+        # every leg snapshots every round: obs.dir is their one difference
+        cfg = _family_cfg(args, str(snaps if leg == "obs" else root / f"snapshots_{leg}"),
                           f"fed.rounds={rounds}", "train.eval_every=1", *extra)
         step_ms: list = []
         round_ms: list = []
@@ -4481,11 +4603,18 @@ def phase_family_path(state: dict, args) -> dict:
     for name in ("fused_history_score", "fused_gather_encode"):
         check(counts.get(name, 0) == 0, f"{name} launched on the GRU + CNN run")
     plain_trainer, plain_hist = runs["plain"][:2]
-    same = ([r.train_loss for r in hist] == [r.train_loss for r in plain_hist]
-            and all(r.val_metrics == q.val_metrics for r, q in zip(hist, plain_hist))
-            and all(torch.equal(p, q) for a, b in zip(trainer.states, plain_trainer.states)
-                    for p, q in zip(a.model.parameters(), b.model.parameters())))
+
+    def bitwise(t, h) -> bool:
+        return ([r.train_loss for r in h] == [r.train_loss for r in plain_hist]
+                and all(r.val_metrics == q.val_metrics for r, q in zip(h, plain_hist))
+                and all(torch.equal(p, q) for a, b in zip(t.states, plain_trainer.states)
+                        for p, q in zip(a.model.parameters(), b.model.parameters())))
+
+    same = bitwise(trainer, hist)
     check(same, "obs.dir changed the trajectory: losses, metrics or parameters differ")
+    same_slo = bitwise(*runs["slo"][:2])
+    check(same_slo, "obs.slo changed the trajectory: losses, metrics or parameters differ")
+    out["slo"] = _family_slo_checks(obs_dir, slo_dir, runs["slo"][3], runs["obs"][3])
 
     # kernel A against its plain version on this path's inputs: the CNN
     # pool over a chunk of the corpus, the GRU pool over a batch's histories
@@ -4529,6 +4658,7 @@ def phase_family_path(state: dict, args) -> dict:
         "obs_parts_ms": {"obs": runs["obs"][4], "plain": runs["plain"][4]},
         "corpus_encode_ms": encode_ms,
         "launches": counts, "obs_equals_plain_bitwise": same,
+        "slo_equals_plain_bitwise": same_slo,
         "max_abs_err_vs_plain": {"additive_pool_cnn": err_cnn, "additive_pool_gru": err_gru},
         "conv_err_vs_f64": err_conv64,
         "a_device_ms": {
@@ -4951,13 +5081,14 @@ def phase_coordinator_path(state: dict, args) -> dict:
        the bytes on the wire to the dense tree's, then the last global
        served through ``load_checkpoint_params`` and the recommend CLI over
        ``--coord-rec-users`` users against the plain route;
-    2. codecs: the same world for 2 rounds under int8, topk (ratio 0.01,
-       error feedback) and countsketch (width 0.1), each against the
-       emulation through the same codec, the compression measured from the
-       shipped bytes, the residual sidecars written;
+    2. codecs: the same world for 2 rounds under topk (ratio 0.01, error
+       feedback) and countsketch (width 0.1), each against the emulation
+       through the same codec, the compression measured from the shipped
+       bytes, the residual sidecars written;
     3. robust and hierarchical: 3 processes with ``--server-trains``,
-       trimmed_mean (trim_k 1), int8, ``agg.mode=hierarchical`` (fanout 2),
-       against the emulation; ``agg.tier_reduce_ms``;
+       trimmed_mean (trim_k 1), ``agg.mode=hierarchical`` (fanout 2) over
+       the int8 codec (its compression measured as in 2), against the
+       emulation; ``agg.tier_reduce_ms``;
     4. a host fault: ``chaos.kill_process=2`` at ``kill_round=1`` with
        ``--collective-timeout 30``: the killed process exits 137, the
        survivors degrade, the client re-executes itself standalone and
@@ -5058,8 +5189,8 @@ def phase_coordinator_path(state: dict, args) -> dict:
 
     # ---- 2. codecs
     out["codecs"] = {}
-    for codec, sets in (("int8", ["fed.dcn_compress=int8"]),
-                        ("topk", ["fed.dcn_compress=topk", "fed.dcn_topk_ratio=0.01",
+    # int8 rides the hierarchical world below: a world of its own cost ~21 s
+    for codec, sets in (("topk", ["fed.dcn_compress=topk", "fed.dcn_topk_ratio=0.01",
                                   "fed.dcn_error_feedback=true"]),
                         ("countsketch", ["fed.dcn_compress=countsketch",
                                          "fed.dcn_sketch_width=0.1"])):
@@ -5097,6 +5228,11 @@ def phase_coordinator_path(state: dict, args) -> dict:
     check(all(p["trains"] for p in leg["processes"]), "every process trains")
     check(all((p["tier_reduce_ms"] or 0) > 0 for p in leg["processes"]),
           "agg.tier_reduce_ms not set")
+    ratios = {p["compression_ratio_measured"] for p in leg["processes"]}
+    check(len(ratios) == 1, f"int8: processes shipped different byte counts {ratios}")
+    leg["compression_ratio"] = ratios.pop()
+    out["codecs"]["int8"] = {"compression_ratio": leg["compression_ratio"],
+                             "world": "hierarchical"}
     em = _coord_emulate(argv, tokens, 3, True, COORD_CODEC_ROUNDS)
     leg["vs_emulation"] = _coord_hold(world, snaps, em[:2], em[2],
                                       list(range(COORD_CODEC_ROUNDS)))
@@ -5135,7 +5271,12 @@ def phase_coordinator_path(state: dict, args) -> dict:
 # ------------------------------------------------------------- elastic_path
 # (a) a fault-free membership world's rounds; (b) the kill leg's rounds: 2
 # before the kill, then enough that the shrunk world is still running when
-# the killed worker's holdoff ends, and that the regrown world runs more
+# the killed worker's holdoff ends, and that the regrown world runs more.
+# The shrunk world's first round comes 13-22 s after the kill and its
+# rounds take 0.6-1.0 s, so it runs 2-21 rounds before the knock at
+# holdoff + ~2 s (11 and 15 in two runs at 24 s; at 25 s and 14 rounds it
+# once finished the run before the knock): 26 rounds leave the regrown
+# world at least 3
 ELASTIC_FIXED_ROUNDS = 3
 ELASTIC_KILL_ROUNDS = 26
 ELASTIC_KILL_ROUND = 2
@@ -5145,9 +5286,12 @@ ELASTIC_KILL_ROUND = 2
 # ~1 s, an interpreter, the join: the worker joins before it imports torch),
 # or the world re-forms without it. The killed worker's holdoff outlasts the
 # survivors' shrink (its lease, a restart, the grace) and their bring-up
-# with the token states, so the shrunk world runs rounds before the rejoin.
+# with the token states (their first round 13.3-19.8 s after their start,
+# 15.5-22 s after the kill), so the shrunk world runs rounds before the
+# rejoin (the knock comes ~2 s after the holdoff: the respawn, an
+# interpreter): 24 s leaves it at least ~4 s of rounds, 30 s left it 10.
 ELASTIC_LEASE_MS, ELASTIC_HEARTBEAT_MS, ELASTIC_GRACE_MS = 6000, 1000, 4000
-ELASTIC_HOLDOFF_S = 30
+ELASTIC_HOLDOFF_S = 24
 ELASTIC_WORLD_TIMEOUT_S = 360
 
 
@@ -5591,6 +5735,13 @@ WIRE_FAULT_WAIT_S = 1.0
 WIRE_BOOTSTRAP_S = 2.0
 WIRE_SKETCH_SEED = 7
 WIRE_LEG_TIMEOUT_S = 300
+# fleet observability over leg (a): the collector's straggler rule fires after
+# this many consecutive breaching pushes; the authority's SLO over one of its
+# agg.* gauges (a quorum wait under a minute: met); re-pushes of a worker's
+# last snapshot that time a push
+FLEET_STRAGGLER_EVALS = 2
+WIRE_SLO = "quorum_wait:agg.quorum_wait_ms<60000"
+FLEET_PUSH_PROBES = 20
 
 
 def _wire_authority(port: int, log: Path, *flags: str):
@@ -5616,6 +5767,142 @@ def _wire_authority(port: int, log: Path, *flags: str):
             return proc, time.time()
         except (OSError, ValueError):
             time.sleep(0.05)
+
+
+def _fleet_collector(port: int, directory: Path, log: Path):
+    """The standalone collector (``python -m fedrec_tpu_torch.obs.fleet``,
+    host only) with its fleet rules, in a session of its own; returns once
+    it answers."""
+    import os
+
+    from fedrec_tpu_torch.obs.fleet import request_json_line
+
+    root = Path(__file__).resolve().parent
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fedrec_tpu_torch.obs.fleet", f"127.0.0.1:{port}", "--dir",
+             str(directory), "--watch", "--straggler-evals", str(FLEET_STRAGGLER_EVALS)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=str(root)), stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.perf_counter() + 60
+    while True:
+        check(proc.poll() is None and time.perf_counter() < deadline,
+              f"the collector did not start: {log.read_text()[-2000:]}")
+        try:
+            request_json_line("127.0.0.1", port, {"cmd": "telemetry_status"}, timeout_s=5.0)
+            return proc
+        except (OSError, ValueError):
+            time.sleep(0.05)
+
+
+def _edge_rtt_p50(snap: dict, peer: str) -> float | None:
+    """The median of a worker's ``wire.rtt_ms`` toward ``peer``, every op's
+    buckets together."""
+    from fedrec_tpu_torch.obs.registry import DEFAULT_BUCKETS, quantile_from_counts
+
+    rows = [r for r in snap["metrics"].get("wire.rtt_ms", {}).get("values", [])
+            if r["labels"].get("peer") == peer]
+    if not rows:
+        return None
+    counts = [sum(c) for c in zip(*(list(r["buckets"].values()) for r in rows))]
+    return quantile_from_counts(0.5, DEFAULT_BUCKETS, counts)
+
+
+def _fleet_checks(fleet_root: Path, collector_dir: Path, collector_port: int) -> dict:
+    """fedrec-obs fleet / fleet-trace over leg (a)'s obs root and the
+    collector's rules: five workers merged, the authority's commits and late
+    folds, worker 3's gate under half its straggle, an edge to the authority
+    from every worker with its RTT and clock offset (within the edge's
+    median RTT / 2 of 0: one host, one clock), flow arrows from the workers'
+    pushes into the authority's commit and from the commit into the
+    workers' adoptions, ``fleet:straggler:3`` firing at the collector and no
+    other straggler; then a push's time to the collector and the merge's."""
+    from fedrec_tpu_torch.cli import obs as obs_cli
+    from fedrec_tpu_torch.obs import wire
+    from fedrec_tpu_torch.obs.fleet import load_fleet_dir, request_json_line
+    from fedrec_tpu_torch.obs.report import load_jsonl
+
+    merge_s = {}
+    outs = {}
+    trace_path = fleet_root / "fleet_trace.json"
+    for name, argv in (("fleet_json", ["fleet", str(fleet_root), "--json"]),
+                       ("fleet_text", ["fleet", str(fleet_root)]),
+                       ("fleet_trace", ["fleet-trace", str(fleet_root), "-o", str(trace_path)])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = obs_cli.main(argv)
+        merge_s[name] = time.perf_counter() - t0
+        check(rc == 0, f"fedrec-obs {' '.join(argv[:1])} rc {rc}")
+        outs[name] = buf.getvalue()
+    report = json.loads(outs["fleet_json"])
+    workers = [str(i) for i in range(WIRE_WORLD)]
+    check(set(report["workers"]) == {*workers, "aggserver"},
+          f"fleet merged {sorted(report['workers'])}")
+    agg = report.get("agg", {}).get("aggserver", {})
+    check(agg.get("role") == "agg_server" and agg.get("commits", 0) >= WIRE_ROUNDS
+          and agg.get("late_folds", 0) >= 1, f"the fleet's agg section {agg}")
+    gate3 = agg["worker_gate_ms"].get(str(WIRE_STRAGGLER))
+    check(gate3 is not None and gate3 < WIRE_STRAGGLE_MS / 2,
+          f"worker {WIRE_STRAGGLER}'s gate {gate3} ms, not under half its straggle")
+    for section in ("## Aggregation", "## Wire", "clock offsets"):
+        check(section in outs["fleet_text"], f"the fleet text has no {section!r}")
+    fleet = load_fleet_dir(fleet_root)
+    edges = {}
+    for w in workers:
+        rows = {(e["peer"], e["op"]): e for e in report["wire"]["edges"].get(w, [])}
+        push = rows.get(("aggserver", "push"), {})
+        off = report["wire"].get("offsets_ms", {}).get(w, {}).get("aggserver")
+        p50 = _edge_rtt_p50(fleet[w].last_snapshot(), "aggserver")
+        check("rtt_ms" in push and off is not None and p50 is not None,
+              f"worker {w}'s edge to the authority: {rows}, offset {off}")
+        check(abs(off) <= p50 / 2, f"worker {w}'s clock offset {off} ms past its edge's "
+                                   f"median RTT / 2 ({p50 / 2} ms)")
+        edges[w] = {"push_rtt_ms_mean": push["rtt_ms"], "push_server_ms_mean":
+                    push.get("server_ms"), "rtt_ms_p50_all_ops": p50, "offset_ms": off,
+                    "requests": {op: e.get("requests") for (peer, op), e in rows.items()
+                                 if peer == "aggserver"}}
+    doc = json.loads(trace_path.read_text())
+    pid = doc["otherData"]["workers"]
+    auth, ws = pid["aggserver"], {pid[w] for w in workers}
+    ends: dict = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "wire":
+            ends.setdefault(e["id"], {})[e["ph"]] = e["pid"]
+    arrows = {"worker_to_authority": sum(v.get("s") in ws and v.get("f") == auth
+                                         for v in ends.values()),
+              "push_to_commit": sum(v.get("s") == auth and v.get("f") == auth
+                                    for v in ends.values()),
+              "commit_to_adoption": sum(v.get("s") == auth and v.get("f") in ws
+                                        for v in ends.values())}
+    check(all(arrows.values()), f"the merged trace's flow arrows {arrows}")
+    recs = [r for r in load_jsonl(collector_dir / "worker_fleet" / "metrics.jsonl")[0]
+            if r.get("kind") == "alert" and r.get("event") == "firing"
+            and str(r.get("key", "")).startswith("fleet:straggler:")]
+    keys = {r["key"] for r in recs}
+    check(f"fleet:straggler:{WIRE_STRAGGLER}" in keys
+          and not keys - {f"fleet:straggler:{WIRE_STRAGGLER}"},
+          f"the collector's straggler alerts {sorted(keys)}")
+    straggler = next(r for r in recs if r["key"] == f"fleet:straggler:{WIRE_STRAGGLER}")
+    # a push's time: worker 0's last pushed snapshot, again, as its pusher
+    # sends it, under another worker id (the rules have fired already)
+    snap = fleet["0"].last_snapshot()
+    req = {"cmd": "telemetry_push", "worker": "probe", "snapshot": snap, "events": [],
+           "alerts": [], "final": False}
+    push_ms = []
+    for _ in range(FLEET_PUSH_PROBES):
+        t0 = time.perf_counter()
+        request_json_line("127.0.0.1", collector_port, req, 30.0)
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"workers_merged": sorted(report["workers"]), "commits": agg["commits"],
+            "late_folds": agg["late_folds"], "worker_gate_ms": agg["worker_gate_ms"],
+            "edges": edges, "arrows": arrows, "merge_s": merge_s,
+            "straggler_alert": {"summary": straggler["summary"], "value": straggler.get("value"),
+                                "threshold": straggler.get("threshold")},
+            "push_ms": {"median": _median(push_ms), "max": max(push_ms),
+                        "snapshot_bytes": len(json.dumps(snap))},
+            "envelope_bytes": wire.envelope_overhead_bytes({"cmd": "push", "worker": "0"}),
+            "clock_offsets_s": doc["otherData"]["clock_offsets_s"]}
 
 
 def _wire_status(port: int) -> dict:
@@ -5827,17 +6114,24 @@ def phase_wire_path(state: dict, args) -> dict:
         (d / "token_states.npy").hardlink_to(_token_file(state, args, tokens, out))
     counts: dict = {}
 
-    # ---- (a) quorum 3 of 4, worker 3 straggling
-    port = free_port()
+    # ---- (a) quorum 3 of 4, worker 3 straggling; every worker pushes its
+    # telemetry to a standalone collector and writes its obs dir under one
+    # fleet root, beside the authority's (with its --slo)
+    port, c_port = free_port(), free_port()
+    fleet_root, collector_dir = root / "a_fleet", root / "a_collector"
+    collector = _fleet_collector(c_port, collector_dir, logs / "a_collector.log")
     a_state, a_log = root / "a_state", logs / "a_authority.log"
     auth, _ = _wire_authority(port, a_log, "--quorum", str(WIRE_QUORUM), "--world",
                               str(WIRE_WORLD), "--staleness-cap", str(WIRE_STALENESS_CAP),
-                              "--state-dir", str(a_state), "--obs-dir", str(root / "a_obs"))
+                              "--state-dir", str(a_state), "--obs-dir",
+                              str(fleet_root / "worker_aggserver"), "--slo", WIRE_SLO)
     procs: list = []
     try:
-        argvs = [_wire_argv(args, art, WIRE_ROUNDS, port, i, "agg.worker_global_wait_s=60",
-                            *(("chaos.enabled=true", f"chaos.straggle_ms={WIRE_STRAGGLE_MS}",
-                               "agg.worker_global_wait_s=1") if i == WIRE_STRAGGLER else ()))
+        argvs = [[*_wire_argv(args, art, WIRE_ROUNDS, port, i, "agg.worker_global_wait_s=60",
+                              f"obs.fleet.collector=127.0.0.1:{c_port}",
+                              *(("chaos.enabled=true", f"chaos.straggle_ms={WIRE_STRAGGLE_MS}",
+                                 "agg.worker_global_wait_s=1") if i == WIRE_STRAGGLER else ())),
+                  "--obs-dir", str(fleet_root)]
                  for i in range(WIRE_WORLD)]
         t0 = time.perf_counter()
         procs = _wire_workers(argvs, logs, "a")
@@ -5849,6 +6143,10 @@ def phase_wire_path(state: dict, args) -> dict:
         for p, _ in procs:
             _stop_group(p)
         _wire_stop(auth, a_log)
+    try:
+        fleet_out = _fleet_checks(fleet_root, collector_dir, c_port)
+    finally:
+        _stop_group(collector, signal.SIGINT)
     commits = st["commits"]
     launched = time.time() - wall
     timeline = {r["worker"]: {"first_round_s": r["first_round_at"] - launched,
@@ -5877,6 +6175,17 @@ def phase_wire_path(state: dict, args) -> dict:
                      "straggler_gate_ms": gate, "barrier_would_charge_ms":
                      WIRE_STRAGGLE_MS * WIRE_ROUNDS, "dense_bytes_per_push": dense,
                      "commits": _wire_commits(st), "workers": rows}
+    fleet_out["envelope_share_of_dense_push"] = fleet_out["envelope_bytes"] / dense
+    out["fleet"] = fleet_out
+    # the slice's costs on a line of their own, beside the card
+    emit({"fleet_costs": {
+        "card": state.get("nvidia_smi"),
+        "envelope_bytes_per_exchange": fleet_out["envelope_bytes"],
+        "envelope_share_of_dense_push": fleet_out["envelope_share_of_dense_push"],
+        "push_to_collector_ms": fleet_out["push_ms"],
+        "edge_rtt_ms_p50": {w: e["rtt_ms_p50_all_ops"] for w, e in fleet_out["edges"].items()},
+        "edge_offset_ms": {w: e["offset_ms"] for w, e in fleet_out["edges"].items()},
+        "merge_s": fleet_out["merge_s"]}})
 
     # ---- (c) countsketch at quorum 2 of 2, on the shorter shard
     port = free_port()

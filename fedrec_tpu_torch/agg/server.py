@@ -51,15 +51,21 @@ acked ``push_id`` gets one disposition in the ledger (``folded``,
 
 The fold is numpy on the host: the authority imports no torch, so it never
 creates a CUDA context and restarts in an interpreter's time.
-The JAX authority's wire observability (``obs.wire``: flow arrows, the
-incarnation in a reply envelope) is ROADMAP.md's Queue A item 10b; the port
-strips a request's ``_wire`` envelope and echoes none, and ``--slo`` (which
-needs ``obs/watch.py``) is refused by name.
+
+Wire observability (``obs.wire``): a request's envelope is stripped before
+dispatch; an enveloped reply also carries the incarnation, and a ``global``
+reply the commit's flow id (``commit_flow``). A push starts a flow arrow
+inside its ``wire.serve`` span, the commit that folds it finishes that
+arrow and starts its own, and the adopting worker finishes the commit's, so
+the merged fleet trace (``fedrec-obs fleet-trace``) draws push -> commit ->
+adoption across processes. ``--slo`` evaluates SLOs over the authority's
+own registry (``agg.quorum_wait_ms``, ``agg.staleness`` ...) every 2 s.
 
 Run it alone::
 
     python -m fedrec_tpu_torch.agg.server 127.0.0.1:9200 --quorum 3 --world 4 \\
-        --state-dir aggstate --obs-dir obs/worker_aggserver
+        --state-dir aggstate --obs-dir obs/worker_aggserver \\
+        --slo "quorum_wait:agg.quorum_wait_ms<2000"
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ import numpy as np
 from fedrec_tpu_torch.agg.buffer import AGG_BUFFER_SIDECAR, AggBuffer, BufferEntry
 from fedrec_tpu_torch.agg.commit import CommitPolicy, fold_commit
 from fedrec_tpu_torch.comms import SKETCH_PAYLOAD_KEY, codec_caps, decode_leaf, validate_codec
+from fedrec_tpu_torch.obs import wire as wireobs
+from fedrec_tpu_torch.obs.tracing import get_tracer
 
 __all__ = [
     "AGG_GLOBAL_SIDECAR",
@@ -168,6 +176,10 @@ class AggServer:
         self._gate_ms: dict[str, float] = {}   # worker -> its last commit's gate
         self._push_bytes: dict[str, float] = {}
         self._push_counts: dict[str, int] = {}
+        self._push_flows: dict[str, int] = {}  # pending worker -> its push's flow id
+        # the last commit's (version, flow id): a `global` reply at that
+        # version carries the id in its envelope
+        self._commit_flow: tuple[int, int] | None = None
         self._workers: set[str] = set()
         self._lock = threading.Lock()
         self._srv: socket.socket | None = None
@@ -356,12 +368,19 @@ class AggServer:
             for k in list(self._push_ledger)[: self._ledger_cap // 2]:
                 del self._push_ledger[k]
 
+    def _advertise(self) -> None:
+        """The incarnation in the reply envelope too (additive: the reply
+        carries it as a plain key either way)."""
+        if wireobs.current_envelope() is not None:
+            wireobs.serve_extra(incarnation=self.incarnation)
+
     def _hello(self, worker: str, epoch: int) -> dict:
         with self._lock:
             self._workers.add(worker)
             world = self.world or len(self._workers)
             if epoch > self.buffer.epoch:
                 self.buffer.advance_epoch(epoch)
+            self._advertise()
             return {"version": self.version, "quorum": self.policy.quorum_for(world),
                     "have_global": self.global_leaves is not None,
                     "incarnation": self.incarnation}
@@ -373,6 +392,7 @@ class AggServer:
                 print(f"[aggserver] v0 global seeded by {worker!r}", flush=True)
                 # the v0 global must survive a crash before the first commit
                 self._persist()
+            self._advertise()
             return {"version": self.version, "incarnation": self.incarnation}
 
     def _push(self, req: dict) -> dict:
@@ -395,6 +415,7 @@ class AggServer:
                 # an already-disposed push delivered again: ack, never refold
                 self._dup_pushes += 1
                 self._m_dups.inc()
+                self._advertise()
                 return {"version": self.version, "committed": False, "duplicate": True,
                         "incarnation": self.incarnation}
             nbytes = float(len(req["payload"]))
@@ -423,9 +444,16 @@ class AggServer:
                     self._ledger_set(replaced.push_id, "superseded", by=push_id)
             self._workers.add(worker)
             self._arrival[worker] = entry.arrival_ms
+            # a buffer -> commit arrow starts inside this push's serve span;
+            # the commit that folds the contribution finishes it
+            if wireobs.current_envelope() is not None:
+                fid = wireobs.new_span_id()
+                get_tracer().flow("out", fid, worker=worker)
+                self._push_flows[worker] = fid
             committed = self._maybe_commit()
             self._g_pending.set(float(len(self.buffer)))
             self._persist()
+            self._advertise()
             return {"version": self.version, "committed": committed,
                     "incarnation": self.incarnation}
 
@@ -467,8 +495,6 @@ class AggServer:
     def _maybe_commit(self) -> bool:
         """Caller holds the lock. Fires once quorum-many distinct workers
         are pending, and folds everything buffered (on time and late)."""
-        from fedrec_tpu_torch.obs.tracing import get_tracer
-
         world = self.world or max(len(self._workers), 1)
         k = self.policy.quorum_for(world)
         pending = self.buffer.pending_workers()
@@ -482,13 +508,23 @@ class AggServer:
             self._ledger_set(e.push_id,
                              "stale_dropped" if s > self.policy.staleness_cap else "folded",
                              version=self.version + 1, staleness=max(s, 0))
+        tracer = get_tracer()
+        commit_flow = wireobs.new_span_id()
         fold_t0 = time.perf_counter()
-        with get_tracer().span("agg.commit", quorum=len(pending)):
+        with tracer.span("agg.commit", quorum=len(pending)):
+            # the folded pushes' arrows end inside the commit span; the
+            # commit's own starts there (the adopting workers end it)
+            for w in {e.worker for e in entries}:
+                fid = self._push_flows.pop(w, None)
+                if fid is not None:
+                    tracer.flow("in", fid)
             self.global_leaves, stats = fold_commit(
                 self.global_leaves, entries, self.version, self.policy, method=self.method,
                 trim_k=self.trim_k, clip_norm=self.clip_norm, sketch_seed=self.sketch_seed)
+            tracer.flow("out", commit_flow, version=stats.version)
         fold_ms = (time.perf_counter() - fold_t0) * 1e3
         self._g_fold.set(fold_ms)
+        self._commit_flow = (stats.version, commit_flow)
         self.version = stats.version
         # the quorum-closing arrival is charged its delay over the runner-up
         arrivals = sorted(self._arrival[w] for w in pending if w in self._arrival)
@@ -516,11 +552,16 @@ class AggServer:
 
     def _global(self, since: int) -> dict:
         with self._lock:
+            self._advertise()
             if self.global_leaves is None:
                 return {"version": -1, "incarnation": self.incarnation}
             out: dict = {"version": self.version, "incarnation": self.incarnation}
             if self.version > since:
                 out["payload"] = encode_leaves(self.global_leaves)
+                if self._commit_flow is not None and self._commit_flow[0] == self.version:
+                    # in the reply envelope (the worker's
+                    # wire.last_reply_envelope): the reply dict is unchanged
+                    wireobs.serve_extra(commit_flow=self._commit_flow[1])
             return out
 
     def status(self) -> dict:
@@ -563,20 +604,34 @@ def main(argv: list[str] | None = None) -> int:
                         help="fed.robust.method applied to the delta fold")
     parser.add_argument("--obs-dir", default=None,
                         help="write the service's metrics.jsonl, trace.json and prometheus.txt "
-                             "here (at every commit and at exit)")
+                             "here (at every commit and at exit); name it worker_aggserver "
+                             "under the fleet's obs root so fedrec-obs fleet merges it")
     parser.add_argument("--state-dir", default=None,
                         help="persist the pending buffer and the committed global here "
                              "(agg_buffer.npz, agg_global.npz); a restart resumes from them")
     parser.add_argument("--sketch-seed", type=int, default=0,
                         help="the workers' fed.dcn_sketch_seed, to decode sketch-coded pushes")
     parser.add_argument("--slo", default="",
-                        help="not ported: SLOs over the service's registry (obs/watch.py, "
-                             "ROADMAP.md's Queue A item 10b)")
+                        help="obs.slo.objectives evaluated every 2 s over this service's own "
+                             "registry (agg.quorum_wait_ms, agg.staleness, agg.buffer_pending, "
+                             "...); alert records land in --obs-dir's metrics.jsonl")
     args = parser.parse_args(argv)
-    if args.slo:
-        parser.error("--slo is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A item "
-                     "10b: obs/watch.py)")
     host, port = args.address.rsplit(":", 1)
+    if args.obs_dir:
+        from fedrec_tpu_torch.obs.fleet import set_fleet_identity
+
+        set_fleet_identity(worker="aggserver")
+    watch = None
+    if args.slo:
+        from pathlib import Path
+
+        from fedrec_tpu_torch.config import SloConfig, WatchConfig
+        from fedrec_tpu_torch.obs.watch import Watch
+
+        if args.obs_dir:
+            Path(args.obs_dir).mkdir(parents=True, exist_ok=True)
+        watch = Watch(SloConfig(enabled=True, objectives=args.slo), WatchConfig(),
+                      jsonl_path=Path(args.obs_dir) / "metrics.jsonl" if args.obs_dir else None)
     server = AggServer(
         host=host, port=int(port),
         policy=CommitPolicy(quorum=args.quorum, staleness_cap=args.staleness_cap),
@@ -596,6 +651,8 @@ def main(argv: list[str] | None = None) -> int:
         last = None
         while True:
             time.sleep(2)
+            if watch is not None:
+                watch.evaluate()  # commit-cadence SLOs over the agg.* gauges
             if args.obs_dir:
                 status = server.status()
                 if status != last:

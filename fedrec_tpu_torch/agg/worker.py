@@ -94,6 +94,7 @@ def run_async_worker(trainer, server: str, worker_id: str, timeout_s: float | No
         payload_nbytes,
         validate_codec,
     )
+    from fedrec_tpu_torch.obs import wire
     from fedrec_tpu_torch.parallel.rpc import (
         AuthorityUnreachable,
         FleetRpc,
@@ -332,7 +333,7 @@ def run_async_worker(trainer, server: str, worker_id: str, timeout_s: float | No
         # the bounded wait for a commit newer than our base
         t0 = time.perf_counter()
         deadline = time.monotonic() + global_wait_s
-        new_version, payload = version, None
+        new_version, payload, commit_flow = version, None, None
         while time.monotonic() < deadline:
             try:
                 resp = rpc.call({"cmd": "global", "since": version}, op="global")
@@ -346,10 +347,17 @@ def run_async_worker(trainer, server: str, worker_id: str, timeout_s: float | No
                 break
             if "payload" in resp:
                 new_version, payload = int(resp["version"]), resp["payload"]
+                # the commit's flow id rides the reply envelope: its arrow
+                # ends inside this worker's adoption span
+                reply_env = wire.last_reply_envelope()
+                if reply_env is not None:
+                    commit_flow = reply_env.get("commit_flow")
                 break
             time.sleep(poll_s)
         if payload is not None:
             with trainer.tracer.span("agg.adopt", version=new_version, round=round_idx):
+                if commit_flow is not None:
+                    trainer.tracer.flow("in", int(commit_flow))
                 version = new_version
                 base = _adopt(trainer, decode_leaves(payload))
             g_version.set(float(version))
@@ -385,5 +393,7 @@ def run_async_worker(trainer, server: str, worker_id: str, timeout_s: float | No
                     continue
                 print(f"[agg-worker {worker_id}] could not write obs artifacts: {e}",
                       flush=True)
+    if trainer.fleet_pusher is not None:
+        trainer.fleet_pusher.push(final=True)
     trainer.logger.finish()
     return history

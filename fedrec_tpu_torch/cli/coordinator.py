@@ -55,9 +55,13 @@ worker's knock makes the server broadcast ``REFORM_SIGNAL`` at the next
 round boundary, where every worker saves a hand-off state and exits 75 to
 join the next epoch. State files then key on the worker id
 (``local_state_w<ID>.pt``, ``population_state_w<ID>.npz``), and
-``chaos.rejoin_delay_s`` holds the killed worker's first rejoin back. Fleet
-identity and counter baselines (the JAX package's ``obs.fleet``) are Queue A
-item 10b and stay out.
+``chaos.rejoin_delay_s`` holds the killed worker's first rejoin back. Each
+process stamps its fleet identity (the stable worker id, its rank and
+membership epoch) on its spans, snapshots and records; under membership it
+saves its counter totals at every state save and artifact dump
+(``counters.json``) and the next incarnation resumes from them, so
+``fedrec-obs report`` totals stay monotone across a rejoin. With
+``obs.fleet.collector`` each round's telemetry is pushed to the collector.
 
 ``--device`` defaults to ``cuda`` and raises without a GPU unless it is
 ``cpu``; every process of a one-card machine uses that card. Without
@@ -465,6 +469,11 @@ def main(argv: list[str] | None = None) -> int:
     from fedrec_tpu_torch.device import resolve_device
     from fedrec_tpu_torch.fed.strategies import ServerOptimizer
     from fedrec_tpu_torch.obs import get_registry
+    from fedrec_tpu_torch.obs.fleet import (
+        restore_counter_baseline,
+        save_counter_baseline,
+        set_fleet_identity,
+    )
     from fedrec_tpu_torch.parallel.membership import publish_membership_metrics
     from fedrec_tpu_torch.parallel.multihost import (
         REFORM_SIGNAL,
@@ -560,8 +569,13 @@ def main(argv: list[str] | None = None) -> int:
     # under membership the stable worker id (ranks are re-dealt every epoch)
     # names the obs subdirectory, the state files and the chaos kill's target
     ident = int(args.process_id) if membership is not None else rt.process_id
+    set_fleet_identity(worker=str(ident), rank=rt.process_id,
+                       epoch=assignment.epoch if assignment is not None else None)
     if cfg.obs.dir and (rt.num_processes > 1 or membership is not None):
         cfg.obs.dir = str(Path(cfg.obs.dir) / f"worker_{ident}")
+    if cfg.obs.dir and membership is not None:
+        # a respawned worker's counters resume from its last baseline
+        restore_counter_baseline(Path(cfg.obs.dir))
 
     trains = args.server_trains or not rt.is_server or rt.num_processes == 1
     # a degraded client's standalone continuation keeps the per-process
@@ -665,6 +679,10 @@ def main(argv: list[str] | None = None) -> int:
         # on the server, of each global it saved
         report["fanout_sha256"], report["global_sha256"] = [], []
 
+    def final_push() -> None:
+        if trainer.fleet_pusher is not None:
+            trainer.fleet_pusher.push(final=True)
+
     def print_report() -> None:
         reg = get_registry()
         for key, name in (("bytes_up", "fed.dcn_bytes_up_total"),
@@ -690,6 +708,9 @@ def main(argv: list[str] | None = None) -> int:
                 dump_artifacts(Path(cfg.obs.dir), registry=trainer.registry,
                                tracer=trainer.tracer,
                                trace_tag=f"e{rt.epoch}" if membership is not None else None)
+                if membership is not None:
+                    save_counter_baseline(Path(cfg.obs.dir), registry=trainer.registry,
+                                          epoch=rt.epoch)
             except OSError as e:
                 print(f"[coordinator] obs artifact dump failed: {e}", flush=True)
 
@@ -707,6 +728,9 @@ def main(argv: list[str] | None = None) -> int:
             print(f"[coordinator] process {rt.process_id} world degraded under supervision — "
                   f"exiting for re-rendezvous (rc {RESPAWN_EXIT})", flush=True)
             report["degraded"] = True
+            # device-free, so safe on the way out: this incarnation's spans
+            # reach the fleet merge
+            final_push()
             print_report()
             sys.stdout.flush()
             sys.stderr.flush()
@@ -736,6 +760,14 @@ def main(argv: list[str] | None = None) -> int:
             blob = trainer.population_sidecar_bytes(round_idx)
             if blob is not None:
                 atomic_write_bytes(pop_snap, blob)
+            if cfg.obs.dir:
+                # at the save cadence too: a worker killed between two
+                # reformations still resumes its totals
+                try:
+                    save_counter_baseline(Path(cfg.obs.dir), registry=trainer.registry,
+                                          epoch=rt.epoch)
+                except OSError:
+                    pass
 
     def reform_handoff(next_round: int) -> None:
         """The reformation barrier's worker half: every member got
@@ -751,6 +783,7 @@ def main(argv: list[str] | None = None) -> int:
         report["handoff_save_ms"] = (time.perf_counter() - t0) * 1e3
         report["reformed"] = True
         publish_membership_metrics(reforms=1, client=membership)
+        final_push()
         print_report()
         trainer.logger.finish()
         rt._synchronized_shutdown()
@@ -841,6 +874,10 @@ def main(argv: list[str] | None = None) -> int:
         report["aggregate_ms"].append(rt.last_ms.get("aggregate"))
         report["aggregate_parts_ms"].append(
             {k: rt.last_ms.get(k) for k in ("encode", "gather", "reduce")})
+        if trainer.fleet_pusher is not None:
+            # this loop runs the rounds outside Trainer._after_round: the
+            # round-cadence push lands at this boundary
+            trainer.fleet_pusher.maybe_push(round_idx)
         round_idx += 1
 
     state = "degraded" if rt.degraded else "done"
@@ -850,6 +887,7 @@ def main(argv: list[str] | None = None) -> int:
         publish_membership_metrics(client=membership)
         membership.leave()
         membership.close()
+    final_push()
     print_report()
     trainer.logger.finish()
     rt.finalize(0)  # a broken world exits here

@@ -1,5 +1,5 @@
-"""``fedrec-obs`` for the port: render and replay a run's observability
-artifacts, the port of ``fedrec_tpu/cli/obs.py``'s single-process verbs.
+"""``fedrec-obs`` for the port: render, merge and replay the observability
+artifacts of a run or a fleet, the port of ``fedrec_tpu/cli/obs.py``.
 
 Reads the artifacts ``Trainer`` writes under ``obs.dir`` (and ``cli.serve
 --obs-dir``): ``metrics.jsonl`` (records and registry snapshots, with
@@ -24,9 +24,23 @@ spans), ``prometheus.txt``, and the flight recorder's ``flightrec/`` dump.
       when not. Runs on ``cuda`` unless given ``--device cpu`` (the JAX
       verb runs on the CPU).
 
-The fleet verbs (``fleet``, ``fleet-trace``, ``alerts``, ``tail``) need the
-wire and several processes: ROADMAP.md's Queue A item 10b. ``report``,
-``prom``, ``quality`` and ``perf`` read artifacts of either package.
+  python -m fedrec_tpu_torch.cli.obs fleet <dir> [--json]
+      the fleet report over ``worker_*`` dirs (a shared obs root, a
+      collector's ``--dir``, or one worker's obs dir): per-worker identity,
+      the membership timeline, per-round critical path, DCN bytes, the
+      Aggregation, Wire and Alerts panels.
+  python -m fedrec_tpu_torch.cli.obs fleet-trace <dir> [-o merged.json]
+      every worker's spans in one clock-aligned Perfetto trace, a track a
+      worker, with the wire's flow arrows.
+  python -m fedrec_tpu_torch.cli.obs alerts <dir | metrics.jsonl> [--json]
+      the alert timeline and the still-firing set; exit 1 while any alert is
+      still firing at the end of the log(s), 0 when quiet, 2 on an error.
+  python -m fedrec_tpu_torch.cli.obs tail <dir | metrics.jsonl> [--once] [--interval S]
+      follow the event log(s), printing each alert transition as it lands;
+      ``--once`` prints what is recorded and exits as ``alerts`` does.
+
+Every verb reads artifacts of either package; all but ``replay`` import no
+torch.
 """
 
 from __future__ import annotations
@@ -257,7 +271,7 @@ def _cmd_perf(args) -> int:
     phases = None
     if trace_path:
         try:
-            from fedrec_tpu_torch.obs.perf import ROUND_PHASES
+            from fedrec_tpu_torch.obs.fleet import ROUND_PHASES
             from fedrec_tpu_torch.obs.report import span_summary
 
             # the same rollup build_report's span table uses, filtered to
@@ -515,6 +529,197 @@ def _cmd_replay(args) -> int:
     return 0
 
 
+# ------------------------------------------------------------------- fleet
+def _load_fleet(path_arg: str):
+    from fedrec_tpu_torch.obs.fleet import load_fleet_dir
+
+    try:
+        return load_fleet_dir(path_arg)
+    except FileNotFoundError as e:
+        return _fail(str(e))
+
+
+def _cmd_fleet(args) -> int:
+    from fedrec_tpu_torch.obs.fleet import build_fleet_report, render_fleet_text
+
+    workers = _load_fleet(args.path)
+    if isinstance(workers, int):
+        return workers
+    report = build_fleet_report(workers)
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(render_fleet_text(report))
+    return 0
+
+
+def _cmd_fleet_trace(args) -> int:
+    from fedrec_tpu_torch.obs.fleet import build_fleet_trace
+
+    workers = _load_fleet(args.path)
+    if isinstance(workers, int):
+        return workers
+    doc = build_fleet_trace(workers)
+    out = Path(args.out) if args.out else Path(args.path) / "fleet_trace.json"
+    try:
+        with open(out, "w") as f:
+            json.dump(doc, f)
+    except OSError as e:
+        return _fail(f"cannot write merged trace to {out}: {e}")
+    n_ev = sum(1 for e in doc["traceEvents"] if e.get("ph") != "M")
+    print(
+        f"merged {n_ev} events from {len(doc['otherData']['workers'])} "
+        f"worker track(s) -> {out} (load in https://ui.perfetto.dev)"
+    )
+    return 0
+
+
+# ------------------------------------------------------------------ alerts
+def _alert_sources(path_arg: str) -> list[tuple[str | None, Path]]:
+    """-> [(worker_or_None, metrics_path)]: every ``worker_*`` log under
+    a shared/collector dir, or the single obs-dir / file log."""
+    p = Path(path_arg)
+    if p.is_dir():
+        wdirs = sorted(d for d in p.glob("worker_*") if d.is_dir())
+        if wdirs:
+            return [
+                (d.name[len("worker_"):], d / "metrics.jsonl")
+                for d in wdirs
+            ]
+        return [(None, p / "metrics.jsonl")]
+    return [(None, p)]
+
+
+def _load_alert_logs(path_arg: str):
+    """-> (timeline, active) across every source log, or an int exit
+    code.  Alert keys are scoped per source so two workers' ``slo:x``
+    lifecycles never collapse into one."""
+    from fedrec_tpu_torch.obs.watch import active_alerts, alert_records
+
+    sources = _alert_sources(path_arg)
+    timeline: list[dict] = []
+    active: list[dict] = []
+    found_log = False
+    for worker, mp in sources:
+        if not mp.exists() and not Path(str(mp) + ".1").exists():
+            continue
+        try:
+            records, _ = load_jsonl(mp)
+        except OSError as e:
+            return _fail(f"cannot read {mp}: {e}")
+        found_log = True
+        recs = alert_records(records)
+        if worker is not None:
+            for r in recs:
+                r.setdefault("labels", {}).setdefault("worker", worker)
+        timeline.extend(recs)
+        active.extend(active_alerts(recs))
+    if not found_log:
+        return _fail(
+            f"no event log under {path_arg} (was the run started with "
+            "obs.dir / --obs-dir, and obs.slo.enabled to record alerts?)"
+        )
+    timeline.sort(key=lambda r: r.get("ts", 0.0))
+    return timeline, active
+
+
+def _format_alert_line(rec: dict) -> str:
+    import time as _time
+
+    ts = _time.strftime("%H:%M:%S", _time.localtime(rec.get("ts", 0.0)))
+    worker = (rec.get("labels") or {}).get("worker")
+    wtxt = f" worker={worker}" if worker is not None else ""
+    return (
+        f"{ts} {rec.get('event', '?').upper():<8} "
+        f"{rec.get('severity', '?'):<8} {rec.get('key', '?')}{wtxt}"
+        f"  {rec.get('summary', '')}"
+    )
+
+
+def _cmd_alerts(args) -> int:
+    loaded = _load_alert_logs(args.path)
+    if isinstance(loaded, int):
+        return loaded
+    timeline, active = loaded
+    if args.json:
+        print(json.dumps({"timeline": timeline, "active": active}, indent=2))
+        return 1 if active else 0
+    print("# Alert timeline")
+    if timeline:
+        for rec in timeline:
+            print(_format_alert_line(rec))
+    else:
+        print("(no alert transitions recorded)")
+    print()
+    print("# Active alerts")
+    if active:
+        for rec in sorted(active, key=lambda r: r.get("ts", 0.0)):
+            print(_format_alert_line(rec))
+    else:
+        print("(none — everything resolved)")
+    # the scriptable contract: firing -> 1, quiet -> 0 (errors exit 2)
+    return 1 if active else 0
+
+
+def _cmd_tail(args) -> int:
+    import time as _time
+
+    if args.once:
+        loaded = _load_alert_logs(args.path)
+        if isinstance(loaded, int):
+            return loaded
+        timeline, active = loaded
+        for rec in timeline:
+            print(_format_alert_line(rec))
+        return 1 if active else 0
+    sources = _alert_sources(args.path)
+    offsets: dict[Path, int] = {}
+    print(
+        f"fedrec-obs: following {len(sources)} log(s) under {args.path} "
+        "(ctrl-c to stop)",
+        file=sys.stderr,
+    )
+    try:
+        while True:
+            for worker, mp in sources:
+                try:
+                    size = mp.stat().st_size
+                except OSError:
+                    continue
+                pos = offsets.get(mp, 0)
+                if size < pos:
+                    pos = 0  # the log rotated under us: re-read from top
+                if size == pos:
+                    continue
+                try:
+                    with open(mp, "rb") as f:
+                        f.seek(pos)
+                        chunk = f.read()
+                except OSError:
+                    continue
+                # consume only COMPLETE lines; a partially-flushed tail
+                # stays unread until the writer finishes it
+                nl = chunk.rfind(b"\n")
+                if nl < 0:
+                    continue
+                offsets[mp] = pos + nl + 1
+                for line in chunk[: nl + 1].splitlines():
+                    try:
+                        rec = json.loads(line)
+                    except (json.JSONDecodeError, UnicodeDecodeError):
+                        continue
+                    if rec.get("kind") != "alert":
+                        continue
+                    if worker is not None:
+                        rec.setdefault("labels", {}).setdefault(
+                            "worker", worker
+                        )
+                    print(_format_alert_line(rec), flush=True)
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fedrec-obs", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -544,6 +749,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; raises without a GPU unless 'cpu')")
     rp.add_argument("--json", action="store_true", help="machine-readable verdict")
     rp.set_defaults(fn=_cmd_replay)
+    fl = sub.add_parser("fleet", help="fleet report over worker_* obs dirs (critical path, "
+                                      "membership, DCN bytes, aggregation, wire, alerts)")
+    fl.add_argument("path", help="shared obs dir / collector dir / one worker's obs dir")
+    fl.add_argument("--json", action="store_true", help="machine-readable report")
+    fl.set_defaults(fn=_cmd_fleet)
+    ft = sub.add_parser("fleet-trace", help="every worker's spans in one clock-aligned "
+                                            "Perfetto trace with per-worker tracks")
+    ft.add_argument("path", help="shared obs dir / collector dir / one worker's obs dir")
+    ft.add_argument("-o", "--out", default=None,
+                    help="output path (default <dir>/fleet_trace.json)")
+    ft.set_defaults(fn=_cmd_fleet_trace)
+    al = sub.add_parser("alerts", help="alert timeline and active set; exit 1 while any "
+                                       "alert is still firing")
+    al.add_argument("path", help="obs dir, collector/shared dir, or metrics.jsonl path")
+    al.add_argument("--json", action="store_true",
+                    help="machine-readable {timeline, active} (same exit codes)")
+    al.set_defaults(fn=_cmd_alerts)
+    tl = sub.add_parser("tail", help="follow the event log(s), printing alert transitions")
+    tl.add_argument("path", help="obs dir, collector/shared dir, or metrics.jsonl path")
+    tl.add_argument("--once", action="store_true",
+                    help="print the recorded transitions and exit as alerts does")
+    tl.add_argument("--interval", type=float, default=1.0,
+                    help="poll interval seconds (default 1.0)")
+    tl.set_defaults(fn=_cmd_tail)
     return p
 
 

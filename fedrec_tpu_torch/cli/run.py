@@ -224,11 +224,14 @@ def _run_async_worker(args, cfg, data, token_states, dev):
 
     from fedrec_tpu_torch.agg.worker import run_async_worker
     from fedrec_tpu_torch.cli.coordinator import _process_start_wall
+    from fedrec_tpu_torch.obs.fleet import set_fleet_identity
     from fedrec_tpu_torch.ops import launch_counts
     from fedrec_tpu_torch.parallel.rpc import AuthorityUnreachable
     from fedrec_tpu_torch.train.trainer import Trainer
 
     started_at = _process_start_wall()
+    # the worker id on every span, snapshot, record and wire envelope
+    set_fleet_identity(worker=str(args.worker_id))
     if cfg.obs.dir:
         # the per-worker layout of the fleet's artifacts
         cfg.obs.dir = str(Path(cfg.obs.dir) / f"worker_{args.worker_id}")

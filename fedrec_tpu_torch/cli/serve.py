@@ -145,13 +145,6 @@ def build_service(args, cfg):
         print("[serve] ERROR: --shard-store is not ported to fedrec_tpu_torch (the sharded "
               "store is ROADMAP Queue A item 9)", file=sys.stderr)
         return None
-    from fedrec_tpu_torch.config import unported_obs_keys
-
-    for key in unported_obs_keys(cfg.obs):
-        print(f"[serve] ERROR: {key} is not ported to fedrec_tpu_torch (SLOs, alerts, "
-              "fleet telemetry and the wire envelope are ROADMAP Queue A item 10b)",
-              file=sys.stderr)
-        return None
     service = synthetic_service(args, cfg) if args.synthetic else checkpoint_service(args, cfg)
     if service is not None and cfg.obs.quality.enabled and cfg.obs.quality.probe_users > 0:
         # every refresh scores the pinned probe set against both generations
@@ -178,10 +171,30 @@ def main(argv: list[str] | None = None) -> int:
     if service is None:
         return 2
     service.warmup()  # every bucket once before accepting traffic
+    import os
+
     from fedrec_tpu_torch.obs import get_tracer
+    from fedrec_tpu_torch.obs.fleet import ensure_fleet_identity
+    from fedrec_tpu_torch.obs.wire import configure_wire
 
     # spans are worth their memory only when a trace.json will hold them
     get_tracer().enabled = bool(args.obs_dir)
+    # fleet correlation keys: the server's spans and snapshots join a fleet's
+    # training artifacts by worker id (FEDREC_WORKER_ID when it sits beside
+    # a training worker)
+    ensure_fleet_identity(worker=os.environ.get("FEDREC_WORKER_ID") or "serve")
+    configure_wire(enabled=cfg.obs.wire.enabled, window=cfg.obs.wire.window)
+    if cfg.obs.slo.enabled:
+        # heartbeat-cadence watch over the serve.* keys; {"cmd": "alerts"}
+        # and fedrec-obs alerts read the same engine
+        from fedrec_tpu_torch.obs.watch import Watch
+
+        jsonl = None
+        if args.obs_dir:
+            Path(args.obs_dir).mkdir(parents=True, exist_ok=True)
+            jsonl = str(Path(args.obs_dir) / "metrics.jsonl")
+        service.watch = Watch(cfg.obs.slo, cfg.obs.watch, registry=service.registry,
+                              jsonl_path=jsonl, jsonl_max_mb=cfg.obs.jsonl_max_mb)
     try:
         asyncio.run(serve_forever(
             service, host=args.host, port=args.port, metrics_every_s=args.metrics_every,

@@ -8,12 +8,8 @@ section.key=value`` overrides work as they do there
 
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
-``train.trainer.Trainer``): ``fed.seq_shards``, ``shard.table``,
-``obs.fleet.collector``, ``obs.slo.enabled``, ``fed.dcn_compress="auto"``,
-the ``obs.watch`` and ``obs.wire`` fields (the
-port speaks no wire that carries the envelope: ROADMAP.md's Queue A item
-10b).
-``obs.health``'s flight-recorder fields are inert
+``train.trainer.Trainer``): ``fed.seq_shards``, ``shard.table`` and
+``fed.dcn_compress="auto"`` (ROADMAP.md's Queue A item 9). ``obs.health``'s flight-recorder fields are inert
 without ``obs.dir``, as in the JAX package; ``obs.perf.compile_cost`` is
 accepted and inert (the port has no XLA compiles to price).
 """
@@ -385,28 +381,38 @@ class PerfConfig:
 
 @dataclass
 class FleetConfig:
-    """Fleet telemetry pushes (not ported: a non-empty ``collector`` raises,
-    naming ROADMAP.md's Queue A item 10b)."""
+    """Fleet telemetry (``obs.fleet``): ``collector`` is the HOST:PORT of the
+    telemetry collector this worker pushes registry snapshots and completed
+    spans to every ``push_every`` rounds (standalone, ``python -m
+    fedrec_tpu_torch.obs.fleet``, or the membership service's
+    ``--telemetry-dir``); "" = the ``obs.dir`` artifacts only. A failed push
+    is counted (``obs.fleet_push_failures_total``), never raised."""
 
-    collector: str = ""
-    push_every: int = 1
-    push_timeout_s: float = 5.0
+    collector: str = ""                # HOST:PORT; "" = offline artifacts only
+    push_every: int = 1                # rounds between telemetry pushes
+    push_timeout_s: float = 5.0        # per-push TCP deadline
 
 
 @dataclass
 class WireConfig:
-    """The wire trace-context envelope (not ported: the port has no wire
-    that carries it, so any field off its default raises, naming
-    ROADMAP.md's Queue A item 10b)."""
+    """The wire envelope (``obs.wire``): every JSON-lines exchange carries an
+    additive trace-context key (flow arrows across processes, per-edge RTT,
+    bytes and clock offsets); ``enabled=false`` sends none, and the bytes
+    are the pre-envelope protocol's."""
 
-    enabled: bool = True
-    window: int = 32
+    enabled: bool = True               # false = the pre-envelope wire, byte for byte
+    window: int = 32                   # per-edge offset median window
 
 
 @dataclass
 class SloConfig:
-    """Declarative SLOs and burn-rate alerting (not ported: ``enabled``
-    raises, naming ROADMAP.md's Queue A item 10b)."""
+    """Declarative SLOs and burn-rate alerting (``obs.watch``):
+    ``objectives`` is a semicolon list of
+    ``name:metric[{label=value,...}][:pQQ]OPthreshold[@target]`` over
+    metrics the registry publishes (``round_time:train.round_seconds:p95<2.5``);
+    an alert fires when the burn rate passes ``fast_burn`` over the last
+    ``fast_window`` evaluations and ``slow_burn`` over the last
+    ``slow_window``."""
 
     enabled: bool = False
     objectives: str = ""
@@ -419,8 +425,8 @@ class SloConfig:
 
 @dataclass
 class WatchConfig:
-    """The alert lifecycle and anomaly detector's knobs (not ported: any
-    field off its default raises, naming ROADMAP.md's Queue A item 10b)."""
+    """The alert lifecycle (``obs.alerts``), the anomaly detector and the
+    fleet rules (``obs.watch.FleetRules``)."""
 
     anomaly: bool = True
     anomaly_z: float = 6.0
@@ -459,21 +465,6 @@ class ObsConfig:
     wire: WireConfig = field(default_factory=WireConfig)
     slo: SloConfig = field(default_factory=SloConfig)
     watch: WatchConfig = field(default_factory=WatchConfig)
-
-
-def unported_obs_keys(obs: ObsConfig) -> list[str]:
-    """The ``obs`` keys set to work the port does not run yet (SLOs, alerts,
-    fleet telemetry and the wire envelope: ROADMAP.md's Queue A item 10b):
-    ``fleet.collector``, ``slo.enabled``, and any field of ``watch`` or
-    ``wire`` off its default."""
-    keys = [k for k, on in (("obs.fleet.collector", bool(obs.fleet.collector)),
-                            ("obs.slo.enabled", obs.slo.enabled)) if on]
-    for section in ("watch", "wire"):
-        sub = getattr(obs, section)
-        default = type(sub)()
-        keys += [f"obs.{section}.{f.name}" for f in dataclasses.fields(sub)
-                 if getattr(sub, f.name) != getattr(default, f.name)]
-    return keys
 
 
 EVAL_PROTOCOLS = ("sampled", "full", "last4")

@@ -1,5 +1,4 @@
-"""Telemetry for the port: a copy of the single-process parts of
-``fedrec_tpu.obs``.
+"""Telemetry for the port: a copy of ``fedrec_tpu.obs``.
 
 * ``obs.registry``: the process-wide metrics registry (counters, gauges,
   fixed-bucket histograms; labelled, thread-safe, snapshot-able) and its
@@ -15,12 +14,19 @@
 * ``obs.device``: device-memory gauges and the native builds' counts;
 * ``obs.report``: the artifacts' readers, the run report and
   ``dump_artifacts`` (``metrics.jsonl``, ``trace.json``, ``prometheus.txt``
-  under ``obs.dir``).
+  under ``obs.dir``);
+* ``obs.fleet``: the fleet identity (``set_fleet_identity``), the
+  control plane's JSON-lines exchange, the telemetry collector and pusher,
+  the counter baseline, and the offline merger (clock-aligned fleet trace,
+  critical path, the fleet report);
+* ``obs.wire``: the wire envelope (trace context, per-edge RTT and bytes,
+  NTP-style clock offsets);
+* ``obs.alerts`` and ``obs.watch``: the alert lifecycle, declarative SLOs
+  with burn rates, the anomaly detector and the fleet rules.
 
-``fedrec_tpu_torch.cli.obs`` (``fedrec-obs``) renders and replays them.
-``obs.fleet`` holds only the control plane's JSON-lines exchange (the
-membership service's wire); the fleet telemetry, wire, watch and alert
-layers need several processes (``ROADMAP.md`` Queue A item 10b).
+``fedrec_tpu_torch.cli.obs`` (``fedrec-obs``) renders, merges and replays
+them. The fleet modules import no torch; the package imports them only on
+use, so ``python -m fedrec_tpu_torch.obs.fleet`` runs the collector.
 """
 
 from fedrec_tpu_torch.obs.health import (

@@ -33,11 +33,10 @@ import time
 from pathlib import Path
 from typing import Any
 
+# the round-phase span names PerfMonitor sums as a round's host and device
+# work (their one home is obs.fleet, as in the JAX package)
+from fedrec_tpu_torch.obs.fleet import ROUND_PHASES
 from fedrec_tpu_torch.obs.registry import MetricsRegistry, get_registry
-
-# the round-phase span names (the JAX package's obs/fleet.py ROUND_PHASES,
-# copied): the spans PerfMonitor sums as a round's host and device work
-ROUND_PHASES = ("batch_build", "h2d", "dispatch", "aggregate", "eval")
 
 # ---------------------------------------------------------------- card peaks
 # card-name fragment -> data-sheet rates: f32 outside the tensor cores,
@@ -357,6 +356,10 @@ class PerfMonitor:
         self._drop_window = max(int(pcfg.capture_window), 2)
         self._pending_trigger = False
         self._triggered = 0
+        # under obs.slo.enabled the drop trigger goes through the watch
+        # layer: Watch.bind_perf sets the hook, and the capture arms by
+        # arm_capture() off the alert's firing transition
+        self.watch_hook = None
         self._active: dict | None = None
         self._profiler = None
         self.last_round: dict | None = None
@@ -433,9 +436,21 @@ class PerfMonitor:
                 if len(trailing) >= 2:
                     mean = sum(trailing) / len(trailing)
                     if mean > 0 and rate < (1.0 - self._drop) * mean:
-                        self._pending_trigger = True
+                        if self.watch_hook is not None:
+                            self.watch_hook(round_idx, rate, mean)
+                        else:
+                            self._pending_trigger = True
             self._rates.append(rate)
         return out
+
+    def arm_capture(self) -> bool:
+        """Arm a triggered capture of the next round (the watch layer's
+        entry point, called when the efficiency-drop alert fires); False
+        once the triggered-capture budget is spent."""
+        if self._triggered >= self.MAX_TRIGGERED_CAPTURES:
+            return False
+        self._pending_trigger = True
+        return True
 
     # ------------------------------------------------------------ capture
     def capture_before_round(

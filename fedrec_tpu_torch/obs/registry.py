@@ -1,7 +1,9 @@
 """Process-wide metrics registry: counters, gauges, fixed-bucket histograms.
 
 A copy of ``fedrec_tpu/obs/registry.py`` (the port imports nothing of the
-JAX package) without its fleet labels, with its Prometheus text exposition
+JAX package) with its fleet labels (``set_context``: the ``"fleet"`` key of
+every snapshot and of every ``MetricLogger`` record, stamped by
+``obs.fleet.set_fleet_identity``), its Prometheus text exposition
 (``snapshot_to_prometheus``: ``prometheus.txt``, the ``prometheus`` admin
 command and ``fedrec-obs prom``) and its JSONL snapshot writer.
 
@@ -205,6 +207,19 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._metrics: dict[str, _Metric] = {}
         self._collectors: list[Callable[[], None]] = []
+        # fleet correlation keys (obs.fleet.set_fleet_identity): the
+        # snapshots' "fleet" key, merged into every MetricLogger record
+        self._context: dict[str, Any] = {}
+
+    def set_context(self, **kv: Any) -> None:
+        """Replace the fleet label set carried by subsequent snapshots."""
+        with self._lock:
+            self._context = {k: v for k, v in kv.items() if v is not None}
+
+    @property
+    def context(self) -> dict[str, Any]:
+        with self._lock:
+            return dict(self._context)
 
     def _get_or_create(self, cls, name, help, labels, **kw) -> _Metric:
         with self._lock:
@@ -262,9 +277,11 @@ class MetricsRegistry:
                 pass
         with self._lock:
             metrics = list(self._metrics.items())
+            context = dict(self._context)
         return {
             "kind": "registry_snapshot",
             "ts": time.time(),
+            **({"fleet": context} if context else {}),
             "metrics": {
                 name: {"kind": m.kind, "help": m.help, "values": m._snapshot_values()}
                 for name, m in sorted(metrics)

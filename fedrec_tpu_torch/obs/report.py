@@ -16,12 +16,10 @@ The artifact contract (written by ``Trainer`` under ``obs.dir`` and by
 ``build_report`` digests those into one dict (round throughput, loss
 trajectory, serve p50/p99, prefetch stalls, epsilon trajectory, health,
 cap-overflow counts, span summary) and ``render_text`` prints it; the
-``fedrec-obs`` CLI is a thin wrapper over these two calls. The JAX
-report's alert panel reads its ``obs/watch.py``, which is not ported
-(ROADMAP.md's Queue A item 10b): the port's report names the panel as
-absent (``notes``) and imports nothing for it. The port's kernel builds
-(``kernel.builds_total``, ``obs.device.BuildWatch``) are its own
-``kernels`` section.
+``fedrec-obs`` CLI is a thin wrapper over these two calls. The Alerts panel
+reads the watch layer's ``{"kind": "alert"}`` records (``obs.watch``). The
+port's kernel builds (``kernel.builds_total``, ``obs.device.BuildWatch``)
+are its own ``kernels`` section.
 """
 
 from __future__ import annotations
@@ -690,9 +688,22 @@ def build_report(
         if overflow is not None:
             report["cap_overflow_steps"] = overflow
 
-    # ---- alert lifecycle: the JAX report's panel reads obs/watch.py's
-    # records, which the port does not write (no watch layer)
-    report["notes"] = [ALERTS_ABSENT]
+    # ---- alert lifecycle (the watch layer's {"kind": "alert"} records;
+    # silent on a run with obs.slo.enabled=false: no records, no panel)
+    from fedrec_tpu_torch.obs.watch import active_alerts, alert_records
+
+    alerts = alert_records(records)
+    if alerts:
+        by_event: dict[str, int] = {}
+        for r in alerts:
+            ev = str(r.get("event", "?"))
+            by_event[ev] = by_event.get(ev, 0) + 1
+        report["alerts"] = {
+            "transitions": len(alerts),
+            "by_event": by_event,
+            "active": active_alerts(alerts),
+            "recent": alerts[-8:],
+        }
 
     # ---- kernel builds (obs.device.BuildWatch): the port's counterpart of
     # the JAX package's XLA compile counters
@@ -711,10 +722,6 @@ def build_report(
         report["spans"] = dict(sorted(span_summary(trace_events).items()))
 
     return report
-
-
-ALERTS_ABSENT = ("alert panel absent: it reads the watch layer's alert records "
-                 "(obs.watch), not ported to fedrec_tpu_torch (ROADMAP.md's Queue A item 10b)")
 
 
 def render_text(report: dict) -> str:
@@ -787,6 +794,19 @@ def render_text(report: dict) -> str:
                 f"(recompiles: {int(hl.get('xla_recompiles', 0))}, "
                 f"storms: {int(hl.get('recompile_storms', 0))})"
             )
+        lines.append("")
+    al = report.get("alerts")
+    if al:
+        lines.append("## Alerts")
+        by = ", ".join(f"{k}={v}" for k, v in sorted(al["by_event"].items()))
+        lines.append(f"transitions: {al['transitions']} ({by})")
+        if al["active"]:
+            lines.append(f"STILL FIRING ({len(al['active'])}):")
+            for r in al["active"]:
+                lines.append(f"  [{r.get('severity', '?')}] {r.get('key', '?')}: "
+                             f"{r.get('summary', '')}")
+        else:
+            lines.append("active: none (every fired alert resolved)")
         lines.append("")
     kb = report.get("kernels")
     if kb:
@@ -1060,8 +1080,6 @@ def render_text(report: dict) -> str:
         lines.append("")
     if len(lines) == 2:
         lines.append("(no recognizable records — is this a fedrec obs artifact?)")
-    for note in report.get("notes", ()):
-        lines.append(f"({note})")
     return "\n".join(lines)
 
 

@@ -50,6 +50,20 @@ class Tracer:
         self._events: list[dict] = []
         self.dropped = 0
         self._pid = os.getpid()
+        # fleet correlation keys (obs.fleet.set_fleet_identity) merged into
+        # every recorded event's args, so traces of several processes join
+        self._context: dict[str, Any] = {}
+
+    @property
+    def epoch_unix(self) -> float:
+        """Wall-clock time at this tracer's epoch: the anchor the fleet
+        merger aligns processes by before its finer corrections."""
+        return self._epoch_unix
+
+    def set_context(self, **kv: Any) -> None:
+        """Replace the label set stamped into every later event's args
+        (an event's own args win on a key collision)."""
+        self._context = {k: v for k, v in kv.items() if v is not None}
 
     # ------------------------------------------------------------- clock
     def now(self) -> float:
@@ -63,6 +77,8 @@ class Tracer:
     def _append(self, ev: dict) -> None:
         if not self.enabled:
             return
+        if self._context:
+            ev["args"] = {**self._context, **ev.get("args", {})}
         with self._lock:
             if len(self._events) >= self.capacity:
                 self.dropped += 1
@@ -124,6 +140,30 @@ class Tracer:
             "tid": threading.get_ident() % 0x7FFFFFFF,
             **({"args": args} if args else {}),
         })
+
+    _FLOW_PH = {"out": "s", "step": "t", "in": "f"}
+
+    def flow(self, direction: str, flow_id: int, name: str = "wire",
+             ts: float | None = None, **args: Any) -> None:
+        """A Chrome-trace flow event (``ph`` s/t/f): the arrow that links
+        spans across processes in the merged fleet trace. ``direction`` is
+        "out" (start), "step" or "in" (finish); events sharing ``flow_id``
+        (category "wire") form one arrow. ``ts`` (tracer-clock seconds,
+        default now) must fall inside the span the arrow binds to."""
+        ph = self._FLOW_PH[direction]
+        ev = {
+            "name": name,
+            "cat": "wire",
+            "ph": ph,
+            "id": int(flow_id),
+            "ts": self._us(self._clock() if ts is None else ts),
+            "pid": self._pid,
+            "tid": threading.get_ident() % 0x7FFFFFFF,
+            **({"args": args} if args else {}),
+        }
+        if ph == "f":
+            ev["bp"] = "e"  # bind to the enclosing slice, not the next
+        self._append(ev)
 
     # ------------------------------------------------------------ export
     def events(self) -> list[dict]:

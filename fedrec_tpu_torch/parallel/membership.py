@@ -28,10 +28,14 @@ the previous rank 0 died. The worker id is the supervisor-stable
 deployment without ``--membership`` never touches this module.
 
 The wire and the state machine are the JAX package's, so either package's
-client works against either package's service. Run the service alone::
+client works against either package's service. With ``--telemetry-dir`` the
+service is also the fleet telemetry collector (``obs.fleet``) on its own
+port, and ``--watch`` evaluates the fleet rules (``obs.watch.FleetRules``)
+over the pushes and its own world. Run the service alone::
 
     python -m fedrec_tpu_torch.parallel.membership 127.0.0.1:9123 \\
-        --target-world 4 --lease-ms 6000 --formation-grace-ms 4000
+        --target-world 4 --lease-ms 6000 --formation-grace-ms 4000 \\
+        --telemetry-dir fleet --watch
 """
 
 from __future__ import annotations
@@ -120,6 +124,7 @@ class MembershipServer:
         lease_ms: float | None = None,
         heartbeat_ms: float | None = None,
         formation_grace_ms: float | None = None,
+        collector=None,
         obs_dir: str | None = None,
     ):
         self.host = host
@@ -127,6 +132,10 @@ class MembershipServer:
         self.target_world = int(target_world)
         # the service's own metrics.jsonl / trace.json / prometheus.txt
         self.obs_dir = obs_dir
+        # fleet telemetry on the membership port (one control-plane address
+        # a federation): an obs.fleet.TelemetryCollector answers
+        # telemetry_push / telemetry_status here
+        self.collector = collector
         # None: adopt from the first join that carries a policy (the
         # workers' fed.elastic section); an explicit value wins over joiners
         self._min_world = min_world
@@ -266,8 +275,10 @@ class MembershipServer:
     def _handle(self, req: dict) -> dict:
         cmd = req.get("cmd")
         if cmd in ("telemetry_push", "telemetry_status"):
-            return {"error": "no telemetry collector: fleet telemetry is not ported to "
-                             "fedrec_tpu_torch (ROADMAP.md's Queue A item 10b)"}
+            if self.collector is None:
+                return {"error": "no telemetry collector attached — start the service with "
+                                 "--telemetry-dir (or run a standalone obs.fleet collector)"}
+            return self.collector.handle(req)
         if cmd == "heartbeat":
             return self._heartbeat(str(req["worker"]), int(req.get("epoch", -1)))
         if cmd == "join":
@@ -583,19 +594,40 @@ def main(argv: list[str] | None = None) -> int:
                         help="write the service's own metrics.jsonl, trace.json and "
                              "prometheus.txt here (on every membership change and at exit)")
     parser.add_argument("--telemetry-dir", default=None,
-                        help="not ported: the fleet telemetry collector (Queue A item 10b)")
+                        help="also be the fleet telemetry collector (obs.fleet) on this port: "
+                             "the workers' obs.fleet.collector pushes land as worker_* dirs "
+                             "under this directory")
     parser.add_argument("--watch", action="store_true",
-                        help="not ported: the fleet watch rules (Queue A item 10b)")
+                        help="evaluate the fleet rules (obs.watch.FleetRules: persistent "
+                             "straggler, world below target, quorum-wait growth, stalled "
+                             "commit, partitioned edge) over the pushes and the world; alert "
+                             "records land in the telemetry dir's worker_fleet/ (needs "
+                             "--telemetry-dir)")
     args = parser.parse_args(argv)
-    for flag, value in (("--telemetry-dir", args.telemetry_dir), ("--watch", args.watch)):
-        if value:
-            parser.error(f"{flag} is not ported to fedrec_tpu_torch yet (ROADMAP.md's Queue A "
-                         "item 10b, fleet observability)")
     host, port = args.address.rsplit(":", 1)
+    collector = rules = None
+    if args.telemetry_dir:
+        from fedrec_tpu_torch.obs.fleet import TelemetryCollector
+
+        collector = TelemetryCollector(args.telemetry_dir)
+        if args.watch:
+            from pathlib import Path
+
+            from fedrec_tpu_torch.obs.watch import FleetRules
+
+            fleet_dir = Path(args.telemetry_dir) / "worker_fleet"
+            fleet_dir.mkdir(parents=True, exist_ok=True)
+            rules = collector.rules = FleetRules(target_world=args.target_world,
+                                                 jsonl_path=fleet_dir / "metrics.jsonl")
+    if args.obs_dir:
+        from fedrec_tpu_torch.obs.fleet import set_fleet_identity
+
+        set_fleet_identity(worker="membership")
     server = MembershipServer(
         host=host, port=int(port), target_world=args.target_world, min_world=args.min_world,
         lease_ms=args.lease_ms, heartbeat_ms=args.heartbeat_ms,
-        formation_grace_ms=args.formation_grace_ms, obs_dir=args.obs_dir).start()
+        formation_grace_ms=args.formation_grace_ms, collector=collector,
+        obs_dir=args.obs_dir).start()
     print(f"[membership] serving on {server.address}", flush=True)
 
     def _term(signum, frame):  # noqa: ARG001 — a signal handler's signature
@@ -607,11 +639,13 @@ def main(argv: list[str] | None = None) -> int:
         last_status = None
         while True:
             time.sleep(5)
-            if args.obs_dir:
-                status = server.status()
-                if status != last_status:
-                    server.dump_obs()
-                    last_status = status
+            status = server.status() if (args.obs_dir or rules is not None) else None
+            if rules is not None:
+                # world below target: only this service knows the world
+                rules.observe_world(status["world"])
+            if args.obs_dir and status != last_status:
+                server.dump_obs()
+                last_status = status
     except (KeyboardInterrupt, SystemExit):
         pass
     finally:

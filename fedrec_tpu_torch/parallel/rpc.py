@@ -234,7 +234,7 @@ class FleetRpc:
                     f"probing again in <= {self.breaker.reset_s:g}s")
             try:
                 resp = request_json_line(
-                    self.host, self.port, req, timeout_s=self.policy.read_timeout_s,
+                    self.host, self.port, req, timeout_s=self.policy.read_timeout_s, op=op,
                     connect_timeout_s=self.policy.connect_timeout_s)
             except OSError as e:
                 last_err = e

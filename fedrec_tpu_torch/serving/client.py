@@ -1,7 +1,8 @@
 """Resilient TCP client for the serving protocol, the port of
-``fedrec_tpu/serving/client.py`` without the trace envelope (``obs.wire``,
-ROADMAP.md's Queue A item 10): the bytes on the wire are the JAX client's
-with the envelope off.
+``fedrec_tpu/serving/client.py``, with the wire envelope (``obs.wire``):
+each request carries a trace-context key, rebuilt per attempt, and each
+exchange books its edge's RTT, bytes and clock offset; with
+``obs.wire.enabled=false`` the bytes are the pre-envelope protocol's.
 
 * :class:`ServingClient`: one connection that (re)connects lazily with
   exponential backoff and full jitter (``parallel.rpc.backoff_delay_s``),
@@ -27,6 +28,7 @@ import json
 import random
 import time
 
+from fedrec_tpu_torch.obs import wire
 from fedrec_tpu_torch.parallel.rpc import backoff_delay_s
 
 
@@ -91,6 +93,8 @@ class ServingClient:
                 )
                 if self._was_connected:
                     self.reconnects += 1
+                    if wire.wire_enabled():
+                        wire.record_reconnect(self.host, self.port)
                 self._was_connected = True
                 return True
             except (OSError, asyncio.TimeoutError):
@@ -101,8 +105,10 @@ class ServingClient:
                 await asyncio.sleep(delay)
         return False
 
-    def _fail(self, error: str) -> dict:
+    def _fail(self, error: str, op: str) -> dict:
         self.failed_requests += 1
+        if wire.wire_enabled():
+            wire.record_client_error(self.host, self.port, op)
         return {"error": error}
 
     async def request(self, payload: dict, deadline_ms: float | None = None) -> dict:
@@ -111,13 +117,18 @@ class ServingClient:
         "bad_response"}``; never raises for transport failures."""
         budget_ms = deadline_ms if deadline_ms is not None else self.request_timeout_ms
         deadline = time.monotonic() + budget_ms / 1e3
-        line = (json.dumps(payload) + "\n").encode()
+        op = str(payload.get("cmd", "score"))
         attempt = 0
         while True:
             if deadline - time.monotonic() <= 0:
-                return self._fail("deadline")
+                return self._fail("deadline", op)
             if self._writer is None and not await self._connect(deadline):
-                return self._fail("unavailable")
+                return self._fail("unavailable", op)
+            # a fresh envelope an attempt: a retry carries its own send_ts
+            req_env = wire.request_envelope(op) if wire.wire_enabled() else None
+            line = (json.dumps({**payload, wire.WIRE_KEY: req_env} if req_env is not None
+                               else payload) + "\n").encode()
+            t0 = time.perf_counter()
             try:
                 self._writer.write(line)
                 await asyncio.wait_for(self._writer.drain(), deadline - time.monotonic())
@@ -126,7 +137,7 @@ class ServingClient:
             except asyncio.TimeoutError:
                 # the stream is no longer line-synchronized; drop it
                 await self._drop()
-                return self._fail("deadline")
+                return self._fail("deadline", op)
             except (ConnectionError, OSError):
                 raw = b""  # the server went away mid-request: retry below
             if not raw:
@@ -136,14 +147,21 @@ class ServingClient:
                 delay = self.backoff_delay_s(attempt)
                 attempt += 1
                 if time.monotonic() + delay >= deadline:
-                    return self._fail("unavailable")
+                    return self._fail("unavailable", op)
                 await asyncio.sleep(delay)
                 continue
             try:
-                return json.loads(raw)
+                resp = json.loads(raw)
             except json.JSONDecodeError:
                 await self._drop()
-                return self._fail("bad_response")
+                return self._fail("bad_response", op)
+            ack_ts = time.time()
+            resp, resp_env = wire.unwrap_envelope(resp)
+            if req_env is not None:
+                wire.record_client_exchange(
+                    self.host, self.port, op, req_env, resp_env, bytes_sent=len(line),
+                    bytes_recvd=len(raw), rtt_s=time.perf_counter() - t0, ack_ts=ack_ts)
+            return resp
 
     async def request_or_raise(self, payload: dict, deadline_ms: float | None = None) -> dict:
         resp = await self.request(payload, deadline_ms=deadline_ms)

@@ -1,7 +1,7 @@
 """Long-lived TCP/JSON-lines recommendation service, the port of
-``fedrec_tpu/serving/server.py`` (plain JSON lines: a request carrying the
-wire trace envelope, ``"_wire"``, is refused by name, ROADMAP.md's Queue A
-item 10b).
+``fedrec_tpu/serving/server.py``, with the wire envelope (``obs.wire``): a
+request's ``"_wire"`` key is stripped before dispatch, and the reply echoes
+an envelope only when the request carried one.
 
 Wire protocol (one JSON object per line; responses carry the request's
 ``id`` back so clients may pipeline):
@@ -14,8 +14,8 @@ Wire protocol (one JSON object per line; responses carry the request's
 * admin    ``{"cmd": "metrics"}`` -> ``{"metrics": {...}}``;
 * admin    ``{"cmd": "prometheus"}`` -> ``{"prometheus": "<text exposition>"}``
   (the whole registry);
-* admin    ``{"cmd": "alerts"}`` -> ``{"alerts": {"active": [], "recent": []}}``
-  (the JAX server's answer when no watch layer runs; the port has none);
+* admin    ``{"cmd": "alerts"}`` -> ``{"alerts": {"active": [...], "recent": [...]}}``
+  (the watch layer's alerts under ``obs.slo.enabled``, else both empty);
 * admin    ``{"cmd": "refresh", "snapshot_dir": "...", "token_states":
   "...npy"}`` (optional ``"valid_mask": "...npy"``, ``"dtype"``) ->
   hot-swap the store from the newest training snapshot and report the new
@@ -44,6 +44,7 @@ import torch
 from fedrec_tpu_torch.config import ModelConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.obs import get_registry
+from fedrec_tpu_torch.obs import wire
 from fedrec_tpu_torch.serving.batcher import Backpressure, MicroBatcher
 from fedrec_tpu_torch.serving.retrieval import build_index, build_two_stage_fn
 from fedrec_tpu_torch.serving.store import (
@@ -54,8 +55,6 @@ from fedrec_tpu_torch.serving.store import (
 )
 
 _FN_CACHE_GENERATIONS = 2
-# the JAX package's wire trace-envelope key (obs/wire.py), refused here
-WIRE_KEY = "_wire"
 # token-state rows a refresh copies to the card at a time, through two
 # pinned buffers of this size (39 MB each at the defaults' (50, 768) f32 rows)
 _H2D_ROWS = 256
@@ -148,8 +147,12 @@ class ServingService:
         model_cfg: ModelConfig | None = None,
         registry=None,
         device=None,
+        watch=None,
     ):
         self.device = resolve_device(device)
+        # the in-process watch (obs.watch.Watch) under obs.slo.enabled: the
+        # alerts admin command reads it, the heartbeat evaluates it
+        self.watch = watch
         self.store = store
         self.top_k = int(top_k)
         self.exclude_history = exclude_history
@@ -261,9 +264,6 @@ class ServingService:
         if "cmd" in req:
             return await self._admin(req)
         rid = req.get("id")
-        if WIRE_KEY in req:
-            return {"id": rid, "error": f"unported: the obs.wire trace envelope ({WIRE_KEY!r}) "
-                                        "is ROADMAP.md's Queue A item 10b"}
         try:
             result = await self.batcher.submit(
                 req.get("history") or [], deadline_ms=req.get("deadline_ms")
@@ -301,8 +301,9 @@ class ServingService:
         if cmd == "metrics":
             return {"metrics": self.metrics()}
         if cmd == "alerts":
-            # no watch layer runs in the port: the JAX server's answer for
-            # an unwatched server, the empty shape, not an error
+            # an unwatched server answers the empty shape, not an error
+            if self.watch is not None:
+                return {"alerts": self.watch.engine.snapshot_state()}
             return {"alerts": {"active": [], "recent": []}}
         if cmd == "prometheus":
             return {"prometheus": self.registry.to_prometheus()}
@@ -320,6 +321,10 @@ class ServingService:
             gen = self.store.publish(table, user_params, valid_mask=valid_mask,
                                      round=round_, source=source)
             self._cache_fn(gen.generation, fn)
+            if self.watch is not None:
+                # a drift-probe breach on this swap pulses serve:drift,
+                # scored at the next heartbeat
+                self.watch.ingest_drift(self.store.metrics())
             return {"refreshed": True, "generation": gen.generation,
                     "round": gen.round, "source": gen.source}
         return {"error": f"unknown_cmd: {cmd}"}
@@ -402,12 +407,28 @@ async def _handle_conn(service: ServingService, reader, writer) -> None:
     service._conns.add(writer)
 
     async def one(raw: bytes) -> None:
+        # the wire envelope is stripped before dispatch and echoed only when
+        # the request carried one; each request is a task of its own, so
+        # the serve context (a contextvar) is the task's
+        recv_ts = time.time()
+        env = reply_env = None
         try:
             req = json.loads(raw)
         except json.JSONDecodeError:
             resp: dict = {"error": "bad_json"}
         else:
-            resp = await service.handle(req)
+            req, env = wire.unwrap_envelope(req)
+            if env is None:
+                resp = await service.handle(req)
+            else:
+                token = wire.enter_serve(env, recv_ts)
+                try:
+                    resp = await service.handle(req)
+                    reply_env = wire.server_reply_envelope(env, recv_ts)
+                finally:
+                    wire.exit_serve(token)
+                if isinstance(resp, dict):
+                    resp = {**resp, wire.WIRE_KEY: reply_env}
         out = (json.dumps(resp) + "\n").encode()
         async with write_lock:
             writer.write(out)
@@ -415,6 +436,9 @@ async def _handle_conn(service: ServingService, reader, writer) -> None:
                 await writer.drain()
             except ConnectionError:
                 pass
+        if reply_env is not None:
+            wire.record_server_exchange(env, reply_env, op=str(env.get("op") or "score"),
+                                        bytes_recvd=len(raw), bytes_sent=len(out))
 
     while True:
         try:
@@ -501,6 +525,12 @@ async def serve_forever(
             await asyncio.sleep(metrics_every_s)
             step += 1
             print(json.dumps({"serve_metrics": service.metrics()}), flush=True)
+            if service.watch is not None:
+                # the heartbeat-cadence tick, fed the serve.* snapshot so an
+                # SLO over serve.p99_ms reads this beat's value
+                service.watch.evaluate(record={
+                    f"serve.{k}": v for k, v in service.metrics().items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)})
             if logger is not None:
                 # periodic snapshots keep the event log useful when the
                 # server is killed rather than signalled

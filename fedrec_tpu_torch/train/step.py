@@ -87,7 +87,7 @@ from fedrec_tpu_torch.comms.codecs import (
     torch_encode_decode,
     validate_codec,
 )
-from fedrec_tpu_torch.config import ExperimentConfig, unported_obs_keys
+from fedrec_tpu_torch.config import ExperimentConfig
 from fedrec_tpu_torch.device import resolve_device, torch_dtype
 from fedrec_tpu_torch.eval.metrics import (
     full_pool_metrics_batch,
@@ -356,8 +356,6 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
         ("fed.dcn_compress='auto' (the per-leaf codec map pinned from warm-up "
          "telemetry: ROADMAP.md's Queue A item 9)", cfg.fed.dcn_compress == "auto"),
     ]
-    levers += [(f"{key} (SLOs, alerts, fleet telemetry and the wire envelope: ROADMAP.md's "
-                "Queue A item 10b)", True) for key in unported_obs_keys(cfg.obs)]
     for name, on in levers:
         if on:
             raise NotImplementedError(f"{name} is not ported to fedrec_tpu_torch yet; unset it")

@@ -170,8 +170,11 @@ from fedrec_tpu_torch.fed.strategies import ServerOptimizer, get_strategy, parti
 from fedrec_tpu_torch.models import NewsRecommender
 from fedrec_tpu_torch.obs import HealthMonitor, TrainingHealthError, get_registry, get_tracer
 from fedrec_tpu_torch.obs.device import BuildWatch, sample_device_memory
+from fedrec_tpu_torch.obs.fleet import FleetPusher, ensure_fleet_identity
 from fedrec_tpu_torch.obs.health import FlightRecorder
 from fedrec_tpu_torch.obs.report import dump_artifacts, rotate_jsonl
+from fedrec_tpu_torch.obs.watch import Watch
+from fedrec_tpu_torch.obs.wire import configure_wire
 from fedrec_tpu_torch.params import from_flax, init_params, to_flax
 from fedrec_tpu_torch.train.checkpoint import (
     POPULATION_SIDECAR,
@@ -573,7 +576,9 @@ class Trainer:
         (``metrics.jsonl`` with its rotation, ``trace.json``,
         ``prometheus.txt``) and the flight recorder; the quality monitor
         under ``obs.quality.enabled``, the perf monitor under
-        ``obs.perf.enabled``."""
+        ``obs.perf.enabled``; the fleet identity and the wire envelope's
+        settings always; the telemetry pusher under ``obs.fleet.collector``
+        and the watch layer under ``obs.slo.enabled``."""
         self._obs_dir: Path | None = None
         jsonl_path = None
         if cfg.obs.dir:
@@ -583,8 +588,20 @@ class Trainer:
         self.registry = get_registry()
         self.tracer = get_tracer()
         self.tracer.capacity = cfg.obs.trace_capacity
+        # fleet correlation keys on every span, snapshot and record; the
+        # coordinator and run CLIs stamp the stable identity first, and this
+        # is then a no-op
+        ensure_fleet_identity(worker="0", rank=0)
+        configure_wire(enabled=cfg.obs.wire.enabled, window=cfg.obs.wire.window)
         self.logger = MetricLogger(jsonl_path=jsonl_path, registry=self.registry,
                                    jsonl_max_mb=cfg.obs.jsonl_max_mb)
+        # round-cadence telemetry to the fleet collector: a failed push is
+        # counted, never raised; the obs.dir artifacts stay the offline source
+        self.fleet_pusher: FleetPusher | None = None
+        if cfg.obs.fleet.collector:
+            self.fleet_pusher = FleetPusher(
+                cfg.obs.fleet.collector, registry=self.registry, tracer=self.tracer,
+                timeout_s=cfg.obs.fleet.push_timeout_s, push_every=cfg.obs.fleet.push_every)
         self._m_rounds = self.registry.counter("train.rounds_total", "federated rounds completed")
         self._m_steps = self.registry.counter("train.steps_total", "train-step batches dispatched")
         self._m_round_loss = self.registry.gauge("train.round_loss",
@@ -632,6 +649,19 @@ class Trainer:
             self.perf = PerfMonitor(cfg.obs.perf, cfg, data.num_news, registry=self.registry,
                                     tracer=self.tracer, obs_dir=self._obs_dir,
                                     device_name=name)
+        # the watch layer: SLO burn rates, the anomaly detector and the
+        # unified triggers, evaluated once a round with the round's record.
+        # Off by default: nothing is built and no alert.* instrument exists
+        self.watch: Watch | None = None
+        if cfg.obs.slo.enabled:
+            self.watch = Watch(cfg.obs.slo, cfg.obs.watch, registry=self.registry,
+                               tracer=self.tracer, jsonl_path=jsonl_path,
+                               jsonl_max_mb=cfg.obs.jsonl_max_mb)
+            if self.perf is not None:
+                self.watch.bind_perf(self.perf)
+            if self.fleet_pusher is not None:
+                # the alert transitions ride the telemetry pushes
+                self.fleet_pusher.engine = self.watch.engine
         self.builds = BuildWatch(self.registry)
 
     def _setup_population(self, snapshot_dir: str | None) -> None:
@@ -1609,6 +1639,11 @@ class Trainer:
             return
         trigger = self.health.check(round_idx, arrays, list(round_losses),
                                     ignore_clients=set(self._quarantine))
+        if self.watch is not None:
+            # the health verdicts pulse through the alert engine, scored at
+            # the round's evaluation
+            self.watch.ingest_health_trigger(trigger)
+            self.watch.ingest_health_outliers(self.health.last_outliers)
         rb = self.cfg.fed.robust
         if rb.recover:
             cand = trigger if trigger is not None and trigger.get("kind") == "nonfinite" else None
@@ -1921,6 +1956,8 @@ class Trainer:
             self.health.last_quality_outliers = self.quality.digest_clients(
                 round_idx, self.last_per_client_metrics,
                 ignore_clients=set(self._quarantine), shared=val_metrics)
+            if self.watch is not None:
+                self.watch.ingest_quality_outliers(self.health.last_quality_outliers)
 
     def evaluate(self, client: int | None = None) -> dict[str, float]:
         """Mean validation metrics over all impressions of 1 positive +
@@ -2065,6 +2102,10 @@ class Trainer:
                           f"{paths['prometheus']}")
                 except Exception as e:  # noqa: BLE001 — never mask the training error
                     print(f"[trainer] could not write obs artifacts: {type(e).__name__}: {e}")
+            if self.fleet_pusher is not None:
+                # on every exit path; never raises (a dead collector counts
+                # a failure)
+                self.fleet_pusher.push(final=True)
         return history
 
     def _after_round(self, result: RoundResult) -> None:
@@ -2111,6 +2152,12 @@ class Trainer:
             # rotate before the append: snapshots are the event log's bulk
             rotate_jsonl(self._obs_dir / "metrics.jsonl", cfg.obs.jsonl_max_mb)
             self.registry.write_snapshot(self._obs_dir / "metrics.jsonl")
+        if self.watch is not None:
+            # one tick a round, before the push, so this round's transitions
+            # ride this round's push
+            self.watch.evaluate(record=log)
+        if self.fleet_pusher is not None:
+            self.fleet_pusher.maybe_push(r)
 
     def _snapshot_extras(self, round_idx: int) -> Callable[[Path], None]:
         """The files a snapshot holds beside its state: the FedOpt buffers,

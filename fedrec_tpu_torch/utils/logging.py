@@ -5,7 +5,8 @@ Every ``log()`` call:
 
 * publishes each numeric metric as a gauge in the registry (so snapshots
   and the Prometheus exposition carry the training schema);
-* writes one JSON line (``{"step", "elapsed_sec", **metrics}``) to
+* writes one JSON line (``{"step", "elapsed_sec", **fleet, **metrics}``,
+  the registry's fleet labels included, a metric key winning) to
   ``stream`` when one is given, and to ``jsonl_path`` when given (the run's
   event log, which ``fedrec-obs report`` reads), appended and closed each
   time, so a killed run keeps every line and a size rotation
@@ -49,7 +50,9 @@ class MetricLogger:
                 clean[k] = f
             else:
                 clean[k] = v if isinstance(v, str) or v is None else str(v)
-        record = {"step": step, "elapsed_sec": round(time.time() - self._t0, 2), **clean}
+        # fleet correlation keys (obs.fleet): worker / rank / membership epoch
+        record = {"step": step, "elapsed_sec": round(time.time() - self._t0, 2),
+                  **self._registry.context, **clean}
         line = json.dumps(record)
         if self.stream is not None:
             print(line, file=self.stream, flush=True)

@@ -113,13 +113,44 @@ def test_cli_runs_a_decoupled_run_on_the_cpu(tmp_path, capsys):
     assert sorted(p.name for p in tmp_path.glob("round_*")) == ["round_0", "round_1"]
 
 
+def test_cli_pushes_fleet_telemetry_to_a_collector(tmp_path, capsys):
+    """``obs.fleet.collector``: a run pushes a registry snapshot and its new
+    spans every round and once more at its end, as worker "0" (the
+    trainer's identity), into the collector's ``worker_*`` layout."""
+    from fedrec_tpu_torch.obs import MetricsRegistry, Tracer, set_registry, set_tracer
+    from fedrec_tpu_torch.obs.fleet import (
+        CollectorServer,
+        TelemetryCollector,
+        load_fleet_dir,
+        reset_fleet_identity,
+    )
+
+    srv = CollectorServer(TelemetryCollector(tmp_path / "fleet")).start()
+    prev = set_registry(MetricsRegistry()), set_tracer(Tracer())
+    reset_fleet_identity()
+    try:
+        argv = ["2", "8", "1", "--synthetic", "--synthetic-news", "64", "--synthetic-train",
+                "64", "--clients", "2", "--device", "cpu", "--mode", "joint", *_SMALL, "--set",
+                "train.snapshot_dir=", "--set", f"obs.fleet.collector={srv.address}"]
+        assert run.main(argv) == 0
+        status = srv.collector.status()
+    finally:
+        srv.stop()
+        set_registry(prev[0])
+        set_tracer(prev[1])
+        reset_fleet_identity()
+    assert status["pushes"] == 3 and set(status["workers"]) == {"0"}
+    w = load_fleet_dir(tmp_path / "fleet")["0"]
+    rounds = [e["args"]["step_num"] for t in w.traces for e in t.events
+              if e["name"] == "fed_round"]
+    assert rounds == [0, 1] and w.snapshots[-1]["fleet"] == {"worker": "0", "rank": 0}
+
+
 @pytest.mark.parametrize("argv,exc,match", [
     (["--mode", "joint", "--dp-epsilon", "8", "--set", "model.fuse_hot_path=1", "--device",
       "cpu"], NotImplementedError, "model.fuse_hot_path with privacy.mechanism='dpsgd'"),
     (["--agg-server", "localhost:1", "--worker-id", "w", "--device", "cpu", "--set",
       "chaos.wire_faults=tear@1-2"], ValueError, "wire fault injection requires chaos.enabled"),
-    (["--set", "obs.fleet.collector=localhost:1", "--device", "cpu"], NotImplementedError,
-     "obs.fleet.collector.*Queue A item 10b"),
     ([], NoGPUError, "no CUDA device"),
 ])
 def test_cli_refuses_what_the_port_cannot_run(monkeypatch, artifacts, argv, exc, match):

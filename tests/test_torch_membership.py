@@ -159,15 +159,20 @@ def test_membership_service_matches_jax_on_one_fake_clock(monkeypatch):
 
 # ---------------------------------------------------------------------- wire
 @pytest.mark.parametrize("client,service,envelope", [
-    ("jax", "torch", False), ("jax", "torch", True), ("torch", "jax", False)])
+    ("jax", "torch", False), ("jax", "torch", True), ("torch", "jax", False),
+    ("torch", "jax", True)])
 def test_each_package_client_talks_to_the_other_service(client, service, envelope):
     """Two workers join a world of 2, heartbeat, read the status and leave.
-    The JAX client with wire observability on sends the ``_wire`` envelope:
-    the port's service strips it before dispatch and echoes none."""
+    With wire observability on a client sends the ``_wire`` envelope: the
+    other package's service strips it before dispatch and echoes one, which
+    the client strips; off, the bytes are the pre-envelope protocol's."""
+    from fedrec_tpu_torch.obs import wire as pwire
+
     cmod = jmem if client == "jax" else pmem
     smod = jmem if service == "jax" else pmem
-    was = jwire.wire_enabled()
+    was = jwire.wire_enabled(), pwire.wire_enabled()
     jwire.configure_wire(enabled=envelope)
+    pwire.configure_wire(enabled=envelope)
     srv = smod.MembershipServer(target_world=2, lease_ms=5000.0, heartbeat_ms=1000.0,
                                 formation_grace_ms=5000.0).start()
     try:
@@ -193,9 +198,12 @@ def test_each_package_client_talks_to_the_other_service(client, service, envelop
         assert clients[0].status()["members"] == []
         with pytest.raises(cmod.MembershipError, match="unknown cmd"):
             clients[0]._call({"cmd": "bogus"})
+        if envelope:
+            assert (jwire if client == "jax" else pwire).last_reply_envelope()["recv_ts"] > 0
     finally:
         srv.stop()
-        jwire.configure_wire(enabled=was)
+        jwire.configure_wire(enabled=was[0])
+        pwire.configure_wire(enabled=was[1])
 
 
 def test_heartbeat_thread_latches_reform_and_counts_failures():
@@ -224,7 +232,7 @@ def test_heartbeat_thread_latches_reform_and_counts_failures():
     gone.close()
 
 
-def test_rank_order_metrics_and_the_entry_refusals(capsys):
+def test_rank_order_metrics_and_the_entry_refusals(tmp_path):
     assert pmem._rank_order(["10", "2", "0", "b", "a"]) == jmem._rank_order(
         ["10", "2", "0", "b", "a"]) == ["0", "2", "10", "a", "b"]
     el = ExperimentConfig().fed.elastic
@@ -237,10 +245,26 @@ def test_rank_order_metrics_and_the_entry_refusals(capsys):
     assert snap["fed.membership_epoch"]["values"][0]["value"] == 3.0
     assert snap["fed.membership_world"]["values"][0]["value"] == 2.0
     assert snap["fed.membership_reforms_total"]["values"][0]["value"] >= 1.0
-    for flag in (["--telemetry-dir", "x"], ["--watch"]):
-        with pytest.raises(SystemExit):
-            pmem.main(["127.0.0.1:0", *flag])
-        assert "Queue A item 10b" in capsys.readouterr().err
+    # telemetry on the membership port: refused without a collector (the JAX
+    # service's words), written into the collector's worker dir with one
+    from fedrec_tpu_torch.obs.fleet import TelemetryCollector, request_json_line
+
+    push = {"cmd": "telemetry_push", "worker": "3", "snapshot": {"kind": "registry_snapshot",
+                                                                 "ts": 1.0, "metrics": {}}}
+    bare = pmem.MembershipServer().start()
+    served = pmem.MembershipServer(collector=TelemetryCollector(tmp_path)).start()
+    try:
+        with pytest.raises(ValueError, match="no telemetry collector attached"):
+            request_json_line("127.0.0.1", bare.port, push, timeout_s=5.0)
+        assert request_json_line("127.0.0.1", served.port, push, timeout_s=5.0) == {
+            "ok": True, "worker": "3"}
+        status = request_json_line("127.0.0.1", served.port, {"cmd": "telemetry_status"},
+                                   timeout_s=5.0)
+        assert status["pushes"] == 1 and set(status["workers"]) == {"3"}
+    finally:
+        bare.stop()
+        served.stop()
+    assert (tmp_path / "worker_3" / "metrics.jsonl").exists()
 
 
 # ------------------------------------------------------ runtime and chaos
@@ -378,11 +402,11 @@ def _saved_globals(outs: list[str]) -> list[int]:
 
 
 def test_supervised_elastic_world_shrinks_and_regrows(art, tmp_path):
-    snaps = tmp_path / "snaps"
+    snaps, obs = tmp_path / "snaps", tmp_path / "obs"
     srv = pmem.MembershipServer(target_world=3).start()
     try:
         rcs, outs = _supervised(
-            _argv(art, snaps, _ELASTIC_ROUNDS, *_ELASTIC), 3, tmp_path,
+            _argv(art, snaps, _ELASTIC_ROUNDS, *_ELASTIC, f"obs.dir={obs}"), 3, tmp_path,
             lambda i: ["--membership", srv.address, "--process-id", str(i)])
         st = srv.status()
     finally:
@@ -406,6 +430,19 @@ def test_supervised_elastic_world_shrinks_and_regrows(art, tmp_path):
     assert server["reformed"] and server["rounds"][-1] == first - 1
     assert last[2]["fanout_sha256"][0] == server["global_sha256"][-1]
     assert last[2]["fanout_sha256"][0] == last[0]["fanout_sha256"][0]
+    # fleet identity and counter continuity: each worker's obs dir holds a
+    # tagged trace an epoch and its counter baseline; the server's last
+    # snapshot counts every round of the run across its incarnations
+    from fedrec_tpu_torch.obs.fleet import load_fleet_dir
+    from fedrec_tpu_torch.obs.report import snapshot_value
+
+    fleet = load_fleet_dir(obs)
+    assert set(fleet) == {"0", "1", "2"}
+    assert len(fleet["0"].traces) >= 3 and all(t.tag.startswith("e") for t in fleet["0"].traces)
+    assert all((obs / f"worker_{w}" / "counters.json").exists() for w in "012")
+    last_snap = fleet["0"].last_snapshot()
+    assert last_snap["fleet"]["worker"] == "0" and last_snap["fleet"]["membership_epoch"] == 2
+    assert snapshot_value(last_snap, "train.rounds_total") >= _ELASTIC_ROUNDS
 
 
 def test_supervised_fixed_world_relaunches_after_a_kill(art, tmp_path):

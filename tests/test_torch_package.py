@@ -58,8 +58,8 @@ def _modules():
 def test_importing_every_module_leaves_jax_out():
     # the cohort engine's, the data path's, the real-data path's, the native
     # batcher's, the observability artifacts', the coordinator deployment's,
-    # elastic membership's, the async commit's and the async wire's modules
-    # are among them
+    # elastic membership's, the async commit's, the async wire's and fleet
+    # observability's modules are among them
     assert {"fedrec_tpu_torch.comms", "fedrec_tpu_torch.comms.codecs",
             "fedrec_tpu_torch.agg", "fedrec_tpu_torch.agg.hierarchy",
             "fedrec_tpu_torch.agg.buffer", "fedrec_tpu_torch.agg.commit",
@@ -75,7 +75,8 @@ def test_importing_every_module_leaves_jax_out():
             "fedrec_tpu_torch.models.bert", "fedrec_tpu_torch.data.native_batcher",
             "fedrec_tpu_torch.obs.report", "fedrec_tpu_torch.obs.perf",
             "fedrec_tpu_torch.obs.device", "fedrec_tpu_torch.cli.obs",
-            "fedrec_tpu_torch.utils.logging"} <= set(_modules())
+            "fedrec_tpu_torch.obs.wire", "fedrec_tpu_torch.obs.alerts",
+            "fedrec_tpu_torch.obs.watch", "fedrec_tpu_torch.utils.logging"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -229,13 +230,18 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
     with pytest.raises(NoGPUError):
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
-    for lever in ("fed.seq_shards=2", "shard.table=1", "obs.fleet.collector=localhost:1",
-                  "obs.watch.flap_max=9", "obs.slo.enabled=1", "obs.wire.window=64"):
+    for lever in ("fed.seq_shards=2", "shard.table=1"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])
         name = lever.split(",")[-1].split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
             build_fed_train_step(model, bad, get_strategy("param_avg"), device="cpu")
+    # fleet observability is ported (the trainer's pusher, watch and wire
+    # envelope): the step ignores its keys
+    obs = ExperimentConfig().apply_overrides([
+        "model.text_encoder_mode=head", "obs.fleet.collector=localhost:1",
+        "obs.watch.flap_max=9", "obs.slo.enabled=1", "obs.wire.window=64"])
+    build_fed_train_step(model, obs, get_strategy("param_avg"), device="cpu")
     # the wire faults are ported (the run CLI's ChaosProxy): the step ignores them
     wire = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head", "chaos.enabled=1",
                                                "chaos.wire_seed=2",

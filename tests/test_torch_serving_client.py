@@ -171,8 +171,12 @@ def test_server_restart_mid_run_degrades_not_fails():
 
 
 def test_wire_bytes_are_plain_json_lines():
-    """Without the trace envelope a request is one JSON object and a
-    newline, as the JAX client sends it with the envelope off."""
+    """With the trace envelope off (``obs.wire.enabled=false``) a request is
+    one JSON object and a newline, as the JAX client sends it with the
+    envelope off; with it on (the default) the same object carries the
+    additive ``_wire`` key, and a reply without one is returned as sent."""
+    from fedrec_tpu_torch.obs.wire import configure_wire, wire_enabled
+
     seen = []
 
     async def go():
@@ -192,5 +196,19 @@ def test_wire_bytes_are_plain_json_lines():
             server.close()
             await server.wait_closed()
 
-    assert _run(go()) == {"ok": 1}
+    was = wire_enabled()
+    configure_wire(enabled=False)
+    try:
+        assert _run(go()) == {"ok": 1}
+    finally:
+        configure_wire(enabled=was)
     assert seen == [(json.dumps({"cmd": "metrics"}) + "\n").encode()]
+    configure_wire(enabled=True)
+    try:
+        assert _run(go()) == {"ok": 1}
+    finally:
+        configure_wire(enabled=was)
+    sent = json.loads(seen[1])
+    env = sent.pop("_wire")
+    assert sent == {"cmd": "metrics"} and env["op"] == "metrics"
+    assert {"trace_id", "span_id", "send_ts"} <= set(env)

@@ -278,13 +278,31 @@ def test_trainer_refuses_unported_levers_by_name(lever):
     item. Per-example DP-SGD runs now: on ``_tiny``'s fused route it meets
     the JAX package's own refusal. The wire faults run too (the run CLI's
     ``ChaosProxy`` in front of ``--agg-server``), and the trainer ignores
-    them, as the JAX trainer does."""
+    them, as the JAX trainer does. Fleet observability runs too: the
+    ``obs.fleet``, ``obs.slo``, ``obs.watch`` and ``obs.wire`` keys build
+    the pusher, the watch and the envelope's settings, and a malformed
+    objective meets the JAX watch's own refusal."""
+    from fedrec_tpu_torch.obs import wire
+
     over = {"privacy.enabled=1": [lever, "privacy.sigma=1"],
             "chaos.enabled=1": [lever, "chaos.wire_faults=drop@*"]}.get(lever, lever.split(","))
     cfg = _tiny().apply_overrides(over)
     data, toks = _data_and_tokens(cfg)
     if lever == "chaos.enabled=1":
         assert Trainer(cfg, data, toks, device="cpu").cfg.chaos.wire_faults == "drop@*"
+        return
+    if lever.startswith("obs.slo.objectives=x"):
+        with pytest.raises(ValueError, match="bad obs.slo.objectives entry 'x'"):
+            Trainer(cfg, data, toks, device="cpu")
+        return
+    if lever.startswith("obs."):
+        try:
+            trainer = Trainer(cfg, data, toks, device="cpu")
+            assert wire.wire_enabled() == cfg.obs.wire.enabled
+        finally:
+            wire.configure_wire(enabled=True, window=32)
+        assert (trainer.watch is not None) == cfg.obs.slo.enabled
+        assert (trainer.fleet_pusher is not None) == bool(cfg.obs.fleet.collector)
         return
     name = over[-1].split("=")[0].split(".")[-1]
     if lever == "privacy.enabled=1":
