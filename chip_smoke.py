@@ -3,7 +3,7 @@
 
 Builds the port's CUDA kernels from ``fedrec_tpu_torch/ops/csrc``, holds
 each against its plain PyTorch version on the card (forward and gradients),
-then drives fourteen paths at full width through the entry points a user calls:
+then drives sixteen paths at full width through the entry points a user calls:
 
 * ``main_path`` (serving): corpus encode of a 65,536-news catalog of seeded
   frozen-trunk token states (50 x 768, kernel A), publish,
@@ -142,6 +142,25 @@ then drives fourteen paths at full width through the entry points a user calls:
   near 0, flow arrows push -> commit -> adoption, the collector's
   ``fleet:straggler:3`` alert); the envelope's bytes, a push's ms and the
   merge's s;
+* ``seq_path`` (sequence parallelism, ``fed.seq_shards=4``): a world of 4
+  ranks (``chip_smoke.py --seq-rank R`` processes over gloo, pinned host
+  buffers), all on the one card, each holding 512 of every 2,048-click
+  history over the first 16,384 news of the token states: the joint step
+  of 2 clients at B=16 by ring attention for 4 steps (then again, bitwise),
+  by Ulysses for 2, and the finetune step (the full trunk, 64 clicks) for 2,
+  each against the same configuration at ``seq_shards=1`` with the dense
+  user tower in this process (losses 1e-5, the first step's gradients
+  2e-4, parameters 2e-3; kernel A on every rank, F1 on none); then
+  ``fedrec_tpu_torch.cli.run --set fed.seq_shards=4``, which starts its own
+  world, for one evaluated round; hop and all-to-all ms and bytes, step ms
+  and peak memory per rank against the reference's, start-up to the first
+  step;
+* ``auto_codec_path`` (``fed.dcn_compress=auto``): ``Trainer.run`` for 3
+  evaluated ``param_avg`` rounds of 4 clients x 4 steps at B=64 with
+  ``obs.dir``, the per-leaf codec map pinned after round 0 (every leaf of
+  <= 64 elements dense), ``codec_map.json`` and the report's map, bytes up
+  a client below the dense tree's, a bitwise repeat; the pin's ms, round
+  ms before and after it, compression by leaf (C, D, B, E on every step);
 * ``serving_path`` (train -> snapshot -> serve -> refresh): a decoupled
   ``Trainer`` round of 4 clients x 4 steps snapshotted under ``build/``,
   the token states written once as a 10.07 GB ``.npy``, the snapshot
@@ -175,6 +194,7 @@ Usage:
   python3 chip_smoke.py --phases build,kernels,elastic_path
   python3 chip_smoke.py --phases build,kernels,async_path
   python3 chip_smoke.py --phases build,kernels,wire_path
+  python3 chip_smoke.py --phases build,kernels,seq_path,auto_codec_path
   python3 chip_smoke.py --phases build,kernels,serving_path
 """
 
@@ -196,10 +216,11 @@ import numpy as np
 
 PHASES = ("device", "build", "kernels", "main_path", "train_path", "long_path", "trainer_path",
           "decoupled_path", "safety_path", "cohort_path", "async_path", "data_path",
-          "family_path", "coordinator_path", "elastic_path", "wire_path", "serving_path")
+          "family_path", "coordinator_path", "elastic_path", "wire_path", "seq_path",
+          "auto_codec_path", "serving_path")
 PATHS = ("main_path", "train_path", "long_path", "trainer_path", "decoupled_path", "safety_path",
          "cohort_path", "async_path", "data_path", "family_path", "coordinator_path",
-         "elastic_path", "wire_path", "serving_path")
+         "elastic_path", "wire_path", "seq_path", "auto_codec_path", "serving_path")
 DEV = "cuda"
 
 
@@ -1140,7 +1161,8 @@ def _tokens(state: dict, args, title_len: int, bert_hidden: int):
         tokens = torch.empty((args.num_news, title_len, bert_hidden), device=DEV)
         for s in range(0, args.num_news, args.chunk):
             tokens[s:s + args.chunk].normal_(generator=gen)
-        torch.cuda.synchronize()
+        if DEV == "cuda":
+            torch.cuda.synchronize()
         state["tokens"] = tokens
     return state["tokens"]
 
@@ -6305,15 +6327,519 @@ def phase_wire_path(state: dict, args) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- seq_path
+SEQ_SHARDS = 4
+SEQ_CLIENTS, SEQ_BATCH = 2, 16
+SEQ_RING_STEPS, SEQ_ULYSSES_STEPS, SEQ_FT_STEPS = 4, 2, 2
+SEQ_FT_HISTORY = 64
+SEQ_FT_NEWS = 4096
+# the seq legs' catalog: the first 16,384 rows of the token states (cut
+# from 65,536: four ranks' tables and activations must share the one card)
+SEQ_NEWS = 16384
+SEQ_WORLD_TIMEOUT_S = 420
+# --set overrides appended to every seq leg's configuration (empty on the
+# card; a CPU rehearsal adds small widths), handed to the ranks in the spec
+SEQ_EXTRA_SETS: tuple = ()
+# the seq legs against the one-process reference: losses, the first step's
+# gradients, the parameters after the steps (JAX's own seq-vs-plain bar,
+# tests/test_seq_parallel.py: Adam amplifies reduction-order noise)
+SEQ_LOSS_ATOL, SEQ_GRAD_ATOL, SEQ_PARAM_ATOL = 1e-5, 2e-4, 2e-3
+
+
+def _seq_cfg(args, leg: str, seq: int):
+    """A seq leg's configuration: ExperimentConfig's widths, the unfused
+    kernel route (use_pallas: kernel A on the text head's pools), K = 2 at
+    B = 16, param_avg; the joint legs at ``--long-history`` clicks, the
+    finetune leg at data_path's trunk and 64 clicks. ``seq`` = 1 is the
+    reference: one process, the dense user tower."""
+    from fedrec_tpu_torch.config import ExperimentConfig
+
+    sets = ["model.use_pallas=true", "model.fuse_hot_path=false", f"fed.num_clients={SEQ_CLIENTS}",
+            f"data.batch_size={SEQ_BATCH}", "fed.strategy=param_avg", f"fed.seq_shards={seq}",
+            f"train.seed={args.seed}"]
+    if leg == "finetune":
+        sets += ["model.text_encoder_mode=finetune", "model.trunk_dropout=0",
+                 "model.trunk_remat=true", f"data.max_his_len={SEQ_FT_HISTORY}"]
+    else:
+        sets += ["model.text_encoder_mode=head", f"data.max_his_len={args.long_history}"]
+    sets.append("fed.seq_impl=ulysses" if leg == "ulysses" else "fed.seq_impl=ring")
+    if seq == 1:
+        sets.append("model.attn_impl=dense")
+    return ExperimentConfig().apply_overrides([*sets, *SEQ_EXTRA_SETS])
+
+
+def _seq_batches(args, cfg, steps: int) -> tuple[list[dict], object]:
+    """The leg's whole (K, B, ...) batches and its feature table's source:
+    the joint legs the seeded token states' catalog with 1,024-2,048-click
+    histories, the finetune leg a synthetic token table."""
+    from fedrec_tpu_torch.data import TrainBatcher, index_samples, make_synthetic_mind
+
+    H, T = cfg.data.max_his_len, cfg.data.max_title_len
+    finetune = cfg.model.text_encoder_mode == "finetune"
+    # the same split whatever the leg's step count: a leg's batches are the
+    # first of the reference's
+    data = make_synthetic_mind(num_news=SEQ_FT_NEWS if finetune else SEQ_NEWS,
+                               num_train=SEQ_CLIENTS * SEQ_BATCH * max(steps, SEQ_RING_STEPS),
+                               num_valid=0,
+                               title_len=T, his_len_range=(H // 2, H), seed=args.seed)
+    batcher = TrainBatcher(index_samples(data.train_samples, data.nid2index, H), SEQ_BATCH,
+                           cfg.data.npratio, seed=args.seed)
+    batches = [{"candidates": b.candidates, "history": b.history, "labels": b.labels}
+               for b in batcher.epoch_batches_sharded(SEQ_CLIENTS, 0)][:steps]
+    check(len(batches) == steps, f"{len(batches)} batches for {steps} steps")
+    return batches, data
+
+
+def _seq_sample(x: np.ndarray, finetune: bool) -> np.ndarray:
+    """What a rank ships of one tensor: all of it, but in finetune mode
+    every 61st element of a leaf above 65,536 (the trunk's 66M weights
+    would be half a GB a rank; the digests cover every bit)."""
+    x = np.ascontiguousarray(x)
+    return x.reshape(-1)[::61].copy() if finetune and x.size > 65536 else x
+
+
+def _seq_run(args, leg: str, seq: int, group, tokens, steps: int, by_step: bool = False) -> dict:
+    """One leg's steps through ``build_fed_train_step`` (with the seq world
+    ``group`` when ``seq`` > 1): losses, step ms, the first step's
+    gradients (client 0, after the world's sum), every client's parameters
+    after the steps (after each step with ``by_step``) and their digest,
+    launches, the wire's counters, the peak memory above the resident table,
+    overflow."""
+    import hashlib
+
+    import torch
+    from fedrec_tpu_torch.fed import get_strategy
+    from fedrec_tpu_torch.models import NewsRecommender
+    from fedrec_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fedrec_tpu_torch.parallel.mesh import shard_fed_batch
+    from fedrec_tpu_torch.params import init_params
+    from fedrec_tpu_torch.train import build_fed_train_step, init_client_state, replicate_state
+
+    cfg = _seq_cfg(args, leg, seq)
+    dev = torch.device(DEV)
+    batches, data = _seq_batches(args, cfg, steps)
+    table = tokens
+    if cfg.model.text_encoder_mode == "finetune":
+        table = torch.as_tensor(np.asarray(data.news_tokens), dtype=torch.int64).to(dev)
+    model = init_params(NewsRecommender(cfg.model), seed=args.seed + 7).to(dev)
+    states = replicate_state(init_client_state(model, cfg, args.seed), SEQ_CLIENTS, args.seed)
+    strategy = get_strategy("param_avg")
+    first_grads: list = []
+    inner = strategy.sync_grads
+
+    finetune = cfg.model.text_encoder_mode == "finetune"
+
+    calls = [0]
+
+    def capture(grads):  # the first step's gradients, user then news, as the step syncs them
+        if calls[0] < 2:
+            first_grads.extend(None if g is None else _seq_sample(g.detach().cpu().numpy(),
+                                                                  finetune)
+                               for g in grads[0])
+        calls[0] += 1
+        return inner(grads)
+
+    def params_now() -> list:
+        return [[_seq_sample(p.detach().cpu().numpy(), finetune) for p in st.model.parameters()]
+                for st in states]
+
+    strategy.sync_grads = capture
+    step = build_fed_train_step(model, cfg, strategy, device=dev,
+                                seq_group=group if seq > 1 else None)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    if group is not None:
+        group.reset_stats()
+    losses, step_ms, overflow, first_step_at, kept = [], [], 0, None, []
+    for b in batches:
+        t0 = time.perf_counter()
+        states, met = step(states, shard_fed_batch(b, group if seq > 1 else None), table)
+        losses.append(met["loss"].tolist())  # a host read: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        first_step_at = first_step_at or time.time()
+        overflow += met["unique_overflow"]
+        if by_step:
+            kept.append(params_now())
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        resident /= 1e9
+    digest = hashlib.sha256()
+    for st in states:
+        for p in st.model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+    return {"losses": losses, "step_ms": step_ms, "overflow": overflow,
+            "first_grads": first_grads,
+            "params": params_now(), "params_by_step": kept, "digest": digest.hexdigest(),
+            "launches": launch_counts(), "wire": dict(group.stats) if group else {},
+            "peak_above_resident_gb": peak, "resident_gb": resident if on_card else None,
+            "first_step_at": first_step_at}
+
+
+def _seq_rank_main(argv: list[str]) -> int:
+    """One rank of ``seq_path``'s world (``chip_smoke.py --seq-rank R ...``):
+    the seeded token states rebuilt on the card (bitwise the parent's), then
+    the ring, ring-again, Ulysses and finetune legs; results to ``--seq-out``."""
+    import pickle
+
+    import torch
+    from fedrec_tpu_torch.cli.coordinator import _process_start_wall
+    from fedrec_tpu_torch.parallel.mesh import seq_group
+    from fedrec_tpu_torch.parallel.multihost import initialize_distributed
+
+    global DEV, SEQ_EXTRA_SETS, SEQ_NEWS
+    p = argparse.ArgumentParser()
+    for name in ("--seq-rank", "--seq-world"):
+        p.add_argument(name, type=int, required=True)
+    for name in ("--seq-addr", "--seq-spec", "--seq-out", "--seq-device"):
+        p.add_argument(name, required=True)
+    a = p.parse_args(argv)
+    DEV = a.seq_device
+    started_at = _process_start_wall()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(a.seq_spec).read_text())
+    args = argparse.Namespace(**spec["args"])
+    SEQ_EXTRA_SETS, SEQ_NEWS = tuple(spec["extra_sets"]), int(spec["news"])
+    world = initialize_distributed(a.seq_addr, a.seq_world, a.seq_rank)
+    t0 = time.perf_counter()
+    cfg = _seq_cfg(args, "ring", SEQ_SHARDS)
+    # the table's first SEQ_NEWS rows, bitwise (the same seeded chunks)
+    tokens = _tokens({}, argparse.Namespace(**{**vars(args), "num_news": SEQ_NEWS}),
+                     cfg.data.max_title_len, cfg.model.bert_hidden)
+    out = {"rank": a.seq_rank, "started_at": started_at, "table_s": time.perf_counter() - t0,
+           "legs": {}}
+    for leg, steps in (("ring", SEQ_RING_STEPS), ("ring_repeat", SEQ_RING_STEPS),
+                       ("ulysses", SEQ_ULYSSES_STEPS), ("finetune", SEQ_FT_STEPS)):
+        kind = "ring" if leg == "ring_repeat" else leg
+        group = seq_group(_seq_cfg(args, kind, SEQ_SHARDS), world)
+        out["legs"][leg] = _seq_run(args, kind, SEQ_SHARDS, group, tokens, steps)
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    with open(a.seq_out, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def _seq_world(args, work: Path) -> dict:
+    """``SEQ_SHARDS`` ranks of ``chip_smoke.py --seq-rank`` on 127.0.0.1,
+    all on the one card, under one wall limit; the first rank to fail stops
+    the others and fails the phase."""
+    import os
+    import pickle
+
+    from fedrec_tpu_torch.parallel.membership import free_port
+
+    spec = work / "spec.json"
+    spec.write_text(json.dumps({"args": {k: v for k, v in vars(args).items()
+                                         if isinstance(v, (int, float, str))},
+                                "extra_sets": list(SEQ_EXTRA_SETS), "news": SEQ_NEWS}))
+    address = f"127.0.0.1:{free_port()}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    logs = [work / f"rank{r}.log" for r in range(SEQ_SHARDS)]
+    t0 = time.perf_counter()
+    procs = []
+    for r, log in enumerate(logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root / "chip_smoke.py"), "--seq-rank", str(r),
+                 "--seq-world", str(SEQ_SHARDS), "--seq-addr", address, "--seq-spec", str(spec),
+                 "--seq-out", str(work / f"rank{r}.pkl"), "--seq-device", DEV],
+                cwd=root, env=env, stdout=fh, stderr=subprocess.STDOUT))
+    failed = None
+    try:
+        while any(pr.poll() is None for pr in procs):
+            bad = [r for r, pr in enumerate(procs) if pr.poll() not in (None, 0)]
+            if bad:
+                failed = bad[0]
+                break
+            if time.perf_counter() - t0 > SEQ_WORLD_TIMEOUT_S:
+                raise SmokeFailure(f"seq world outlived {SEQ_WORLD_TIMEOUT_S} s: "
+                                   f"{[log.read_text()[-1500:] for log in logs]}")
+            time.sleep(0.2)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+    rcs = [pr.returncode for pr in procs]
+    if failed is None and any(rcs):
+        failed = next(r for r, rc in enumerate(rcs) if rc)
+    check(failed is None, f"seq rank {failed} failed (rcs {rcs}): "
+                          f"{logs[failed].read_text()[-3000:] if failed is not None else ''}")
+    results = []
+    for r in range(SEQ_SHARDS):
+        with open(work / f"rank{r}.pkl", "rb") as f:
+            results.append(pickle.load(f))
+    return {"rcs": rcs, "wall_s": time.perf_counter() - t0, "results": results}
+
+
+def _seq_compare(got: dict, ref: dict) -> dict:
+    """A leg's rank against the reference at the seq bars: losses, the
+    first step's gradients, every client's parameters after the same
+    number of steps."""
+    steps = len(got["losses"])
+    loss_err = max(abs(a - b) for ra, rb in zip(got["losses"], ref["losses"][:steps])
+                   for a, b in zip(ra, rb))
+    # a leaf one route leaves unused (the reference's user pool on kernel A
+    # omits the softmax-invariant fc2 bias) has a gradient of 0
+    grad_err = max(float(np.abs((0.0 if a is None else a) - (0.0 if b is None else b)).max())
+                   for a, b in zip(got["first_grads"], ref["first_grads"])
+                   if a is not None or b is not None)
+    param_err = max(float(np.abs(a - b).max()) for ca, cb in zip(
+        got["params"], ref["params_by_step"][steps - 1]) for a, b in zip(ca, cb))
+    return {"loss": loss_err, "grad": grad_err, "param": param_err}
+
+
+def _wire_summary(stats: dict) -> dict:
+    return {op: {"calls": s["calls"], "bytes": s["bytes"], "ms": s["ms"],
+                 "ms_per_call": s["ms"] / max(s["calls"], 1),
+                 "bytes_per_call": s["bytes"] / max(s["calls"], 1)} for op, s in stats.items()}
+
+
+def _seq_cli_leg(args, token_file: Path):
+    """Leg (d): the run CLI starts its own world of ``SEQ_SHARDS`` ranks for
+    one evaluated round over the mapped catalog; its completed process and
+    wall seconds."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    argv = [sys.executable, "-m", "fedrec_tpu_torch.cli.run", "1", str(SEQ_BATCH), "1",
+            "--synthetic", "--synthetic-news", str(SEQ_NEWS), "--synthetic-train",
+            str(SEQ_CLIENTS * SEQ_BATCH * 2), "--clients", str(SEQ_CLIENTS), "--mode", "joint",
+            "--token-states", str(token_file), "--device", DEV, "--set", "model.use_pallas=true",
+            "--set", "model.fuse_hot_path=false", "--set", f"data.max_his_len={args.long_history}",
+            "--set", f"fed.seq_shards={SEQ_SHARDS}", "--set", "train.snapshot_dir=",
+            *(x for e in SEQ_EXTRA_SETS for x in ("--set", e))]
+    t0 = time.perf_counter()
+    cli = subprocess.run(argv, cwd=root, capture_output=True, text=True,
+                         timeout=SEQ_WORLD_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=str(root)))
+    return cli, time.perf_counter() - t0
+
+
+def phase_seq_path(state: dict, args) -> dict:
+    """Sequence parallelism at full width: a world of 4 ranks on the one
+    card, each with its quarter of every 2,048-click history."""
+    import torch
+
+    work = Path(__file__).resolve().parent / "build" / "seq_path"
+    work.mkdir(parents=True, exist_ok=True)
+    cfg = _seq_cfg(args, "ring", SEQ_SHARDS)
+    T, Dh = cfg.data.max_title_len, cfg.model.bert_hidden
+    out: dict = {}
+    # the run CLI's leg maps the catalog's rows from disk, as a user's run would
+    token_file = work / f"token_states_{SEQ_NEWS}_{args.seed}.npy"
+    out["token_states_write_s"] = _write_token_states(
+        _tokens(state, args, T, Dh)[:SEQ_NEWS], token_file, args.chunk)
+    # the world's four tables take the card's room: this process's goes
+    # while the world runs and is rebuilt (bitwise) for the reference
+    state.pop("tokens", None)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    try:
+        world = _seq_world(args, work)
+        res = world["results"]
+        cli, cli_s = _seq_cli_leg(args, token_file)
+    finally:
+        token_file.unlink(missing_ok=True)
+    finals = [ln for ln in cli.stdout.splitlines() if ln.startswith("final: ")]
+    check(cli.returncode == 0 and len(finals) == 1,
+          f"seq run CLI: rc {cli.returncode}, final {finals}: {cli.stderr[-3000:]}")
+    fields = {k: float(v) for k, v in (kv.split("=") for kv in finals[0][7:].split())}
+    check(math.isfinite(fields["loss"]) and 0.0 <= fields["auc"] <= 1.0, f"seq run CLI: {finals}")
+
+    # ---- the reference: one process, seq_shards = 1, the dense user tower
+    tokens = _tokens(state, args, T, Dh)[:SEQ_NEWS]
+    refs = {"ring": _seq_run(args, "ring", 1, None, tokens, SEQ_RING_STEPS, by_step=True),
+            "finetune": _seq_run(args, "finetune", 1, None, tokens, SEQ_FT_STEPS, by_step=True)}
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+    legs_out, launches_total = {}, {}
+    for leg in ("ring", "ulysses", "finetune"):
+        ref = refs["finetune" if leg == "finetune" else "ring"]
+        steps = len(res[0]["legs"][leg]["losses"])
+        per_rank = []
+        for r in res:
+            g = r["legs"][leg]
+            errs = _seq_compare(g, ref)
+            check(errs["loss"] <= SEQ_LOSS_ATOL, f"{leg} rank {r['rank']}: loss error {errs}")
+            check(errs["grad"] <= SEQ_GRAD_ATOL, f"{leg} rank {r['rank']}: gradient error {errs}")
+            check(errs["param"] <= SEQ_PARAM_ATOL, f"{leg} rank {r['rank']}: parameter error {errs}")
+            check(g["overflow"] == 0, f"{leg} rank {r['rank']}: unique_overflow {g['overflow']}")
+            check(all(math.isfinite(v) for row in g["losses"] for v in row),
+                  f"{leg} rank {r['rank']}: non-finite loss")
+            # the joint legs' text head pools on kernel A; the finetune
+            # TextEncoder's head pools densely, as in JAX
+            check(leg == "finetune" or g["launches"].get("additive_pool", 0) > 0,
+                  f"kernel additive_pool never launched on {leg} rank {r['rank']}")
+            check(g["launches"].get("flash_forward", 0) == 0,
+                  f"flash_forward launched on {leg} rank {r['rank']} (the ring replaces it)")
+            if leg != "finetune":
+                for name, n in g["launches"].items():
+                    launches_total[name] = launches_total.get(name, 0) + n
+            per_rank.append({"rank": r["rank"], "errors": errs,
+                             "median_step_ms": float(np.median(g["step_ms"])),
+                             "step_ms": g["step_ms"],
+                             "peak_above_table_gb": g["peak_above_resident_gb"],
+                             "resident_gb": g["resident_gb"],
+                             "launches": {k: v for k, v in g["launches"].items() if v},
+                             "wire": _wire_summary(g["wire"])})
+        # every rank holds the same parameters, to the bit
+        for r in res[1:]:
+            check(r["legs"][leg]["digest"] == res[0]["legs"][leg]["digest"],
+                  f"{leg}: rank {r['rank']}'s parameters differ from rank 0's")
+        legs_out[leg] = {"steps": steps, "ranks": per_rank,
+                         "reference_median_step_ms": float(np.median(ref["step_ms"][:steps])),
+                         "reference_peak_above_table_gb": ref["peak_above_resident_gb"]}
+    for r in res:
+        a, b = r["legs"]["ring"], r["legs"]["ring_repeat"]
+        check(a["losses"] == b["losses"] and a["digest"] == b["digest"],
+              f"ring leg repeated on rank {r['rank']} gave other bits")
+    state.setdefault("launches", {})["seq"] = launches_total
+    hop = res[0]["legs"]["ring"]["wire"]["ring_hop"]
+    a2a = res[0]["legs"]["ulysses"]["wire"]["all_to_all"]
+    return {
+        **out,
+        "config": {"seq_shards": SEQ_SHARDS, "clients": SEQ_CLIENTS, "batch_size": SEQ_BATCH,
+                   "history": args.long_history, "finetune_history": SEQ_FT_HISTORY,
+                   "num_news": SEQ_NEWS, "finetune_num_news": SEQ_FT_NEWS, "dropout_rate": cfg.model.dropout_rate,
+                   "wire": "gloo over pinned host buffers"},
+        "legs": legs_out,
+        "ring_repeat_bitwise": True,
+        "ring_hop": {"ms": hop["ms"] / hop["calls"], "bytes": hop["bytes"] / hop["calls"],
+                     "calls_per_step": hop["calls"] / SEQ_RING_STEPS},
+        "ulysses_all_to_all": {"ms": a2a["ms"] / a2a["calls"],
+                               "bytes": a2a["bytes"] / a2a["calls"],
+                               "calls_per_step": a2a["calls"] / SEQ_ULYSSES_STEPS},
+        "startup_to_first_step_s": [r["legs"]["ring"]["first_step_at"] - r["started_at"]
+                                    for r in res],
+        "table_on_card_s": [r["table_s"] for r in res],
+        "world_wall_s": world["wall_s"],
+        "cli": {"final": fields, "wall_s": cli_s},
+        "launches": {KERNEL_LETTER.get(k, k): v for k, v in launches_total.items() if v},
+    }
+
+
+# ---------------------------------------------------------- auto_codec_path
+AUTO_ROUNDS = 3
+
+
+def _auto_run(state: dict, args, obs: Path | None):
+    """The auto-codec ``Trainer.run``: param_avg, K x ``--trainer-steps``
+    at B = ``--batch-size``, AUTO_ROUNDS evaluated rounds, the map pinned
+    after round 0; each round's wall ms."""
+    from fedrec_tpu_torch.data import MindData  # noqa: F401
+    from fedrec_tpu_torch.train import Trainer
+
+    cfg = _trainer_cfg(args, "", "fed.dcn_compress=auto", "fed.dcn_auto_warmup=1",
+                       f"fed.rounds={AUTO_ROUNDS}", "train.keep_best=false",
+                       *([f"obs.dir={obs}"] if obs is not None else []))
+    T, Dh = cfg.data.max_title_len, cfg.model.bert_hidden
+    trainer = Trainer(cfg, _mind_data(state, args, T), _tokens(state, args, T, Dh), device=DEV)
+    round_ms: list = []
+    _time_calls(trainer, "train_round", round_ms)
+    with contextlib.redirect_stdout(io.StringIO()) as quiet:
+        history = trainer.run()
+    return trainer, history, round_ms, quiet.getvalue()
+
+
+def phase_auto_codec_path(state: dict, args) -> dict:
+    """``fed.dcn_compress=auto`` through ``Trainer``: the per-leaf codec
+    map pinned from the warm-up round's delta, then the compressed rounds."""
+    import tempfile
+
+    import torch
+    from fedrec_tpu_torch.comms.codecs import encode_tree, leaf_names, payload_nbytes
+    from fedrec_tpu_torch.obs.report import build_report, load_jsonl
+    from fedrec_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        obs = Path(tmp) / "obs"
+        reset_launch_counts()
+        trainer, history, round_ms, printed = _auto_run(state, args, obs)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        pin = trainer.auto_codec_pin
+        check(pin is not None and pin["pinned_at_round"] == 0, f"the map pinned at {pin}")
+        check("pinned per-leaf codec map after round 0" in printed, "no pin line printed")
+        check(all(d["codec"] == "none" for d in pin["detail"] if d["n"] <= 64),
+              "a leaf of <= 64 elements was compressed")
+        saved = json.loads((obs / "codec_map.json").read_text())
+        check(saved["map"] == pin["map"], "codec_map.json differs from the pinned map")
+        report = build_report(*load_jsonl(obs / "metrics.jsonl"))
+        check(report.get("communication", {}).get("auto_codec_map") == pin["map"],
+              "the report carries no auto_codec_map")
+    codec_b, dense_b = trainer._codec_bytes_per_client, trainer._dense_bytes_per_client
+    check(codec_b is not None and codec_b < dense_b,
+          f"bytes up a client after the pin {codec_b} vs the dense tree's {dense_b}")
+    for r in history:
+        check(math.isfinite(r.train_loss), f"round {r.round_idx}: loss {r.train_loss}")
+        check(all(0.0 <= r.val_metrics[k] <= 1.0 for k in ("auc", "mrr", "ndcg5", "ndcg10")),
+              f"round {r.round_idx}: metrics {r.val_metrics}")
+    K, S = args.clients, args.trainer_steps
+    for name in ("fused_gather_encode", "fused_gather_encode_bwd", "fused_history_score",
+                 "fused_history_score_bwd"):
+        check(launches.get(name, 0) >= K * S * AUTO_ROUNDS,
+              f"{name} launched {launches.get(name, 0)} times in {AUTO_ROUNDS} rounds of "
+              f"{K} x {S} steps")
+    params = _trainer_params(trainer)
+    again, history2, _, _ = _auto_run(state, args, None)
+    check(again.auto_codec_pin["map"] == pin["map"]
+          and [r.train_loss for r in history2] == [r.train_loss for r in history]
+          and all(torch.equal(a, b) for a, b in zip(_trainer_params(again), params)),
+          "the auto run repeated gave other bits")
+    state.setdefault("launches", {})["auto_codec"] = launches
+    # compression by leaf under the pinned map
+    host = trainer._client0_params()
+    enc = encode_tree(host, "auto", trainer.cfg.fed.dcn_topk_ratio,
+                      sketch_width=trainer.cfg.fed.dcn_sketch_width,
+                      sketch_seed=trainer.cfg.fed.dcn_sketch_seed,
+                      leaf_codecs=list(pin["map"].values()))
+    by_leaf = {name: {"codec": c, "n": int(np.prod(shape)) if shape else 1,
+                      "ratio": (4 * (int(np.prod(shape)) if shape else 1))
+                      / max(payload_nbytes(p), 1)}
+               for name, c, p, shape in zip(leaf_names(host), pin["map"].values(), enc.payloads,
+                                             enc.shapes)}
+    counts: dict = {}
+    for c in pin["map"].values():
+        counts[c] = counts.get(c, 0) + 1
+    del trainer, again
+    torch.cuda.empty_cache()
+    return {
+        "config": {"clients": K, "steps": S, "batch_size": args.batch_size,
+                   "rounds": AUTO_ROUNDS, "warmup": 1, "valid": args.valid},
+        "pin_ms": pin["pin_ms"], "map_counts": counts,
+        "round_ms": round_ms, "round_ms_before_pin": round_ms[0],
+        "round_ms_after_pin": round_ms[1:],
+        "bytes_up_per_client": {"dense": dense_b, "after_pin": codec_b,
+                                "ratio": dense_b / codec_b},
+        "compression_by_leaf": by_leaf,
+        "losses": [r.train_loss for r in history],
+        "val_auc": [r.val_metrics["auc"] for r in history],
+        "repeat_bitwise": True,
+        "launches": {KERNEL_LETTER.get(k, k): v for k, v in launches.items() if v},
+    }
+
+
 def kernels_line(state: dict) -> dict:
     """One entry per kernel: launches and error from the path that runs it
     (A, B: main_path; C, D, E: train_path; A2, F1, F2, F3: long_path), its
     launches on every path (safety_path runs A through F3, A and F1-F3
     under the per-example transform; trainer_path, cohort_path, async_path and
     data_path run A through E, decoupled_path and family_path A, B and E,
-    serving_path A and B), times from the kernels phase.
-    ``launches_by_path["coordinator"]``, ``["elastic"]`` and ``["wire"]`` sum
-    the worker processes' own counts (A through E)."""
+    serving_path A and B, auto_codec_path A through E), times from the
+    kernels phase. ``launches_by_path["coordinator"]``, ``["elastic"]``,
+    ``["wire"]`` and ``["seq"]`` sum the worker processes' own counts (A
+    through E; the seq ranks' joint legs A)."""
     out = []
     for name, meta in KERNEL_META.items():
         t = state["timing"][name]
@@ -6333,6 +6859,9 @@ def kernels_line(state: dict) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if "--seq-rank" in argv:  # one rank of seq_path's world
+        return _seq_rank_main(argv)
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--phases", default=",".join(PHASES),
@@ -6441,6 +6970,8 @@ def main(argv=None) -> int:
         "elastic_path": lambda: phase_elastic_path(state, args),
         "async_path": lambda: phase_async_path(state, args),
         "wire_path": lambda: phase_wire_path(state, args),
+        "seq_path": lambda: phase_seq_path(state, args),
+        "auto_codec_path": lambda: phase_auto_codec_path(state, args),
         "serving_path": lambda: phase_serving_path(state, args),
     }
     try:

@@ -42,15 +42,28 @@ have no flags of their own, as in the JAX CLI: ``--set
 fed.population.num_clients=256 --set fed.server_opt=adam --set
 chaos.enabled=1 --set chaos.pop_drop_rate=0.2 --set
 data.prefetch_batches=2``.
+
+``--set fed.seq_shards=S`` (joint or finetune mode, ``--set
+fed.seq_impl=ring|ulysses``) runs the job as a seq world: this command
+starts S ranks on the local device with ``torch.multiprocessing`` (a gloo
+world on a free local port), each running the same ``Trainer`` over all
+clients with its slice of every history (``parallel.mesh``); rank 0 prints,
+logs, snapshots, evaluates and writes ``obs.dir``. A failed rank stops the
+others, and the command exits with the first failure's code.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
 import sys
 from pathlib import Path
 
 import numpy as np
+
+# this process's seat in a seq world (rank, size, address), set in each rank
+_SEQ_SEAT: tuple[int, int, str] | None = None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -115,7 +128,41 @@ def _device_count(dev) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _seq_rank(rank: int, argv: list[str], size: int, address: str) -> None:
+    """One rank of the seq world: ``main`` with its seat set; a non-zero
+    return is this process's exit code."""
+    global _SEQ_SEAT
+    _SEQ_SEAT = (rank, size, address)
+    rc = main(argv)
+    if rc:
+        sys.exit(rc)
+
+
+def _run_seq_world(argv: list[str], size: int) -> int:
+    """Start the ``size`` ranks of a seq world on this host and wait for
+    them; the first failure stops the others and gives the exit code."""
+    import torch.multiprocessing as mp
+
+    address = f"127.0.0.1:{_free_port()}"
+    try:
+        mp.spawn(_seq_rank, args=(argv, size, address), nprocs=size, join=True)
+    except mp.ProcessExitedException as e:
+        print(f"[run] seq rank {e.error_index} exited with code {e.exit_code}", file=sys.stderr)
+        return e.exit_code or 1
+    except mp.ProcessRaisedException as e:
+        print(f"[run] seq rank {e.error_index} failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.agg_server and not args.worker_id:
         print("[run] --agg-server requires --worker-id", file=sys.stderr)
@@ -168,6 +215,26 @@ def main(argv: list[str] | None = None) -> int:
                   "epsilon); use --mode joint for real DP-SGD", file=sys.stderr)
     # what the Trainer would refuse, before the data loads
     refuse_unported(cfg)
+    seq_world = None
+    if cfg.fed.seq_shards > 1:
+        from fedrec_tpu_torch.parallel.mesh import check_seq_layout
+
+        check_seq_layout(cfg)
+        if args.agg_server:
+            print("[run] --agg-server runs one single-client worker; fed.seq_shards>1 is not "
+                  "supported there", file=sys.stderr)
+            return 2
+        if _SEQ_SEAT is None:
+            return _run_seq_world(argv, cfg.fed.seq_shards)
+        from fedrec_tpu_torch.parallel.mesh import seq_group
+        from fedrec_tpu_torch.parallel.multihost import initialize_distributed
+
+        rank, size, address = _SEQ_SEAT
+        if dev.type == "cpu":
+            # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+        seq_world = seq_group(cfg, initialize_distributed(address, size, rank))
+    lead = seq_world is None or seq_world.rank == 0
 
     if cfg.data.dataset == "synthetic":
         data = make_synthetic_from_args(args, cfg)
@@ -184,25 +251,27 @@ def main(argv: list[str] | None = None) -> int:
         # several workers on one host share the page cache
         token_states = np.load(token_path, mmap_mode="c")
     else:
-        print(f"[run] no cached token states at {token_path}; using random states "
-              "(smoke mode)", file=sys.stderr)
+        if lead:
+            print(f"[run] no cached token states at {token_path}; using random states "
+                  "(smoke mode)", file=sys.stderr)
         token_states = np.random.default_rng(0).standard_normal(
             (data.num_news, data.title_len, cfg.model.bert_hidden)
         ).astype(np.float32)
 
     if args.dp_epsilon > 0:
         cfg.privacy.sigma = calibrate_from_config(cfg, len(data.train_samples))
-        print(f"[run] DP enabled: eps={cfg.privacy.epsilon} delta={cfg.privacy.delta} "
-              f"sigma={cfg.privacy.sigma:.4f} clip={cfg.privacy.clip_norm}", file=sys.stderr)
+        if lead:
+            print(f"[run] DP enabled: eps={cfg.privacy.epsilon} delta={cfg.privacy.delta} "
+                  f"sigma={cfg.privacy.sigma:.4f} clip={cfg.privacy.clip_norm}", file=sys.stderr)
 
     if args.agg_server:
         rc, history = _run_async_worker(args, cfg, data, token_states, dev)
         if rc:
             return rc
     else:
-        trainer = Trainer(cfg, data, token_states, device=dev)
+        trainer = Trainer(cfg, data, token_states, device=dev, seq_group=seq_world)
         history = trainer.run()
-    if history and history[-1].val_metrics:
+    if history and history[-1].val_metrics and lead:
         m = history[-1].val_metrics
         print(
             f"final: loss={history[-1].train_loss:.4f} "

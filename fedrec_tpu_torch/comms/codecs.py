@@ -107,7 +107,11 @@ def codec_caps(codec: str) -> CodecCaps:
 
 
 def codec_uses_feedback(codec: str, error_feedback: bool = True) -> bool:
-    """True when ``codec`` keeps per-client error-feedback residuals."""
+    """True when ``codec`` keeps per-client error-feedback residuals.
+    ``auto`` (the per-leaf map pinned from warm-up telemetry) allocates them:
+    its pinned map may put a biased codec on some leaves."""
+    if codec == "auto":
+        return error_feedback
     return error_feedback and codec in EF_CODECS
 
 
@@ -251,14 +255,20 @@ def payload_nbytes(payload: dict) -> int:
 @dataclass
 class EncodedTree:
     """One contribution, encoded: the per-leaf payloads (what travels) and
-    the host metadata that decodes any process's copy."""
+    the host metadata that decodes any process's copy. ``leaf_codecs``, when
+    set, is the per-leaf map that ``fed.dcn_compress='auto'`` pins: one codec
+    a flattened leaf, over the tree-wide ``codec`` label."""
 
     codec: str
     payloads: list
     shapes: list
     treedef: Any
+    leaf_codecs: list | None = None
     sketch_width: float = DEFAULT_SKETCH_WIDTH
     sketch_seed: int = DEFAULT_SKETCH_SEED
+
+    def leaf_codec(self, i: int) -> str:
+        return self.codec if self.leaf_codecs is None else self.leaf_codecs[i]
 
     def nbytes(self) -> int:
         return int(sum(payload_nbytes(p) for p in self.payloads))
@@ -271,24 +281,36 @@ def encode_tree(
     *,
     sketch_width: float = DEFAULT_SKETCH_WIDTH,
     sketch_seed: int = DEFAULT_SKETCH_SEED,
+    leaf_codecs: list | None = None,
 ) -> EncodedTree:
-    validate_codec(codec)
+    """``tree``'s leaves, flattened, each through ``encode_leaf`` with its
+    leaf index; ``leaf_codecs`` (one codec a leaf) overrides ``codec``."""
     flat, treedef = tree_flatten(tree)
     flat = [np.asarray(x, np.float32) for x in flat]
+    if leaf_codecs is None:
+        validate_codec(codec)
+        per_leaf = [codec] * len(flat)
+    else:
+        if len(leaf_codecs) != len(flat):
+            raise ValueError(
+                f"per-leaf codec map has {len(leaf_codecs)} entries but the tree has "
+                f"{len(flat)} leaves — stale fed.dcn_compress=auto map for this model config?")
+        per_leaf = [validate_codec(c) for c in leaf_codecs]
     return EncodedTree(
         codec=codec,
-        payloads=[encode_leaf(x, codec, topk_ratio, sketch_width=sketch_width,
+        payloads=[encode_leaf(x, c, topk_ratio, sketch_width=sketch_width,
                               sketch_seed=sketch_seed, leaf_id=i)
-                  for i, x in enumerate(flat)],
+                  for i, (x, c) in enumerate(zip(flat, per_leaf))],
         shapes=[x.shape for x in flat],
         treedef=treedef,
+        leaf_codecs=None if leaf_codecs is None else list(leaf_codecs),
         sketch_width=sketch_width,
         sketch_seed=sketch_seed,
     )
 
 
 def decode_tree(enc: EncodedTree) -> Any:
-    leaves = [decode_leaf(p, enc.codec, s, sketch_seed=enc.sketch_seed, leaf_id=i)
+    leaves = [decode_leaf(p, enc.leaf_codec(i), s, sketch_seed=enc.sketch_seed, leaf_id=i)
               for i, (p, s) in enumerate(zip(enc.payloads, enc.shapes))]
     return tree_unflatten(enc.treedef, leaves)
 
@@ -297,14 +319,14 @@ def decode_gathered(gathered_payloads: list, enc: EncodedTree) -> Any:
     """Decode a gathered copy of ``enc``'s payloads (each array with a
     leading (P,) process dim) into a tree of dense (P, *shape) f32 stacks:
     the decode-before-reduce step. Only for codecs that decode per
-    contribution; linear sketches go through :func:`sum_payloads` and one
-    :func:`decode_leaf`."""
+    contribution (each leaf by its own codec under a per-leaf map); linear
+    sketches go through :func:`sum_payloads` and one :func:`decode_leaf`."""
     leaves = []
     for i, (payload, shape) in enumerate(zip(gathered_payloads, enc.shapes)):
         num_p = int(np.asarray(next(iter(payload.values()))).shape[0])
         leaves.append(np.stack([
             decode_leaf({k: np.asarray(v)[p] for k, v in payload.items()},
-                        enc.codec, shape, sketch_seed=enc.sketch_seed, leaf_id=i)
+                        enc.leaf_codec(i), shape, sketch_seed=enc.sketch_seed, leaf_id=i)
             for p in range(num_p)
         ]))
     return tree_unflatten(enc.treedef, leaves)

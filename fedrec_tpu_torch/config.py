@@ -8,8 +8,8 @@ section.key=value`` overrides work as they do there
 
 Some fields exist only so that a lever the port does not run yet can be
 named and refused at build time (``train.step.build_fed_train_step`` and
-``train.trainer.Trainer``): ``fed.seq_shards``, ``shard.table`` and
-``fed.dcn_compress="auto"`` (ROADMAP.md's Queue A item 9). ``obs.health``'s flight-recorder fields are inert
+``train.trainer.Trainer``): ``shard.table`` and ``shard.fsdp`` (ROADMAP.md's
+Queue A item 9). ``obs.health``'s flight-recorder fields are inert
 without ``obs.dir``, as in the JAX package; ``obs.perf.compile_cost`` is
 accepted and inert (the port has no XLA compiles to price).
 """
@@ -208,14 +208,22 @@ class FedConfig:
     # (McMahan et al.); False = reference parity, the server's unweighted
     # key-wise mean over unequal shards (reference server.py:37-55)
     weight_by_samples: bool = False
-    seq_shards: int = 1                # not ported: > 1 raises
+    # sequence parallelism: each client's history split over a seq world of
+    # this many processes (parallel.mesh.seq_group), the user tower attending
+    # across it by ring or Ulysses collectives (parallel.ring). 1 = off
+    seq_shards: int = 1
+    seq_impl: str = "ring"             # "ring" | "ulysses"
     # the update codec of the round-end sync and the coordinator's wire
-    # (comms.codecs): none|int8|sign1bit|topk|countsketch|randproj. "auto"
-    # (a per-leaf map pinned from warm-up telemetry) is not ported and raises
+    # (comms.codecs): none|int8|sign1bit|topk|countsketch|randproj, or "auto"
+    # (a per-leaf map pinned from warm-up telemetry; the trainer only)
     dcn_compress: str = "none"
     dcn_topk_ratio: float = 0.01       # topk: ceil(ratio * n) coordinates a tensor
     dcn_sketch_width: float = 0.1      # sketches: buckets / coordinates, in (0, 1]
     dcn_sketch_seed: int = 0           # the shared sketch hash/projection seed
+    # dcn_compress="auto": rounds observed (with the sync running dense)
+    # before the per-leaf codec map is pinned. The map derives from the
+    # warmup round's global delta, identical on every process.
+    dcn_auto_warmup: int = 1
     # per-client error-feedback residuals for the biased codecs (sign1bit, topk)
     dcn_error_feedback: bool = True
     # FedOpt over round deltas (fed.strategies.ServerOptimizer): "none"
@@ -256,6 +264,7 @@ class PrivacyConfig:
 @dataclass
 class ShardConfig:
     table: bool = False                # not ported: True raises
+    fsdp: int = 1                      # not ported: > 1 raises
 
 
 @dataclass

@@ -9,6 +9,15 @@
   (``attn_impl``): dense scores, the blockwise ``chunked_attention`` loop,
   or ``flash_attention`` (kernel F1, with F2 and F3 as its backward).
 
+Under a seq world (``seq_group``, ``fed.seq_shards > 1``; the sequence
+holds only this rank's shard) both modules take ``parallel.ring``'s
+collectives instead: ``AdditiveAttention`` the plain logits into
+``seq_parallel_pool`` (kernel A cannot span ranks), ``MultiHeadAttention``
+``ring_attention`` or ``ulysses_attention`` (``seq_impl``), bypassing
+``attn_impl``. ``seq_parallel(group, ...)`` returns a copy of a module that
+shares its parameters and runs that way, as the JAX step's
+``model.clone(seq_axis=...)`` does.
+
 Submodule names follow the Flax parameter tree (``att_fc1``, ``w_q``, ...),
 so ``params.from_flax`` maps a JAX checkpoint onto them by path. Parameters
 are kept in float32; ``dtype`` is the compute dtype, as in Flax's ``Dense``
@@ -16,6 +25,8 @@ are kept in float32; ``dtype`` is the compute dtype, as in Flax's ``Dense``
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +39,15 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """Flax ``Dense(dtype=...)`` semantics: cast input, weight and bias to
     the compute dtype, then ``x W^T + b``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def seq_clone(module: nn.Module, **attrs) -> nn.Module:
+    """A shallow copy of ``module`` that shares its parameters (and, unless
+    replaced, its submodules), with ``attrs`` set on the copy only."""
+    clone = copy.copy(module)
+    clone.__dict__["_modules"] = dict(module._modules)
+    clone.__dict__.update(attrs)
+    return clone
 
 
 def _masked_normalize(
@@ -54,6 +74,7 @@ class AdditiveAttention(nn.Module):
         stable_softmax: bool = True,
         dtype: torch.dtype = torch.float32,
         use_pallas: bool = False,
+        seq_group=None,
     ):
         super().__init__()
         self.att_fc1 = nn.Linear(in_dim, hidden)
@@ -61,8 +82,21 @@ class AdditiveAttention(nn.Module):
         self.stable_softmax = stable_softmax
         self.dtype = dtype
         self.use_pallas = use_pallas
+        self.seq_group = seq_group  # a seq world (parallel.ring.SeqGroup)
+
+    def seq_parallel(self, group) -> "AdditiveAttention":
+        return seq_clone(self, seq_group=group)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.seq_group is not None:
+            # x holds only this rank's sequence shard; normalise over the world
+            from fedrec_tpu_torch.parallel.ring import seq_parallel_pool
+
+            logits = dense(self.att_fc2, torch.tanh(dense(self.att_fc1, x, self.dtype)),
+                           self.dtype)[..., 0]
+            if mask is not None:
+                mask = mask.to(logits.dtype)
+            return seq_parallel_pool(x, logits, mask, self.seq_group)
         if self.use_pallas and self.stable_softmax:
             if mask is not None:
                 mask = mask.to(torch.float32).contiguous()
@@ -97,6 +131,8 @@ class MultiHeadAttention(nn.Module):
         use_pallas: bool = False,
         attn_impl: str = "auto",
         chunk_threshold: int = 1024,
+        seq_group=None,
+        seq_impl: str = "ring",
     ):
         super().__init__()
         d = num_heads * head_dim
@@ -110,6 +146,11 @@ class MultiHeadAttention(nn.Module):
         self.use_pallas = use_pallas
         self.attn_impl = attn_impl
         self.chunk_threshold = chunk_threshold
+        self.seq_group = seq_group  # a seq world (parallel.ring.SeqGroup)
+        self.seq_impl = seq_impl    # "ring" | "ulysses"
+
+    def seq_parallel(self, group, impl: str = "ring") -> "MultiHeadAttention":
+        return seq_clone(self, seq_group=group, seq_impl=impl)
 
     def resolve_impl(self, length: int) -> str:
         """The route for a query length: ``attn_impl`` unless "auto". The
@@ -138,7 +179,6 @@ class MultiHeadAttention(nn.Module):
     ) -> torch.Tensor:
         *batch, L, _ = q.shape
         d = self.num_heads * self.head_dim
-        impl = self.resolve_impl(L)
 
         def split_heads(x):
             return x.reshape(*batch, -1, self.num_heads, self.head_dim)
@@ -146,6 +186,15 @@ class MultiHeadAttention(nn.Module):
         q_s = split_heads(dense(self.w_q, q, self.dtype))  # (..., L, H, Dk)
         k_s = split_heads(dense(self.w_k, k, self.dtype))
         v_s = split_heads(dense(self.w_v, v, self.dtype))
+        if self.seq_group is not None:
+            # the sequence-sharded path; L is this rank's shard
+            from fedrec_tpu_torch.parallel.ring import ring_attention, ulysses_attention
+
+            if self.seq_impl not in ("ring", "ulysses"):
+                raise ValueError(f"seq_impl must be 'ring' or 'ulysses', got {self.seq_impl!r}")
+            sp = ring_attention if self.seq_impl == "ring" else ulysses_attention
+            return sp(q_s, k_s, v_s, mask, self.seq_group).reshape(*batch, L, d)
+        impl = self.resolve_impl(L)
         if impl == "pallas":
             # blocked online softmax, kernels F1-F3: no (..., H, L, L) scores
             return flash_attention(q_s, k_s, v_s, mask).reshape(*batch, L, d)

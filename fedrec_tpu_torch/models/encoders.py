@@ -10,7 +10,11 @@ vectors to a user vector: dropout, then either the dense chain
 (``model.fuse_hot_path``), kernel B (``ops.fused_history_score``, with
 kernel E as its backward), which also scores candidates when they are
 passed. Both routes hold the same parameters under the same names, so one
-checkpoint drives either.
+checkpoint drives either. Under a seq world (``seq_group``: the history
+holds only this rank's columns) the dense chain takes ``parallel.ring``'s
+attention (``seq_impl``) and pool, fusion is off, and the dropout keep mask
+is drawn for the whole history and cut to this rank's columns, so the world
+draws the masks the unsharded tower would.
 
 The other model families (``model.text_head_arch='cnn'``,
 ``model.user_tower='gru'``):
@@ -35,7 +39,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedrec_tpu_torch.models.attention import AdditiveAttention, MultiHeadAttention, dense
+from fedrec_tpu_torch.models.attention import (
+    AdditiveAttention,
+    MultiHeadAttention,
+    dense,
+    seq_clone,
+)
 from fedrec_tpu_torch.ops import UserTowerWeights, fused_history_score
 
 
@@ -50,6 +59,19 @@ def dropout(
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return apply_dropout_mask(x, keep, rate)
+
+
+def seq_dropout(x: torch.Tensor, rate: float, train: bool, generator: torch.Generator | None,
+                group) -> torch.Tensor:
+    """``dropout`` of a (..., L/S, D) history shard of rank r in a seq
+    world of S: the keep mask is drawn for the whole (..., L, D) history
+    (every rank draws the same, from the same replicated stream) and cut to
+    columns ``[r L/S, (r+1) L/S)``."""
+    if not train or rate == 0.0:
+        return x
+    *b, ls, d = x.shape
+    keep = torch.rand((*b, ls * group.size, d), generator=generator, device=x.device) < 1.0 - rate
+    return apply_dropout_mask(x, keep[..., group.rank * ls:(group.rank + 1) * ls, :], rate)
 
 
 def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -105,19 +127,31 @@ class UserEncoder(nn.Module):
         fuse: bool = False,
         attn_impl: str = "auto",
         chunk_threshold: int = 1024,
+        seq_group=None,
+        seq_impl: str = "ring",
     ):
         super().__init__()
         self.self_attn = MultiHeadAttention(
             news_dim, num_heads, head_dim, stable_softmax, dtype, use_pallas,
-            attn_impl, chunk_threshold,
+            attn_impl, chunk_threshold, seq_group, seq_impl,
         )
         self.pool = AdditiveAttention(
-            num_heads * head_dim, query_dim, stable_softmax, dtype, use_pallas
+            num_heads * head_dim, query_dim, stable_softmax, dtype, use_pallas, seq_group
         )
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
-        self.fused = fuse and stable_softmax
+        self.seq_group = seq_group
+        # the fused kernel holds the whole history per row: off under a seq world
+        self.fused = fuse and stable_softmax and seq_group is None
         self._packed: tuple | None = None
+
+    def seq_parallel(self, group, impl: str = "ring") -> "UserEncoder":
+        """A copy sharing this tower's parameters that runs over the seq
+        world ``group`` (the JAX step's ``model.clone(seq_axis=...)``)."""
+        return seq_clone(self, seq_group=group, fused=False,
+                         _modules={**self._modules,
+                                   "self_attn": self.self_attn.seq_parallel(group, impl),
+                                   "pool": self.pool.seq_parallel(group)})
 
     def fused_weights(self, dtype: torch.dtype) -> UserTowerWeights:
         """Kernel B's nine operands in the (in, out) layout and ``dtype``.
@@ -159,9 +193,13 @@ class UserEncoder(nn.Module):
         if cand_vecs is not None and not self.fused:
             raise ValueError(
                 "UserEncoder(cand_vecs=...) is the fused-scoring entry; it "
-                "requires fuse=True (model.fuse_hot_path) with stable_softmax"
+                "requires fuse=True (model.fuse_hot_path) with stable_softmax "
+                "and no sequence sharding"
             )
-        x = dropout(clicked_vecs, self.dropout_rate, train, generator)
+        if self.seq_group is not None:
+            x = seq_dropout(clicked_vecs, self.dropout_rate, train, generator, self.seq_group)
+        else:
+            x = dropout(clicked_vecs, self.dropout_rate, train, generator)
         if self.fused:
             scores, user = fused_history_score(
                 x, cand_vecs, mask, self.fused_weights(x.dtype), self.num_heads

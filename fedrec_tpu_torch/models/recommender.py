@@ -9,6 +9,7 @@ from torch import nn
 
 from fedrec_tpu_torch.config import ModelConfig
 from fedrec_tpu_torch.device import torch_dtype
+from fedrec_tpu_torch.models.attention import seq_clone
 from fedrec_tpu_torch.models.bert import make_text_encoder
 from fedrec_tpu_torch.models.encoders import CnnTextHead, GRUUserEncoder, TextHead, UserEncoder
 
@@ -50,7 +51,8 @@ class NewsRecommender(nn.Module):
     tower is ``UserEncoder`` (``user_tower='mha'``) or ``GRUUserEncoder``
     (``'gru'``). Each family's attribute name is shared, as in the Flax
     tree, and its leaves differ, so snapshots are per family. The JAX
-    module's refusals stand, with its wording."""
+    module's refusals stand, with its wording; ``seq_parallel`` is the
+    model under a seq world (``fed.seq_shards > 1``)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -117,6 +119,25 @@ class NewsRecommender(nn.Module):
             )
         else:
             raise ValueError(f"unknown model.user_tower {tower!r}; have 'mha', 'gru'")
+
+    def seq_parallel(self, group, impl: str = "ring") -> "NewsRecommender":
+        """A copy sharing this model's parameters whose user tower runs over
+        the seq world ``group`` (``fed.seq_shards > 1``): the JAX step's
+        ``model.clone(seq_axis=...)``, with the JAX module's refusals."""
+        if self.cfg.fuse_hot_path:
+            raise ValueError(
+                "model.fuse_hot_path cannot run under fed.seq_shards>1 "
+                "(the fused kernel holds the whole history per row); "
+                "use the ring/Ulysses path for sharded histories"
+            )
+        if self.cfg.user_tower == "gru":
+            raise ValueError(
+                "model.user_tower='gru' cannot run under fed.seq_shards>1 "
+                "(sequence parallelism is attention-specific); use the "
+                "'mha' tower for seq-sharded histories"
+            )
+        return seq_clone(self, _modules={**self._modules,
+                                         "user_encoder": self.user_encoder.seq_parallel(group, impl)})
 
     @property
     def news_tower(self) -> nn.Module:

@@ -261,6 +261,11 @@ def request_json_line(
                 buf += chunk
         if not buf:
             raise OSError("empty response (connection closed before a reply)")
+        if b"\n" not in buf:
+            # a hang-up mid-reply (a peer killed while it streamed a large
+            # reply): the line never ended, so it is a transport failure the
+            # caller may retry, not a malformed answer
+            raise OSError(f"connection closed mid-reply ({len(buf)} bytes, no line end)")
         resp = json.loads(buf.split(b"\n", 1)[0].decode())
         if isinstance(resp, dict) and resp.get("error"):
             raise ValueError(str(resp["error"]))

@@ -1,7 +1,9 @@
 """The coordinator deployment's world on ``torch.distributed`` (gloo,
 ``parallel.multihost``), its elastic membership service
-(``parallel.membership``) and the wire clients' failure handling
-(``parallel.rpc``: backoff, ``FleetRpc``, the circuit breaker).
+(``parallel.membership``), the wire clients' failure handling
+(``parallel.rpc``: backoff, ``FleetRpc``, the circuit breaker) and sequence
+parallelism (``parallel.ring``: ring and Ulysses attention, the seq-sharded
+pool; ``parallel.mesh``: the seq world's group and batch layout).
 
 The names load on first use, so that the torch-free membership service
 (which a coordinator worker joins before it imports torch) and the
@@ -17,6 +19,12 @@ _EXPORTS = {
     "broadcast_params": "multihost",
     "broadcast_round_index": "multihost",
     "initialize_distributed": "multihost",
+    "SeqGroup": "ring",
+    "ring_attention": "ring",
+    "seq_parallel_pool": "ring",
+    "ulysses_attention": "ring",
+    "seq_group": "mesh",
+    "shard_fed_batch": "mesh",
     "RC_DEGRADED": "rpc",
     "AuthorityUnreachable": "rpc",
     "CircuitBreaker": "rpc",

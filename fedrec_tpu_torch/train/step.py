@@ -53,6 +53,12 @@ to C, plus ``N(0, (sigma C / B)^2)`` (``per_example_dp_grads``): each
 example encodes its own news, and under ``model.use_pallas`` kernels A and
 F1-F3 run inside ``torch.func.vmap``, folding the examples into their rows.
 
+Under ``fed.seq_shards = S > 1`` (joint and finetune modes) the step runs on
+every rank of a seq world (``parallel.ring``, ``parallel.mesh``) with this
+rank's columns of every history: the user tower attends by ring or Ulysses
+collectives and pools over the world, and one collective sums the clients'
+gradients over the world before the optimizers (``build_fed_train_step``).
+
 Every step returns the health sentry's per-client vector
 (``obs.health.sentry``, on by default; device tensors, no host read), and
 applies the chaos plan's update faults (``chaos.enabled``) between an
@@ -83,6 +89,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fedrec_tpu_torch.comms.codecs import (
+    codec_caps,
     codec_uses_feedback,
     torch_encode_decode,
     validate_codec,
@@ -100,6 +107,7 @@ from fedrec_tpu_torch.fed.strategies import FedStrategy, ParamAvg, weighted_para
 from fedrec_tpu_torch.models import NewsRecommender, score_candidates, score_loss
 from fedrec_tpu_torch.models.encoders import apply_dropout_mask
 from fedrec_tpu_torch.ops import fused_gather_encode
+from fedrec_tpu_torch.parallel.ring import SeqGroup, scale_grad
 from fedrec_tpu_torch.params import flax_leaf_count, flax_leaves, load_flax_leaves
 from fedrec_tpu_torch.privacy import make_noise_fn, per_example_clipped_grads
 from fedrec_tpu_torch.train.state import ClientState, make_optimizers
@@ -292,6 +300,20 @@ def _batch_news_vecs_tokens(text_encoder, tokens_table: torch.Tensor,
     return flat[: b * c].reshape(b, c, -1), flat[b * c:].reshape(b, h, -1)
 
 
+def _encode_tokens_rows(text_encoder, tokens_table: torch.Tensor, ids_2d: torch.Tensor,
+                        generator: torch.Generator | None) -> torch.Tensor:
+    """One (B, K) id block's distinct news through the whole ``TextEncoder``
+    (training), (B, K, D). Under a seq world in finetune mode candidates and
+    the local history shard are encoded separately: a joint dedup over both
+    would put the same candidate at another row on each rank and give it
+    another trunk dropout mask, de-replicating the candidate encode (and the
+    1/S gradient correction with it). Alone, the candidates' rows and masks
+    are the same on every rank."""
+    b, k = ids_2d.shape
+    flat = _encode_unique_tokens(text_encoder, tokens_table, ids_2d.reshape(-1), True, generator)
+    return flat.reshape(b, k, -1)
+
+
 @torch.no_grad()
 def encode_corpus_tokens(
     text_encoder,
@@ -319,14 +341,20 @@ def encode_corpus_tokens(
 def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
     """Fail at build time, naming the lever, for what the port cannot run
     and for the combinations the JAX ``build_fed_train_step`` refuses (with its
-    wording): the one list of refusals, which the train step, ``Trainer``
-    and the run CLI share."""
+    wording, in its order): the one list of refusals, which the train step,
+    ``Trainer`` and the run CLI share."""
     if mode not in ("joint", "decoupled", "finetune"):
         raise ValueError(f"unknown step mode {mode!r}")
+    n_seq = cfg.fed.seq_shards
+    if n_seq > 1 and mode not in ("joint", "finetune"):
+        raise NotImplementedError(
+            "fed.seq_shards > 1 requires mode='joint'/'finetune' (the "
+            "decoupled news-grad accumulator is not seq-sharded)"
+        )
     if _uses_dpsgd(cfg):
         # the JAX build_fed_train_step's refusals (fedrec_tpu/train/step.py), in its
         # order; decoupled mode's dpsgd ValueError is _noise_hook's
-        if cfg.fed.seq_shards > 1:
+        if n_seq > 1:
             raise NotImplementedError(
                 "per-example DP-SGD with sequence parallelism is not supported; "
                 "use seq_shards=1 with mechanism='dpsgd'"
@@ -350,11 +378,30 @@ def _refuse_unported(cfg: ExperimentConfig, mode: str) -> None:
                 "rows directly, bypassing the owner-bucketed exchange); "
                 "unset one of the two"
             )
+    if n_seq > 1:
+        if cfg.model.fuse_hot_path:
+            raise NotImplementedError(
+                "model.fuse_hot_path with fed.seq_shards>1 is not supported "
+                "(the fused kernel holds the whole history per row); use "
+                "the ring/Ulysses path for sharded histories"
+            )
+        if mode == "joint" and cfg.shard.table:
+            raise NotImplementedError(
+                "shard.table with fed.seq_shards>1 is not supported (the "
+                "catalog shards over the clients axis; a seq-sharded mesh "
+                "would need a 2-D exchange); unset one of the two"
+            )
+        if cfg.chaos.enabled:
+            raise NotImplementedError(
+                "chaos fault injection with fed.seq_shards > 1 is not supported "
+                "(the seq-parallel batch spec does not carry the per-client "
+                "fault vectors); run the plan with seq_shards=1"
+            )
+        if cfg.fed.seq_impl not in ("ring", "ulysses"):
+            raise ValueError(f"seq_impl must be 'ring' or 'ulysses', got {cfg.fed.seq_impl!r}")
     levers = [
-        ("fed.seq_shards>1 (ROADMAP.md's Queue A item 9)", cfg.fed.seq_shards > 1),
         ("shard.table (ROADMAP.md's Queue A item 9)", cfg.shard.table),
-        ("fed.dcn_compress='auto' (the per-leaf codec map pinned from warm-up "
-         "telemetry: ROADMAP.md's Queue A item 9)", cfg.fed.dcn_compress == "auto"),
+        ("shard.fsdp>1 (ROADMAP.md's Queue A item 9)", cfg.shard.fsdp > 1),
     ]
     for name, on in levers:
         if on:
@@ -519,6 +566,7 @@ def build_fed_train_step(
     strategy: FedStrategy,
     mode: str | None = None,
     device: str | torch.device | None = None,
+    seq_group: SeqGroup | None = None,
 ) -> Callable:
     """The per-batch federated train step.
 
@@ -567,11 +615,37 @@ def build_fed_train_step(
     ``model`` is the clients' architecture (``model.cfg``); the step runs
     each client's own copy. ``device`` defaults to ``cuda`` and raises
     without a GPU unless ``device="cpu"``.
+
+    Sequence parallelism (``fed.seq_shards = S > 1``, joint and finetune
+    modes): the step runs on every rank of the seq world ``seq_group``
+    (``parallel.mesh.seq_group``), each holding all K clients, and
+    ``batch["history"]`` holds this rank's (K, B, H/S) columns
+    (``parallel.mesh.shard_fed_batch``). Each client's user tower runs over
+    the world (``NewsRecommender.seq_parallel``: ring or Ulysses attention
+    by ``fed.seq_impl``, the seq-sharded pool); the candidate vectors, the
+    same on every rank, have their cotangent scaled by 1/S, and after the K
+    backward passes one collective sums every client's user and news
+    gradients over the world (and each client's ``unique_overflow`` flag,
+    per rank's own dedup), before any noise, sync or optimizer step, so every
+    rank steps the same parameters. Finetune mode encodes the candidates and
+    the local history shard separately (``_encode_tokens_rows``): the
+    candidates' trunk dropout from the client's stream, the same on every
+    rank, the history's from a stream forked per rank; it reports no
+    ``unique_overflow``, as in JAX.
     """
     dev = resolve_device(device)
     if mode is None:
         mode = MODES.get(cfg.model.text_encoder_mode, "joint")
     _refuse_unported(cfg, mode)
+    n_seq = cfg.fed.seq_shards
+    seq = seq_group if n_seq > 1 else None
+    if n_seq > 1 and (seq_group is None or seq_group.size != n_seq):
+        got = "none" if seq_group is None else f"one of {seq_group.size}"
+        raise ValueError(
+            f"fed.seq_shards={n_seq} but the step has {got} for a seq world — build it with "
+            "parallel.mesh.seq_group")
+    if seq is not None:
+        model.seq_parallel(seq, cfg.fed.seq_impl)  # the model's own refusals, at build time
     noise_fn = _noise_hook(cfg, mode)
     opt_user, opt_news = make_optimizers(cfg)
     # kernels B/E ride the model's user tower in every mode
@@ -593,18 +667,50 @@ def build_fed_train_step(
         if joint:
             cand_vecs, his_vecs = _batch_news_vecs(m, table, cand, hist, cap, fuse_gather,
                                                    gather_chunk)
+        elif seq is not None:
+            # finetune under a seq world: candidates alone (the same rows and
+            # dropout on every rank), then the local history shard
+            cand_vecs = _encode_tokens_rows(m.text_encoder, table, cand, st.generator)
+            his_vecs = _encode_tokens_rows(m.text_encoder, table, hist, _rank_stream(st))
         else:  # finetune: the table holds token ids
             cand_vecs, his_vecs = _batch_news_vecs_tokens(m.text_encoder, table, cand, hist,
                                                           True, st.generator, cap)
+        if seq is not None:
+            # replicated on every rank: the world's gradient sum counts it once
+            cand_vecs = scale_grad(cand_vecs, 1.0 / n_seq)
+            m = m.seq_parallel(seq, cfg.fed.seq_impl)
         scores = m(cand_vecs, his_vecs, None, train=True, generator=st.generator)
         loss = score_loss(scores, lab, sigmoid_ce)
         grads = torch.autograd.grad(loss, user_p + news_p, allow_unused=True)
-        user_g, news_g = grads[:len(user_p)], grads[len(user_p):]
-        if noise_fn is not None:
-            # an unused leaf's gradient is zero, and noised as one
-            news_g = [torch.zeros_like(p) if g is None else g for g, p in zip(news_g, news_p)]
-            user_g, news_g = noise_fn((user_g, news_g), st.noise_generator)
-        return loss, user_g, news_g
+        return loss, list(grads[:len(user_p)]), list(grads[len(user_p):])
+
+    def _rank_stream(st: ClientState) -> torch.Generator | None:
+        """This rank's history-encode stream, forked from the client's
+        (replicated) one when the trunk draws dropout masks."""
+        if cfg.model.trunk_dropout == 0.0:
+            return st.generator
+        base = int(torch.randint(0, 2**62, (1,), generator=st.generator, device=dev))
+        return torch.Generator(device=dev).manual_seed(base + 1 + seq.rank)
+
+    def add_noise(st: ClientState, user_g, news_g):
+        # an unused leaf's gradient is zero, and noised as one
+        news_g = [torch.zeros_like(p) if g is None else g
+                  for g, p in zip(news_g, st.news_params())]
+        return noise_fn((user_g, news_g), st.noise_generator)
+
+    def seq_sum(user_g: list, news_g: list, flags: list[int]) -> tuple[list, list, int]:
+        """Every client's gradients (and overflow flags) summed over the seq
+        world in one collective; a missing gradient stays missing (the
+        pattern is the same on every rank)."""
+        cells = [g for gs in user_g + news_g for g in gs if g is not None]
+        flat = torch.cat([*(g.reshape(-1).float() for g in cells),
+                          torch.tensor(flags, dtype=torch.float32, device=dev)])
+        total = seq.sum(flat)
+        parts = iter(total[:flat.numel() - len(flags)].split([g.numel() for g in cells]))
+        out = [[None if g is None else next(parts).view_as(g).to(g.dtype) for g in gs]
+               for gs in user_g + news_g]
+        k = len(user_g)
+        return out[:k], out[k:], int(total[flat.numel() - len(flags):].sum().item())
 
     def dpsgd_grads(st: ClientState, cand, hist, lab, token_states):
         loss, user_g, news_g, stats = per_example_dp_grads(
@@ -653,10 +759,10 @@ def build_fed_train_step(
             codes = np.asarray(batch["chaos.code"]).reshape(k)
             scales = np.asarray(batch["chaos.scale"]).reshape(k)
         cap = resolve_unique_cap(cfg, labels.shape[1]) if encodes and not use_dpsgd else 0
-        losses, user_g, news_g, overflow = [], [], [], 0
+        # finetune mode under a seq world encodes rows apart: no capped dedup
+        capped = cap and not (seq is not None and not joint)
+        losses, user_g, news_g, flags, extras = [], [], [], [], []
         health: dict[str, list] = {}  # DP-SGD's clip statistics
-        # the sentry's norm groups: each client's grads, updates, params
-        groups: list[list] = [[], [], []]
         for st, cand, hist, lab in zip(states, cands, hists, labels):
             extra = None  # decoupled mode: the gathered vectors' gradients
             if use_dpsgd:
@@ -666,17 +772,26 @@ def build_fed_train_step(
                     health.setdefault("health.clip_max_norm", []).append(stats["max_norm"])
             elif encodes:
                 loss, ug, ng = joint_grads(st, cand, hist, lab, table, cap)
-                overflow += unique_overflow(cand, hist, cap, table.shape[0]) if cap else 0
+                flags.append(unique_overflow(cand, hist, cap, table.shape[0]) if capped else 0)
             else:
                 loss, ug, extra = decoupled_grads(st, cand, hist, lab, table)
                 ng = None
-            if sentry:
-                # each client's own gradients, after the noise and before
-                # the sync blends them into the cohort's
-                groups[0].append(_leaves(ug, ng, *(extra or ())))
             losses.append(loss.detach())
             user_g.append(ug)
             news_g.append(ng)
+            extras.append(extra)
+        overflow = sum(flags)
+        if seq is not None:
+            # each rank holds partial gradients (its history slice): the sum
+            # is the whole gradient, the same on every rank
+            user_g, news_g, overflow = seq_sum(user_g, news_g, flags)
+        if noise_fn is not None and encodes and not use_dpsgd:
+            for c, st in enumerate(states):
+                user_g[c], news_g[c] = add_noise(st, user_g[c], news_g[c])
+        # the sentry's norm groups: each client's grads (after the noise and
+        # before the sync blends them into the cohort's), updates, params
+        groups: list[list] = [[_leaves(ug, ng, *(ex or ())) for ug, ng, ex
+                               in zip(user_g, news_g, extras)] if sentry else [], [], []]
         user_g = strategy.sync_grads(user_g)
         if news_g[0] is not None:
             news_g = strategy.sync_grads(news_g)
@@ -813,7 +928,8 @@ def load_contribution(st: ClientState, leaves: Sequence) -> None:
     load_flax_leaves(st.model.news_tower, leaves[n_user:])
 
 
-def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None) -> Callable:
+def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None,
+                     leaf_codecs: Sequence[str] | None = None) -> Callable:
     """Round-end parameter aggregation through the strategy.
 
     ``sync(states, weights) -> states``, ``weights`` one round weight per
@@ -839,6 +955,12 @@ def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None)
     method runs over the decoded deltas (decode before reduce); every
     client adopts entry + aggregate. A round with no reporter keeps every
     client's parameters.
+
+    ``leaf_codecs`` (``fed.dcn_compress='auto'``): the pinned per-leaf codec
+    map, one concrete codec a contribution leaf, over the tree-wide codec;
+    error feedback then applies per leaf, only where the leaf's codec is
+    biased (``codec_caps(c).supports_error_feedback``). Under "auto" with no
+    map yet (the warm-up window) every leaf runs the codec body as "none".
     """
     strategy = strategy or ParamAvg()
     rb = cfg.fed.robust
@@ -853,23 +975,36 @@ def build_param_sync(cfg: ExperimentConfig, strategy: FedStrategy | None = None)
 
     if compressed_sync_active(cfg, strategy):
         fed = cfg.fed
-        codec = validate_codec(fed.dcn_compress)
+        codec = fed.dcn_compress
+        if leaf_codecs is None and codec != "auto":
+            validate_codec(codec)
         use_ef = codec_uses_feedback(codec, fed.dcn_error_feedback)
+        # codec="auto" with no pinned map yet is the warm-up window: an
+        # all-"none" map through the codec body
+        tree_wide = "none" if codec == "auto" else codec
 
         @torch.no_grad()
         def sync_codec(states: list[ClientState], weights, entry) -> list[ClientState]:
             w = np.asarray(weights, dtype=np.float32).reshape(-1)
+            n_leaves = len(entry[0])
+            per_leaf = ([tree_wide] * n_leaves if leaf_codecs is None
+                        else [validate_codec(c) for c in leaf_codecs])
+            if len(per_leaf) != n_leaves:
+                raise ValueError(f"per-leaf codec map has {len(per_leaf)} entries but the "
+                                 f"contribution tree has {n_leaves} leaves")
+            # error feedback per leaf, only where the leaf's codec is biased
+            ef = [use_ef and codec_caps(c).supports_error_feedback for c in per_leaf]
             decoded = []
             for st, base, wc in zip(states, entry, w):
                 decs = []
                 for i, (t, e) in enumerate(zip(contribution_leaves(st), base)):
                     a = t - e
-                    if use_ef:
+                    if ef[i]:
                         a = a + st.ef_residual[i]
-                    dec = torch_encode_decode(a, codec, fed.dcn_topk_ratio,
+                    dec = torch_encode_decode(a, per_leaf[i], fed.dcn_topk_ratio,
                                               sketch_width=fed.dcn_sketch_width,
                                               sketch_seed=fed.dcn_sketch_seed, leaf_id=i)
-                    if use_ef and wc > 0:
+                    if ef[i] and wc > 0:
                         # a weight-0 client sent nothing: its residual carries over
                         st.ef_residual[i] = a - dec
                     decs.append(dec)

@@ -119,6 +119,23 @@ evaluation, ``obs.perf.enabled`` the MFU and roofline gauges and the
 capture windows. ``data.native_loader`` feeds the fixed world from the C++
 engine (``data.native_batcher``).
 
+Sequence parallelism (``fed.seq_shards = S > 1``, ``seq_group``): every
+rank of a seq world of S processes (``parallel.mesh.seq_group``) runs this
+trainer over all K clients with the same seed, so the ranks hold the same
+parameters; each step takes the rank's columns of every history
+(``parallel.mesh.shard_fed_batch``) through the seq train step, whose
+gradient sum keeps them equal. The round's losses and health vectors are
+the lead's (rank 0), broadcast, so every rank's health verdicts agree. Rank 0
+evaluates the unsharded model (the clients' own modules; the seq view is the
+step's) and broadcasts the metrics; it alone prints, logs, snapshots,
+writes ``obs.dir``, pushes telemetry and runs the watch. Every rank
+restores a snapshot the lead wrote.
+
+``fed.dcn_compress="auto"``: the sync runs an all-"none" map through the
+codec body for ``fed.dcn_auto_warmup`` rounds, then ``_pin_auto_codec_map``
+picks a codec a leaf from that round's global delta and rebuilds the sync
+around it (``codec_map.json`` beside the obs artifacts).
+
 The levers this trainer does not run are refused by name at construction
 (``train.step._refuse_unported``).
 """
@@ -139,6 +156,8 @@ from fedrec_tpu_torch.agg.buffer import AGG_BUFFER_SIDECAR, AggBuffer, BufferEnt
 from fedrec_tpu_torch.agg.commit import CommitPolicy, encode_contribution, fold_commit
 from fedrec_tpu_torch.comms.codecs import (
     codec_caps,
+    decode_leaf,
+    encode_leaf,
     encode_tree,
     leaf_names,
     payload_nbytes,
@@ -175,6 +194,8 @@ from fedrec_tpu_torch.obs.health import FlightRecorder
 from fedrec_tpu_torch.obs.report import dump_artifacts, rotate_jsonl
 from fedrec_tpu_torch.obs.watch import Watch
 from fedrec_tpu_torch.obs.wire import configure_wire
+from fedrec_tpu_torch.parallel.mesh import check_seq_layout, shard_fed_batch
+from fedrec_tpu_torch.parallel.ring import SeqGroup
 from fedrec_tpu_torch.params import from_flax, init_params, to_flax
 from fedrec_tpu_torch.train.checkpoint import (
     POPULATION_SIDECAR,
@@ -256,9 +277,15 @@ class Trainer:
         token_states: Any,
         snapshot_dir: str | None = None,
         device: str | torch.device | None = None,
+        seq_group: SeqGroup | None = None,
     ):
         self.dev = resolve_device(device)
         self.cfg = cfg
+        # a seq world (fed.seq_shards > 1): every rank runs this trainer on
+        # all clients with its slice of each history; rank 0 leads
+        check_seq_layout(cfg)
+        self.seq = seq_group if cfg.fed.seq_shards > 1 else None
+        self._is_lead = self.seq is None or self.seq.rank == 0
         if cfg.train.eval_protocol not in EVAL_PROTOCOLS:
             raise ValueError(
                 f"unknown train.eval_protocol {cfg.train.eval_protocol!r}; "
@@ -360,7 +387,7 @@ class Trainer:
         self.states = replicate_state(init_client_state(model, cfg, cfg.train.seed),
                                       cfg.fed.num_clients, cfg.train.seed + 1)
         self.train_step = build_fed_train_step(model, cfg, self.strategy, mode=self.mode,
-                                               device=self.dev)
+                                               device=self.dev, seq_group=self.seq)
         self.news_update = (build_news_update_step(model, cfg, self.strategy, device=self.dev)
                             if self.mode == "decoupled" else None)
         # decoupled mode's news-vector table (client 0's head), built lazily
@@ -460,7 +487,12 @@ class Trainer:
             "agg.buffer_pending", "contributions in the async buffer awaiting a later commit")
         self._codec_bytes_per_client: int | None = None
         self._dense_bytes_per_client: int | None = None
-        if cfg.fed.dcn_compress != "none":
+        # fed.dcn_compress="auto": the per-leaf codec map, pinned once after
+        # the warm-up window (None while warming up: the sync runs an
+        # all-"none" map until the pin, then is rebuilt around the map)
+        self._auto_leaf_codecs: list[str] | None = None
+        self.auto_codec_pin: dict | None = None
+        if cfg.fed.dcn_compress not in ("none", "auto"):
             self._price_codec()
 
         self.start_round = 0
@@ -469,6 +501,7 @@ class Trainer:
         if directory:
             self.snapshots = SnapshotManager(directory)
             if cfg.train.resume and self.snapshots.latest_round() is not None:
+                # every rank of a seq world restores the lead's snapshot
                 # the incumbent config.json records what the snapshot was
                 # trained with: read it before this run's replaces it
                 self._check_snapshot_config(cfg)
@@ -485,19 +518,20 @@ class Trainer:
                 # the round that loaded, not latest_round(): a corrupt newest
                 # snapshot falls back to the previous retained one
                 self.start_round = self.snapshots.last_restored_round + 1
-                print(f"[trainer] resumed from snapshot at round {self.start_round - 1}")
+                self._say(f"[trainer] resumed from snapshot at round {self.start_round - 1}")
                 self._restore_sidecars(self.snapshots.round_dir(self.start_round - 1))
                 # a restored buffer sidecar brought its commit version
                 self._g_agg_version.set(float(self._agg_version))
             try:
-                atomic_write_bytes(self.snapshots.directory / "config.json",
-                                   cfg.to_json().encode())
+                if self._is_lead:
+                    atomic_write_bytes(self.snapshots.directory / "config.json",
+                                       cfg.to_json().encode())
             except OSError as e:
-                print(f"[trainer] could not persist config.json: {e}")
+                self._say(f"[trainer] could not persist config.json: {e}")
 
         self.best_snapshots: SnapshotManager | None = None
         self._best_auc: float | None = None
-        if self.snapshots is not None and cfg.train.keep_best:
+        if self.snapshots is not None and cfg.train.keep_best and self._is_lead:
             best_dir = self.snapshots.directory / "best"
             self.best_snapshots = SnapshotManager(best_dir, max_to_keep=1)
             marker = best_dir / "best.json"
@@ -515,15 +549,21 @@ class Trainer:
                     # torn (a crash between the snapshot and the marker): the
                     # stored round's AUC is unknown; the next improvement
                     # rewrites both
-                    print("[trainer] best-snapshot marker/round mismatch "
+                    self._say("[trainer] best-snapshot marker/round mismatch "
                           f"(marker {best_round}, stored {stored}); best-AUC "
                           "tracking restarts this run")
 
+    def _say(self, *args, **kwargs) -> None:
+        """``print``, on the lead rank only (every rank of a seq world runs
+        the same rounds)."""
+        if self._is_lead:
+            print(*args, **kwargs)
+
     def _validate_codec_and_topology(self, cfg: ExperimentConfig) -> None:
-        """The JAX trainer's up-front checks of ``fed.dcn_compress`` and
-        ``agg.*``, with its wording: a codec or a topology that would
-        silently never apply is a misconfiguration. ("auto" is refused by
-        name at the train step's build.)"""
+        """The JAX trainer's up-front checks of ``fed.dcn_compress`` (with
+        "auto": ``fed.dcn_auto_warmup``) and ``agg.*``, with its wording: a
+        codec or a topology that would silently never apply is a
+        misconfiguration."""
         rb = cfg.fed.robust
         if cfg.fed.dcn_compress != "auto":
             validate_codec(cfg.fed.dcn_compress)
@@ -543,6 +583,22 @@ class Trainer:
                 "every client's coordinates before any decode exists); use one of the "
                 "decodable codecs (int8/sign1bit/topk) or fed.robust.method='mean'"
             )
+        if cfg.fed.dcn_compress == "auto":
+            if rb.method != "mean":
+                raise ValueError(
+                    "fed.dcn_compress='auto' requires fed.robust.method='mean': the pinned "
+                    "per-leaf map may select a linear sketch, whose contributions only exist "
+                    "pre-aggregated (no per-contribution decode for order statistics)")
+            if cfg.fed.dcn_auto_warmup < 1:
+                raise ValueError(
+                    f"fed.dcn_auto_warmup={cfg.fed.dcn_auto_warmup} must be >= 1: the per-leaf "
+                    "map derives from at least one observed round delta")
+            if cfg.shard.fsdp > 1:
+                raise ValueError(
+                    "fed.dcn_compress='auto' with shard.fsdp>1 is not supported: the pinned map "
+                    "may select 'topk', which materializes every gathered dense delta at the "
+                    "sync boundary — pin a concrete fsdp-safe codec "
+                    "(int8/sign1bit/countsketch/randproj) instead")
         if cfg.agg.mode not in ("flat", "hierarchical", "async"):
             raise ValueError(f"unknown agg.mode {cfg.agg.mode!r}; expected 'flat', "
                              "'hierarchical', or 'async'")
@@ -581,7 +637,9 @@ class Trainer:
         and the watch layer under ``obs.slo.enabled``."""
         self._obs_dir: Path | None = None
         jsonl_path = None
-        if cfg.obs.dir:
+        # a seq world's artifacts, pushes, watch and captures are its lead's
+        lead = self._is_lead
+        if cfg.obs.dir and lead:
             self._obs_dir = Path(cfg.obs.dir)
             self._obs_dir.mkdir(parents=True, exist_ok=True)
             jsonl_path = str(self._obs_dir / "metrics.jsonl")
@@ -598,7 +656,7 @@ class Trainer:
         # round-cadence telemetry to the fleet collector: a failed push is
         # counted, never raised; the obs.dir artifacts stay the offline source
         self.fleet_pusher: FleetPusher | None = None
-        if cfg.obs.fleet.collector:
+        if cfg.obs.fleet.collector and lead:
             self.fleet_pusher = FleetPusher(
                 cfg.obs.fleet.collector, registry=self.registry, tracer=self.tracer,
                 timeout_s=cfg.obs.fleet.push_timeout_s, push_every=cfg.obs.fleet.push_every)
@@ -627,7 +685,7 @@ class Trainer:
         self.quality = None
         self._slice_defs = None
         self.full_eval_step_q = None
-        if cfg.obs.quality.enabled:
+        if cfg.obs.quality.enabled and lead:
             from fedrec_tpu_torch.obs.quality import QualityMonitor
 
             self.quality = QualityMonitor(cfg.obs.quality, registry=self.registry)
@@ -642,7 +700,7 @@ class Trainer:
                                             dump_table_max_mb=hcfg.dump_table_max_mb)
         self.perf = None
         self._perf_last_batch: dict | None = None
-        if cfg.obs.perf.enabled:
+        if cfg.obs.perf.enabled and lead:
             from fedrec_tpu_torch.obs.perf import PerfMonitor
 
             name = torch.cuda.get_device_name(self.dev) if self.dev.type == "cuda" else "cpu"
@@ -653,7 +711,7 @@ class Trainer:
         # unified triggers, evaluated once a round with the round's record.
         # Off by default: nothing is built and no alert.* instrument exists
         self.watch: Watch | None = None
-        if cfg.obs.slo.enabled:
+        if cfg.obs.slo.enabled and lead:
             self.watch = Watch(cfg.obs.slo, cfg.obs.watch, registry=self.registry,
                                tracer=self.tracer, jsonl_path=jsonl_path,
                                jsonl_max_mb=cfg.obs.jsonl_max_mb)
@@ -726,6 +784,8 @@ class Trainer:
         if not spill:
             snap = snapshot_dir or cfg.train.snapshot_dir
             spill = str(Path(snap) / "popspill") if snap else None
+        if spill and self.seq is not None and self.seq.rank > 0:
+            spill = f"{spill}_seq{self.seq.rank}"  # each rank spills its own copies
         self.population = ClientPopulation(
             pcfg.num_clients, len(self.train_ix), data_seed=cfg.data.seed,
             batch_size=cfg.data.batch_size if self._pop_sampling else 0,
@@ -741,14 +801,14 @@ class Trainer:
         if self.server_opt is not None:
             path = round_dir / SERVER_OPT_SIDECAR
             if not path.exists():
-                print("[trainer] WARNING: resuming a fed.server_opt run without "
+                self._say("[trainer] WARNING: resuming a fed.server_opt run without "
                       f"{path.name} — momentum/adaptivity buffers restart from zero, so the "
                       "resumed trajectory will differ from an uninterrupted one")
             else:
                 shapes = [tuple(p.shape) for p in self._slot_params(0)]
                 loaded = self.server_opt.load_state(path.read_bytes(), shapes)
                 if loaded != restored:
-                    print(f"[trainer] server_opt sidecar from round {loaded} != snapshot round "
+                    self._say(f"[trainer] server_opt sidecar from round {loaded} != snapshot round "
                           f"{restored}; momentum may be skewed for the first resumed round")
         if self._agg_async:
             self._restore_agg_buffer(round_dir / AGG_BUFFER_SIDECAR, restored)
@@ -757,7 +817,7 @@ class Trainer:
         path = round_dir / POPULATION_SIDECAR
         if not path.exists():
             if self._pop_sampling:
-                print("[trainer] WARNING: resuming a fed.population run without "
+                self._say("[trainer] WARNING: resuming a fed.population run without "
                       f"{path.name} — the sampler/ledger restart fresh, so the resumed "
                       "cohort schedule will differ from an uninterrupted run")
             return
@@ -767,7 +827,7 @@ class Trainer:
         if store is not None:
             self.population.load_store(round_dir / POPULATION_STORE, store)
         if loaded != restored:
-            print(f"[trainer] population sidecar from round {loaded} != snapshot round "
+            self._say(f"[trainer] population sidecar from round {loaded} != snapshot round "
                   f"{restored}; the cohort schedule may be skewed for the first resumed rounds")
 
     def _restore_agg_buffer(self, path: Path, restored: int) -> None:
@@ -776,22 +836,22 @@ class Trainer:
         (late updates are droppable), one of another round keeps its version
         so staleness stays coherent but drops its entries."""
         if not path.exists():
-            print(f"[trainer] resuming an agg.mode=async run without {path.name} — pending "
+            self._say(f"[trainer] resuming an agg.mode=async run without {path.name} — pending "
                   "late contributions (if any) are lost and the commit version restarts")
             return
         try:
             buf, tag, ver = AggBuffer.load_state(path.read_bytes())
         except ValueError as e:
-            print(f"[trainer] ignoring unreadable agg-buffer sidecar: {e}")
+            self._say(f"[trainer] ignoring unreadable agg-buffer sidecar: {e}")
             return
         self._agg_version = ver
         if tag != restored:
-            print(f"[trainer] agg-buffer sidecar from round {tag} != snapshot round {restored}; "
+            self._say(f"[trainer] agg-buffer sidecar from round {tag} != snapshot round {restored}; "
                   "starting with an empty buffer (pending late updates dropped)")
             return
         self.agg_buffer = buf
         if len(buf):
-            print(f"[trainer] restored {len(buf)} pending async contribution(s) at commit "
+            self._say(f"[trainer] restored {len(buf)} pending async contribution(s) at commit "
                   f"version {ver}")
 
     def population_sidecar_bytes(self, round_idx: int, store: dict | None = None) -> bytes | None:
@@ -822,7 +882,7 @@ class Trainer:
         except ValueError:
             if not resize:
                 raise
-            print("[trainer] population sampler state does not fit the re-formed world; "
+            self._say("[trainer] population sampler state does not fit the re-formed world; "
                   "fairness counters restart fresh (ledger continuity is preserved)")
         self.population.ledger.load_state_dict(pst["ledger"], resize=resize)
         occ = np.asarray(pst["slot_occupants"], np.int64)
@@ -893,12 +953,14 @@ class Trainer:
     def _price_codec(self) -> None:
         """Price one client's uplink from one real wire encode of client 0's
         contribution (payload sizes are fixed per codec and shapes) and set
-        the overall and per-leaf compression-ratio gauges."""
+        the overall and per-leaf compression-ratio gauges. Run again when
+        the "auto" map pins (the payload sizes change with the map)."""
         cfg = self.cfg
         host = self._client0_params()
         enc = encode_tree(host, cfg.fed.dcn_compress, cfg.fed.dcn_topk_ratio,
                           sketch_width=cfg.fed.dcn_sketch_width,
-                          sketch_seed=cfg.fed.dcn_sketch_seed)
+                          sketch_seed=cfg.fed.dcn_sketch_seed,
+                          leaf_codecs=self._auto_leaf_codecs)
         self._codec_bytes_per_client = enc.nbytes()
         self._dense_bytes_per_client = tree_dense_nbytes(host)
         self._g_comp_ratio.set(self._dense_bytes_per_client / max(self._codec_bytes_per_client, 1))
@@ -908,6 +970,78 @@ class Trainer:
         for name, payload, shape in zip(leaf_names(host), enc.payloads, enc.shapes):
             dense_b = 4 * int(np.prod(shape)) if shape else 4
             ratio_leaf.set(dense_b / max(payload_nbytes(payload), 1), leaf=name)
+
+    # tensors at or below this size stay uncompressed under "auto":
+    # scalars and norm vectors, where a codec's overhead exceeds the bytes
+    _AUTO_DENSE_FLOOR = 64
+
+    def _pin_auto_codec_map(self, round_idx: int, sync_entry: list) -> None:
+        """``fed.dcn_compress='auto'``: derive the per-leaf codec map from
+        the warm-up window's global round delta (client 0's round-entry
+        leaves against its post-sync ones: the same on every client and
+        every process, so the pin needs no broadcast and replays from the
+        seed), rebuild the sync around it, price the uplink again, and
+        record the map (``codec_map.json`` beside the obs artifacts, the
+        logger's ``dcn_auto_map_pinned`` row, one printed line).
+
+        A leaf of at most ``_AUTO_DENSE_FLOOR`` elements stays "none";
+        otherwise the host codecs' reconstruction error on the delta
+        decides between ``topk`` (at ``fed.dcn_topk_ratio``) and
+        ``countsketch`` (at ``fed.dcn_sketch_width``), ties to topk. The map
+        is held for the rest of the run; it is not in the snapshot, so a
+        resumed run pins again at its first round, as the JAX trainer does."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        entry0 = [x.detach().cpu().numpy() for x in sync_entry[0]]
+        post0 = self._contribution_host(0)
+        names = leaf_names(self._client0_params())
+        chosen: list[str] = []
+        detail: list[dict] = []
+        for i, (name, p, e) in enumerate(zip(names, post0, entry0)):
+            d = np.asarray(p, np.float32) - np.asarray(e, np.float32)
+            if d.size <= self._AUTO_DENSE_FLOOR:
+                chosen.append("none")
+                detail.append({"leaf": name, "codec": "none", "n": int(d.size)})
+                continue
+            errs = {}
+            for cand in ("topk", "countsketch"):
+                rec = decode_leaf(
+                    encode_leaf(d, cand, cfg.fed.dcn_topk_ratio,
+                                sketch_width=cfg.fed.dcn_sketch_width,
+                                sketch_seed=cfg.fed.dcn_sketch_seed, leaf_id=i),
+                    cand, d.shape, sketch_seed=cfg.fed.dcn_sketch_seed, leaf_id=i)
+                errs[cand] = float(np.sqrt(np.mean((rec - d) ** 2)))
+            pick = "topk" if errs["topk"] <= errs["countsketch"] else "countsketch"
+            chosen.append(pick)
+            detail.append({"leaf": name, "codec": pick, "n": int(d.size),
+                           "rmse_topk": errs["topk"], "rmse_countsketch": errs["countsketch"]})
+        self._auto_leaf_codecs = chosen
+        self.param_sync = build_param_sync(cfg, self.strategy, leaf_codecs=chosen)
+        self._price_codec()
+        summary = {
+            "pinned_at_round": int(round_idx),
+            "warmup_rounds": int(cfg.fed.dcn_auto_warmup),
+            "sketch_width": float(cfg.fed.dcn_sketch_width),
+            "sketch_seed": int(cfg.fed.dcn_sketch_seed),
+            "topk_ratio": float(cfg.fed.dcn_topk_ratio),
+            "map": dict(zip(names, chosen)),
+            "detail": detail,
+        }
+        self.auto_codec_pin = {**summary, "pin_ms": (time.perf_counter() - t0) * 1e3}
+        if self._obs_dir is not None:
+            with open(self._obs_dir / "codec_map.json", "w") as f:
+                json.dump(summary, f, indent=2, sort_keys=True)
+        # a JSON string survives the logger's stringification: the report
+        # parses it back into its auto_codec_map row
+        self.logger.log(round_idx, {
+            "dcn_auto_map_pinned": json.dumps(dict(zip(names, chosen)), sort_keys=True)})
+        counts: dict[str, int] = {}
+        for c in chosen:
+            counts[c] = counts.get(c, 0) + 1
+        self._say(
+            f"[trainer] fed.dcn_compress=auto pinned per-leaf codec map after round "
+            f"{round_idx}: " + ", ".join(f"{c}×{k}" for c, k in sorted(counts.items()))
+            + (f" (codec_map.json in {self._obs_dir})" if self._obs_dir is not None else ""))
 
     def _count_uplink(self, weights: np.ndarray) -> None:
         """Bank one synced round's modeled traffic (``path="cohort"``): each
@@ -1135,7 +1269,7 @@ class Trainer:
         (``local``, or a round nobody reported): client 0 is then one
         client's model, not the model."""
         if self.cfg.fed.num_clients > 1 and not self._clients_in_sync():
-            print("[trainer] WARNING: exporting client 0 for serving while clients hold "
+            self._say("[trainer] WARNING: exporting client 0 for serving while clients hold "
                   "DIVERGED parameters (local strategy or an unsynced round) — run a "
                   "param sync first, or serve per-client models deliberately")
         tower = copy.deepcopy(self.states[0].model.user_encoder).eval().requires_grad_(False)
@@ -1410,7 +1544,7 @@ class Trainer:
                 "(docs/OPERATIONS.md, 'sizing a cohort')."
             ) from e
         self._pop_attempts[e.anchor_round] = attempts
-        print(f"[trainer] WARNING: quorum failure at round {e.round_idx} "
+        self._say(f"[trainer] WARNING: quorum failure at round {e.round_idx} "
               f"({e.reporting} < {pcfg.min_reports}); discarding the round "
               f"and replaying with a fresh cohort draw (attempt {attempts}/"
               f"{pcfg.quorum_retries})")
@@ -1546,6 +1680,8 @@ class Trainer:
                     if self.flightrec is not None:
                         self.flightrec.record(batch, round_idx, epoch_idx, step_in_round)
                     step_in_round += 1
+                    # under a seq world, this rank's columns of each history
+                    batch = shard_fed_batch(batch, self.seq)
                     with tracer.span("h2d", epoch=epoch_idx):
                         batch = {k: (torch.as_tensor(v).to(self.dev)
                                      if k in ("candidates", "history", "labels") else v)
@@ -1589,6 +1725,9 @@ class Trainer:
                     self.states = self.param_sync(self.states, weights)
             self._m_robust_rounds.inc(method=cfg.fed.robust.method)
             self._count_uplink(weights)
+            if (cfg.fed.dcn_compress == "auto" and self._auto_leaf_codecs is None
+                    and sync_entry is not None and round_idx + 1 >= cfg.fed.dcn_auto_warmup):
+                self._pin_auto_codec_map(round_idx, sync_entry)
             if self.server_opt is not None:
                 # FedOpt: the mean is a proposal; the server optimizer steps
                 # the global from the round-entry one toward it
@@ -1598,7 +1737,7 @@ class Trainer:
             elif self.mode == "decoupled":
                 self._refresh_table()
         # one host read of the round's losses and health vectors
-        mean_cells, loss_cells, arrays = self._read_round(means, losses, health)
+        mean_cells, loss_cells, arrays = self._read_round(means, losses, health, self.seq)
         train_loss = self._round_loss_mean(mean_cells, loss_cells)
         # the sentry first: a non-finite cell is the root cause to report
         # before any other abort describes the same round
@@ -1611,14 +1750,19 @@ class Trainer:
         return result
 
     @staticmethod
-    def _read_round(means: list, losses: list, health: dict[str, list]):
+    def _read_round(means: list, losses: list, health: dict[str, list],
+                    seq: SeqGroup | None = None):
         """The round's per-step mean losses (S,), per-client losses (S, K)
         and health vectors as (1, S, K) numpy arrays, from one device-to-host
-        copy."""
+        copy. Under a seq world every rank takes the lead's (the ranks'
+        candidate encodes may differ in the last bits), so every rank's
+        health verdicts agree."""
         s = len(means)
         keys = sorted(health)
         flat = torch.cat([torch.stack(means).reshape(-1), torch.stack(losses).reshape(-1),
                           *(torch.stack(health[k]).reshape(-1).float() for k in keys)])
+        if seq is not None:
+            flat = seq.broadcast(flat)
         host = flat.cpu().numpy()
         k = (host.size - s) // (s * (1 + len(keys))) if s else 0
         cells = host[s:].reshape(1 + len(keys), 1, s, k)
@@ -1674,7 +1818,7 @@ class Trainer:
         msg = f"training-health trigger [{kind}] at {where}: {detail}.{hint}"
         if kind == "nonfinite" and self.cfg.obs.health.abort_on_nonfinite:
             raise TrainingHealthError(msg)
-        print(f"[trainer] WARNING: {msg}")
+        self._say(f"[trainer] WARNING: {msg}")
 
     def _dump_meta(self) -> dict:
         return {"num_news": self.data.num_news, "title_len": self.data.title_len,
@@ -1692,7 +1836,7 @@ class Trainer:
                                        registry=self.registry, table=self._feature_table(),
                                        meta=self._dump_meta())
         except Exception as e:  # noqa: BLE001 — forensics must not mask the trigger
-            print(f"[trainer] flight-recorder dump failed: {type(e).__name__}: {e}")
+            self._say(f"[trainer] flight-recorder dump failed: {type(e).__name__}: {e}")
             return None
 
     def _flightrec_on_exception(self, e: BaseException) -> None:
@@ -1826,7 +1970,7 @@ class Trainer:
                              client=client if logical is None else logical,
                              kind=kind, retry=self._round_retries)
         who = f"client {client}" if logical is None else f"logical client {logical} (slot {client})"
-        print(f"[trainer] WARNING: health trigger [{kind}] on {who} at round "
+        self._say(f"[trainer] WARNING: health trigger [{kind}] on {who} at round "
               f"{trigger.get('round')} — quarantining it for {rb.quarantine_rounds} round(s), "
               f"rolling back to the round-{round_idx} entry state and replaying (retry "
               f"{self._round_retries}/{rb.max_retries})")
@@ -1872,7 +2016,7 @@ class Trainer:
             self._global_host = None  # FedOpt reads client 0 afresh
         if self.mode == "decoupled":
             self._table = None  # the parameters changed: rebuild lazily
-        print(f"[trainer] quarantine expired for client {client}: rejoined with global "
+        self._say(f"[trainer] quarantine expired for client {client}: rejoined with global "
               "params and fresh optimizer state")
 
     def _train_round_with_recovery(self, round_idx: int) -> RoundResult:
@@ -1903,9 +2047,29 @@ class Trainer:
         return result
 
     def _eval_if_due(self, result: RoundResult) -> None:
-        """Round-cadence evaluation (``train.eval_every``)."""
+        """Round-cadence evaluation (``train.eval_every``). Under a seq world
+        the lead evaluates the unsharded model (the clients' own modules: the
+        seq view is the train step's) and every rank takes its metrics."""
         if self.valid_ix is None or (result.round_idx + 1) % self.cfg.train.eval_every != 0:
             return
+        if self.seq is not None:
+            if self._is_lead:
+                self._eval_now(result)
+            result.val_metrics = self._share_metrics(result.val_metrics)
+            return
+        self._eval_now(result)
+
+    def _share_metrics(self, metrics: dict[str, float]) -> dict[str, float]:
+        """The lead's metric dict on every rank of the seq world (its JSON
+        bytes, length first)."""
+        blob = torch.tensor(list(json.dumps(metrics).encode()) if self._is_lead else [],
+                            dtype=torch.uint8)
+        n = self.seq.broadcast(torch.tensor([blob.numel()], dtype=torch.int64))
+        if not self._is_lead:
+            blob = torch.zeros(int(n[0]), dtype=torch.uint8)
+        return json.loads(bytes(self.seq.broadcast(blob).tolist()).decode())
+
+    def _eval_now(self, result: RoundResult) -> None:
         protocol = self.cfg.train.eval_protocol
         with self.tracer.span("eval", round=result.round_idx, protocol=protocol):
             # sliced telemetry rides the full-pool protocols only: the sampled
@@ -2098,10 +2262,10 @@ class Trainer:
                 try:
                     paths = dump_artifacts(self._obs_dir, registry=self.registry,
                                            tracer=self.tracer)
-                    print(f"[trainer] obs artifacts: {paths['metrics']} {paths['trace']} "
+                    self._say(f"[trainer] obs artifacts: {paths['metrics']} {paths['trace']} "
                           f"{paths['prometheus']}")
                 except Exception as e:  # noqa: BLE001 — never mask the training error
-                    print(f"[trainer] could not write obs artifacts: {type(e).__name__}: {e}")
+                    self._say(f"[trainer] could not write obs artifacts: {type(e).__name__}: {e}")
             if self.fleet_pusher is not None:
                 # on every exit path; never raises (a dead collector counts
                 # a failure)
@@ -2120,7 +2284,7 @@ class Trainer:
         log.update({name: m[key] for name, key in (
             ("validation_loss", "loss"), ("val_auc", "auc"), ("val_mrr", "mrr"),
             ("val_ndcg5", "ndcg5"), ("val_ndcg10", "ndcg10")) if key in m})
-        print(f"[trainer] {json.dumps(log)}", flush=True)
+        self._say(f"[trainer] {json.dumps(log)}", flush=True)
         if self.perf is not None and self.perf.last_round is not None:
             # the round's digest rides its record: the trend fedrec-obs perf reads
             log.update({k: v for k, v in self.perf.last_round.items() if k != "round"})
@@ -2138,7 +2302,7 @@ class Trainer:
                 atomic_write_bytes(best / "config.json", cfg.to_json().encode())
                 self._best_auc = float(auc)
             except OSError as e:
-                print(f"[trainer] could not persist best snapshot at round {r}: {e}")
+                self._say(f"[trainer] could not persist best snapshot at round {r}: {e}")
         if self.snapshots is not None and (
             (r + 1) % cfg.train.save_every == 0 or r == cfg.fed.rounds - 1
         ):
@@ -2147,7 +2311,8 @@ class Trainer:
             extras = (self._snapshot_extras(r)
                       if self.server_opt is not None or self._pop_engine or self._agg_async
                       else None)
-            self.snapshots.save(r, self.states, wait=extras is not None, extras=extras)
+            if self._is_lead:  # a seq world's ranks hold the same state
+                self.snapshots.save(r, self.states, wait=extras is not None, extras=extras)
         if self._obs_dir is not None and (r + 1) % max(cfg.obs.snapshot_every, 1) == 0:
             # rotate before the append: snapshots are the event log's bulk
             rotate_jsonl(self._obs_dir / "metrics.jsonl", cfg.obs.jsonl_max_mb)

@@ -58,8 +58,8 @@ def _modules():
 def test_importing_every_module_leaves_jax_out():
     # the cohort engine's, the data path's, the real-data path's, the native
     # batcher's, the observability artifacts', the coordinator deployment's,
-    # elastic membership's, the async commit's, the async wire's and fleet
-    # observability's modules are among them
+    # elastic membership's, the async commit's, the async wire's, fleet
+    # observability's and sequence parallelism's modules are among them
     assert {"fedrec_tpu_torch.comms", "fedrec_tpu_torch.comms.codecs",
             "fedrec_tpu_torch.agg", "fedrec_tpu_torch.agg.hierarchy",
             "fedrec_tpu_torch.agg.buffer", "fedrec_tpu_torch.agg.commit",
@@ -76,7 +76,8 @@ def test_importing_every_module_leaves_jax_out():
             "fedrec_tpu_torch.obs.report", "fedrec_tpu_torch.obs.perf",
             "fedrec_tpu_torch.obs.device", "fedrec_tpu_torch.cli.obs",
             "fedrec_tpu_torch.obs.wire", "fedrec_tpu_torch.obs.alerts",
-            "fedrec_tpu_torch.obs.watch", "fedrec_tpu_torch.utils.logging"} <= set(_modules())
+            "fedrec_tpu_torch.obs.watch", "fedrec_tpu_torch.utils.logging",
+            "fedrec_tpu_torch.parallel.ring", "fedrec_tpu_torch.parallel.mesh"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -197,9 +198,14 @@ def test_overrides_set_the_slice_and_reject_unknown_keys():
             cfg.train.seed) == (2, "/tmp/x", False, 3, "last4", True, 7)
     assert (cfg.fed.rounds, cfg.fed.local_epochs, cfg.fed.participation) == (4, 2, 0.5)
     for unported in ("train.scan_steps=2", "train.rounds_per_scan=2", "train.profile=1",
-                     "fed.dcn_auto_warmup=2", "fed.mesh_axis=hosts"):
+                     "fed.mesh_axis=hosts", "fed.seq_axis=sp"):
         with pytest.raises(KeyError):
             ExperimentConfig().apply_overrides([unported])
+    # the auto codec's warm-up and the seq world's fields, the JAX defaults
+    fed = ExperimentConfig().apply_overrides(["fed.dcn_auto_warmup=2", "fed.seq_impl=ulysses",
+                                              "fed.seq_shards=4"]).fed
+    assert (fed.dcn_auto_warmup, fed.seq_impl, fed.seq_shards) == (2, "ulysses", 4)
+    assert (ExperimentConfig().fed.dcn_auto_warmup, ExperimentConfig().fed.seq_impl) == (1, "ring")
     # the coordinator deployment's and the codecs' fields, the JAX defaults
     fed, agg = ExperimentConfig().fed, ExperimentConfig().agg
     assert (fed.weight_by_samples, fed.dcn_compress, fed.dcn_topk_ratio, fed.dcn_sketch_width,
@@ -230,12 +236,22 @@ def test_train_step_needs_a_gpu_unless_asked_and_refuses_unported_levers(no_gpu)
     with pytest.raises(NoGPUError):
         build_fed_train_step(model, cfg, get_strategy("param_avg"))
     build_fed_train_step(model, cfg, get_strategy("param_avg"), device="cpu")
-    for lever in ("fed.seq_shards=2", "shard.table=1"):
+    for lever in ("shard.table=1", "shard.fsdp=2"):
         bad = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
                                                   *lever.split(",")])
         name = lever.split(",")[-1].split("=")[0]
         with pytest.raises(NotImplementedError, match=name.split(".")[-1]):
             build_fed_train_step(model, bad, get_strategy("param_avg"), device="cpu")
+    # sequence parallelism is ported: a seq step wants its world (the run CLI
+    # starts one), and "auto" builds (the trainer pins its map)
+    seq = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
+                                              "fed.seq_shards=2", "model.fuse_hot_path=0"])
+    with pytest.raises(ValueError, match="fed.seq_shards=2 but the step has none"):
+        build_fed_train_step(init_params(NewsRecommender(seq.model), seed=1), seq,
+                             get_strategy("param_avg"), device="cpu")
+    auto = ExperimentConfig().apply_overrides(["model.text_encoder_mode=head",
+                                               "fed.dcn_compress=auto"])
+    build_fed_train_step(model, auto, get_strategy("param_avg"), device="cpu")
     # fleet observability is ported (the trainer's pusher, watch and wire
     # envelope): the step ignores its keys
     obs = ExperimentConfig().apply_overrides([

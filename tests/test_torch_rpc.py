@@ -204,6 +204,24 @@ def test_fleet_rpc_application_error_not_retried():
         close()
 
 
+def test_fleet_rpc_retries_a_reply_torn_mid_line():
+    """A peer that hangs up inside its reply line (an authority killed while
+    it streams a large ``global``) is a transport failure: ``OSError``,
+    retried into the budget, the peer not counted alive. The JAX client
+    reads the torn line as a malformed answer and gives up."""
+    port, hits, close = _serve(b'{"version": 3, "leaves": [0.1, 0.2')
+    try:
+        with pytest.raises(OSError, match="mid-reply"):
+            request_json_line("127.0.0.1", port, {"cmd": "global"}, timeout_s=5.0)
+        rpc = FleetRpc("127.0.0.1", port, _policy(attempts=3))
+        with pytest.raises(OSError, match="mid-reply"):
+            rpc.call({"cmd": "global"})
+        assert (rpc.retries, rpc.errors, rpc.last_ok) == (2, 3, None)
+        assert len(hits) == 4
+    finally:
+        close()
+
+
 def test_dial_deadline_is_split_from_the_read_deadline():
     """A peer that accepts and never answers costs the read deadline, not
     the dial's; a request that hangs up without a reply is an ``OSError``."""

@@ -281,7 +281,10 @@ def test_trainer_refuses_unported_levers_by_name(lever):
     them, as the JAX trainer does. Fleet observability runs too: the
     ``obs.fleet``, ``obs.slo``, ``obs.watch`` and ``obs.wire`` keys build
     the pusher, the watch and the envelope's settings, and a malformed
-    objective meets the JAX watch's own refusal."""
+    objective meets the JAX watch's own refusal. ``fed.dcn_compress=auto``
+    runs (the map pins after the warm-up), and ``fed.seq_shards=2`` runs
+    inside the seq world the run CLI starts: a trainer without one is
+    refused."""
     from fedrec_tpu_torch.obs import wire
 
     over = {"privacy.enabled=1": [lever, "privacy.sigma=1"],
@@ -290,6 +293,13 @@ def test_trainer_refuses_unported_levers_by_name(lever):
     data, toks = _data_and_tokens(cfg)
     if lever == "chaos.enabled=1":
         assert Trainer(cfg, data, toks, device="cpu").cfg.chaos.wire_faults == "drop@*"
+        return
+    if lever == "fed.dcn_compress=auto":
+        assert Trainer(cfg, data, toks, device="cpu")._sync_takes_entry
+        return
+    if lever == "fed.seq_shards=2":
+        with pytest.raises(ValueError, match="fed.seq_shards=2 but the step has none"):
+            Trainer(cfg.apply_overrides(["model.fuse_hot_path=0"]), data, toks, device="cpu")
         return
     if lever.startswith("obs.slo.objectives=x"):
         with pytest.raises(ValueError, match="bad obs.slo.objectives entry 'x'"):
